@@ -1,0 +1,31 @@
+"""raytracing_gpu_tpu_torch — the path tracer in PyTorch, with CUDA kernels
+for NVIDIA Hopper.
+
+The port of `raytracing_gpu_tpu` (JAX/Pallas on a TPU), module for module.
+The JAX package stays the reference this package is tested against.  This
+package imports torch and never JAX.  Its kernels are CUDA C++ in
+`ops/csrc/`, built with nvcc for sm_90a at first use; on CPU tensors each
+kernel's plain PyTorch version runs instead.
+
+Ported so far: the forward render of the scenes whose features the
+megakernel covers (axis-aligned rects, boxes, lambertian and diffuse_light
+materials, solid textures), e.g. `cornell_box`.
+"""
+
+from .core.camera import Camera
+from .core.config import RenderSettings
+from .engine.render import compile_renderer, render, render_linear
+from .scene.builder import BLACK, SKY, SceneBuilder
+
+__all__ = [
+    "Camera",
+    "RenderSettings",
+    "SceneBuilder",
+    "SKY",
+    "BLACK",
+    "compile_renderer",
+    "render",
+    "render_linear",
+]
+
+__version__ = "0.1.0"

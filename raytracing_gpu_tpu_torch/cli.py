@@ -1,0 +1,132 @@
+"""Command-line interface (counterpart of `raytracing_gpu_tpu/cli.py`).
+
+    python -m raytracing_gpu_tpu_torch.cli list
+    python -m raytracing_gpu_tpu_torch.cli render cornell_box -o out.png \\
+        --width 512 --spp 16 --chunks 4 --depth 8
+    python -m raytracing_gpu_tpu_torch.cli bench cornell_box --width 512
+
+`--device` defaults to `cuda`.  Without a CUDA device the CLI exits with an
+error unless `--device cpu` is given, which runs the kernel's plain PyTorch
+version on the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+
+def _build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="raytracing_gpu_tpu_torch",
+                                description="PyTorch + CUDA path tracer")
+    sub = p.add_subparsers(dest="command", required=True)
+
+    r = sub.add_parser("render", help="render a registered scene to PNG/PPM")
+    r.add_argument("scene", help="scene name (see `list`)")
+    r.add_argument("-o", "--output", default="image.png",
+                   help="output path (.png or .ppm)")
+    r.add_argument("--width", type=int, default=1200)      # render.h:22
+    r.add_argument("--spp", type=int, default=100,         # render.h:26
+                   help="samples per pixel per chunk")
+    r.add_argument("--chunks", type=int, default=10,       # render.h:37 no_fb
+                   help="number of sample chunks (frame buffers)")
+    r.add_argument("--depth", type=int, default=50)        # render.h:27
+    r.add_argument("--ray-batch", type=int, default=65536)
+    r.add_argument("--seed", type=int, default=1984)       # render.h:91
+    r.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    r.add_argument("--quiet", action="store_true")
+
+    sub.add_parser("list", help="list registered scenes")
+
+    b = sub.add_parser("bench", help="time a forward render and report Mrays/s")
+    b.add_argument("scene")
+    b.add_argument("--width", type=int, default=512)
+    b.add_argument("--spp", type=int, default=16)
+    b.add_argument("--depth", type=int, default=8)
+    b.add_argument("--ray-batch", type=int, default=65536)
+    b.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    return p
+
+
+def main(argv=None) -> int:
+    parser = _build_parser()
+    args = parser.parse_args(argv)
+
+    from .models import scenes
+
+    if args.command == "list":
+        for name in scenes.names():
+            print(name)
+        return 0
+
+    import torch
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        parser.error("no CUDA device is available; pass --device cpu to "
+                     "render with the plain PyTorch version on the CPU")
+    if device.type not in ("cuda", "cpu"):
+        parser.error(f"unsupported device {args.device!r}: use cuda or cpu")
+    if args.scene not in scenes.names():
+        parser.error(f"scene {args.scene!r} is not ported; ported scenes: "
+                     f"{', '.join(scenes.names())}")
+
+    from .core.config import RenderSettings
+    from .engine.render import compile_renderer, render_linear
+    from .utils.profiling import PhaseTimer, RaysPerSecond
+
+    sd = scenes.get(args.scene)
+
+    if args.command == "bench":
+        st = RenderSettings(image_width=args.width, aspect_ratio=sd.aspect,
+                            spp_per_chunk=args.spp, num_chunks=1,
+                            max_depth=args.depth, ray_batch=args.ray_batch)
+        chunk = compile_renderer(sd.scene, sd.camera, st, device)
+        chunk(0)  # builds the kernel library at first use
+        meter = RaysPerSecond()
+        with meter.measure(st.num_pixels * st.spp_per_chunk, device):
+            chunk(1)
+        name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+                else "cpu")
+        print(json.dumps({"scene": args.scene, "mrays_per_s": meter.mrays,
+                          "seconds": meter.seconds,
+                          "engine": chunk.engine_name, "device": name}))
+        return 0
+
+    st = RenderSettings(image_width=args.width, aspect_ratio=sd.aspect,
+                        spp_per_chunk=args.spp, num_chunks=args.chunks,
+                        max_depth=args.depth, ray_batch=args.ray_batch,
+                        seed=args.seed)
+
+    def progress(c, n, dt):
+        if not args.quiet:
+            rays = st.num_pixels * st.spp_per_chunk
+            print(f"chunk {c}/{n}: {dt:.2f}s ({rays / dt / 1e6:.2f} Mrays/s)",
+                  file=sys.stderr)
+
+    from .engine import film
+
+    timer = PhaseTimer()
+    t0 = time.perf_counter()
+    linear = render_linear(sd.scene, sd.camera, st, seed=args.seed,
+                           progress=progress, device=device, timer=timer)
+    elapsed = time.perf_counter() - t0
+    img = film.finalize(linear * st.rays_per_pixel, st.rays_per_pixel)
+    if args.output.endswith(".ppm"):
+        film.write_ppm(args.output, img)
+    else:
+        film.write_png(args.output, img)
+    if not args.quiet:
+        total_rays = st.num_pixels * st.rays_per_pixel
+        print(f"rendered {args.scene} {st.image_width}x{st.image_height} "
+              f"{st.rays_per_pixel}spp on {device} in {elapsed:.1f}s "
+              f"({total_rays / elapsed / 1e6:.2f} Mrays/s) -> {args.output}",
+              file=sys.stderr)
+        print(timer.report(), file=sys.stderr)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,59 @@
+"""Carry a scene and a camera across from the JAX package.
+
+A scene's "weights" are its tables.  The JAX package keeps them as a pytree
+of arrays; these functions take that pytree's leaves as numpy arrays, in
+nested dicts keyed by the same field names, and build the port's `Scene` and
+`Camera`.  The port never imports JAX: the caller flattens the JAX objects to
+numpy (for example from `jax.device_get(scene)` or the host snapshot that
+`SceneBuilder.build` keeps).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from .core.camera import Camera
+from .scene import types as st
+
+_DTYPES = {np.dtype(np.float32), np.dtype(np.int32), np.dtype(np.bool_)}
+
+
+def _array(name: str, value) -> np.ndarray:
+    a = np.asarray(value)
+    if a.dtype not in _DTYPES:
+        raise TypeError(f"{name}: expected float32, int32 or bool leaves, "
+                        f"got {a.dtype}")
+    return a
+
+
+def scene_from_numpy(tree: Mapping) -> st.Scene:
+    """Port `Scene` from {table name: {field: array}, "background": (3,),
+    "has_sphere_media": bool, "has_box_media": bool}."""
+    for bvh in ("tri_bvh", "sphere_bvh"):
+        if tree.get(bvh) is not None:
+            raise NotImplementedError(f"{bvh}: not yet ported")
+    tables = {}
+    for name, cls in st.TABLES.items():
+        leaves = tree[name]
+        tables[name] = cls(**{
+            f.name: _array(f"{name}.{f.name}", leaves[f.name])
+            for f in dataclasses.fields(cls)})
+    return st.Scene(
+        **tables,
+        background=_array("background", tree["background"]).astype(np.float32),
+        has_sphere_media=bool(tree["has_sphere_media"]),
+        has_box_media=bool(tree["has_box_media"]),
+    )
+
+
+def camera_from_numpy(tree: Mapping,
+                      device: torch.device | str = "cpu") -> Camera:
+    """Port `Camera` from {field: float32 array} (the JAX camera's leaves)."""
+    return Camera(**{
+        f.name: torch.tensor(np.asarray(tree[f.name], np.float32),
+                             device=device)
+        for f in dataclasses.fields(Camera)})

@@ -1,0 +1,129 @@
+"""Build and load the port's CUDA kernels.
+
+At first use, `nvcc` compiles every source in `csrc/` for Hopper (`sm_90a`)
+into one shared library with a plain C interface, under `build/torch_kernels/`
+at the root of the checkout, and `ctypes` loads it.  The library is rebuilt
+when a source is newer than it.  A failed build or load raises: nothing
+falls back to the plain PyTorch versions.
+
+The flags keep every multiply and add rounding on its own (`-fmad=false`,
+no `--use_fast_math`), so the kernels round like their plain versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import NamedTuple, Optional
+
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+BUILD_DIR = os.path.join(_ROOT, "build", "torch_kernels")
+LIBRARY = os.path.join(BUILD_DIR, "librt_torch_kernels.so")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
+_BUILD_TIMEOUT_S = 600
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+class RtParams(ctypes.Structure):
+    """Launch constants of `rt_trace_pixels`, passed by value; the field
+    order and types follow `struct RtParams` in csrc/megakernel.cu."""
+
+    _fields_ = [
+        ("origin", ctypes.c_float * 3), ("llc", ctypes.c_float * 3),
+        ("hor", ctypes.c_float * 3), ("ver", ctypes.c_float * 3),
+        ("cu", ctypes.c_float * 3), ("cv", ctypes.c_float * 3),
+        ("lens_radius", ctypes.c_float),
+        ("inv_w", ctypes.c_float), ("inv_h", ctypes.c_float),
+        ("t_min", ctypes.c_float),
+        ("bg", ctypes.c_float * 3),
+        ("img_h", ctypes.c_int), ("img_w", ctypes.c_int),
+        ("pix_base", ctypes.c_int), ("n", ctypes.c_int),
+        ("seed", ctypes.c_int), ("max_depth", ctypes.c_int),
+        ("n_rects", ctypes.c_int), ("n_boxes", ctypes.c_int),
+    ]
+
+
+class BuildResult(NamedTuple):
+    library: str
+    seconds: float  # 0.0 when the library was up to date
+    log: str  # nvcc's output, including ptxas' register and spill report
+
+
+def sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cu"))
+                  + glob.glob(os.path.join(_CSRC, "*.cuh")))
+
+
+def nvcc() -> str:
+    """The CUDA compiler: $CUDA_HOME/bin/nvcc, /usr/local/cuda/bin/nvcc, or
+    `nvcc` on the PATH."""
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+            return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on the "
+                           "PATH to build the CUDA kernels")
+    return found
+
+
+def _stale() -> bool:
+    if not os.path.exists(LIBRARY):
+        return True
+    built = os.path.getmtime(LIBRARY)
+    return any(os.path.getmtime(s) > built for s in sources())
+
+
+def build(force: bool = False) -> BuildResult:
+    """Compile csrc/ into LIBRARY when it is missing or older than a source;
+    raises RuntimeError with nvcc's output when the build fails."""
+    if not force and not _stale():
+        return BuildResult(LIBRARY, 0.0, "")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
+    cu = [s for s in sources() if s.endswith(".cu")]
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=_BUILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        raise RuntimeError(f"nvcc timed out after {_BUILD_TIMEOUT_S} s: "
+                           f"{' '.join(cmd)}") from e
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                           f"{' '.join(cmd)}\n{log}")
+    os.replace(tmp, LIBRARY)
+    return BuildResult(LIBRARY, time.perf_counter() - t0, log)
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built if needed, with every entry's argtypes and
+    restype declared.  Raises when it cannot be built or loaded."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            build()
+            lib = ctypes.CDLL(LIBRARY)
+            ptr = ctypes.c_void_p
+            lib.rt_trace_pixels.argtypes = [ptr, ptr, RtParams, ptr, ptr, ptr,
+                                            ptr]
+            lib.rt_trace_pixels.restype = ctypes.c_int
+            lib.rt_pcg_uniform.argtypes = [ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_int, ptr, ptr]
+            lib.rt_pcg_uniform.restype = ctypes.c_int
+            lib.rt_error_string.argtypes = [ctypes.c_int]
+            lib.rt_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib

@@ -1,0 +1,180 @@
+"""The port's scene tables, camera and kernel bake against the JAX package.
+
+Tables and bake records are compared exactly (the builders do the same
+float32 arithmetic); the camera basis to rtol/atol 1e-6.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from raytracing_gpu_tpu.models import scenes as jscenes
+from raytracing_gpu_tpu.ops import pallas_trace as pt
+from raytracing_gpu_tpu_torch import SceneBuilder, compile_renderer
+from raytracing_gpu_tpu_torch.convert import camera_from_numpy, scene_from_numpy
+from raytracing_gpu_tpu_torch.core.config import RenderSettings
+from raytracing_gpu_tpu_torch.models import scenes as tscenes
+from raytracing_gpu_tpu_torch.ops import cuda_trace as ct
+from raytracing_gpu_tpu_torch.scene import types as tst
+
+torch.set_num_threads(1)
+
+TABLES = sorted(tst.TABLES)
+
+
+def _tree(obj):
+    """A JAX scene/camera pytree as nested dicts of numpy leaves."""
+    if dataclasses.is_dataclass(obj):
+        return {f.name: _tree(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)}
+    if obj is None or isinstance(obj, bool):
+        return obj
+    return np.asarray(obj)
+
+
+@pytest.fixture(scope="module")
+def cornell():
+    return jscenes.get("cornell_box"), tscenes.get("cornell_box")
+
+
+def _assert_tables_equal(jax_scene, port_scene, name):
+    a, b = getattr(jax_scene, name), getattr(port_scene, name)
+    for f in dataclasses.fields(b):
+        x, y = np.asarray(getattr(a, f.name)), getattr(b, f.name)
+        assert x.dtype == y.dtype and x.shape == y.shape, (name, f.name)
+        np.testing.assert_array_equal(y, x, err_msg=f"{name}.{f.name}")
+
+
+@pytest.mark.parametrize("name", TABLES)
+def test_cornell_tables_equal_jax_host_snapshot(cornell, name):
+    jsd, tsd = cornell
+    _assert_tables_equal(jsd.scene._host_np, tsd.scene, name)  # exact
+
+
+def test_cornell_scene_fields_equal(cornell):
+    jsd, tsd = cornell
+    host = jsd.scene._host_np
+    np.testing.assert_array_equal(tsd.scene.background,
+                                  np.asarray(host.background))
+    assert tsd.scene.background.dtype == np.float32
+    assert tsd.scene.tri_bvh is None and host.tri_bvh is None
+    assert tsd.scene.sphere_bvh is None and host.sphere_bvh is None
+    assert tsd.scene.has_sphere_media == host.has_sphere_media
+    assert tsd.scene.has_box_media == host.has_box_media
+    assert tsd.aspect == jsd.aspect
+
+
+@pytest.mark.parametrize("name", TABLES)
+def test_scene_from_numpy_equals_port_build(cornell, name):
+    jsd, tsd = cornell
+    converted = scene_from_numpy(_tree(jsd.scene._host_np))
+    _assert_tables_equal(converted, tsd.scene, name)  # exact
+
+
+def test_camera_basis_matches_jax(cornell):
+    jsd, tsd = cornell
+    for f in dataclasses.fields(tsd.camera):
+        got = getattr(tsd.camera, f.name)
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(),
+                                   np.asarray(getattr(jsd.camera, f.name)),
+                                   rtol=1e-6, atol=1e-6, err_msg=f.name)
+    conv = camera_from_numpy(_tree(jsd.camera))
+    for f in dataclasses.fields(conv):
+        np.testing.assert_array_equal(getattr(conv, f.name).numpy(),
+                                      np.asarray(getattr(jsd.camera, f.name)))
+
+
+@pytest.mark.parametrize("vfov,aspect,aperture", [(20.0, 16 / 9, 0.1),
+                                                  (90.0, 1.5, 0.0)])
+def test_camera_make_matches_jax(vfov, aspect, aperture):
+    from raytracing_gpu_tpu.core.camera import Camera as JCamera
+    from raytracing_gpu_tpu_torch.core.camera import Camera as TCamera
+
+    rng = np.random.default_rng(21)
+    lookfrom, lookat = rng.normal(size=3) * 10, rng.normal(size=3)
+    a = JCamera.make(lookfrom, lookat, (0, 1, 0), vfov, aspect, aperture, 7.5)
+    b = TCamera.make(lookfrom, lookat, (0, 1, 0), vfov, aspect, aperture, 7.5)
+    for f in dataclasses.fields(b):
+        np.testing.assert_allclose(getattr(b, f.name).numpy(),
+                                   np.asarray(getattr(a, f.name)),
+                                   rtol=1e-6, atol=1e-6, err_msg=f.name)
+
+
+def test_get_rays_matches_jax_without_a_lens(cornell):
+    # aperture 0: origins and directions are deterministic, so the two
+    # packages' generators do not matter; rtol/atol 1e-6
+    import jax
+
+    jsd, tsd = cornell
+    rng = np.random.default_rng(22)
+    s, t = rng.random(256, np.float32), rng.random(256, np.float32)
+    jo, jd, _ = jsd.camera.get_rays(jax.random.PRNGKey(0), s, t)
+    gen = torch.Generator().manual_seed(0)
+    o, d, tm = tsd.camera.get_rays(gen, torch.from_numpy(s),
+                                   torch.from_numpy(t))
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(d.numpy(), np.asarray(jd), rtol=1e-6, atol=1e-6)
+    assert tm.shape == (256,) and bool(((tm >= 0) & (tm <= 1)).all())
+
+
+def test_bake_records_equal_jax(cornell):
+    jsd, tsd = cornell
+    jb, tb = pt.bake_scene(jsd.scene), ct.bake_scene(tsd.scene)
+    assert len(tb.rects) == len(jb.rects) == 6
+    assert len(tb.boxes) == len(jb.boxes) == 2
+    for mine, theirs in zip(tb.rects + tb.boxes, jb.rects + jb.boxes):
+        assert mine == {k: theirs[k] for k in mine}  # exact
+    assert tb.background == jb.background
+    rt, bt = tb.rect_table(), tb.box_table()
+    assert rt.shape == (6, ct.RECT_COLS) and bt.shape == (2, ct.BOX_COLS)
+    assert rt[2, 6] == 3 and tuple(rt[2, 7:10]) == (15.0, 15.0, 15.0)
+
+
+def test_first_scene_is_refused_with_the_feature_named():
+    jsd = jscenes.get("first")
+    scene = scene_from_numpy(_tree(jsd.scene._host_np))
+    assert ct.supports_forward(scene) is False
+    assert ct.unported_feature(scene) == "spheres"
+    cam = camera_from_numpy(_tree(jsd.camera))
+    st = RenderSettings(image_width=16, aspect_ratio=jsd.aspect,
+                        spp_per_chunk=1, num_chunks=1, max_depth=2)
+    with pytest.raises(NotImplementedError, match="spheres: not yet ported"):
+        compile_renderer(scene, cam, st, device="cpu")
+    with pytest.raises(NotImplementedError, match="spheres"):
+        ct.Tracer(scene, "cpu")
+
+
+def test_unported_material_and_texture_are_named(cornell):
+    _, tsd = cornell
+    s = tsd.scene
+    metal = dataclasses.replace(s.materials, kind=np.where(
+        s.materials.kind == 0, np.int32(1), s.materials.kind))
+    assert ct.unported_feature(dataclasses.replace(s, materials=metal)) \
+        == "metal material"
+    checker = dataclasses.replace(s.textures, kind=np.ones_like(s.textures.kind))
+    assert ct.unported_feature(dataclasses.replace(s, textures=checker)) \
+        == "checker texture"
+    assert ct.unported_feature(s) is None and ct.supports_forward(s)
+
+
+@pytest.mark.parametrize("call", [
+    lambda b: b.sphere((0, 0, 0), 1.0, 0),
+    lambda b: b.metal((1, 1, 1), 0.1),
+    lambda b: b.dielectric(1.5),
+    lambda b: b.checker((0, 0, 0), (1, 1, 1)),
+    lambda b: b.triangle((0, 0, 0), (1, 0, 0), (0, 1, 0), 0),
+    lambda b: b.box_medium((0, 0, 0), (1, 1, 1), 0.01, (1, 1, 1)),
+    lambda b: b.rect("xy", 0, 1, 0, 1, 0, 0, rotate_y=30.0),
+])
+def test_builder_refuses_unported_features(call):
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        call(SceneBuilder())
+
+
+def test_registry_lists_only_ported_scenes():
+    assert tscenes.names() == ["cornell_box"]
+    with pytest.raises(KeyError, match="not ported"):
+        tscenes.get("first")
