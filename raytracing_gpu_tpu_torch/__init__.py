@@ -7,13 +7,17 @@ package imports torch and never JAX.  Its kernels are CUDA C++ in
 `ops/csrc/`, built with nvcc for sm_90a at first use; on CPU tensors each
 kernel's plain PyTorch version runs instead.
 
-Ported so far: the forward render of the scenes whose features the
-megakernel covers (axis-aligned rects, boxes, lambertian and diffuse_light
-materials, solid textures), e.g. `cornell_box`.
+Ported so far, for the scenes whose features the megakernel covers
+(axis-aligned rects, boxes, lambertian and diffuse_light materials, solid
+textures), e.g. `cornell_box`: the forward render (`render`,
+`compile_renderer`) and the differentiable chunk that training runs
+(`compile_fused_param_renderer`: the megakernel's record mode, then the
+shading and its closed-form adjoint in torch).
 """
 
 from .core.camera import Camera
 from .core.config import RenderSettings
+from .engine.fused_diff import compile_fused_param_renderer
 from .engine.render import compile_renderer, render, render_linear
 from .scene.builder import BLACK, SKY, SceneBuilder
 
@@ -23,6 +27,7 @@ __all__ = [
     "SceneBuilder",
     "SKY",
     "BLACK",
+    "compile_fused_param_renderer",
     "compile_renderer",
     "render",
     "render_linear",

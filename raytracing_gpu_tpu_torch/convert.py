@@ -5,7 +5,8 @@ of arrays; these functions take that pytree's leaves as numpy arrays, in
 nested dicts keyed by the same field names, and build the port's `Scene` and
 `Camera`.  The port never imports JAX: the caller flattens the JAX objects to
 numpy (for example from `jax.device_get(scene)` or the host snapshot that
-`SceneBuilder.build` keeps).
+`SceneBuilder.build` keeps).  The differentiable parameters travel the same
+way (`params_from_numpy`).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from .core.camera import Camera
+from .engine.diff import PARAM_KEYS
 from .scene import types as st
 
 _DTYPES = {np.dtype(np.float32), np.dtype(np.int32), np.dtype(np.bool_)}
@@ -57,3 +59,22 @@ def camera_from_numpy(tree: Mapping,
         f.name: torch.tensor(np.asarray(tree[f.name], np.float32),
                              device=device)
         for f in dataclasses.fields(Camera)})
+
+
+def params_from_numpy(tree: Mapping, device: torch.device | str = "cuda"
+                      ) -> dict:
+    """Port parameter dict (`engine.diff.get_params`'s form) from the JAX
+    package's parameter pytree as numpy: {"tex_c1", "tex_c2",
+    "atlas_data"} -> float32 tensors on `device`."""
+    missing = set(PARAM_KEYS) - set(tree)
+    extra = set(tree) - set(PARAM_KEYS)
+    if missing or extra:
+        raise KeyError(f"expected parameters {PARAM_KEYS}, missing "
+                       f"{sorted(missing)}, unexpected {sorted(extra)}")
+    out = {}
+    for k in PARAM_KEYS:
+        a = _array(k, tree[k])
+        if a.dtype != np.float32:
+            raise TypeError(f"{k}: expected float32, got {a.dtype}")
+        out[k] = torch.tensor(a, device=device)
+    return out

@@ -1,0 +1,184 @@
+"""The differentiable render chunk, with a closed-form backward pass.
+
+Counterpart of `compile_fused_param_renderer` and `_shade_chain_bwd` in
+`raytracing_gpu_tpu/engine/fused_diff.py`, for its in-kernel camera route
+(`gen_rays=True`).  A chunk is `spp_per_chunk` samples of every pixel,
+split into waves of `ray_batch` pixels.  Each (sample, wave) runs the record
+kernel (`ops/cuda_trace.py` `Tracer.bind_record`) and shades its packed
+plane (`integrator.shade_packed`).
+
+Per lane the shading is the product chain (reference `render.h:55-81`):
+
+    L = sum_b T_b * E_b,   T_0 = 1,   T_{b+1} = T_b * F_b
+    E_b = miss_b * background + hit_b * emit_b
+    F_b = cont_b * att_b + (1 - cont_b)
+
+whose adjoint is another linear chain: with the suffix sum
+S_b = E_b + F_b * S_{b+1} (so L = S_0),
+
+    dL/d att_b  = g * T_b * S_{b+1} * cont_b
+    dL/d emit_b = g * T_b * hit_b
+
+So the backward pass of a wave is one shade forward over its record plane,
+a prefix product T, a reverse suffix sum S, and one vector-Jacobian product
+of `materials.shade`: no per-bounce graph is kept.  The chunk is a
+`torch.autograd.Function` whose backward is exactly that.
+
+Not ported yet: the ray-plane route (`gen_rays=False`, it needs the record
+kernel's ray-plane input) and the sharded form (`fused_diff.py:273`).
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from ..core.camera import Camera
+from ..core.config import RenderSettings
+from ..ops import cuda_trace
+from ..scene import materials as materials_mod
+from ..scene.types import Scene, host_table
+from .diff import PARAM_KEYS
+from .integrator import shade_packed, unpack_walk
+from .render import _grid_geometry
+
+_SAVE_PLANES_MAX_BYTES = 1 << 30
+
+
+def _shade_chain_bwd(scene: Scene, params: dict, planes, g: torch.Tensor,
+                     need_p: bool, need_uv: bool) -> dict:
+    """d<g, L(params)> / d params for one wave, by the closed-form adjoint.
+
+    planes are the wave's record planes; g is the incoming radiance
+    cotangent (N, 3).  A parameter that `shade` does not use gets zeros of
+    its own shape.
+    """
+    data = unpack_walk(planes, need_p, need_uv)
+    d_, n = data.mat_id.shape
+    dev = g.device
+    h = data.hit.to(torch.float32)[..., None]     # (D, N, 1)
+    m = data.miss.to(torch.float32)[..., None]
+    c = data.cont.to(torch.float32)[..., None]
+
+    # one flattened shade call per wave: the only parameter-dependent code
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    with torch.enable_grad():
+        att_f, emit_f = materials_mod.shade(
+            scene, leaves, data.mat_id.reshape(-1), data.u.reshape(-1),
+            data.v.reshape(-1), data.p.reshape(-1, 3))
+    att = att_f.detach().reshape(d_, n, 3)
+    emit = emit_f.detach().reshape(d_, n, 3)
+
+    bg = host_table(scene.background, dev, torch.float32)
+    e_term = m * bg + h * emit                    # E_b
+    f_term = c * att + (1.0 - c)                  # F_b
+
+    # T_b: exclusive prefix product of F along the bounce axis
+    t_chain = torch.cat([torch.ones((1, n, 3), dtype=torch.float32,
+                                    device=dev),
+                         torch.cumprod(f_term, dim=0)[:-1]], dim=0)
+    # S_{b+1}: suffix sum S_b = E_b + F_b S_{b+1}, shifted down one bounce
+    s = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    s_next = [s]
+    for b in range(d_ - 1, 0, -1):
+        s = e_term[b] + f_term[b] * s
+        s_next.append(s)
+    s_next = torch.stack(s_next[::-1])
+
+    g_att = (g[None] * t_chain * s_next * c).reshape(-1, 3)
+    g_emit = (g[None] * t_chain * h).reshape(-1, 3)
+    outs = [(o, go) for o, go in ((att_f, g_att), (emit_f, g_emit))
+            if o.requires_grad]
+    grads = torch.autograd.grad([o for o, _ in outs], list(leaves.values()),
+                                [go for _, go in outs], allow_unused=True)
+    return {k: torch.zeros_like(v) if gr is None else gr
+            for (k, v), gr in zip(leaves.items(), grads)}
+
+
+def fused_chunk_from_walk(scene: Scene,
+                          walk: Callable[[int, int, int], torch.Tensor],
+                          settings: RenderSettings,
+                          save_planes: bool | None = None,
+                          device: torch.device | str = "cuda"
+                          ) -> Callable[[dict, int], torch.Tensor]:
+    """The differentiable chunk over a record walk
+    `walk(pix_base, n, seed) -> (max_depth, n)` int32 packed plane: the
+    kernel's (`compile_fused_param_renderer`) or its plain version.
+
+    Returns `chunk(params, base) -> (npix_pad, 3)` float32 radiance sums,
+    differentiable with respect to the tensors of `params`
+    (`engine.diff.get_params`).  Wave (s, bid) walks with seed
+    `wave_seed(base, s, bid)`, the JAX package's schedule
+    (`fused_diff.py:184-193`).
+
+    save_planes: keep every wave's record plane from the forward pass for
+    the backward pass, instead of walking the waves again.  Default: on
+    when the planes of a chunk fit in 1 GB.
+    """
+    device = torch.device(device)
+    _h, _w, _npix, npix_pad, b, nb = _grid_geometry(settings)
+    spp, max_depth = settings.spp_per_chunk, settings.max_depth
+    # the ported scenes need the packed plane only (no hit point, no uv)
+    plane_bytes = spp * nb * max_depth * b * 4
+    if save_planes is None:
+        save_planes = plane_bytes <= _SAVE_PLANES_MAX_BYTES
+    waves = [(s, bid) for s in range(spp) for bid in range(nb)]
+
+    def walk_wave(base: int, s: int, bid: int) -> torch.Tensor:
+        return walk(bid * b, b, cuda_trace.wave_seed(base, s, bid))
+
+    class FusedChunk(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, base, *values):
+            params = dict(zip(PARAM_KEYS, values))
+            out = torch.zeros((nb, b, 3), dtype=torch.float32, device=device)
+            kept = []
+            for s, bid in waves:
+                planes = walk_wave(base, s, bid)
+                out[bid] += shade_packed(scene, params, planes,
+                                         need_p=False, need_uv=False)
+                if save_planes:
+                    kept.append(planes)
+            ctx.base = base
+            ctx.kept = kept if save_planes else None
+            ctx.save_for_backward(*values)
+            return out.reshape(npix_pad, 3)
+
+        @staticmethod
+        def backward(ctx, g):
+            params = dict(zip(PARAM_KEYS, ctx.saved_tensors))
+            g_waves = g.reshape(nb, b, 3)
+            acc = {k: torch.zeros_like(v) for k, v in params.items()}
+            for i, (s, bid) in enumerate(waves):
+                planes = (ctx.kept[i] if ctx.kept is not None
+                          else walk_wave(ctx.base, s, bid))
+                d_p = _shade_chain_bwd(scene, params, (planes,), g_waves[bid],
+                                       False, False)
+                acc = {k: acc[k] + d_p[k] for k in acc}
+            return (None, *(acc[k] for k in PARAM_KEYS))
+
+    def chunk(params: dict, base: int) -> torch.Tensor:
+        return FusedChunk.apply(int(base), *(params[k] for k in PARAM_KEYS))
+
+    chunk.save_planes = save_planes
+    return chunk
+
+
+def compile_fused_param_renderer(
+    scene: Scene, camera: Camera, settings: RenderSettings,
+    save_planes: bool | None = None, device: torch.device | str = "cuda",
+) -> Callable[[dict, int], torch.Tensor]:
+    """Differentiable chunk renderer `(params, base) -> (npix_pad, 3)` sums
+    on `device`, with the closed-form backward pass; `base` is the int32
+    chunk seed (`cuda_trace.chunk_seed`).
+
+    The walks are the record kernel's on a CUDA device and its plain
+    version on the CPU.  Raises NotImplementedError for a scene outside the
+    ported feature set.  See `fused_chunk_from_walk` for `save_planes`.
+    """
+    tracer = cuda_trace.Tracer(scene, device)  # raises for unported scenes
+    h, w, *_ = _grid_geometry(settings)
+    walk = tracer.bind_record(camera, h, w, settings.max_depth,
+                              settings.t_min)
+    return fused_chunk_from_walk(scene, walk, settings, save_planes, device)

@@ -35,8 +35,9 @@ _lib: Optional[ctypes.CDLL] = None
 
 
 class RtParams(ctypes.Structure):
-    """Launch constants of `rt_trace_pixels`, passed by value; the field
-    order and types follow `struct RtParams` in csrc/megakernel.cu."""
+    """Launch constants of `rt_trace_pixels` and `rt_walk_packed_pixels`,
+    passed by value; the field order and types follow `struct RtParams` in
+    csrc/megakernel.cu."""
 
     _fields_ = [
         ("origin", ctypes.c_float * 3), ("llc", ctypes.c_float * 3),
@@ -120,6 +121,8 @@ def load() -> ctypes.CDLL:
             lib.rt_trace_pixels.argtypes = [ptr, ptr, RtParams, ptr, ptr, ptr,
                                             ptr]
             lib.rt_trace_pixels.restype = ctypes.c_int
+            lib.rt_walk_packed_pixels.argtypes = [ptr, ptr, RtParams, ptr, ptr]
+            lib.rt_walk_packed_pixels.restype = ctypes.c_int
             lib.rt_pcg_uniform.argtypes = [ctypes.c_int, ctypes.c_int,
                                            ctypes.c_int, ptr, ptr]
             lib.rt_pcg_uniform.restype = ctypes.c_int

@@ -17,6 +17,7 @@ import dataclasses
 from typing import Any, Optional
 
 import numpy as np
+import torch
 
 # Primitive type tags (order matters: used by closest-hit dispatch)
 SPHERE, RECT, BOX, TRIANGLE = 0, 1, 2, 3
@@ -31,6 +32,15 @@ TEX_SOLID, TEX_CHECKER, TEX_NOISE, TEX_TURB, TEX_MARBLE, TEX_IMAGE = 0, 1, 2, 3,
 RECT_YZ, RECT_XZ, RECT_XY = 0, 1, 2
 
 _table = dataclasses.dataclass(frozen=True)
+
+
+def host_table(a, device: torch.device | str,
+               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A host table as a tensor on `device`.  The copy to a CUDA device is
+    non-blocking (staged from pageable memory), so a per-wave caller does
+    not wait for the device's queued work."""
+    return torch.as_tensor(np.asarray(a), dtype=dtype).to(device,
+                                                          non_blocking=True)
 
 
 @_table

@@ -1,14 +1,27 @@
 """Write the pinned JAX goldens that the PyTorch port is held to.
 
 Runs the JAX package on the CPU (the Pallas megakernel in interpret mode)
-and writes `tests/data/torch_port/cornell_32.npz`: one chunk of the Cornell
-box at 32x32, 2 spp, depth 3, as `compile_renderer(engine="pallas")`
-returns it ((npix_pad, 3) float32 radiance sums), with the int32 base seed
-and the settings that produced it.  The port's CPU tests hold its plain
-version to this file, and `chip_smoke.py` holds the CUDA kernel to it, so
-the card's output is tied to the JAX reference without JAX on that machine.
+and writes, under `tests/data/torch_port/`:
 
-    python tools/make_torch_goldens.py
+- `cornell_32.npz`, the forward path: one chunk of the Cornell box at
+  32x32, 2 spp, depth 3, as `compile_renderer(engine="pallas")` returns it
+  ((npix_pad, 3) float32 radiance sums), with the int32 base seed and the
+  settings that produced it;
+- `cornell_grad_32.npz`, the training path: the same chunk shape in waves
+  of 512 rays through `compile_fused_param_renderer(gen_rays=True)`: every
+  wave's record plane from `PallasTracer.walk_packed_pixels` (cropped to
+  the wave, (spp * waves, depth, 512) int32 in (sample, wave) order), the
+  fused chunk's primal, and the gradients of mean((chunk - target)**2)
+  with respect to tex_c1, tex_c2 and atlas_data, with the base seed, the
+  target and the settings.
+
+The port's CPU tests hold its plain versions to these files, and
+`chip_smoke.py` holds the CUDA kernels to them, so the card's output is tied
+to the JAX reference without JAX on that machine.
+
+    python tools/make_torch_goldens.py [cornell_32] [cornell_grad_32]
+
+With no names it writes both.
 """
 
 from __future__ import annotations
@@ -17,15 +30,13 @@ import os
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-OUT = os.path.join(ROOT, "tests", "data", "torch_port", "cornell_32.npz")
+DATA = os.path.join(ROOT, "tests", "data", "torch_port")
 KEY_SEED = 2024
+GRAD_TARGET = 0.25
 
 
-def main() -> int:
-    sys.path.insert(0, ROOT)
+def forward_golden() -> None:
     import jax
-
-    jax.config.update("jax_platforms", "cpu")
     import numpy as np
 
     from raytracing_gpu_tpu.core.config import RenderSettings
@@ -33,6 +44,7 @@ def main() -> int:
     from raytracing_gpu_tpu.models import scenes
     from raytracing_gpu_tpu.ops import pallas_trace
 
+    out = os.path.join(DATA, "cornell_32.npz")
     sd = scenes.get("cornell_box")
     st = RenderSettings(image_width=32, aspect_ratio=sd.aspect,
                         spp_per_chunk=2, num_chunks=1, max_depth=3,
@@ -41,14 +53,77 @@ def main() -> int:
     base = int(pallas_trace.chunk_seed(key))
     chunk = compile_renderer(sd.scene, sd.camera, st, engine="pallas")
     sums = np.asarray(chunk(key), np.float32)
-    os.makedirs(os.path.dirname(OUT), exist_ok=True)
     np.savez_compressed(
-        OUT, base=np.int32(base), key_seed=np.int32(KEY_SEED), sums=sums,
+        out, base=np.int32(base), key_seed=np.int32(KEY_SEED), sums=sums,
         image_width=st.image_width, image_height=st.image_height,
         spp_per_chunk=st.spp_per_chunk, max_depth=st.max_depth,
         ray_batch=st.ray_batch, t_min=np.float32(st.t_min))
-    print(f"wrote {OUT}: base {base}, sums {sums.shape}, "
+    print(f"wrote {out}: base {base}, sums {sums.shape}, "
           f"mean {sums.mean(0)}")
+
+
+def grad_golden() -> None:
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from raytracing_gpu_tpu.core.config import RenderSettings
+    from raytracing_gpu_tpu.engine import diff
+    from raytracing_gpu_tpu.engine.fused_diff import (
+        compile_fused_param_renderer)
+    from raytracing_gpu_tpu.models import scenes
+    from raytracing_gpu_tpu.ops import pallas_trace
+
+    out = os.path.join(DATA, "cornell_grad_32.npz")
+    sd = scenes.get("cornell_box")
+    st = RenderSettings(image_width=32, aspect_ratio=sd.aspect,
+                        spp_per_chunk=2, num_chunks=1, max_depth=3,
+                        ray_batch=512)
+    key = jax.random.PRNGKey(KEY_SEED)
+    base = int(pallas_trace.chunk_seed(key))
+    h, w, b = st.image_height, st.image_width, st.ray_batch
+    nb = h * w // b
+    tracer = pallas_trace.PallasTracer(sd.scene)
+    planes = np.stack([
+        np.asarray(tracer.walk_packed_pixels(
+            sd.camera, h, w, bid * b, b, pallas_trace.wave_seed(base, s, bid),
+            max_depth=st.max_depth, t_min=st.t_min)[0]
+        ).reshape(st.max_depth, -1)[:, :b]
+        for s in range(st.spp_per_chunk) for bid in range(nb)])
+    chunk = compile_fused_param_renderer(sd.scene, sd.camera, st,
+                                         gen_rays=True)
+    params = diff.get_params(sd.scene)
+    primal = np.asarray(chunk(params, key), np.float32)
+    grads = jax.grad(
+        lambda p: jnp.mean((chunk(p, key) - GRAD_TARGET) ** 2))(params)
+    np.savez_compressed(
+        out, base=np.int32(base), key_seed=np.int32(KEY_SEED),
+        planes=planes.astype(np.int32), primal=primal,
+        target=np.float32(GRAD_TARGET),
+        **{f"grad_{k}": np.asarray(v, np.float32) for k, v in grads.items()},
+        image_width=st.image_width, image_height=st.image_height,
+        spp_per_chunk=st.spp_per_chunk, max_depth=st.max_depth,
+        ray_batch=st.ray_batch, t_min=np.float32(st.t_min))
+    print(f"wrote {out}: base {base}, planes {planes.shape}, primal "
+          f"{primal.shape}, grads {({k: v.shape for k, v in grads.items()})}")
+
+
+GOLDENS = {"cornell_32": forward_golden, "cornell_grad_32": grad_golden}
+
+
+def main(argv=None) -> int:
+    names = (sys.argv[1:] if argv is None else argv) or list(GOLDENS)
+    unknown = [n for n in names if n not in GOLDENS]
+    if unknown:
+        raise SystemExit(f"unknown golden {unknown}; choose from "
+                         f"{list(GOLDENS)}")
+    sys.path.insert(0, ROOT)
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    os.makedirs(DATA, exist_ok=True)
+    for name in names:
+        GOLDENS[name]()
     return 0
 
 
