@@ -3,61 +3,99 @@
 
     python3 chip_smoke.py [--png PATH]
 
-Drives the port's two main paths, each with the kernel launch counts set to
-0 just before it and read just after: the forward render of the Cornell box
+Drives the port's main paths, each with the kernel launch counts set to 0
+just before it and read just after: the forward render of the Cornell box
 at 512x512, 64 spp, depth 8, through `raytracing_gpu_tpu_torch.render`
-(serving), and `bench_torch.py`'s workload, the forward plus backward
-render at 512x512, 64 spp as 8 chunks of 8, depth 8, waves of 32,768 rays,
-through `engine.fused_diff.compile_fused_param_renderer` (training).  It
-checks both kernels on the way.  Phases, each of which raises on failure:
+(serving); `bench_torch.py`'s workload, the forward plus backward render at
+512x512, 64 spp as 8 chunks of 8, depth 8, waves of 32,768 rays, through
+`engine.fused_diff.compile_fused_param_renderer` (training); BASELINE
+config 1 (`first`, 400x225, 16 spp, depth 8) and config 4
+(`cornell_smoke`, 512x512, 128 spp, depth 16) through `render`; and the
+ceiling probe whose rates every printed bound divides by.  It checks every
+kernel on the way.  Phases, each of which raises on failure:
 
 1. environment: a CUDA device is required; prints the card's name and power
    limit (nvidia-smi) and torch's device name;
 2. build: compiles the kernels from `raytracing_gpu_tpu_torch/ops/csrc` with
-   nvcc for sm_90a, and prints ptxas' registers and spills per kernel;
+   nvcc for sm_90a, one process per source, and prints ptxas' registers
+   and spills per kernel;
 3. RNG: the device PCG stream (`rt_pcg_uniform`) equals the plain version
    bit for bit over 2**20 lanes x 3 salts;
-4. forward kernel against its plain PyTorch version on the card: Cornell
+4. ceilings: the FMA-chain kernel (`rt_fma_chain`, kernel 3) against its
+   plain version (rtol 1e-5: one rounding a step against two) at chain
+   lengths 1, 7, 8, 13 and 21, where the chain has not converged and a
+   chain one step short fails that tolerance (the unrolled loop and its
+   tail), and at 1,088 steps; then the card's own float32 FMA rate and
+   memory read + write rate as measured (`utils/roofline.py`) beside its
+   peak rates from its attributes; every bound below divides by the larger
+   of the measured and the peak rate;
+5. forward kernel against its plain PyTorch version on the card: Cornell
    64x64, 4 spp, at depth 1 (allclose rtol 1e-5, atol 1e-5) and depth 8
    (>= 99% of lanes within atol 1e-3 * max, channel means within 1e-3
    relative), and one wave at the main path's shape (512x512, 65536 rays,
    depth 8) under the depth-8 rule; at every depth >= 99.9% of the values
    must also be bit-exact; times both at that shape with CUDA events;
-5. forward kernel against the pinned JAX golden (tests/data/torch_port/
+6. forward kernel against the pinned JAX golden (tests/data/torch_port/
    cornell_32.npz, made by tools/make_torch_goldens.py): one chunk at 32x32,
    2 spp, depth 3, under the depth-8 rule;
-6. serving path: `render()` of cornell_box at 512x512, 16 spp x 4 chunks,
+7. serving path: `render()` of cornell_box at 512x512, 16 spp x 4 chunks,
    depth 8, ray_batch 65536 (must launch the forward kernel 64 spp x 4
    waves = 256 times and the record kernel never); the image must be finite
    and lit; writes the PNG; a profiled repeat gives the device's busy share;
    then the plain version renders one 16-spp chunk on the card;
-7. record kernel against its plain version on the card: Cornell 64x64,
+8. record kernel against its plain version on the card: Cornell 64x64,
    4 spp, at depth 1 and 8, and one 32,768-ray wave at 512x512, depth 8,
    under the bit rule (bits 16-18 equal everywhere, bits 0-15 equal where
    bit 16 is set) with >= 99.9% of the words equal; times it at that shape
    with CUDA events, and works out both kernels' bounds from the live
    bounces of their main-shape waves;
-8. record kernel against the pinned JAX golden (tests/data/torch_port/
+9. record kernel against the pinned JAX golden (tests/data/torch_port/
    cornell_grad_32.npz): every wave of the 32x32, 2-spp, depth-3 chunk.
    Every lane must agree at bounce 0 and >= 99% of lanes over all bounces
    under the bit rule (CUDA's and XLA's sin/cos differ by an ulp on some
    draws, which can send a grazing ray elsewhere after a bounce);
-9. the two modes agree: for one seed at the main shape, `shade_packed` of
+10. the two modes agree: for one seed at the main shape, `shade_packed` of
    the record plane against the forward kernel's radiance, under the
    depth-8 rule with >= 99.9% bit-exact;
-10. the fused chunk on the card against the golden and against the chunk
+11. the fused chunk on the card against the golden and against the chunk
    over the plain walk on the card: primal under the depth-8 rule,
    gradients of the L2 loss allclose rtol 2e-4, atol 1e-7;
-11. training path: `bench_torch.train_renders` for one full 64-spp forward
+12. training path: `bench_torch.train_renders` for one full 64-spp forward
    plus backward render (must launch the record kernel 8 chunks x 8 spp x
    8 waves = 512 times, planes saved, and the forward kernel never); prints
    Mrays/s, the peak of allocated device memory, and the device's busy
-   share from a profiled repeat.
+   share from a profiled repeat;
+13. the dense scenes (basic, first, two_spheres, two_perlin_spheres,
+   cornell_smoke): the forward kernel against its plain version on the
+   card at 64x64, 4 spp, depth 1 and 8 (the rules of phase 5), then
+   against each scene's pinned JAX golden (`<scene>_32.npz`: one chunk at
+   width 32, 2 spp, depth 3): >= 99% of pixels within atol 1e-3 * max,
+   channel means within 3e-3 relative (`golden_cmp`);
+14. record mode on first and cornell_smoke: the record kernel against its
+   plain version on the card (64x64, 4 spp, depth 8; the bit rule with
+   >= 99.9% of the words equal) and against the golden's planes (every lane
+   at bounce 0, >= 99% of lanes over all bounces);
+15. BASELINE config 1: `render()` of first at 400x225, 16 spp as 1 chunk,
+   depth 8, ray_batch 65536 (must launch the forward kernel 16 x 2 = 32
+   times and the record kernel never); finite and lit, PNG written,
+   Mrays/s and the busy share of a profiled repeat; its main wave (65,536
+   rays) held against the plain version on the same seed under phase 5's
+   depth-8 rule with >= 99.9% bit-exact, then timed (kernel, loop, plain
+   version) beside its bound, counted from the live bounces by material
+   kind of a record walk of the same seed;
+16. BASELINE config 4: the same for cornell_smoke at 512x512, 128 spp as
+   4 chunks x 32, depth 16 (must launch the forward kernel 128 x 4 = 512
+   times);
+17. russian roulette: one 65,536-ray wave of cornell_smoke at 512x512,
+   depth 16, rr_start 2, against its plain version under the depth-8 rule
+   with >= 99.9% bit-exact (and unlike the wave without it); then
+   `render()` at 512x512, 32 spp, depth 16 with rr_start 2 and without,
+   one seed: finite, and the means within 5% of each other.
 
-Prints a JSON line of kernels, the card's name and power limit, and as its
-last line `{"ok": true, "device": {...}}`.  Exits non-zero, with no result
-line, when anything fails, when there is no CUDA device, or when the port's
-package is not beside this script.
+Prints each phase's seconds, a JSON line of kernels, the card's name and
+power limit, and as its last line `{"ok": true, "device": {...}}`.  Exits
+non-zero, with no result line, when anything fails, when there is no CUDA
+device, or when the port's package is not beside this script.
 """
 
 from __future__ import annotations
@@ -70,11 +108,14 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-KERNEL_SOURCE = "raytracing_gpu_tpu_torch/ops/csrc/megakernel.cu"
+CSRC = "raytracing_gpu_tpu_torch/ops/csrc"
+KERNEL_SOURCE = f"{CSRC}/megakernel.cuh"
 REPLACES = "raytracing_gpu_tpu/ops/pallas_trace.py:1703"
-GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port", "cornell_32.npz")
-GRAD_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port",
-                           "cornell_grad_32.npz")
+FMA_SOURCE = f"{CSRC}/roofline.cu"
+FMA_REPLACES = "tools/roofline.py:121"
+DATA = os.path.join(ROOT, "tests", "data", "torch_port")
+GOLDEN = os.path.join(DATA, "cornell_32.npz")
+GRAD_GOLDEN = os.path.join(DATA, "cornell_grad_32.npz")
 RNG_LANES = 2**20
 RNG_SALTS = (0, 1, 7)
 RNG_SEED = -1540198401   # negative: exercises the int32 -> uint32 reading
@@ -86,19 +127,40 @@ HOLD_MS_FLOOR = 100.0      # the host must enqueue well within the hold
 # lower this floor on purpose.
 EXACT_FLOOR = 0.999
 LANE_FLOOR = 0.99  # record lanes that must agree with the JAX golden
+DENSE_SCENES = ("basic", "first", "two_spheres", "two_perlin_spheres",
+                "cornell_smoke")
+RECORD_SCENES = ("first", "cornell_smoke")
+GOLDEN_MEAN_TOL = 3e-3  # see golden_cmp
+# BASELINE configs 1 and 4 (bench_all.py:16-20, :372-378) as phases 15 and
+# 16: (phase, config, scene, width, spp per chunk, chunks, depth)
+BASELINE = ((15, 1, "first", 400, 16, 1, 8),
+            (16, 4, "cornell_smoke", 512, 32, 4, 16))
+RR_RENDER = ("cornell_smoke", 512, 32, 16, 2)  # scene, width, spp, depth, rr
+RR_MEAN_TOL = 0.05
+FMA_CHECK_STEPS = (1, 7, 8, 13, 21)  # the unrolled-by-8 loop and its tail
+# The Cornell forward wave (65,536 rays, depth 8) of the kernel before it
+# took spheres and media, H100 80GB HBM3 at 700 W (PERF.md, section 6)
+CORNELL_WAVE_MS_BEFORE = "0.0293-0.0294"
 
-# The least time the card could take for a kernel's work, from the H100
-# SXM's published peaks at a 700 W limit.
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
-# float32 operations (add, multiply, divide, sqrt, sin/cos, min/max,
-# compare) per ray in csrc/megakernel.cu, counted from its source; the
-# integer PCG hashes are left out, so the bound stays a lower bound.
-OPS_CAMERA = 23        # camera_ray: two draws, su/sv, origin, direction
+# The H100 SXM's published peaks at a 700 W limit, printed beside the
+# bounds for comparison only: every bound divides by the rates that phase 4
+# takes from the card (the larger of measured and its attributes' peak).
+SPEC_FP32_FLOPS = 67e12
+SPEC_BYTES_PER_S = 3.35e12
+# float32 operations (add, multiply, divide, sqrt, transcendental, min/max,
+# compare) in csrc/megakernel.cuh, counted from its source; the integer PCG
+# hashes are left out and a transcendental counts once, so the bound stays
+# a lower bound.
+OPS_CAMERA = 25        # camera_ray: two draws, su/sv, origin, direction, time
 OPS_RECT = 14          # one rect test: guard, divide, two lerps, compares
 OPS_BOX = 51           # one box slab test: transform, 3 divides, 6 slabs
-OPS_SCATTER = 50       # lambertian_bounce: face normal, normalize, draws,
-#                        direction, degenerate test, new origin
+OPS_SPHERE = 44        # one sphere candidate: center at tm, quadratic, roots
+OPS_MEDIUM = 60        # one medium: interval, free path (log), compares
+OPS_BOUNCE = 10        # per bounce: miss test, sphere 1/a, media 1/|d|
+OPS_SCATTER = {0: 50,  # lambertian: face normal, normalize, draws, n + u
+               1: 84,  # metal: + unit d, reflect, in_sphere, fuzz, test
+               2: 105,  # dielectric: + Schlick and the refraction
+               4: 47}  # isotropic: face normal, in_sphere
 OPS_FWD_CONT = 3       # megakernel_fwd's throughput multiply per bounce
 OPS_FWD_END = 6        # megakernel_fwd's radiance update at the path's end
 
@@ -111,12 +173,12 @@ def card_line() -> str:
     return out.stdout.strip()
 
 
-def compare(got, want, depth: int) -> dict:
+def compare(got, want, depth: int, exact_floor: float = EXACT_FLOOR) -> dict:
     """The stated tolerances: depth 1 -> allclose(rtol=1e-5, atol=1e-5);
     deeper -> >= 99% of rows within atol 1e-3 * max|want| and every channel
     mean within 1e-3 relative (cosf/sinf may differ by a few ulp between the
     kernel and torch, so a few paths could diverge after a bounce).  At every
-    depth, also at least EXACT_FLOOR of the values equal bit for bit."""
+    depth, also at least `exact_floor` of the values equal bit for bit."""
     import torch
 
     got = got.double().cpu()
@@ -133,7 +195,7 @@ def compare(got, want, depth: int) -> dict:
         res["ok"] = bool(torch.allclose(got, want, rtol=1e-5, atol=1e-5))
     else:
         res["ok"] = within >= 0.99 and mean_rel <= 1e-3
-    res["ok"] = res["ok"] and exact >= EXACT_FLOOR
+    res["ok"] = res["ok"] and exact >= exact_floor
     return res
 
 
@@ -235,12 +297,227 @@ def live_counts(plane) -> tuple[int, int]:
     return live, cont
 
 
+class Ceilings:
+    """The rates every bound divides by, set in phase 4: for each of the
+    float32 FMA rate and the memory rate, the larger of what the probe
+    measured and the card's peak from its attributes."""
+
+    flops = bytes_per_s = None
+
+
 def bound(ops: float, nbytes: float) -> tuple[float, str]:
     """(least milliseconds, what bounds it) for `ops` float32 operations
-    and `nbytes` bytes moved."""
-    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    and `nbytes` bytes moved, over the card's rates (`Ceilings`)."""
+    t_ops, t_bytes = ops / Ceilings.flops, nbytes / Ceilings.bytes_per_s
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def spec_bound_ms(ops: float, nbytes: float) -> float:
+    """The same bound over the published peaks, for comparison."""
+    return max(ops / SPEC_FP32_FLOPS, nbytes / SPEC_BYTES_PER_S) * 1e3
+
+
+def wave_ops(tracer, scene, plane, n: int) -> float:
+    """float32 operations of a forward wave of n rays whose paths the
+    record plane (max_depth, n) describes: the camera and the path's end
+    per ray; per live bounce the closest hit over every record and the
+    media; per hit that is not a light the scatter of its material kind;
+    per continued bounce the throughput."""
+    import torch
+
+    bake = tracer.bake
+    plane = plane.detach().cpu().to(torch.int64)
+    live, cont = live_counts(plane)
+    hit_ops = (len(bake.rects) * OPS_RECT + len(bake.boxes) * OPS_BOX
+               + len(bake.sphere_table) * OPS_SPHERE
+               + (len(bake.sphere_media) + len(bake.box_media)) * OPS_MEDIUM
+               + OPS_BOUNCE)
+    kinds = torch.from_numpy(scene.materials.kind).to(torch.int64)
+    hit = (plane & (1 << 16)) != 0
+    kind = kinds[(plane & 0xFFFF)[hit]]
+    scatter = sum(int((kind == k).sum()) * ops
+                  for k, ops in OPS_SCATTER.items())
+    return (n * (OPS_CAMERA + OPS_FWD_END) + live * hit_ops + scatter
+            + cont * OPS_FWD_CONT)
+
+
+def table_bytes(tracer) -> int:
+    return 4 * sum(t.numel() for t in (tracer.rect_table, tracer.box_table,
+                                       tracer.sphere_table,
+                                       tracer.media_table))
+
+
+class Phase:
+    """Prints a phase's seconds when it ends."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        print(f"[phase] {self.name}: {time.perf_counter() - self.t0:.2f} s",
+              flush=True)
+        return False
+
+
+
+
+def check_scene_kernel(tracer, sd, base: int, label: str) -> None:
+    """The forward kernel against its plain version on the card at 64x64,
+    4 spp, depth 1 and 8 (phase 5's rules)."""
+    import torch
+
+    from raytracing_gpu_tpu_torch.ops import cuda_trace
+
+    for depth in (1, 8):
+        got, want = [], []
+        for s in range(4):
+            seed = cuda_trace.wave_seed(base, s, 0)
+            got.append(tracer.trace_pixels(sd.camera, 64, 64, 0, 4096, seed,
+                                           max_depth=depth))
+            want.append(cuda_trace.trace_pixels_reference(
+                tracer.bake, sd.camera, 64, 64, 0, 4096, seed,
+                max_depth=depth, device=tracer.device))
+        torch.cuda.synchronize()
+        cmp = compare(torch.cat(got), torch.cat(want), depth)
+        print(f"[kernel-vs-plain] {label} 64x64 4spp depth {depth}: {cmp}")
+        if not cmp["ok"]:
+            raise AssertionError(f"{label}: kernel disagrees with plain at "
+                                 f"depth {depth}")
+
+
+def golden_cmp(got, want) -> dict:
+    """A dense scene's chunk against its JAX golden: >= 99% of the pixels
+    within atol 1e-3 * max and every channel mean within GOLDEN_MEAN_TOL
+    relative.  XLA's sin/cos/log/exp on the CPU and CUDA's differ by an ulp
+    here and there, and one path that diverges after a bounce moves a mean
+    of these 576-1024-pixel chunks on its own: over 16 keys per scene
+    (`tools/golden_spread.py`) at most one pixel of a chunk diverged
+    outside the perlin scene, and the worst mean moved by 2.52e-3 (`first`);
+    the kernel's parity with its plain version is held bit for bit
+    elsewhere."""
+    res = compare(got, want, 3, exact_floor=0.0)
+    res["ok"] = res["frac_within"] >= 0.99 and \
+        res["mean_rel_err"] <= GOLDEN_MEAN_TOL
+    return res
+
+
+def golden_settings(g):
+    from raytracing_gpu_tpu_torch import RenderSettings
+
+    aspect = float(g["aspect_ratio"]) if "aspect_ratio" in g else 1.0
+    return RenderSettings(image_width=int(g["image_width"]),
+                          aspect_ratio=aspect,
+                          spp_per_chunk=int(g["spp_per_chunk"]),
+                          num_chunks=1, max_depth=int(g["max_depth"]),
+                          ray_batch=int(g["ray_batch"]),
+                          t_min=float(g["t_min"]))
+
+
+def time_wave(tracer, sd, st, base: int, card: str, label: str) -> dict:
+    """A render's main wave (wave 1 of its grid, full width): the kernel
+    against its plain version on the same seed (phase 5's rules), kernel
+    device time (device held), loop time, the plain version's time, and the
+    bound from the live bounces by material kind of a record walk of the
+    same seed."""
+    from raytracing_gpu_tpu_torch.ops import cuda_trace
+
+    h, w, n, depth = st.image_height, st.image_width, st.ray_batch, \
+        st.max_depth
+    pix = n if h * w > n else 0
+    wave = tracer.bind(sd.camera, h, w, depth, st.t_min, st.rr_start)
+    seed = cuda_trace.wave_seed(base, 1, 1)
+    cmp = compare(wave(pix, n, seed), cuda_trace.trace_pixels_reference(
+        tracer.bake, sd.camera, h, w, pix, n, seed, depth, st.t_min,
+        tracer.device, st.rr_start), depth)
+    print(f"[kernel-vs-plain] {label} main wave of {n} rays, depth {depth}: "
+          f"{cmp}")
+    if not cmp["ok"]:
+        raise AssertionError(f"{label}: kernel disagrees with plain on its "
+                             "main wave")
+
+    def kernel_wave(r):
+        return wave(pix, n, cuda_trace.wave_seed(base, r, 1))
+
+    ms = event_ms(kernel_wave, reps=50, hold_device=True)
+    loop_ms = event_ms(kernel_wave, reps=50)
+    plain_ms = event_ms(lambda r: cuda_trace.trace_pixels_reference(
+        tracer.bake, sd.camera, h, w, pix, n, cuda_trace.wave_seed(base, r, 1),
+        depth, st.t_min, tracer.device, st.rr_start), reps=3)
+    plane = tracer.walk_packed_pixels(sd.camera, h, w, pix, n,
+                                      cuda_trace.wave_seed(base, 1, 1),
+                                      depth, st.t_min)
+    ops = wave_ops(tracer, sd.scene, plane, n)
+    nbytes = 12 * n + table_bytes(tracer)
+    bound_ms, bound_by = bound(ops, nbytes)
+    live, cont = live_counts(plane.cpu())
+    print(f"[time] {label} wave of {n} rays, depth {depth}: kernel {ms:.6f} "
+          f"ms on the device ({loop_ms:.6f} ms per call in a Python loop), "
+          f"plain {plain_ms:.6f} ms; bound {bound_ms:.6f} ms by {bound_by} "
+          f"({ops:.0f} ops from {live} live, {cont} continued bounces; "
+          f"{spec_bound_ms(ops, nbytes):.6f} ms over the spec sheet), on "
+          f"{card}")
+    return dict(ms=ms, loop_ms=loop_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, live_bounces=live, cont_bounces=cont,
+                max_abs_err=cmp["max_abs_err"], exact_frac=cmp["exact_frac"])
+
+
+def render_counted(sd, st, dev, card: str, label: str, png: str) -> dict:
+    """`render()` with the launch counts set to 0 just before and read just
+    after: exactly spp x waves forward launches and no record launch; a
+    finite, lit image written to `png`; Mrays/s and the busy share of a
+    profiled repeat."""
+    import numpy as np
+    import torch
+
+    from raytracing_gpu_tpu_torch import render
+    from raytracing_gpu_tpu_torch.engine import film
+    from raytracing_gpu_tpu_torch.ops import cuda_trace
+
+    waves = -(-st.num_pixels // st.ray_batch)
+    expected = st.spp_per_chunk * st.num_chunks * waves
+    render(sd.scene, sd.camera, st.with_(num_chunks=1, spp_per_chunk=1),
+           device=dev)  # warm-up
+    torch.cuda.synchronize()
+    cuda_trace.Tracer.launches = cuda_trace.Tracer.record_launches = 0
+    t0 = time.perf_counter()
+    img = render(sd.scene, sd.camera, st, device=dev)
+    wall = time.perf_counter() - t0
+    launches = cuda_trace.Tracer.launches
+    stray = cuda_trace.Tracer.record_launches
+    rays = st.num_pixels * st.rays_per_pixel
+    print(f"[main] render {label} {st.image_width}x{st.image_height} "
+          f"{st.rays_per_pixel}spp depth {st.max_depth}: {wall:.6f} s, "
+          f"{rays / wall / 1e6:.6f} Mrays/s, launches {launches} (expected "
+          f"{expected}), record launches {stray} on {card}")
+    if launches != expected or stray != 0:
+        raise AssertionError(f"{label}: {launches} forward and {stray} "
+                             f"record kernel launches, expected {expected} "
+                             "and 0")
+    if (img.shape != (st.image_height, st.image_width, 3)
+            or not np.isfinite(img).all()):
+        raise AssertionError(f"{label}: bad image: shape {img.shape}, "
+                             f"finite {np.isfinite(img).all()}")
+    if not 0.05 < float(img.mean()) < 0.999:
+        raise AssertionError(f"{label}: implausible image mean {img.mean()}")
+    os.makedirs(os.path.dirname(os.path.abspath(png)), exist_ok=True)
+    film.write_png(png, img)
+    print(f"[main] {label} image mean {img.mean():.6f} -> {png}")
+    prof = device_busy(lambda: render(sd.scene, sd.camera, st, device=dev))
+    # the profiler slows the host, not the device: its device time over the
+    # counted render's wall is the busy share of that render
+    busy = prof["device_ms"] / (wall * 1e3)
+    print(f"[main] {label} profiled repeat of the render: {prof}")
+    print(f"[main] {label} device busy share of the counted render: "
+          f"{busy:.6f} ({prof['device_ms']:.3f} ms of device time in "
+          f"{wall * 1e3:.3f} ms) on {card}")
+    return dict(launches=launches, wall_s=wall, mrays_per_s=rays / wall / 1e6,
+                busy_share=busy, profiled_busy_share=prof["busy_share"],
+                image_mean=float(img.mean()))
 
 
 def main() -> int:
@@ -248,6 +525,7 @@ def main() -> int:
     ap.add_argument("--png", default=os.path.join(ROOT, "build",
                                                   "chip_smoke_cornell_512.png"))
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import torch
 
@@ -268,318 +546,458 @@ def main() -> int:
 
     import bench_torch
     from raytracing_gpu_tpu_torch import RenderSettings, compile_renderer, render
-    from raytracing_gpu_tpu_torch.engine import diff, film, fused_diff
+    from raytracing_gpu_tpu_torch.engine import diff, fused_diff
     from raytracing_gpu_tpu_torch.engine.integrator import shade_packed
     from raytracing_gpu_tpu_torch.models import scenes
     from raytracing_gpu_tpu_torch.ops import build, cuda_trace
+    from raytracing_gpu_tpu_torch.utils import roofline
 
     def reset_counts():
         cuda_trace.Tracer.launches = 0
         cuda_trace.Tracer.record_launches = 0
+        roofline.launches = 0
 
     # ---- 2. build ----
-    res = build.build(force=True)
-    build.load()
-    print(f"[build] nvcc {' '.join(build.NVCC_FLAGS)}: {res.seconds:.2f} s "
-          f"-> {os.path.relpath(res.library, ROOT)}")
-    for line in res.log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print(f"[build] {line.strip()}")
+    with Phase("2 build"):
+        res = build.build(force=True)
+        build.load()
+        print(f"[build] nvcc {' '.join(build.NVCC_FLAGS)}, "
+              f"{len(build.sources())} sources in parallel: "
+              f"{res.seconds:.2f} s -> {os.path.relpath(res.library, ROOT)}")
+        for line in res.log.splitlines():
+            if ("registers" in line or "spill" in line
+                    or "Compiling entry" in line):
+                print(f"[build] {line.strip()}")
 
     # ---- 3. RNG ----
-    for salt in RNG_SALTS:
-        got = cuda_trace.pcg_uniform(RNG_SEED, RNG_LANES, salt, dev).cpu()
-        want = cuda_trace.pcg_uniform(RNG_SEED, RNG_LANES, salt, "cpu")
-        same = torch.equal(got, want)
-        print(f"[rng] seed {RNG_SEED} salt {salt}: {RNG_LANES} lanes "
-              f"bit-exact={same}")
-        if not same:
-            raise AssertionError(f"device RNG differs at salt {salt}: "
-                                 f"{int((got != want).sum())} lanes")
+    with Phase("3 rng"):
+        for salt in RNG_SALTS:
+            got = cuda_trace.pcg_uniform(RNG_SEED, RNG_LANES, salt, dev).cpu()
+            want = cuda_trace.pcg_uniform(RNG_SEED, RNG_LANES, salt, "cpu")
+            same = torch.equal(got, want)
+            print(f"[rng] seed {RNG_SEED} salt {salt}: {RNG_LANES} lanes "
+                  f"bit-exact={same}")
+            if not same:
+                raise AssertionError(f"device RNG differs at salt {salt}: "
+                                     f"{int((got != want).sum())} lanes")
 
-    # ---- 4. kernel against its plain version on the card ----
+    # ---- 4. kernel 3 and the card's ceilings ----
+    with Phase("4 ceilings"):
+        x = torch.rand(roofline.FMA_ELEMENTS,
+                       generator=torch.Generator().manual_seed(5)).to(dev)
+        k = roofline.FMA_STEPS[1]
+        fma_err = 0.0
+        for steps in FMA_CHECK_STEPS + (k,):
+            got = roofline.fma_chain(x, steps)
+            want = roofline.fma_chain_reference(x, steps)
+            err = float((got - want).abs().max())
+            fma_err = max(fma_err, err)
+            fma_ok = bool(torch.allclose(got, want, rtol=1e-5, atol=0.0))
+            # below ~30 steps the chain has not converged: the plain chain
+            # one step short must fail the same tolerance
+            short_ok = steps == k or not torch.allclose(
+                roofline.fma_chain_reference(x, steps - 1), want, rtol=1e-5,
+                atol=0.0)
+            print(f"[fma-vs-plain] {roofline.FMA_ELEMENTS} elements, {steps} "
+                  f"steps: max abs err {err}, allclose rtol 1e-5 {fma_ok}"
+                  + ("" if steps == k else
+                     f", one step short fails it {short_ok}"))
+            if not (fma_ok and short_ok):
+                raise AssertionError(f"fma_chain disagrees with its plain "
+                                     f"version at {steps} steps, or the "
+                                     "tolerance cannot see a missing step")
+        fma_plain_ms = event_ms(lambda r: roofline.fma_chain_reference(x, k),
+                                reps=1)
+        reset_counts()
+        fma = roofline.fma_ceiling(dev)
+        fma_launches = roofline.launches
+        hbm = roofline.hbm_ceiling(dev)
+        peaks = roofline.card_peaks(dev)
+        Ceilings.flops = max(fma["flops_per_s"], peaks["flops_per_s"])
+        Ceilings.bytes_per_s = max(hbm["bytes_per_s"], peaks["bytes_per_s"])
+        fma_ms = fma["ms"][1]
+        fma_ops = 2 * k * fma["elements"] + 4 * fma["elements"]
+        fma_bound_ms, fma_bound_by = bound(fma_ops, 8 * fma["elements"])
+        print(f"[ceiling] float32 FMA measured "
+              f"{fma['flops_per_s'] / 1e12:.3f} TFLOP/s ({fma_launches} "
+              f"launches), card peak {peaks['flops_per_s'] / 1e12:.3f} "
+              f"(spec sheet {SPEC_FP32_FLOPS / 1e12:.0f}); memory read + "
+              f"write measured {hbm['bytes_per_s'] / 1e12:.3f} TB/s, card "
+              f"peak {peaks['bytes_per_s'] / 1e12:.3f} (spec sheet "
+              f"{SPEC_BYTES_PER_S / 1e12:.2f}) on {card}: {fma}, {hbm}")
+        print(f"[ceiling] every bound divides by "
+              f"{Ceilings.flops / 1e12:.3f} TFLOP/s and "
+              f"{Ceilings.bytes_per_s / 1e12:.3f} TB/s; the probe reaches "
+              f"{fma['flops_per_s'] / Ceilings.flops:.3f} and "
+              f"{hbm['bytes_per_s'] / Ceilings.bytes_per_s:.3f} of them")
+        print(f"[time] fma_chain {fma['elements']} elements x {k} steps: "
+              f"kernel {fma_ms:.6f} ms, plain {fma_plain_ms:.6f} ms, bound "
+              f"{fma_bound_ms:.6f} ms by {fma_bound_by}")
+        del x, got, want  # keep phase 12's peak-memory reading its own
+
+    # ---- 5. kernel against its plain version on the card ----
     sd = scenes.get("cornell_box")
     tracer = cuda_trace.Tracer(sd.scene, dev)
     base = 414133122
-    for depth in (1, 8):
-        got, want = [], []
-        for s in range(4):
-            seed = cuda_trace.wave_seed(base, s, 0)
-            got.append(tracer.trace_pixels(sd.camera, 64, 64, 0, 4096, seed,
-                                           max_depth=depth))
-            want.append(cuda_trace.trace_pixels_reference(
-                tracer.bake, sd.camera, 64, 64, 0, 4096, seed,
-                max_depth=depth, device=dev))
-        torch.cuda.synchronize()
-        cmp = compare(torch.cat(got), torch.cat(want), depth)
-        print(f"[kernel-vs-plain] cornell 64x64 4spp depth {depth}: {cmp}")
-        if not cmp["ok"]:
-            raise AssertionError(f"kernel disagrees with plain at depth {depth}")
-
     main_n, main_depth = 65536, 8
-    seed = cuda_trace.wave_seed(base, 0, 1)
-    got = tracer.trace_pixels(sd.camera, 512, 512, main_n, main_n, seed,
-                              max_depth=main_depth)
-    want = cuda_trace.trace_pixels_reference(
-        tracer.bake, sd.camera, 512, 512, main_n, main_n, seed,
-        max_depth=main_depth, device=dev)
-    main_cmp = compare(got, want, main_depth)
-    print(f"[kernel-vs-plain] main shape 512x512 wave of {main_n} depth "
-          f"{main_depth}: {main_cmp}")
-    if not main_cmp["ok"]:
-        raise AssertionError("kernel disagrees with plain at the main shape")
-    wave = tracer.bind(sd.camera, 512, 512, main_depth)
+    with Phase("5 cornell forward vs plain"):
+        check_scene_kernel(tracer, sd, base, "cornell")
+        seed = cuda_trace.wave_seed(base, 0, 1)
+        got = tracer.trace_pixels(sd.camera, 512, 512, main_n, main_n, seed,
+                                  max_depth=main_depth)
+        want = cuda_trace.trace_pixels_reference(
+            tracer.bake, sd.camera, 512, 512, main_n, main_n, seed,
+            max_depth=main_depth, device=dev)
+        main_cmp = compare(got, want, main_depth)
+        print(f"[kernel-vs-plain] main shape 512x512 wave of {main_n} depth "
+              f"{main_depth}: {main_cmp}")
+        if not main_cmp["ok"]:
+            raise AssertionError("kernel disagrees with plain at the main "
+                                 "shape")
+        wave = tracer.bind(sd.camera, 512, 512, main_depth)
 
-    def kernel_wave(r):
-        return wave(main_n, main_n, cuda_trace.wave_seed(base, r, 1))
+        def kernel_wave(r):
+            return wave(main_n, main_n, cuda_trace.wave_seed(base, r, 1))
 
-    kernel_ms = event_ms(kernel_wave, reps=50, hold_device=True)
-    kernel_loop_ms = event_ms(kernel_wave, reps=50)
-    # the plain version synchronizes once a bounce (its all-dead test), so
-    # its time per call is host and device together
-    plain_ms = event_ms(lambda r: cuda_trace.trace_pixels_reference(
-        tracer.bake, sd.camera, 512, 512, main_n, main_n,
-        cuda_trace.wave_seed(base, r, 1), max_depth=main_depth, device=dev),
-        reps=3)
-    print(f"[time] one wave of {main_n} rays, depth {main_depth}: kernel "
-          f"{kernel_ms:.4f} ms on the device ({kernel_loop_ms:.4f} ms per "
-          f"call in a Python loop), plain {plain_ms:.4f} ms, on {card}")
+        kernel_ms = event_ms(kernel_wave, reps=50, hold_device=True)
+        kernel_loop_ms = event_ms(kernel_wave, reps=50)
+        # the plain version synchronizes once a bounce (its all-dead test),
+        # so its time per call is host and device together
+        plain_ms = event_ms(lambda r: cuda_trace.trace_pixels_reference(
+            tracer.bake, sd.camera, 512, 512, main_n, main_n,
+            cuda_trace.wave_seed(base, r, 1), max_depth=main_depth,
+            device=dev), reps=3)
+        print(f"[time] one wave of {main_n} rays, depth {main_depth}: kernel "
+              f"{kernel_ms:.6f} ms on the device ({kernel_loop_ms:.6f} ms per "
+              f"call in a Python loop), plain {plain_ms:.6f} ms, on {card}; "
+              f"the solid-texture kernel before spheres and media took "
+              f"{CORNELL_WAVE_MS_BEFORE} ms on an H100 80GB HBM3 at 700 W "
+              "(PERF.md)")
 
-    # ---- 5. kernel against the JAX golden ----
-    g = np.load(GOLDEN)
-    gst = RenderSettings(image_width=int(g["image_width"]), aspect_ratio=1.0,
-                         spp_per_chunk=int(g["spp_per_chunk"]), num_chunks=1,
-                         max_depth=int(g["max_depth"]),
-                         ray_batch=int(g["ray_batch"]),
-                         t_min=float(g["t_min"]))
-    golden_chunk = compile_renderer(sd.scene, sd.camera, gst, dev)
-    gcmp = compare(golden_chunk(int(g["base"])),
-                   torch.from_numpy(g["sums"]), gst.max_depth)
-    print(f"[kernel-vs-jax-golden] cornell 32x32 2spp depth "
-          f"{gst.max_depth}: {gcmp}")
-    if not gcmp["ok"]:
-        raise AssertionError("kernel disagrees with the JAX golden")
+    # ---- 6. kernel against the JAX golden ----
+    with Phase("6 cornell forward vs golden"):
+        g = np.load(GOLDEN)
+        gst = golden_settings(g)
+        golden_chunk = compile_renderer(sd.scene, sd.camera, gst, dev)
+        gcmp = compare(golden_chunk(int(g["base"])),
+                       torch.from_numpy(g["sums"]), gst.max_depth)
+        print(f"[kernel-vs-jax-golden] cornell 32x32 2spp depth "
+              f"{gst.max_depth}: {gcmp}")
+        if not gcmp["ok"]:
+            raise AssertionError("kernel disagrees with the JAX golden")
 
-    # ---- 6. the main path ----
-    st = RenderSettings(image_width=512, aspect_ratio=1.0, spp_per_chunk=16,
-                        num_chunks=4, max_depth=8, ray_batch=65536)
-    expected = st.spp_per_chunk * st.num_chunks * (st.num_pixels // st.ray_batch)
-    reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    img = render(sd.scene, sd.camera, st, device=dev)
-    wall = time.perf_counter() - t0
-    launches = cuda_trace.Tracer.launches
-    stray = cuda_trace.Tracer.record_launches
-    rays = st.num_pixels * st.rays_per_pixel
-    print(f"[main] render cornell_box 512x512 64spp depth 8: {wall:.3f} s, "
-          f"{rays / wall / 1e6:.2f} Mrays/s, launches {launches} "
-          f"(expected {expected}), record launches {stray} on {card}")
-    if launches != expected or stray != 0:
-        raise AssertionError(f"{launches} forward and {stray} record kernel "
-                             f"launches, expected {expected} and 0")
-    if img.shape != (512, 512, 3) or not np.isfinite(img).all():
-        raise AssertionError(f"bad image: shape {img.shape}, "
-                             f"finite {np.isfinite(img).all()}")
-    if not 0.05 < float(img.mean()) < 0.999:
-        raise AssertionError(f"implausible image mean {img.mean()}")
-    os.makedirs(os.path.dirname(os.path.abspath(args.png)), exist_ok=True)
-    film.write_png(args.png, img)
-    print(f"[main] image mean {img.mean():.6f} -> {args.png}")
-    prof = device_busy(lambda: render(sd.scene, sd.camera, st, device=dev))
-    # the profiler slows the host, not the device: its device time over the
-    # counted render's wall is the busy share of that render
-    busy = prof["device_ms"] / (wall * 1e3)
-    print(f"[main] profiled repeat of the render: {prof}")
-    print(f"[main] device busy share of the counted render: {busy:.4f} "
-          f"({prof['device_ms']:.3f} ms of device time in {wall * 1e3:.3f} ms)")
-
-    pst = st.with_(num_chunks=1)
-    h, w, b = st.image_height, st.image_width, st.ray_batch
-    nb = st.num_pixels // b
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for s in range(pst.spp_per_chunk):
-        for bid in range(nb):
-            cuda_trace.trace_pixels_reference(
-                tracer.bake, sd.camera, h, w, bid * b, b,
-                cuda_trace.wave_seed(base, s, bid), max_depth=pst.max_depth,
-                device=dev)
-    torch.cuda.synchronize()
-    plain_wall = time.perf_counter() - t0
-    plain_rays = pst.num_pixels * pst.spp_per_chunk
-    print(f"[main] plain version, one 16-spp chunk: {plain_wall:.3f} s, "
-          f"{plain_rays / plain_wall / 1e6:.2f} Mrays/s on {card}")
-
-    # ---- 7. record kernel against its plain version on the card ----
-    for depth in (1, 8):
-        got, want = [], []
-        for s in range(4):
-            seed = cuda_trace.wave_seed(base, s, 0)
-            got.append(tracer.walk_packed_pixels(sd.camera, 64, 64, 0, 4096,
-                                                 seed, max_depth=depth))
-            want.append(cuda_trace.walk_packed_pixels_reference(
-                tracer.bake, sd.camera, 64, 64, 0, 4096, seed,
-                max_depth=depth, device=dev))
+    # ---- 7. the serving path ----
+    with Phase("7 cornell serving"):
+        st = RenderSettings(image_width=512, aspect_ratio=1.0,
+                            spp_per_chunk=16, num_chunks=4, max_depth=8,
+                            ray_batch=65536)
+        serving = render_counted(sd, st, dev, card, "cornell_box", args.png)
+        launches = serving["launches"]
+        pst = st.with_(num_chunks=1)
+        h, w, b = st.image_height, st.image_width, st.ray_batch
+        nb = st.num_pixels // b
         torch.cuda.synchronize()
-        rcmp = record_cmp(torch.stack(got), torch.stack(want))
-        print(f"[record-vs-plain] cornell 64x64 4spp depth {depth}: {rcmp}")
-        if not rcmp["ok"]:
-            raise AssertionError(f"record kernel disagrees with plain at "
-                                 f"depth {depth}")
+        t0 = time.perf_counter()
+        for s in range(pst.spp_per_chunk):
+            for bid in range(nb):
+                cuda_trace.trace_pixels_reference(
+                    tracer.bake, sd.camera, h, w, bid * b, b,
+                    cuda_trace.wave_seed(base, s, bid),
+                    max_depth=pst.max_depth, device=dev)
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t0
+        plain_rays = pst.num_pixels * pst.spp_per_chunk
+        print(f"[main] plain version, one 16-spp chunk: {plain_wall:.3f} s, "
+              f"{plain_rays / plain_wall / 1e6:.2f} Mrays/s on {card}")
 
-    rec_n, rec_base = bench_torch.RAY_BATCH, bench_torch.RAY_BATCH
-    rec_seed = cuda_trace.wave_seed(base, 0, 1)
-    rec_plane = tracer.walk_packed_pixels(sd.camera, 512, 512, rec_base, rec_n,
-                                          rec_seed, max_depth=main_depth)
-    rec_cmp = record_cmp(rec_plane, cuda_trace.walk_packed_pixels_reference(
-        tracer.bake, sd.camera, 512, 512, rec_base, rec_n, rec_seed,
-        max_depth=main_depth, device=dev))
-    print(f"[record-vs-plain] main shape 512x512 wave of {rec_n} depth "
-          f"{main_depth}: {rec_cmp}")
-    if not rec_cmp["ok"]:
-        raise AssertionError("record kernel disagrees with plain at the main "
-                             "shape")
-    rec_wave = tracer.bind_record(sd.camera, 512, 512, main_depth)
+    # ---- 8. record kernel against its plain version on the card ----
+    with Phase("8 cornell record vs plain"):
+        for depth in (1, 8):
+            got, want = [], []
+            for s in range(4):
+                seed = cuda_trace.wave_seed(base, s, 0)
+                got.append(tracer.walk_packed_pixels(
+                    sd.camera, 64, 64, 0, 4096, seed, max_depth=depth))
+                want.append(cuda_trace.walk_packed_pixels_reference(
+                    tracer.bake, sd.camera, 64, 64, 0, 4096, seed,
+                    max_depth=depth, device=dev))
+            torch.cuda.synchronize()
+            rcmp = record_cmp(torch.stack(got), torch.stack(want))
+            print(f"[record-vs-plain] cornell 64x64 4spp depth {depth}: "
+                  f"{rcmp}")
+            if not rcmp["ok"]:
+                raise AssertionError(f"record kernel disagrees with plain at "
+                                     f"depth {depth}")
 
-    def record_wave(r):
-        return rec_wave(rec_base, rec_n, cuda_trace.wave_seed(base, r, 1))
+        rec_n, rec_base = bench_torch.RAY_BATCH, bench_torch.RAY_BATCH
+        rec_seed = cuda_trace.wave_seed(base, 0, 1)
+        rec_plane = tracer.walk_packed_pixels(sd.camera, 512, 512, rec_base,
+                                              rec_n, rec_seed,
+                                              max_depth=main_depth)
+        rec_cmp = record_cmp(rec_plane,
+                             cuda_trace.walk_packed_pixels_reference(
+                                 tracer.bake, sd.camera, 512, 512, rec_base,
+                                 rec_n, rec_seed, max_depth=main_depth,
+                                 device=dev))
+        print(f"[record-vs-plain] main shape 512x512 wave of {rec_n} depth "
+              f"{main_depth}: {rec_cmp}")
+        if not rec_cmp["ok"]:
+            raise AssertionError("record kernel disagrees with plain at the "
+                                 "main shape")
+        rec_wave = tracer.bind_record(sd.camera, 512, 512, main_depth)
 
-    rec_ms = event_ms(record_wave, reps=50, hold_device=True)
-    rec_loop_ms = event_ms(record_wave, reps=50)
-    rec_plain_ms = event_ms(lambda r: cuda_trace.walk_packed_pixels_reference(
-        tracer.bake, sd.camera, 512, 512, rec_base, rec_n,
-        cuda_trace.wave_seed(base, r, 1), max_depth=main_depth, device=dev),
-        reps=3)
-    print(f"[time] record kernel, one wave of {rec_n} rays, depth "
-          f"{main_depth}: {rec_ms:.6f} ms on the device ({rec_loop_ms:.6f} ms "
-          f"per call in a Python loop), plain {rec_plain_ms:.6f} ms, on {card}")
+        def record_wave(r):
+            return rec_wave(rec_base, rec_n, cuda_trace.wave_seed(base, r, 1))
 
-    # bounds from the live bounces of each kernel's main-shape wave
-    table_bytes = 4 * (tracer.rect_table.numel() + tracer.box_table.numel())
-    live, cont = live_counts(rec_plane)
-    rec_bound_ms, rec_bound_by = bound(
-        rec_n * OPS_CAMERA + live * (6 * OPS_RECT + 2 * OPS_BOX + 1)
-        + cont * OPS_SCATTER, 4 * main_depth * rec_n + table_bytes)
-    print(f"[bound] record wave: {live} live, {cont} continued bounces of "
-          f"{rec_n} rays -> {rec_bound_ms:.6f} ms, bound by {rec_bound_by}")
-    fwd_live, fwd_cont = live_counts(tracer.walk_packed_pixels(
-        sd.camera, 512, 512, main_n, main_n, cuda_trace.wave_seed(base, 0, 1),
-        max_depth=main_depth))
-    fwd_bound_ms, fwd_bound_by = bound(
-        main_n * (OPS_CAMERA + OPS_FWD_END)
-        + fwd_live * (6 * OPS_RECT + 2 * OPS_BOX + 1)
-        + fwd_cont * (OPS_SCATTER + OPS_FWD_CONT), 12 * main_n + table_bytes)
-    print(f"[bound] forward wave: {fwd_live} live, {fwd_cont} continued "
-          f"bounces of {main_n} rays -> {fwd_bound_ms:.6f} ms, bound by "
-          f"{fwd_bound_by}")
+        rec_ms = event_ms(record_wave, reps=50, hold_device=True)
+        rec_loop_ms = event_ms(record_wave, reps=50)
+        rec_plain_ms = event_ms(
+            lambda r: cuda_trace.walk_packed_pixels_reference(
+                tracer.bake, sd.camera, 512, 512, rec_base, rec_n,
+                cuda_trace.wave_seed(base, r, 1), max_depth=main_depth,
+                device=dev), reps=3)
+        print(f"[time] record kernel, one wave of {rec_n} rays, depth "
+              f"{main_depth}: {rec_ms:.6f} ms on the device ({rec_loop_ms:.6f}"
+              f" ms per call in a Python loop), plain {rec_plain_ms:.6f} ms, "
+              f"on {card}")
 
-    # ---- 8. record kernel against the JAX golden ----
-    gg = np.load(GRAD_GOLDEN)
-    gst = RenderSettings(image_width=int(gg["image_width"]), aspect_ratio=1.0,
-                         spp_per_chunk=int(gg["spp_per_chunk"]),
-                         num_chunks=1, max_depth=int(gg["max_depth"]),
-                         ray_batch=int(gg["ray_batch"]),
-                         t_min=float(gg["t_min"]))
-    gh, gw, gb = gst.image_height, gst.image_width, gst.ray_batch
-    gbase = int(gg["base"])
-    gwaves = [(s, bid) for s in range(gst.spp_per_chunk)
-              for bid in range(gh * gw // gb)]
-    got = torch.stack([tracer.walk_packed_pixels(
-        sd.camera, gh, gw, bid * gb, gb, cuda_trace.wave_seed(gbase, s, bid),
-        max_depth=gst.max_depth, t_min=gst.t_min) for s, bid in gwaves])
-    jcmp = cuda_trace.record_agreement(got, gg["planes"])
-    print(f"[record-vs-jax-golden] cornell 32x32 2spp depth "
-          f"{gst.max_depth}, {len(gwaves)} waves: {jcmp}")
-    if not (jcmp["first_bounce"] and jcmp["lane_frac"] >= LANE_FLOOR):
-        raise AssertionError("record kernel disagrees with the JAX golden")
+        # bounds from the live bounces of each kernel's main-shape wave
+        tbytes = table_bytes(tracer)
+        live, cont = live_counts(rec_plane)
+        rec_ops = (rec_n * OPS_CAMERA + live * (6 * OPS_RECT + 2 * OPS_BOX + 1)
+                   + cont * OPS_SCATTER[0])
+        rec_bytes = 4 * main_depth * rec_n + tbytes
+        rec_bound_ms, rec_bound_by = bound(rec_ops, rec_bytes)
+        print(f"[bound] record wave: {live} live, {cont} continued bounces of "
+              f"{rec_n} rays -> {rec_bound_ms:.6f} ms, bound by "
+              f"{rec_bound_by} ({spec_bound_ms(rec_ops, rec_bytes):.6f} ms "
+              "over the spec sheet)")
+        fwd_plane = tracer.walk_packed_pixels(
+            sd.camera, 512, 512, main_n, main_n,
+            cuda_trace.wave_seed(base, 0, 1), max_depth=main_depth)
+        fwd_ops = wave_ops(tracer, sd.scene, fwd_plane, main_n)
+        fwd_bound_ms, fwd_bound_by = bound(fwd_ops, 12 * main_n + tbytes)
+        fwd_live, fwd_cont = live_counts(fwd_plane)
+        print(f"[bound] forward wave: {fwd_live} live, {fwd_cont} continued "
+              f"bounces of {main_n} rays -> {fwd_bound_ms:.6f} ms, bound by "
+              f"{fwd_bound_by} "
+              f"({spec_bound_ms(fwd_ops, 12 * main_n + tbytes):.6f} ms over "
+              "the spec sheet)")
 
-    # ---- 9. the two modes agree ----
-    params = diff.get_params(sd.scene, dev)
-    shaded = shade_packed(sd.scene, params, rec_plane, need_p=False,
-                          need_uv=False)
-    fwd = tracer.trace_pixels(sd.camera, 512, 512, rec_base, rec_n, rec_seed,
-                              max_depth=main_depth)
-    mcmp = compare(shaded, fwd, main_depth)
-    print(f"[modes] shade_packed(record) vs forward kernel, 512x512 wave of "
-          f"{rec_n} depth {main_depth}: {mcmp}")
-    if not mcmp["ok"]:
-        raise AssertionError("record and forward modes disagree")
+    # ---- 9. record kernel against the JAX golden ----
+    with Phase("9 cornell record vs golden"):
+        gg = np.load(GRAD_GOLDEN)
+        gst = golden_settings(gg)
+        gh, gw, gb = gst.image_height, gst.image_width, gst.ray_batch
+        gbase = int(gg["base"])
+        gwaves = [(s, bid) for s in range(gst.spp_per_chunk)
+                  for bid in range(gh * gw // gb)]
+        got = torch.stack([tracer.walk_packed_pixels(
+            sd.camera, gh, gw, bid * gb, gb,
+            cuda_trace.wave_seed(gbase, s, bid), max_depth=gst.max_depth,
+            t_min=gst.t_min) for s, bid in gwaves])
+        jcmp = cuda_trace.record_agreement(got, gg["planes"])
+        print(f"[record-vs-jax-golden] cornell 32x32 2spp depth "
+              f"{gst.max_depth}, {len(gwaves)} waves: {jcmp}")
+        if not (jcmp["first_bounce"] and jcmp["lane_frac"] >= LANE_FLOOR):
+            raise AssertionError("record kernel disagrees with the JAX golden")
 
-    # ---- 10. fused chunk against the golden and the plain walk ----
-    want_grads = {k: gg[f"grad_{k}"] for k in diff.PARAM_KEYS}
+    # ---- 10. the two modes agree ----
+    with Phase("10 modes agree"):
+        params = diff.get_params(sd.scene, dev)
+        shaded = shade_packed(sd.scene, params, rec_plane, need_p=False,
+                              need_uv=False)
+        fwd = tracer.trace_pixels(sd.camera, 512, 512, rec_base, rec_n,
+                                  rec_seed, max_depth=main_depth)
+        mcmp = compare(shaded, fwd, main_depth)
+        print(f"[modes] shade_packed(record) vs forward kernel, 512x512 wave "
+              f"of {rec_n} depth {main_depth}: {mcmp}")
+        if not mcmp["ok"]:
+            raise AssertionError("record and forward modes disagree")
 
-    def value_and_grad(chunk):
-        out = chunk(params, gbase)
-        _, grads = diff.value_and_grad(
-            params, lambda p: chunk(p, gbase),
-            torch.full_like(out, float(gg["target"])))
-        return out.detach(), grads
+    # ---- 11. fused chunk against the golden and the plain walk ----
+    with Phase("11 fused chunk"):
+        want_grads = {k: gg[f"grad_{k}"] for k in diff.PARAM_KEYS}
 
-    fused_out, fused_grads = value_and_grad(
-        fused_diff.compile_fused_param_renderer(sd.scene, sd.camera, gst,
-                                                device=dev))
-    plain_out, plain_grads = value_and_grad(fused_diff.fused_chunk_from_walk(
-        sd.scene, lambda pb, n, seed: cuda_trace.walk_packed_pixels_reference(
-            tracer.bake, sd.camera, gh, gw, pb, n, seed, gst.max_depth,
-            gst.t_min, dev), gst, device=dev))
-    for what, out, grads in (
-            ("jax-golden", torch.from_numpy(gg["primal"]), want_grads),
-            ("plain-on-card", plain_out, plain_grads)):
-        pcmp = compare(fused_out, out, gst.max_depth)
-        gcmp = grad_cmp(fused_grads, grads)
-        print(f"[fused-vs-{what}] cornell 32x32 2spp depth {gst.max_depth}: "
-              f"primal {pcmp}, gradients {gcmp}")
-        if not (pcmp["ok"] and gcmp["ok"]):
-            raise AssertionError(f"fused chunk disagrees with the {what}")
+        def value_and_grad(chunk):
+            out = chunk(params, gbase)
+            _, grads = diff.value_and_grad(
+                params, lambda p: chunk(p, gbase),
+                torch.full_like(out, float(gg["target"])))
+            return out.detach(), grads
 
-    # ---- 11. the training path ----
-    tst = bench_torch.settings()
-    tchunk = fused_diff.compile_fused_param_renderer(sd.scene, sd.camera, tst,
-                                                     device=dev)
-    gen = torch.Generator().manual_seed(bench_torch.SEED)
-    target = torch.zeros_like(tchunk(params, cuda_trace.chunk_seed(gen)))
-    bench_torch.train_renders(tchunk, params, target,
-                              [cuda_trace.chunk_seed(gen)])  # warm-up chunk
-    tbases = [cuda_trace.chunk_seed(gen) for _ in range(tst.num_chunks)]
-    t_expected = (tst.num_chunks * tst.spp_per_chunk
-                  * (tst.num_pixels // tst.ray_batch))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    t0 = time.perf_counter()
-    loss, grads = bench_torch.train_renders(tchunk, params, target, tbases)
-    torch.cuda.synchronize()
-    t_wall = time.perf_counter() - t0
-    t_launches = cuda_trace.Tracer.record_launches
-    t_stray = cuda_trace.Tracer.launches
-    peak_mb = torch.cuda.max_memory_allocated() / 2**20
-    t_rays = tst.num_pixels * tst.rays_per_pixel
-    t_mrays = t_rays / t_wall / 1e6
-    print(f"[train] fwd+bwd cornell_box 512x512 64spp depth 8, ray_batch "
-          f"{tst.ray_batch}, save_planes {tchunk.save_planes}: {t_wall:.6f} s, "
-          f"{t_mrays:.6f} Mrays/s, record launches {t_launches} (expected "
-          f"{t_expected}), forward launches {t_stray}, peak allocated "
-          f"{peak_mb:.3f} MiB on {card}")
-    if t_launches != t_expected or t_stray != 0:
-        raise AssertionError(f"{t_launches} record and {t_stray} forward "
-                             f"kernel launches, expected {t_expected} and 0")
-    if not (bool(torch.isfinite(loss)) and float(loss) > 0.0
-            and all(bool(torch.isfinite(g).all()) for g in grads.values())
-            and float(grads["tex_c1"].abs().max()) > 0.0):
-        raise AssertionError(f"bad loss {float(loss)} or gradients")
-    print(f"[train] summed loss {float(loss):.9g}, tex_c1 gradient "
-          f"{grads['tex_c1'].cpu().numpy().tolist()}")
-    tprof = device_busy(lambda: bench_torch.train_renders(tchunk, params,
-                                                          target, tbases))
-    t_busy = tprof["device_ms"] / (t_wall * 1e3)
-    top = sorted(tprof["by_kernel"].items(), key=lambda kv: -kv[1][0])[:12]
-    print(f"[train] profiled repeat: device {tprof['device_ms']:.3f} ms, wall "
-          f"{tprof['wall_ms']:.3f} ms; top kernels (ms, count) {top}")
-    print(f"[train] device busy share of the counted render: {t_busy:.6f} "
-          f"({tprof['device_ms']:.3f} ms of device time in "
-          f"{t_wall * 1e3:.3f} ms)")
+        fused_out, fused_grads = value_and_grad(
+            fused_diff.compile_fused_param_renderer(sd.scene, sd.camera, gst,
+                                                    device=dev))
+        plain_out, plain_grads = value_and_grad(
+            fused_diff.fused_chunk_from_walk(
+                sd.scene,
+                lambda pb, n, seed: cuda_trace.walk_packed_pixels_reference(
+                    tracer.bake, sd.camera, gh, gw, pb, n, seed,
+                    gst.max_depth, gst.t_min, dev), gst, device=dev))
+        for what, out, grads in (
+                ("jax-golden", torch.from_numpy(gg["primal"]), want_grads),
+                ("plain-on-card", plain_out, plain_grads)):
+            pcmp = compare(fused_out, out, gst.max_depth)
+            gcmp = grad_cmp(fused_grads, grads)
+            print(f"[fused-vs-{what}] cornell 32x32 2spp depth "
+                  f"{gst.max_depth}: primal {pcmp}, gradients {gcmp}")
+            if not (pcmp["ok"] and gcmp["ok"]):
+                raise AssertionError(f"fused chunk disagrees with the {what}")
 
+    # ---- 12. the training path ----
+    with Phase("12 training"):
+        tst = bench_torch.settings()
+        tchunk = fused_diff.compile_fused_param_renderer(sd.scene, sd.camera,
+                                                         tst, device=dev)
+        gen = torch.Generator().manual_seed(bench_torch.SEED)
+        target = torch.zeros_like(tchunk(params, cuda_trace.chunk_seed(gen)))
+        bench_torch.train_renders(tchunk, params, target,
+                                  [cuda_trace.chunk_seed(gen)])  # warm-up
+        tbases = [cuda_trace.chunk_seed(gen) for _ in range(tst.num_chunks)]
+        t_expected = (tst.num_chunks * tst.spp_per_chunk
+                      * (tst.num_pixels // tst.ray_batch))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        loss, grads = bench_torch.train_renders(tchunk, params, target, tbases)
+        torch.cuda.synchronize()
+        t_wall = time.perf_counter() - t0
+        t_launches = cuda_trace.Tracer.record_launches
+        t_stray = cuda_trace.Tracer.launches
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20
+        t_rays = tst.num_pixels * tst.rays_per_pixel
+        t_mrays = t_rays / t_wall / 1e6
+        print(f"[train] fwd+bwd cornell_box 512x512 64spp depth 8, ray_batch "
+              f"{tst.ray_batch}, save_planes {tchunk.save_planes}: "
+              f"{t_wall:.6f} s, {t_mrays:.6f} Mrays/s, record launches "
+              f"{t_launches} (expected {t_expected}), forward launches "
+              f"{t_stray}, peak allocated {peak_mb:.3f} MiB on {card}")
+        if t_launches != t_expected or t_stray != 0:
+            raise AssertionError(f"{t_launches} record and {t_stray} forward "
+                                 f"kernel launches, expected {t_expected} "
+                                 "and 0")
+        if not (bool(torch.isfinite(loss)) and float(loss) > 0.0
+                and all(bool(torch.isfinite(g).all()) for g in grads.values())
+                and float(grads["tex_c1"].abs().max()) > 0.0):
+            raise AssertionError(f"bad loss {float(loss)} or gradients")
+        print(f"[train] summed loss {float(loss):.9g}, tex_c1 gradient "
+              f"{grads['tex_c1'].cpu().numpy().tolist()}")
+        tprof = device_busy(lambda: bench_torch.train_renders(
+            tchunk, params, target, tbases))
+        t_busy = tprof["device_ms"] / (t_wall * 1e3)
+        top = sorted(tprof["by_kernel"].items(), key=lambda kv: -kv[1][0])[:12]
+        print(f"[train] profiled repeat: device {tprof['device_ms']:.3f} ms, "
+              f"wall {tprof['wall_ms']:.3f} ms; top kernels (ms, count) {top}")
+        print(f"[train] device busy share of the counted render: "
+              f"{t_busy:.6f} ({tprof['device_ms']:.3f} ms of device time in "
+              f"{t_wall * 1e3:.3f} ms)")
+
+    # ---- 13. the dense scenes: kernel vs plain, then vs the JAX golden ----
+    tracers = {}
+    with Phase("13 dense scenes forward"):
+        for name in DENSE_SCENES:
+            dsd = scenes.get(name)
+            tracers[name] = (dsd, cuda_trace.Tracer(dsd.scene, dev))
+            check_scene_kernel(tracers[name][1], dsd, base, name)
+            g = np.load(os.path.join(DATA, f"{name}_32.npz"))
+            gst = golden_settings(g)
+            got = compile_renderer(dsd.scene, dsd.camera, gst, dev)(
+                int(g["base"]))
+            gcmp = golden_cmp(got, torch.from_numpy(g["sums"]))
+            print(f"[kernel-vs-jax-golden] {name} {gst.image_width}x"
+                  f"{gst.image_height} 2spp depth {gst.max_depth}: {gcmp}")
+            if not gcmp["ok"]:
+                raise AssertionError(f"{name}: kernel disagrees with the JAX "
+                                     "golden")
+
+    # ---- 14. record mode on the solid dense scenes ----
+    with Phase("14 dense scenes record"):
+        for name in RECORD_SCENES:
+            dsd, dtr = tracers[name]
+            got = torch.stack([dtr.walk_packed_pixels(
+                dsd.camera, 64, 64, 0, 4096, cuda_trace.wave_seed(base, s, 0),
+                max_depth=8) for s in range(4)])
+            want = torch.stack([cuda_trace.walk_packed_pixels_reference(
+                dtr.bake, dsd.camera, 64, 64, 0, 4096,
+                cuda_trace.wave_seed(base, s, 0), 8, device=dev)
+                for s in range(4)])
+            rcmp = record_cmp(got, want)
+            print(f"[record-vs-plain] {name} 64x64 4spp depth 8: {rcmp}")
+            if not rcmp["ok"]:
+                raise AssertionError(f"{name}: record kernel disagrees with "
+                                     "plain")
+            g = np.load(os.path.join(DATA, f"{name}_32.npz"))
+            gst = golden_settings(g)
+            gb = int(g["record_ray_batch"])
+            gh, gw = gst.image_height, gst.image_width
+            got = torch.stack([dtr.walk_packed_pixels(
+                dsd.camera, gh, gw, bid * gb, gb,
+                cuda_trace.wave_seed(int(g["base"]), s, bid),
+                gst.max_depth, gst.t_min)
+                for s in range(gst.spp_per_chunk)
+                for bid in range(-(-gh * gw // gb))])
+            jcmp = cuda_trace.record_agreement(got, g["planes"])
+            print(f"[record-vs-jax-golden] {name} {gw}x{gh} 2spp depth "
+                  f"{gst.max_depth}: {jcmp}")
+            if not (jcmp["first_bounce"] and jcmp["lane_frac"] >= LANE_FLOOR):
+                raise AssertionError(f"{name}: record kernel disagrees with "
+                                     "the JAX golden")
+
+    # ---- 15, 16. BASELINE configs 1 and 4 ----
+    configs = {}
+    for phase, cfg, name, width, spp, chunks, depth in BASELINE:
+        with Phase(f"{phase} BASELINE config {cfg}"):
+            dsd, dtr = tracers[name]
+            cst = RenderSettings(image_width=width, aspect_ratio=dsd.aspect,
+                                 spp_per_chunk=spp, num_chunks=chunks,
+                                 max_depth=depth, ray_batch=65536)
+            png = os.path.join(os.path.dirname(os.path.abspath(args.png)),
+                               f"chip_smoke_{name}_{width}.png")
+            configs[name] = render_counted(dsd, cst, dev, card,
+                                           f"{name} (config {cfg})", png)
+            configs[name].update(time_wave(dtr, dsd, cst, base, card,
+                                           f"{name} (config {cfg})"))
+            print(f"[config {cfg}] {name}: {configs[name]}")
+
+    # ---- 17. russian roulette ----
+    with Phase("17 russian roulette"):
+        name, width, spp, depth, rr_start = RR_RENDER
+        dsd, dtr = tracers[name]
+        seed = cuda_trace.wave_seed(base, 0, 1)
+        rr_wave = dtr.trace_pixels(dsd.camera, width, width, 0, 65536, seed,
+                                   max_depth=depth, rr_start=rr_start)
+        rr_cmp = compare(rr_wave, cuda_trace.trace_pixels_reference(
+            dtr.bake, dsd.camera, width, width, 0, 65536, seed, depth,
+            device=dev, rr_start=rr_start), depth)
+        rr_moved = not torch.equal(rr_wave, dtr.trace_pixels(
+            dsd.camera, width, width, 0, 65536, seed, max_depth=depth))
+        print(f"[kernel-vs-plain] {name} wave of 65536 rays, depth {depth}, "
+              f"rr_start {rr_start}: {rr_cmp}; differs from the wave without "
+              f"russian roulette {rr_moved}")
+        if not (rr_cmp["ok"] and rr_moved):
+            raise AssertionError("russian roulette kernel disagrees with "
+                                 "plain, or did not run")
+        rst = RenderSettings(image_width=width, aspect_ratio=dsd.aspect,
+                             spp_per_chunk=spp, num_chunks=1,
+                             max_depth=depth, ray_batch=65536)
+        t0 = time.perf_counter()
+        plain_img = render(dsd.scene, dsd.camera, rst, device=dev)
+        t1 = time.perf_counter()
+        rr_img = render(dsd.scene, dsd.camera, rst.with_(rr_start=rr_start),
+                        device=dev)
+        t2 = time.perf_counter()
+        rr_rel = abs(float(rr_img.mean()) / float(plain_img.mean()) - 1.0)
+        print(f"[rr] {name} {width}x{width} {spp}spp depth {depth}: mean "
+              f"{rr_img.mean():.6f} with rr_start {rr_start}, "
+              f"{plain_img.mean():.6f} without (relative difference "
+              f"{rr_rel:.6f}); render {t2 - t1:.6f} s with russian "
+              f"roulette, {t1 - t0:.6f} s without, on {card}")
+        if not (np.isfinite(rr_img).all() and rr_rel <= RR_MEAN_TOL):
+            raise AssertionError("russian roulette render is off")
+
+    scene_rates = {name: dict(c) for name, c in configs.items()}
     print(json.dumps({"kernels": [{
         "name": "megakernel_fwd", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": launches,
@@ -589,10 +1007,11 @@ def main() -> int:
         "bound_ms": fwd_bound_ms, "bound_by": fwd_bound_by,
         "library_ms": None,
         "loop_ms": kernel_loop_ms,
-        "render_mrays_per_s": rays / wall / 1e6,
-        "render_device_busy_share": busy,
-        "profiled_render_busy_share": prof["busy_share"],
-        "plain_chunk_mrays_per_s": plain_rays / plain_wall / 1e6}, {
+        "render_mrays_per_s": serving["mrays_per_s"],
+        "render_device_busy_share": serving["busy_share"],
+        "profiled_render_busy_share": serving["profiled_busy_share"],
+        "plain_chunk_mrays_per_s": plain_rays / plain_wall / 1e6,
+        "scenes": scene_rates}, {
         "name": "megakernel_record", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": t_launches,
         "max_abs_err": rec_cmp["max_abs_err"],
@@ -603,7 +1022,15 @@ def main() -> int:
         "loop_ms": rec_loop_ms,
         "train_mrays_per_s": t_mrays,
         "train_device_busy_share": t_busy,
-        "train_peak_allocated_mib": peak_mb}]}))
+        "train_peak_allocated_mib": peak_mb}, {
+        "name": "fma_chain", "route": "cuda", "source": FMA_SOURCE,
+        "replaces": FMA_REPLACES, "launches": fma_launches,
+        "max_abs_err": fma_err, "ms": fma_ms, "plain_ms": fma_plain_ms,
+        "bound_ms": fma_bound_ms, "bound_by": fma_bound_by,
+        "library_ms": None,
+        "fma_tflops": fma["flops_per_s"] / 1e12,
+        "memory_tb_per_s": hbm["bytes_per_s"] / 1e12}]}))
+    print(f"[done] {time.perf_counter() - t_start:.2f} s")
     print(card)  # name, power limit: nvidia-smi's own line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

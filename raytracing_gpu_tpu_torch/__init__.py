@@ -7,12 +7,13 @@ package imports torch and never JAX.  Its kernels are CUDA C++ in
 `ops/csrc/`, built with nvcc for sm_90a at first use; on CPU tensors each
 kernel's plain PyTorch version runs instead.
 
-Ported so far, for the scenes whose features the megakernel covers
-(axis-aligned rects, boxes, lambertian and diffuse_light materials, solid
-textures), e.g. `cornell_box`: the forward render (`render`,
-`compile_renderer`) and the differentiable chunk that training runs
-(`compile_fused_param_renderer`: the megakernel's record mode, then the
-shading and its closed-form adjoint in torch).
+Ported so far: the forward render (`render`, `compile_renderer`) of the
+dense scenes (rects, boxes, up to 64 spheres, constant media; every
+material; solid, checker and perlin albedo; russian roulette), e.g.
+`first`, `cornell_smoke`, `two_perlin_spheres`; and the differentiable
+chunk that training runs (`compile_fused_param_renderer`: the megakernel's
+record mode, then the shading and its closed-form adjoint in torch) for
+those of them whose textures are all solid, e.g. `cornell_box`.
 """
 
 from .core.camera import Camera

@@ -35,6 +35,8 @@ def _build_parser() -> argparse.ArgumentParser:
     r.add_argument("--depth", type=int, default=50)        # render.h:27
     r.add_argument("--ray-batch", type=int, default=65536)
     r.add_argument("--seed", type=int, default=1984)       # render.h:91
+    r.add_argument("--rr-start", type=int, default=0,
+                   help="russian roulette from this bounce (0 = off)")
     r.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     r.add_argument("--quiet", action="store_true")
 
@@ -98,7 +100,7 @@ def main(argv=None) -> int:
     st = RenderSettings(image_width=args.width, aspect_ratio=sd.aspect,
                         spp_per_chunk=args.spp, num_chunks=args.chunks,
                         max_depth=args.depth, ray_batch=args.ray_batch,
-                        seed=args.seed)
+                        seed=args.seed, rr_start=args.rr_start)
 
     def progress(c, n, dt):
         if not args.quiet:

@@ -21,9 +21,7 @@ class RenderSettings:
     ray_batch: int = 65536                   # rays per kernel launch (one wave)
     t_min: float = 0.001                     # reference `render.h:62`
     seed: int = 1984                         # reference seed `render.h:91`
-    rr_start: int = 0                        # russian roulette from this bounce
-    #                                          (0 = off; not ported yet, the
-    #                                          renderer raises for > 0)
+    rr_start: int = 0                        # russian roulette from this bounce (0 = off)
 
     @property
     def image_height(self) -> int:

@@ -25,7 +25,9 @@ of `materials.shade`: no per-bounce graph is kept.  The chunk is a
 `torch.autograd.Function` whose backward is exactly that.
 
 Not ported yet: the ray-plane route (`gen_rays=False`, it needs the record
-kernel's ray-plane input) and the sharded form (`fused_diff.py:273`).
+kernel's ray-plane input), the sharded form (`fused_diff.py:273`), and
+scenes whose textures need the hit-point or uv planes (checker, perlin,
+image: `need_p`/`need_uv`), which both entries refuse.
 """
 
 from __future__ import annotations
@@ -116,10 +118,15 @@ def fused_chunk_from_walk(scene: Scene,
     the backward pass, instead of walking the waves again.  Default: on
     when the planes of a chunk fit in 1 GB.
     """
+    feature = cuda_trace.unported_record_feature(scene)
+    if feature is not None:
+        # the shade below reads no hit point and no uv: such a scene would
+        # be shaded at p = 0 without an error
+        raise NotImplementedError(f"{feature}: not yet ported")
     device = torch.device(device)
     _h, _w, _npix, npix_pad, b, nb = _grid_geometry(settings)
     spp, max_depth = settings.spp_per_chunk, settings.max_depth
-    # the ported scenes need the packed plane only (no hit point, no uv)
+    # the accepted scenes need the packed plane only (no hit point, no uv)
     plane_bytes = spp * nb * max_depth * b * 4
     if save_planes is None:
         save_planes = plane_bytes <= _SAVE_PLANES_MAX_BYTES
@@ -175,7 +182,8 @@ def compile_fused_param_renderer(
 
     The walks are the record kernel's on a CUDA device and its plain
     version on the CPU.  Raises NotImplementedError for a scene outside the
-    ported feature set.  See `fused_chunk_from_walk` for `save_planes`.
+    ported feature set, and for one whose textures need the hit-point or uv
+    planes.  See `fused_chunk_from_walk` for `save_planes`.
     """
     tracer = cuda_trace.Tracer(scene, device)  # raises for unported scenes
     h, w, *_ = _grid_geometry(settings)

@@ -8,8 +8,7 @@ kernel launch whose seed is scalar arithmetic on the chunk's base seed
 device; `render_linear` draws each chunk's base from a `torch.Generator`
 seeded with `settings.seed`.
 
-Not ported yet: the XLA and wavefront engines, russian roulette and
-checkpoint/resume.
+Not ported yet: the XLA and wavefront engines and checkpoint/resume.
 """
 
 from __future__ import annotations
@@ -48,16 +47,15 @@ def compile_renderer(scene: Scene, camera: Camera, settings: RenderSettings,
     float32 radiance sums on `device` over `spp_per_chunk` samples.
 
     The megakernel route of the JAX package (`engine/render.py:172-199`):
-    one launch per (sample, wave).  Raises NotImplementedError for a scene
-    outside the ported feature set and for `rr_start > 0`.
+    one launch per (sample, wave), with russian roulette from bounce
+    `settings.rr_start` when it is > 0.  Raises NotImplementedError for a
+    scene outside the ported feature set.
     """
-    if settings.rr_start > 0:
-        raise NotImplementedError(
-            "russian roulette (rr_start > 0): not yet ported")
     device = torch.device(device)
     tracer = cuda_trace.Tracer(scene, device)  # raises for unported scenes
     h, w, _npix, npix_pad, b, nb = _grid_geometry(settings)
-    trace = tracer.bind(camera, h, w, settings.max_depth, settings.t_min)
+    trace = tracer.bind(camera, h, w, settings.max_depth, settings.t_min,
+                        settings.rr_start)
 
     def chunk(base: int) -> torch.Tensor:
         sums = torch.zeros((npix_pad, 3), dtype=torch.float32, device=device)

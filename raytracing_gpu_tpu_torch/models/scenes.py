@@ -1,8 +1,10 @@
 """Scene registry (counterpart of `raytracing_gpu_tpu/models/scenes.py`).
 
 Only the scenes whose features the port covers are registered: `names()`
-lists what renders here.  Camera parameters, materials and geometry are
-transcribed from the same reference lines as the JAX package.
+lists what renders here (the dense scenes: no triangles, no image
+textures, at most 64 spheres).  Camera parameters, materials and geometry
+are transcribed from the same reference lines as the JAX package
+(`raytracing_gpu_tpu/models/scenes.py:60-190`).
 """
 
 from __future__ import annotations
@@ -10,7 +12,7 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 from ..core.camera import Camera
-from ..scene.builder import BLACK, SceneBuilder
+from ..scene.builder import BLACK, SKY, SceneBuilder
 from ..scene.types import Scene
 
 
@@ -47,6 +49,57 @@ def _cam(lookfrom, lookat, vfov, aspect, aperture=0.0, focus=10.0) -> Camera:
                        focus, 0.0, 1.0)
 
 
+@register("basic")
+def basic_scene() -> SceneDef:
+    """reference `create_basic_world` (`scenes.h:82-100`)."""
+    b = SceneBuilder(background=SKY)
+    b.sphere((0, 0, -1), 0.5, b.lambertian((0, 1, 0)))
+    b.sphere((0, -100.5, -1), 100, b.lambertian((0, 0, 1)))
+    return SceneDef(b.build(), _cam((0, 0, -3), (0, 0, 0), 40, 16 / 9), 16 / 9)
+
+
+@register("first")
+def first_scene() -> SceneDef:
+    """reference `create_first_world` (`scenes.h:106-137`), with the hollow
+    glass sphere made by a negative radius."""
+    b = SceneBuilder(background=SKY)
+    ground = b.lambertian((0.8, 0.8, 0.0))
+    center = b.lambertian((0.1, 0.2, 0.3))
+    left = b.dielectric(2.5)
+    right = b.metal((0.8, 0.6, 0.2), 0.2)
+    front = b.dielectric(2.0)
+    b.sphere((0.0, -100.5, -1.0), 100.0, ground)
+    b.sphere((0.0, 0.0, -1.0), 0.5, center)
+    b.sphere((-1.0, 0.0, -1.0), 0.5, left)
+    b.sphere((1.0, 0.0, -1.0), 0.5, right)
+    b.sphere((0.0, 1.0, -0.75), 0.25, front)
+    b.sphere((0.0, 1.0, -0.75), -0.25, front)
+    return SceneDef(b.build(), _cam((-2, 2, -3), (0, 0, -1), 20, 16 / 9),
+                    16 / 9)
+
+
+@register("two_spheres")
+def two_spheres() -> SceneDef:
+    """reference `create_two_spheres_world` (`scenes.h:225-243`)."""
+    b = SceneBuilder(background=SKY)
+    checker = b.checker((0.2, 0.3, 0.1), (0.9, 0.9, 0.9))
+    mat = b.lambertian(checker)
+    b.sphere((0, -10, 0), 10, mat)
+    b.sphere((0, 10, 0), 10, mat)
+    cam = _cam((13, 2, 3), (0, 0, 0), 20, 16 / 9, aperture=0.1)
+    return SceneDef(b.build(), cam, 16 / 9)
+
+
+@register("two_perlin_spheres")
+def two_perlin_spheres() -> SceneDef:
+    """reference `create_two_perlin_spheres_world` (`scenes.h:248-274`)."""
+    b = SceneBuilder(background=SKY)
+    b.sphere((0, -1000, 0), 1000, b.lambertian(b.marble(4.0)))
+    b.sphere((0, 2, 0), 2, b.lambertian(b.turbulence(5.0)))
+    cam = _cam((13, 2, 3), (0, 0, 0), 20, 16 / 9, aperture=0.1)
+    return SceneDef(b.build(), cam, 16 / 9)
+
+
 def _cornell_walls(b: SceneBuilder, light_rect) -> int:
     """Walls + light shared by the Cornell scenes (`scenes.h:323-345`)."""
     red = b.lambertian((0.65, 0.05, 0.05))
@@ -69,5 +122,18 @@ def cornell_box() -> SceneDef:
     white = _cornell_walls(b, (213, 343, 227, 332))
     b.box((0, 0, 0), (165, 330, 165), white, rotate_y=15, translate=(265, 0, 295))
     b.box((0, 0, 0), (165, 165, 165), white, rotate_y=-18, translate=(130, 0, 65))
+    cam = _cam((278, 278, -800), (278, 278, 0), 40, 1.0)
+    return SceneDef(b.build(), cam, 1.0)
+
+
+@register("cornell_smoke")
+def cornell_smoke() -> SceneDef:
+    """reference `create_cornell_smoke_box_world` (`scenes.h:365-404`)."""
+    b = SceneBuilder(background=BLACK)
+    _cornell_walls(b, (113, 443, 127, 432))
+    b.box_medium((0, 0, 0), (165, 330, 165), 0.01, (0, 0, 0),
+                 rotate_y=15, translate=(265, 0, 295))
+    b.box_medium((0, 0, 0), (165, 165, 165), 0.01, (1, 1, 1),
+                 rotate_y=-18, translate=(130, 0, 65))
     cam = _cam((278, 278, -800), (278, 278, 0), 40, 1.0)
     return SceneDef(b.build(), cam, 1.0)

@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-At first use, `nvcc` compiles every source in `csrc/` for Hopper (`sm_90a`)
-into one shared library with a plain C interface, under `build/torch_kernels/`
-at the root of the checkout, and `ctypes` loads it.  The library is rebuilt
-when a source is newer than it.  A failed build or load raises: nothing
-falls back to the plain PyTorch versions.
+At first use, `nvcc` compiles every `.cu` source in `csrc/` for Hopper
+(`sm_90a`), one process per source, all started together, and links the
+objects into one shared library with a plain C interface, under
+`build/torch_kernels/` at the root of the checkout; `ctypes` loads it.  The
+library is rebuilt when a source (`.cu` or `.cuh`) is newer than it.  A
+failed build or load raises: nothing falls back to the plain PyTorch
+versions.
 
 The flags keep every multiply and add rounding on its own (`-fmad=false`,
 no `--use_fast_math`), so the kernels round like their plain versions.
@@ -19,6 +21,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple, Optional
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -27,7 +30,7 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 BUILD_DIR = os.path.join(_ROOT, "build", "torch_kernels")
 LIBRARY = os.path.join(BUILD_DIR, "librt_torch_kernels.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 _BUILD_TIMEOUT_S = 600
 
 _lock = threading.Lock()
@@ -37,7 +40,7 @@ _lib: Optional[ctypes.CDLL] = None
 class RtParams(ctypes.Structure):
     """Launch constants of `rt_trace_pixels` and `rt_walk_packed_pixels`,
     passed by value; the field order and types follow `struct RtParams` in
-    csrc/megakernel.cu."""
+    csrc/megakernel.cuh."""
 
     _fields_ = [
         ("origin", ctypes.c_float * 3), ("llc", ctypes.c_float * 3),
@@ -47,10 +50,14 @@ class RtParams(ctypes.Structure):
         ("inv_w", ctypes.c_float), ("inv_h", ctypes.c_float),
         ("t_min", ctypes.c_float),
         ("bg", ctypes.c_float * 3),
+        ("time0", ctypes.c_float), ("time_span", ctypes.c_float),
         ("img_h", ctypes.c_int), ("img_w", ctypes.c_int),
         ("pix_base", ctypes.c_int), ("n", ctypes.c_int),
         ("seed", ctypes.c_int), ("max_depth", ctypes.c_int),
         ("n_rects", ctypes.c_int), ("n_boxes", ctypes.c_int),
+        ("n_spheres", ctypes.c_int), ("n_sphere_media", ctypes.c_int),
+        ("n_box_media", ctypes.c_int), ("has_time", ctypes.c_int),
+        ("rr_start", ctypes.c_int), ("features", ctypes.c_int),
     ]
 
 
@@ -85,16 +92,7 @@ def _stale() -> bool:
     return any(os.path.getmtime(s) > built for s in sources())
 
 
-def build(force: bool = False) -> BuildResult:
-    """Compile csrc/ into LIBRARY when it is missing or older than a source;
-    raises RuntimeError with nvcc's output when the build fails."""
-    if not force and not _stale():
-        return BuildResult(LIBRARY, 0.0, "")
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
-    cu = [s for s in sources() if s.endswith(".cu")]
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
-    t0 = time.perf_counter()
+def _run(cmd: list, what: str) -> str:
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=_BUILD_TIMEOUT_S)
@@ -103,10 +101,34 @@ def build(force: bool = False) -> BuildResult:
                            f"{' '.join(cmd)}") from e
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+        raise RuntimeError(f"nvcc failed on {what} ({proc.returncode}): "
                            f"{' '.join(cmd)}\n{log}")
+    return log
+
+
+def build(force: bool = False) -> BuildResult:
+    """Compile csrc/ into LIBRARY when it is missing or older than a source:
+    one nvcc per `.cu` file, run in parallel, then one link.  Raises
+    RuntimeError with nvcc's output when a step fails."""
+    if not force and not _stale():
+        return BuildResult(LIBRARY, 0.0, "")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tag = f"{os.getpid()}.tmp"
+    cu = [s for s in sources() if s.endswith(".cu")]
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(c)}.{tag}.o")
+            for c in cu]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(cu)) as pool:
+        logs = list(pool.map(
+            lambda c_o: _run([nvcc(), *NVCC_FLAGS, "-c", "-o", c_o[1],
+                              c_o[0]], os.path.basename(c_o[0])),
+            zip(cu, objs)))
+    tmp = f"{LIBRARY}.{tag}"
+    logs.append(_run([nvcc(), "-shared", "-o", tmp, *objs], "the link"))
+    for o in objs:
+        os.remove(o)
     os.replace(tmp, LIBRARY)
-    return BuildResult(LIBRARY, time.perf_counter() - t0, log)
+    return BuildResult(LIBRARY, time.perf_counter() - t0, "".join(logs))
 
 
 def load() -> ctypes.CDLL:
@@ -118,14 +140,21 @@ def load() -> ctypes.CDLL:
             build()
             lib = ctypes.CDLL(LIBRARY)
             ptr = ctypes.c_void_p
-            lib.rt_trace_pixels.argtypes = [ptr, ptr, RtParams, ptr, ptr, ptr,
-                                            ptr]
+            lib.rt_trace_pixels.argtypes = [ptr, ptr, ptr, ptr, RtParams, ptr,
+                                            ptr, ptr, ptr]
             lib.rt_trace_pixels.restype = ctypes.c_int
-            lib.rt_walk_packed_pixels.argtypes = [ptr, ptr, RtParams, ptr, ptr]
+            lib.rt_walk_packed_pixels.argtypes = [ptr, ptr, ptr, ptr, RtParams,
+                                                  ptr, ptr]
             lib.rt_walk_packed_pixels.restype = ctypes.c_int
             lib.rt_pcg_uniform.argtypes = [ctypes.c_int, ctypes.c_int,
                                            ctypes.c_int, ptr, ptr]
             lib.rt_pcg_uniform.restype = ctypes.c_int
+            lib.rt_fma_chain.argtypes = [ptr, ptr, ctypes.c_int, ctypes.c_int,
+                                         ptr]
+            lib.rt_fma_chain.restype = ctypes.c_int
+            lib.rt_device_peaks.argtypes = [ctypes.c_int,
+                                            ctypes.POINTER(ctypes.c_double)]
+            lib.rt_device_peaks.restype = ctypes.c_int
             lib.rt_error_string.argtypes = [ctypes.c_int]
             lib.rt_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -1,0 +1,796 @@
+// Path-tracing megakernel for Hopper (sm_90a), camera rays made in the
+// kernel, in its two modes: forward radiance and the record walk.
+//
+// Replaces the TPU kernel `_make_kernel` launched by `_run`
+// (raytracing_gpu_tpu/ops/pallas_trace.py:821-1643, pl.pallas_call at :1703)
+// for the dense scenes: axis-aligned rects, boxes under rotate_y +
+// translate, up to 64 spheres (static, moving, hollow) in a dense loop, up
+// to 16 constant media in a sphere or a box; lambertian, metal, dielectric,
+// diffuse_light and isotropic materials; solid, checker, noise, turbulence
+// and marble albedo; russian roulette and the shutter time.  Two kernels
+// share one closest hit, one media test, one camera and one scatter, so
+// both modes trace the same paths with the same rounding:
+//
+// - megakernel_fwd, forward mode (shade=True, record=False, cam=...): per
+//   ray radiance over the whole bounce loop (`PallasTracer.trace_pixels`).
+// - megakernel_record, record mode (record=True, shade=False, cam=...): per
+//   bounce one packed int32 word `mat | hit<<16 | cont<<17 | miss<<18`
+//   (pallas_trace.py:1536-1541, `PallasTracer.walk_packed_pixels`).  Only
+//   for scenes whose textures are all solid: no hit-point or uv planes
+//   (need_p = need_uv = False), so the packed plane is the only output.
+//
+// This header holds the device code; the C entry points are in
+// megakernel.cu, and the forward instantiations are spread over three
+// translation units (megakernel.cu: solid albedo; megakernel_checker.cu;
+// megakernel_perlin.cu) that nvcc compiles in parallel.  The host side and
+// the plain PyTorch versions of both functions are in ../cuda_trace.py.
+//
+// Design.  One thread traces one ray of the wave and runs its own bounce
+// loop, leaving it when its ray dies.  That is what the TPU tile computes:
+// there a (64, 128) tile loops until all its lanes are dead, and a dead lane
+// adds nothing (pallas_trace.py:1397-1398, 1626-1637).  In record mode the
+// thread writes word b of its ray to out[b * n + i], so the 32 threads of a
+// warp store one contiguous 128-byte line per bounce; after its path ends it
+// writes 0 for its remaining bounces, which takes the place of the TPU
+// kernel's pre-zeroed plane (:1558-1561).  A TPU lane that died inside a
+// tile that is still live stores its frozen ray's `mat` with its mask bits
+// at zero; a thread here writes 0 instead.
+//
+// The kernels are templates over what the bake uses (kFeat* bits: spheres,
+// media, checker albedo, perlin albedo), as the JAX kernel
+// compiles unused texture families away (`tex_kinds`, :860-866): the
+// Cornell box does not carry the sphere loop, the media test or the perlin
+// turbulence (7 octaves x 8 hashed corners) in its registers.  The material
+// kinds are a branch on the winner's kind: each thread computes only its
+// own scatter.
+//
+// Every primitive record holds the same 12-float shading block (kind, c1,
+// c2, scale, fuzz, ir, texk, mat: columns 9-20 of the JAX sphere rows,
+// :175-177); the closest hit keeps a pointer to the winner's block instead
+// of copying its fields.
+//
+// What bounds it on Hopper.  Per-thread ALU work and divergence, not bytes:
+// each ray tests every primitive record at every bounce, draws its random
+// numbers from a counter-based hash, and writes 12 bytes at the end
+// (forward) or 4 bytes per bounce (record).  So the records are staged once
+// per block into shared memory, where every thread of a warp reads the same
+// word at the same time (a broadcast), and the only device-memory traffic is
+// the output stores.  Rays of a warp that die early leave their lanes idle
+// until the warp's longest path ends; regrouping live rays is work for a
+// later change.
+//
+// Rounding.  The build compiles this code with -fmad=false and without
+// --use_fast_math, so every multiply and add rounds on its own, as in the
+// plain versions and in XLA; the normal's and the direction's lengths use
+// 1.0f / sqrtf(x), not rsqrtf.  cosf/sinf/logf/expf differ from XLA's and
+// torch's CPU versions by an ulp here and there, which is why the
+// multi-bounce comparisons with the JAX package are stated per pixel.  The
+// constants the JAX kernel takes from Python doubles are rounded once to
+// float32, on the host (the media records) or as static_cast<float>(double).
+//
+// The random numbers reproduce the JAX kernel's bit for bit: lane = thread
+// index within the call, base = pcg(lane ^ uint32(seed) * 0x85EBCA6B), bounce
+// b draws at base + uint32(b * 32) * 0x68E31DA4 (salts 0-1 lambertian, 3-5
+// in_sphere, 7 dielectric choice, 8 russian roulette, 16 + i medium i) and
+// the camera at base + 0x7F4A7C15 * 0x68E31DA4 (salts 0-1 jitter, 2-3 lens,
+// 4 shutter time), all uint32 arithmetic wrapping.
+
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+// Keep in step with RtParams in ../build.py.
+struct RtParams {
+  float origin[3], llc[3], hor[3], ver[3], cu[3], cv[3];
+  float lens_radius;
+  float inv_w, inv_h;  // float32(1 / max(dim - 1, 1))
+  float t_min;
+  float bg[3];
+  float time0, time_span;  // shutter time: time0 + time_span * u if has_time
+  int img_h, img_w, pix_base, n, seed, max_depth;
+  int n_rects, n_boxes, n_spheres, n_sphere_media, n_box_media;
+  int has_time, rr_start, features;
+};
+
+// The four record tables, in device memory.
+struct RtTables {
+  const float* rects;
+  const float* boxes;
+  const float* spheres;
+  const float* media;
+};
+
+// Instantiation bits (FEAT_* in ../cuda_trace.py).
+constexpr unsigned kFeatSpheres = 1, kFeatMedia = 2;
+constexpr unsigned kFeatChecker = 8, kFeatPerlin = 16;
+constexpr unsigned kFeatGeometry = kFeatSpheres | kFeatMedia;
+
+// Forward launchers, one per albedo family, each in its own translation
+// unit: `features` selects the instantiation within it.
+int launch_fwd_solid(const RtTables& t, const RtParams& p, float* out_r,
+                     float* out_g, float* out_b, cudaStream_t s);
+int launch_fwd_checker(const RtTables& t, const RtParams& p, float* out_r,
+                       float* out_g, float* out_b, cudaStream_t s);
+int launch_fwd_perlin(const RtTables& t, const RtParams& p, float* out_r,
+                      float* out_g, float* out_b, cudaStream_t s);
+
+namespace rt {
+
+constexpr float kBig = 1e30f;
+constexpr float kEps = 1e-12f;
+constexpr float kTwoPi = static_cast<float>(2.0 * 3.14159265358979323846);
+constexpr float kThird = static_cast<float>(1.0 / 3.0);
+constexpr float kPerlinNorm = static_cast<float>(1.0 / 1.15);
+constexpr float kRrFloor = static_cast<float>(0.05);
+constexpr int kThreads = 128;
+constexpr size_t kMaxTableBytes = 48 * 1024;
+constexpr int kMaxSpheres = 64;
+constexpr int kMaxMedia = 16;
+
+// record layouts (RECT_COLS ... in ../cuda_trace.py)
+constexpr int kShKind = 0, kShC1 = 1, kShC2 = 4, kShScale = 7, kShFuzz = 8;
+constexpr int kShIr = 9, kShTexk = 10, kShMat = 11;
+constexpr int kRectCols = 18, kRectSh = 6;
+constexpr int kBoxCols = 24, kBoxSh = 12;
+constexpr int kSphCols = 24, kSphSh = 9;
+constexpr int kMedCols = 24, kMedSh = 12;
+
+// material and texture kinds (scene/types.py)
+constexpr int kMetal = 1, kDielectric = 2, kDiffuseLight = 3, kIsotropic = 4;
+constexpr int kTexChecker = 1, kTexNoise = 2, kTexTurb = 3, kTexMarble = 4;
+
+constexpr int32_t kHitBit = 1 << 16;
+constexpr int32_t kContBit = 1 << 17;
+constexpr int32_t kMissBit = 1 << 18;
+constexpr uint32_t kSeedMix = 0x85EBCA6Bu;
+constexpr uint32_t kSaltMul = 0x9E3779B9u;
+constexpr uint32_t kDrawMul = 0x68E31DA4u;
+constexpr uint32_t kCamDraw = 0x7F4A7C15u * 0x68E31DA4u;  // wraps mod 2^32
+
+__device__ __forceinline__ uint32_t pcg_hash(uint32_t x) {
+  x = x * 747796405u + 2891336453u;
+  x = ((x >> ((x >> 28u) + 4u)) ^ x) * 277803737u;
+  return (x >> 22u) ^ x;
+}
+
+// U[0, 1): the top 24 bits of the hash times 2^-24 (exact in float32).
+__device__ __forceinline__ float uniform01(uint32_t base, uint32_t salt) {
+  const uint32_t bits = pcg_hash(base + salt * kSaltMul);
+  return static_cast<float>(static_cast<int>(bits >> 8)) * (1.0f / 16777216.0f);
+}
+
+// Sign-preserving divisor guard: |v| < 1e-12 becomes +-1e-12.
+__device__ __forceinline__ float guard(float v) {
+  return fabsf(v) < kEps ? (v >= 0.0f ? kEps : -kEps) : v;
+}
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz;
+};
+
+// The winner of the closest-hit test: t (kBig on a miss), outward normal,
+// and its shading block in shared memory (nullptr on a miss).
+struct Hit {
+  float t, nx, ny, nz;
+  const float* sh;
+};
+
+// Shared-memory views of the staged tables.
+struct Tables {
+  const float *rects, *boxes, *spheres, *media;
+};
+
+// Copies the four tables into the block's shared memory; every thread of
+// the block must call it.
+__device__ __forceinline__ Tables stage_tables(const RtTables& t,
+                                               const RtParams& p,
+                                               float* smem) {
+  const int rect_words = p.n_rects * kRectCols;
+  const int box_words = p.n_boxes * kBoxCols;
+  const int sph_words = p.n_spheres * kSphCols;
+  const int med_words = (p.n_sphere_media + p.n_box_media) * kMedCols;
+  Tables s;
+  s.rects = smem;
+  s.boxes = s.rects + rect_words;
+  s.spheres = s.boxes + box_words;
+  s.media = s.spheres + sph_words;
+  for (int k = threadIdx.x; k < rect_words; k += blockDim.x) smem[k] = t.rects[k];
+  for (int k = threadIdx.x; k < box_words; k += blockDim.x)
+    smem[rect_words + k] = t.boxes[k];
+  for (int k = threadIdx.x; k < sph_words; k += blockDim.x)
+    smem[rect_words + box_words + k] = t.spheres[k];
+  for (int k = threadIdx.x; k < med_words; k += blockDim.x)
+    smem[rect_words + box_words + sph_words + k] = t.media[k];
+  __syncthreads();
+  return s;
+}
+
+// ---- thin-lens camera with shutter time (pallas_trace.py:1569-1611) ----
+// Pixel ids past the image clamp to its last pixel; row and column are plain
+// integer division (the TPU kernel's float-reciprocal divide is a Mosaic
+// workaround).
+__device__ __forceinline__ Ray camera_ray(const RtParams& p, int i,
+                                          uint32_t rng_base, float* tm) {
+  const int last = p.img_h * p.img_w - 1;
+  const int pix = min(p.pix_base + i, last);
+  int row = pix / p.img_w;
+  const int col = pix - row * p.img_w;
+  row = min(row, p.img_h - 1);
+  const uint32_t cdraw = rng_base + kCamDraw;
+  const float su = (static_cast<float>(col) + uniform01(cdraw, 0u)) * p.inv_w;
+  const float sv =
+      (static_cast<float>(p.img_h - 1 - row) + uniform01(cdraw, 1u)) * p.inv_h;
+  float offx = 0.0f, offy = 0.0f, offz = 0.0f;
+  if (p.lens_radius != 0.0f) {
+    const float theta = kTwoPi * uniform01(cdraw, 2u);
+    const float rr = p.lens_radius * sqrtf(uniform01(cdraw, 3u));
+    const float rdx = rr * cosf(theta);
+    const float rdy = rr * sinf(theta);
+    offx = p.cu[0] * rdx + p.cv[0] * rdy;
+    offy = p.cu[1] * rdx + p.cv[1] * rdy;
+    offz = p.cu[2] * rdx + p.cv[2] * rdy;
+  }
+  *tm = p.has_time ? p.time0 + p.time_span * uniform01(cdraw, 4u) : p.time0;
+  Ray r;
+  r.ox = p.origin[0] + offx;
+  r.oy = p.origin[1] + offy;
+  r.oz = p.origin[2] + offz;
+  r.dx = p.llc[0] + su * p.hor[0] + sv * p.ver[0] - r.ox;
+  r.dy = p.llc[1] + su * p.hor[1] + sv * p.ver[1] - r.oy;
+  r.dz = p.llc[2] + su * p.hor[2] + sv * p.ver[2] - r.oz;
+  return r;
+}
+
+// World -> object transform of a ray for a box record at q (bmin3 bmax3 cos
+// sin off3), then the six slab distances: near/far per axis.
+struct Slabs {
+  float tnx, tfx, tny, tfy, tnz, tfz, dx2, dz2;
+};
+
+__device__ __forceinline__ Slabs box_slabs(const float* q, const Ray& r) {
+  const float c = q[6], s = q[7];
+  const float ox_t = r.ox - q[8];
+  const float oy_t = r.oy - q[9];
+  const float oz_t = r.oz - q[10];
+  const float ox2 = c * ox_t - s * oz_t;
+  const float oz2 = s * ox_t + c * oz_t;
+  Slabs b;
+  b.dx2 = c * r.dx - s * r.dz;
+  b.dz2 = s * r.dx + c * r.dz;
+  const float ivx = 1.0f / guard(b.dx2);
+  const float ivy = 1.0f / guard(r.dy);
+  const float ivz = 1.0f / guard(b.dz2);
+  const float tx0 = (q[0] - ox2) * ivx, tx1 = (q[3] - ox2) * ivx;
+  const float ty0 = (q[1] - oy_t) * ivy, ty1 = (q[4] - oy_t) * ivy;
+  const float tz0 = (q[2] - oz2) * ivz, tz1 = (q[5] - oz2) * ivz;
+  b.tnx = fminf(tx0, tx1);
+  b.tfx = fmaxf(tx0, tx1);
+  b.tny = fminf(ty0, ty1);
+  b.tfy = fmaxf(ty0, ty1);
+  b.tnz = fminf(tz0, tz1);
+  b.tfz = fmaxf(tz0, tz1);
+  return b;
+}
+
+// ---- closest hit: rects, boxes, then spheres, strict < (:961-1185) ----
+template <unsigned F>
+__device__ __forceinline__ Hit closest_hit(const Tables& s, const RtParams& p,
+                                           const Ray& r, float tm) {
+  Hit h;
+  h.t = kBig;
+  h.nx = h.ny = h.nz = 0.0f;
+  h.sh = nullptr;
+  for (int k = 0; k < p.n_rects; ++k) {
+    const float* q = s.rects + k * kRectCols;
+    const int ax = static_cast<int>(q[0]);
+    const float o_k = ax == 0 ? r.ox : (ax == 1 ? r.oy : r.oz);
+    const float d_k = ax == 0 ? r.dx : (ax == 1 ? r.dy : r.dz);
+    const float t = (q[5] - o_k) / guard(d_k);
+    // varying coordinates in ascending axis order: yz, xz, xy
+    const float oa = ax == 0 ? r.oy : r.ox, da = ax == 0 ? r.dy : r.dx;
+    const float ob = ax == 2 ? r.oy : r.oz, db = ax == 2 ? r.dy : r.dz;
+    const float pa = oa + t * da;
+    const float pb = ob + t * db;
+    const bool ok = t >= p.t_min && pa >= q[1] && pa <= q[2] && pb >= q[3] &&
+                    pb <= q[4];
+    if (ok && t < h.t) {
+      h.t = t;
+      h.nx = ax == 0 ? 1.0f : 0.0f;
+      h.ny = ax == 1 ? 1.0f : 0.0f;
+      h.nz = ax == 2 ? 1.0f : 0.0f;
+      h.sh = q + kRectSh;
+    }
+  }
+  for (int k = 0; k < p.n_boxes; ++k) {
+    // world -> object transform + slab test (box.h + hittable.h wrappers)
+    const float* q = s.boxes + k * kBoxCols;
+    const Slabs b = box_slabs(q, r);
+    const float tn = fmaxf(fmaxf(b.tnx, b.tny), b.tnz);
+    const float tf = fminf(fminf(b.tfx, b.tfy), b.tfz);
+    const float t = tn >= p.t_min ? tn : tf;
+    const bool ok = tf > fmaxf(tn, 0.0f) && t >= p.t_min;
+    if (ok && t < h.t) {
+      // face: the slab whose bound equals t, flipped when exiting
+      const bool is_x = t == b.tnx || t == b.tfx;
+      const bool is_y = t == b.tny || t == b.tfy;
+      const bool exiting = t == tf;
+      const float sx = ((b.dx2 >= 0.0f) != exiting) ? -1.0f : 1.0f;
+      const float sy = ((r.dy >= 0.0f) != exiting) ? -1.0f : 1.0f;
+      const float sz = ((b.dz2 >= 0.0f) != exiting) ? -1.0f : 1.0f;
+      const float nobj_x = is_x ? sx : 0.0f;
+      const float nobj_y = (!is_x && is_y) ? sy : 0.0f;
+      const float nobj_z = (!is_x && !is_y) ? sz : 0.0f;
+      const float c = q[6], sn = q[7];
+      h.t = t;
+      h.nx = c * nobj_x + sn * nobj_z;  // object -> world rotation
+      h.ny = nobj_y;
+      h.nz = (-sn) * nobj_x + c * nobj_z;
+      h.sh = q + kBoxSh;
+    }
+  }
+  if (F & kFeatSpheres) {
+    // dense sphere loop (sphere_candidate, :1105-1168), moving centers at
+    // the ray's shutter time, a negative radius turning the normal inward
+    const float a = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
+    const float inv_a = 1.0f / fmaxf(a, kEps);
+    for (int k = 0; k < p.n_spheres; ++k) {
+      const float* q = s.spheres + k * kSphCols;
+      const float span = q[7] - q[6];
+      const float denom = fabsf(span) < kEps ? 1.0f : span;
+      const float frac = (tm - q[6]) / denom;
+      const float cx = q[0] + frac * (q[3] - q[0]);
+      const float cy = q[1] + frac * (q[4] - q[1]);
+      const float cz = q[2] + frac * (q[5] - q[2]);
+      const float ocx = r.ox - cx, ocy = r.oy - cy, ocz = r.oz - cz;
+      const float rad = q[8];
+      const float hb = ocx * r.dx + ocy * r.dy + ocz * r.dz;
+      const float cc = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
+      const float disc = hb * hb - a * cc;
+      const float sq = sqrtf(fmaxf(disc, 0.0f));
+      const float near = (-hb - sq) * inv_a;
+      const float far = (-hb + sq) * inv_a;
+      const bool has = disc > 0.0f && fabsf(rad) > 0.0f;
+      const float t = (has && near >= p.t_min) ? near
+                      : ((has && far >= p.t_min) ? far : kBig);
+      if (t < kBig * 0.5f && t < h.t) {
+        const float inv_r = 1.0f / (fabsf(rad) < kEps ? 1.0f : rad);
+        h.t = t;
+        h.nx = (r.ox + t * r.dx - cx) * inv_r;
+        h.ny = (r.oy + t * r.dy - cy) * inv_r;
+        h.nz = (r.oz + t * r.dz - cz) * inv_r;
+        h.sh = q + kSphSh;
+      }
+    }
+  }
+  return h;
+}
+
+// ---- constant media (constant_medium.h:34-70, :1297-1395) ----
+// Per boundary: its [enter, exit] interval clipped by the closest solid
+// hit, and an exponential free path drawn with salt 16 + index; the nearest
+// scatter event wins over the surface, with the arbitrary normal (1, 0, 0).
+// Record: nid | sphere: c0 xyz, c1 - c0 xyz, t0, 1 / (t1 - t0), radius^2,
+// or box: bmin3 bmax3 cos sin off3 | shading; sphere media come first.
+__device__ __forceinline__ void media_hit(const Tables& s, const RtParams& p,
+                                          const Ray& r, float tm,
+                                          uint32_t draw, Hit& h) {
+  const float d_len = sqrtf(r.dx * r.dx + r.dy * r.dy + r.dz * r.dz);
+  const float inv_dlen = 1.0f / fmaxf(d_len, 1e-30f);
+  float m_t = kBig;
+  const float* m_sh = nullptr;
+  const int n_media = p.n_sphere_media + p.n_box_media;
+  for (int im = 0; im < n_media; ++im) {
+    const float* q = s.media + im * kMedCols;
+    float lo, hi;
+    bool exists;
+    if (im < p.n_sphere_media) {
+      const float frac = (tm - q[7]) * q[8];
+      const float ocx = r.ox - (q[1] + frac * q[4]);
+      const float ocy = r.oy - (q[2] + frac * q[5]);
+      const float ocz = r.oz - (q[3] + frac * q[6]);
+      const float a = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
+      const float hb = ocx * r.dx + ocy * r.dy + ocz * r.dz;
+      const float cc = ocx * ocx + ocy * ocy + ocz * ocz - q[9];
+      const float disc = hb * hb - a * cc;
+      const float sq = sqrtf(fmaxf(disc, 0.0f));
+      const float inv_a = 1.0f / fmaxf(a, kEps);
+      lo = (-hb - sq) * inv_a;
+      hi = (-hb + sq) * inv_a;
+      exists = disc > 0.0f;
+    } else {
+      const Slabs b = box_slabs(q + 1, r);
+      lo = fmaxf(fmaxf(b.tnx, b.tny), b.tnz);
+      hi = fminf(fminf(b.tfx, b.tfy), b.tfz);
+      exists = hi > lo;
+    }
+    const float enter = fmaxf(lo, p.t_min);
+    const float exit = fminf(hi, h.t);
+    const float seg = (exit - enter) * d_len;
+    const float u_fp = fmaxf(uniform01(draw, 16u + im), kEps);
+    const float hit_dist = q[0] * logf(u_fp);
+    const float t_m = enter + hit_dist * inv_dlen;
+    if (exists && exit > enter && hit_dist <= seg && t_m < m_t) {
+      m_t = t_m;
+      m_sh = q + kMedSh;
+    }
+  }
+  if (m_t < h.t) {
+    h.t = m_t;
+    h.nx = 1.0f;
+    h.ny = 0.0f;
+    h.nz = 0.0f;
+    h.sh = m_sh;
+  }
+}
+
+// ---- hash-gradient perlin (scene/perlin.py, :732-779) ----
+__device__ __forceinline__ uint32_t hash3(int i, int j, int k) {
+  return pcg_hash(static_cast<uint32_t>(i) * 0x8DA6B343u ^
+                  static_cast<uint32_t>(j) * 0xD8163841u ^
+                  static_cast<uint32_t>(k) * 0xCB1AB31Fu);
+}
+
+__device__ __forceinline__ float grad_dot(uint32_t hash, float x, float y,
+                                          float z) {
+  const int h = static_cast<int>(hash & 15u);
+  float u = h < 8 ? x : y;
+  float v = h < 4 ? y : ((h == 12 || h == 14) ? x : z);
+  u = (h & 1) == 0 ? u : -u;
+  v = (h & 2) == 0 ? v : -v;
+  return u + v;
+}
+
+__device__ inline float noise3(float px, float py, float pz) {
+  const float fx = floorf(px), fy = floorf(py), fz = floorf(pz);
+  const float u = px - fx, v = py - fy, w = pz - fz;
+  // float -> int truncates toward zero, as astype(int32); floors are exact
+  const int i = static_cast<int>(fx);
+  const int j = static_cast<int>(fy);
+  const int k = static_cast<int>(fz);
+  const float uu = u * u * (3.0f - 2.0f * u);
+  const float vv = v * v * (3.0f - 2.0f * v);
+  const float ww = w * w * (3.0f - 2.0f * w);
+  float accum = 0.0f;
+#pragma unroll
+  for (int di = 0; di < 2; ++di) {
+    const float wi = di ? uu : (1.0f - uu);
+#pragma unroll
+    for (int dj = 0; dj < 2; ++dj) {
+      const float wj = dj ? vv : (1.0f - vv);
+#pragma unroll
+      for (int dk = 0; dk < 2; ++dk) {
+        const float wk = dk ? ww : (1.0f - ww);
+        const float g = grad_dot(hash3(i + di, j + dj, k + dk),
+                                 u - static_cast<float>(di),
+                                 v - static_cast<float>(dj),
+                                 w - static_cast<float>(dk));
+        accum = accum + wi * wj * wk * g;
+      }
+    }
+  }
+  return accum * kPerlinNorm;
+}
+
+__device__ inline float turb3(float px, float py, float pz) {
+  float accum = 0.0f, weight = 1.0f;
+  for (int o = 0; o < 7; ++o) {
+    accum = accum + weight * noise3(px, py, pz);
+    weight *= 0.5f;
+    px = px * 2.0f;
+    py = py * 2.0f;
+    pz = pz * 2.0f;
+  }
+  return fabsf(accum);
+}
+
+// ---- deferred albedo of the winner at p (_deferred_albedo, :782-818) ----
+template <unsigned F>
+__device__ __forceinline__ void albedo(const float* sh, float px, float py,
+                                       float pz, float& ar, float& ag,
+                                       float& ab) {
+  ar = sh[kShC1];
+  ag = sh[kShC1 + 1];
+  ab = sh[kShC1 + 2];
+  if (!(F & (kFeatChecker | kFeatPerlin))) return;
+  const int texk = static_cast<int>(sh[kShTexk]);
+  const float scale = sh[kShScale];
+  if ((F & kFeatChecker) && texk == kTexChecker) {
+    const float sines =
+        sinf(scale * px) * sinf(scale * py) * sinf(scale * pz);
+    if (sines < 0.0f) {
+      ar = sh[kShC2];
+      ag = sh[kShC2 + 1];
+      ab = sh[kShC2 + 2];
+    }
+  }
+  if ((F & kFeatPerlin) && texk >= kTexNoise && texk <= kTexMarble) {
+    const float spx = scale * px, spy = scale * py, spz = scale * pz;
+    float gray;
+    if (texk == kTexNoise) {
+      gray = 0.5f * (1.0f + noise3(spx, spy, spz));
+    } else {
+      const float turb = turb3(spx, spy, spz);
+      gray = texk == kTexTurb ? turb
+                              : 0.5f * (1.0f + sinf(scale * pz + 10.0f * turb));
+    }
+    ar = ag = ab = gray;
+  }
+}
+
+// Uniform direction on the sphere from salts salt, salt + 1 (_unit_vector).
+__device__ __forceinline__ void unit_vector(uint32_t draw, uint32_t salt,
+                                            float& x, float& y, float& z) {
+  z = 2.0f * uniform01(draw, salt) - 1.0f;
+  const float phi = kTwoPi * uniform01(draw, salt + 1u);
+  const float r = sqrtf(fmaxf(1.0f - z * z, 0.0f));
+  x = r * cosf(phi);
+  y = r * sinf(phi);
+}
+
+// Uniform point in the unit ball from salts 3-5 (_in_sphere, :690-695):
+// u^(1/3) as exp(log(u) / 3).
+__device__ __forceinline__ void in_sphere(uint32_t draw, float& x, float& y,
+                                          float& z) {
+  unit_vector(draw, 3u, x, y, z);
+  const float u = fmaxf(uniform01(draw, 5u), kEps);
+  const float r = expf(logf(u) * kThird);
+  x = r * x;
+  y = r * y;
+  z = r * z;
+}
+
+// The scattered direction of a hit of material `kind` (:1444-1513); false
+// when the path ends there (metal below the surface).  n is the unit normal
+// against the ray, `front` whether the ray met the outward normal's side.
+__device__ __forceinline__ bool scatter(int kind, const float* sh, bool front,
+                                        float nx, float ny, float nz,
+                                        uint32_t draw, Ray& r) {
+  float x, y, z;
+  if (kind == kIsotropic) {
+    in_sphere(draw, x, y, z);
+  } else if (kind == kMetal || kind == kDielectric) {
+    // reflect(unit(d), n)
+    const float dlen =
+        1.0f / sqrtf(fmaxf(r.dx * r.dx + r.dy * r.dy + r.dz * r.dz, 1e-20f));
+    const float udx = r.dx * dlen, udy = r.dy * dlen, udz = r.dz * dlen;
+    const float dn = udx * nx + udy * ny + udz * nz;
+    const float rx = udx - 2.0f * dn * nx;
+    const float ry = udy - 2.0f * dn * ny;
+    const float rz = udz - 2.0f * dn * nz;
+    if (kind == kMetal) {
+      in_sphere(draw, x, y, z);
+      const float fuzz = sh[kShFuzz];
+      x = rx + fuzz * x;
+      y = ry + fuzz * y;
+      z = rz + fuzz * z;
+      if (!((x * nx + y * ny + z * nz) > 0.0f)) return false;
+    } else {
+      const float ir = sh[kShIr];
+      const float ratio = front ? 1.0f / ir : ir;
+      const float cos_t = fminf(-(udx * nx + udy * ny + udz * nz), 1.0f);
+      const float sin_t = sqrtf(fmaxf(1.0f - cos_t * cos_t, 0.0f));
+      const bool cannot = ratio * sin_t > 1.0f;
+      float r0 = (1.0f - ratio) / (1.0f + ratio);
+      r0 = r0 * r0;
+      const float om = 1.0f - cos_t;
+      const float om2 = om * om;
+      const float schlick = r0 + (1.0f - r0) * om2 * om2 * om;
+      if (cannot || schlick > uniform01(draw, 7u)) {
+        x = rx;
+        y = ry;
+        z = rz;
+      } else {
+        const float perx = ratio * (udx + cos_t * nx);
+        const float pery = ratio * (udy + cos_t * ny);
+        const float perz = ratio * (udz + cos_t * nz);
+        const float k2 =
+            fmaxf(1.0f - (perx * perx + pery * pery + perz * perz), 0.0f);
+        const float par = -sqrtf(k2);
+        x = perx + par * nx;
+        y = pery + par * ny;
+        z = perz + par * nz;
+      }
+    }
+  } else {  // lambertian: n + unit vector, n itself when degenerate
+    unit_vector(draw, 0u, x, y, z);
+    x = nx + x;
+    y = ny + y;
+    z = nz + z;
+    if (fabsf(x) < 1e-8f && fabsf(y) < 1e-8f && fabsf(z) < 1e-8f) {
+      x = nx;
+      y = ny;
+      z = nz;
+    }
+  }
+  r.dx = x;
+  r.dy = y;
+  r.dz = z;
+  return true;
+}
+
+// One bounce's surface: set_face_normal + normalize (:1413-1423) into n,
+// the hit point into p; returns `front`.
+__device__ __forceinline__ bool surface(const Hit& h, const Ray& r, float& nx,
+                                        float& ny, float& nz, float& px,
+                                        float& py, float& pz) {
+  const bool front = (r.dx * h.nx + r.dy * h.ny + r.dz * h.nz) < 0.0f;
+  const float flip = front ? 1.0f : -1.0f;
+  const float nlen =
+      1.0f / sqrtf(fmaxf(h.nx * h.nx + h.ny * h.ny + h.nz * h.nz, 1e-20f));
+  nx = h.nx * flip * nlen;
+  ny = h.ny * flip * nlen;
+  nz = h.nz * flip * nlen;
+  px = r.ox + h.t * r.dx;
+  py = r.oy + h.t * r.dy;
+  pz = r.oz + h.t * r.dz;
+  return front;
+}
+
+// Closest hit over the surfaces, then the media, for bounce draw `draw`.
+template <unsigned F>
+__device__ __forceinline__ Hit scene_hit(const Tables& s, const RtParams& p,
+                                         const Ray& r, float tm,
+                                         uint32_t draw) {
+  Hit h = closest_hit<F>(s, p, r, tm);
+  if (F & kFeatMedia) media_hit(s, p, r, tm, draw, h);
+  return h;
+}
+
+__device__ __forceinline__ uint32_t lane_base(const RtParams& p, int i) {
+  return pcg_hash(static_cast<uint32_t>(i) ^
+                  (static_cast<uint32_t>(p.seed) * kSeedMix));
+}
+
+__device__ __forceinline__ uint32_t draw_window(uint32_t rng_base, int b) {
+  return rng_base + static_cast<uint32_t>(b * 32) * kDrawMul;
+}
+
+template <unsigned F>
+__global__ void __launch_bounds__(kThreads)
+megakernel_fwd(const RtTables tables, const RtParams p,
+               float* __restrict__ out_r, float* __restrict__ out_g,
+               float* __restrict__ out_b) {
+  extern __shared__ float smem[];
+  const Tables s = stage_tables(tables, p, smem);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= p.n) return;
+  const uint32_t rng_base = lane_base(p, i);
+  float tm;
+  Ray r = camera_ray(p, i, rng_base, &tm);
+
+  float tr = 1.0f, tg = 1.0f, tb = 1.0f;
+  float lr = 0.0f, lg = 0.0f, lb = 0.0f;
+  for (int b = 0; b < p.max_depth; ++b) {
+    const uint32_t draw = draw_window(rng_base, b);
+    const Hit h = scene_hit<F>(s, p, r, tm, draw);
+    if (!(h.t < kBig * 0.5f)) {  // miss: background, then the path ends
+      lr = lr + tr * p.bg[0];
+      lg = lg + tg * p.bg[1];
+      lb = lb + tb * p.bg[2];
+      break;
+    }
+    float nx, ny, nz, px, py, pz, ar, ag, ab;
+    const bool front = surface(h, r, nx, ny, nz, px, py, pz);
+    albedo<F>(h.sh, px, py, pz, ar, ag, ab);
+    const int kind = static_cast<int>(h.sh[kShKind]);
+    if (kind == kDiffuseLight) {  // emission, then the path ends
+      lr = lr + tr * ar;
+      lg = lg + tg * ag;
+      lb = lb + tb * ab;
+      break;
+    }
+    if (!scatter(kind, h.sh, front, nx, ny, nz, draw, r)) break;
+    if (kind != kDielectric) {  // throughput (:1515-1519)
+      tr = tr * ar;
+      tg = tg * ag;
+      tb = tb * ab;
+    }
+    if (p.rr_start > 0 && b >= p.rr_start) {  // uniform across the launch
+      // russian roulette (:1521-1534): go on with p = clip(max throughput,
+      // 0.05, 1), reweighted by 1 / p
+      const float pr = fminf(fmaxf(fmaxf(tr, fmaxf(tg, tb)), kRrFloor), 1.0f);
+      if (!(uniform01(draw, 8u) < pr)) break;
+      const float inv_p = 1.0f / pr;
+      tr = tr * inv_p;
+      tg = tg * inv_p;
+      tb = tb * inv_p;
+    }
+    r.ox = px;
+    r.oy = py;
+    r.oz = pz;
+  }
+  out_r[i] = lr;
+  out_g[i] = lg;
+  out_b[i] = lb;
+}
+
+template <unsigned F>
+__global__ void __launch_bounds__(kThreads)
+megakernel_record(const RtTables tables, const RtParams p,
+                  int32_t* __restrict__ out_packed) {
+  extern __shared__ float smem[];
+  const Tables s = stage_tables(tables, p, smem);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= p.n) return;
+  const uint32_t rng_base = lane_base(p, i);
+  float tm;
+  Ray r = camera_ray(p, i, rng_base, &tm);
+
+  int32_t* out = out_packed + i;
+  const size_t stride = static_cast<size_t>(p.n);
+  bool alive = true;
+  for (int b = 0; b < p.max_depth; ++b) {
+    int32_t word = 0;  // a bounce after the path's end records nothing
+    if (alive) {
+      // hit, cont and miss as at pallas_trace.py:1397-1398 and :1512-1513
+      const uint32_t draw = draw_window(rng_base, b);
+      const Hit h = scene_hit<F>(s, p, r, tm, draw);
+      if (!(h.t < kBig * 0.5f)) {
+        word = kMissBit;
+        alive = false;
+      } else {
+        float nx, ny, nz, px, py, pz;
+        const bool front = surface(h, r, nx, ny, nz, px, py, pz);
+        const int kind = static_cast<int>(h.sh[kShKind]);
+        alive = kind != kDiffuseLight &&
+                scatter(kind, h.sh, front, nx, ny, nz, draw, r);
+        word = static_cast<int32_t>(h.sh[kShMat]) | kHitBit |
+               (alive ? kContBit : 0);
+        r.ox = px;
+        r.oy = py;
+        r.oz = pz;
+      }
+    }
+    out[b * stride] = word;
+  }
+}
+
+// False when `p` is outside what the kernels take; else sets the
+// shared-memory bytes of the tables.
+inline bool check_launch(const RtParams& p, size_t* table_bytes) {
+  *table_bytes =
+      (static_cast<size_t>(p.n_rects) * kRectCols +
+       static_cast<size_t>(p.n_boxes) * kBoxCols +
+       static_cast<size_t>(p.n_spheres) * kSphCols +
+       static_cast<size_t>(p.n_sphere_media + p.n_box_media) * kMedCols) *
+      sizeof(float);
+  const bool spheres = (p.features & kFeatSpheres) != 0;
+  const bool media = (p.features & kFeatMedia) != 0;
+  return p.n > 0 && p.n_rects >= 0 && p.n_boxes >= 0 && p.img_h > 0 &&
+         p.img_w > 0 && p.max_depth >= 0 && p.pix_base >= 0 &&
+         p.rr_start >= 0 && p.n_spheres >= 0 && p.n_spheres <= kMaxSpheres &&
+         p.n_sphere_media >= 0 && p.n_box_media >= 0 &&
+         p.n_sphere_media + p.n_box_media <= kMaxMedia &&
+         spheres == (p.n_spheres > 0) &&
+         media == (p.n_sphere_media + p.n_box_media > 0) &&
+         *table_bytes <= kMaxTableBytes;
+}
+
+template <unsigned F>
+int launch_fwd(const RtTables& t, const RtParams& p, float* out_r,
+               float* out_g, float* out_b, cudaStream_t stream) {
+  size_t table_bytes;
+  if (!check_launch(p, &table_bytes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (p.n + kThreads - 1) / kThreads;
+  megakernel_fwd<F><<<blocks, kThreads, table_bytes, stream>>>(t, p, out_r,
+                                                                out_g, out_b);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The forward launcher of one albedo family: the four spheres x media
+// instantiations over TEX.  Russian roulette is a branch on p.rr_start,
+// uniform across the launch, not an instantiation.
+template <unsigned TEX>
+int launch_fwd_family(const RtTables& t, const RtParams& p, float* out_r,
+                      float* out_g, float* out_b, cudaStream_t s) {
+  switch (static_cast<unsigned>(p.features) & kFeatGeometry) {
+    case 0: return launch_fwd<TEX | 0>(t, p, out_r, out_g, out_b, s);
+    case 1: return launch_fwd<TEX | 1>(t, p, out_r, out_g, out_b, s);
+    case 2: return launch_fwd<TEX | 2>(t, p, out_r, out_g, out_b, s);
+    default: return launch_fwd<TEX | 3>(t, p, out_r, out_g, out_b, s);
+  }
+}
+
+}  // namespace rt

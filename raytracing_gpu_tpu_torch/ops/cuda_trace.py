@@ -3,12 +3,19 @@
 Counterpart of `raytracing_gpu_tpu/ops/pallas_trace.py` with the camera rays
 made inside the kernel, in its two modes: forward radiance
 (`PallasTracer.trace_pixels`) and the record walk
-(`PallasTracer.walk_packed_pixels`), for the feature set the port covers so
-far: axis-aligned rects, boxes under rotate_y + translate, lambertian and
-diffuse_light materials, solid textures.  The kernels are
-`csrc/megakernel.cu`; `trace_pixels_reference` and
-`walk_packed_pixels_reference` are the same functions in plain PyTorch,
-written op for op in the kernels' order so that the two round alike.
+(`PallasTracer.walk_packed_pixels`), for the dense scenes: axis-aligned
+rects, boxes under rotate_y + translate, up to 64 spheres (static, moving,
+hollow) in a dense loop, up to 16 constant media in a sphere or a box;
+lambertian, metal, dielectric, diffuse_light and isotropic materials;
+solid, checker, noise, turbulence and marble albedo; russian roulette and
+the shutter time.  The kernels are `csrc/megakernel.cuh`;
+`trace_pixels_reference` and `walk_packed_pixels_reference` are the same
+functions in plain PyTorch, written op for op in the kernels' order so that
+the two round alike.
+
+Not ported (`unported_feature` names them): triangles, the sphere BVH (more
+than 64 spheres), image textures; in record mode also the hit-point and uv
+planes that checker, perlin and image textures need (`need_p`/`need_uv`).
 
 The random numbers are the JAX kernel's, bit for bit: a PCG hash of the
 lane index within the call mixed with an int32 seed, then one more hash per
@@ -32,6 +39,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..scene import perlin
 from ..scene import types as st
 from ..scene.textures import TEXTURE_NAMES
 from . import build
@@ -56,14 +64,32 @@ _EPS = _f32(1e-12)
 _TWO_PI = _f32(2.0 * math.pi)
 _DEGEN = _f32(1e-8)
 _NORM_FLOOR = _f32(1e-20)
+_THIRD = _f32(1.0 / 3.0)
+_LEN_FLOOR = _f32(1e-30)
+_RR_FLOOR = _f32(0.05)
 
-# kernel record layouts (csrc/megakernel.cu reads these columns)
-RECT_COLS = 12   # axis a0 a1 b0 b1 k kind c1r c1g c1b mat pad
-BOX_COLS = 16    # bmin xyz, bmax xyz, cos sin, off xyz, kind, c1 rgb, mat
+# Kernel record layouts (csrc/megakernel.cuh reads these columns).  Every
+# record ends in, or holds at a fixed offset, the same 12-column shading
+# block, which is columns 9-20 of the JAX package's sphere rows
+# (`_SPH_KIND`..`_SPH_MAT`, pallas_trace.py:175-177).
+SH_KIND, SH_C1, SH_C2, SH_SCALE, SH_FUZZ, SH_IR, SH_TEXK, SH_MAT = (
+    0, 1, 4, 7, 8, 9, 10, 11)
+SH_COLS = 12
+RECT_COLS, RECT_SH = 18, 6     # axis a0 a1 b0 b1 k | shading
+BOX_COLS, BOX_SH = 24, 12      # bmin xyz, bmax xyz, cos sin, off xyz, pad | shading
+SPHERE_COLS, SPHERE_SH = 24, 9  # c0 xyz, c1 xyz, t0 t1 radius | shading | u_off pad pad
+MEDIUM_COLS, MEDIUM_SH = 24, 12
+# medium record: nid, then a sphere's c0 xyz, c1 - c0 xyz, t0,
+# 1 / (t1 - t0), radius**2 (3 pad), or a box's bmin xyz, bmax xyz, cos sin,
+# off xyz; then the shading block.  Sphere media come first, then box
+# media, in the JAX kernel's order (`:1303`).
+MAX_SPHERES = 64   # the JAX kernel's dense loop (`_SPH_BVH_MIN`, :149)
+MAX_MEDIA = 16     # RNG salts per bounce for free paths (`_MAX_MEDIA`, :178)
 HIT_BIT, CONT_BIT, MISS_BIT = 1 << 16, 1 << 17, 1 << 18  # packed record word
-_SUPPORTED_MATERIALS = {st.LAMBERTIAN, st.DIFFUSE_LIGHT}
-_MATERIAL_NAMES = {st.METAL: "metal", st.DIELECTRIC: "dielectric",
-                   st.ISOTROPIC: "isotropic"}
+# what a launch's kernel instantiation covers (csrc/megakernel.cuh kFeat*)
+FEAT_SPHERES, FEAT_MEDIA, FEAT_CHECKER, FEAT_PERLIN = 1, 2, 8, 16
+_PERLIN_KINDS = {st.TEX_NOISE, st.TEX_TURB, st.TEX_MARBLE}
+_POSITION_KINDS = {st.TEX_CHECKER} | _PERLIN_KINDS
 
 
 # --------------------------------------------------------------------------
@@ -72,29 +98,99 @@ _MATERIAL_NAMES = {st.METAL: "metal", st.DIELECTRIC: "dielectric",
 
 
 class SceneBake(NamedTuple):
-    """Host snapshot of what the kernel reads: one dict of Python floats per
-    active rect and box, with the same keys as the JAX bake's records, and
-    the background."""
+    """Host snapshot of what the kernel reads, as `pallas_trace.bake_scene`
+    makes it for the dense scenes: one dict of Python floats per active
+    rect, box and medium, with the JAX bake's keys; the dense sphere table
+    in the JAX column layout; and the background."""
 
     rects: list
     boxes: list
+    sphere_table: np.ndarray  # (S, 24) float32
+    sphere_media: list
+    box_media: list
     background: tuple
 
     def rect_table(self) -> np.ndarray:
         """(R, RECT_COLS) float32 records for the kernel."""
         t = np.zeros((len(self.rects), RECT_COLS), np.float32)
         for i, r in enumerate(self.rects):
-            t[i, :11] = (r["axis"], r["a0"], r["a1"], r["b0"], r["b1"],
-                         r["k"], r["kind"], *r["c1"], r["mat"])
+            t[i, :RECT_SH] = (r["axis"], r["a0"], r["a1"], r["b0"], r["b1"],
+                              r["k"])
+            t[i, RECT_SH:] = _shading_row(r)
         return t
 
     def box_table(self) -> np.ndarray:
         """(B, BOX_COLS) float32 records for the kernel."""
         t = np.zeros((len(self.boxes), BOX_COLS), np.float32)
         for i, b in enumerate(self.boxes):
-            t[i, :16] = (*b["bmin"], *b["bmax"], b["cos"], b["sin"],
-                         *b["off"], b["kind"], *b["c1"], b["mat"])
+            t[i, :11] = _box_geometry(b)
+            t[i, BOX_SH:] = _shading_row(b)
         return t
+
+    def media_table(self) -> np.ndarray:
+        """(M, MEDIUM_COLS) float32 records for the kernel: sphere media,
+        then box media.  The sphere's constants are the JAX kernel's Python
+        doubles (`:1311-1323`) rounded once to float32."""
+        t = np.zeros((len(self.sphere_media) + len(self.box_media),
+                      MEDIUM_COLS), np.float32)
+        for i, m in enumerate(self.sphere_media):
+            span = m["t1"] - m["t0"]
+            span = span if abs(span) > 1e-12 else 1.0
+            c0, c1 = m["center0"], m["center1"]
+            t[i, 1:10] = (*c0, *(b - a for a, b in zip(c0, c1)), m["t0"],
+                          1.0 / span, m["radius"] * m["radius"])
+        for i, m in enumerate(self.box_media, start=len(self.sphere_media)):
+            t[i, 1:12] = _box_geometry(m)
+        for i, m in enumerate(self.sphere_media + self.box_media):
+            t[i, 0] = m["nid"]
+            t[i, MEDIUM_SH:] = _shading_row(m)
+        return t
+
+    def shading_table(self) -> np.ndarray:
+        """(1 + R + B + S + M, 12) float32: a default row (what a miss
+        carries: everything 0 but ir = 1), then every primitive's shading
+        block in the closest-hit order.  The plain versions carry an index
+        into it."""
+        rows = [np.array([0] * SH_IR + [1, 0, 0], np.float32)[None]]
+        rows += [self.rect_table()[:, RECT_SH:], self.box_table()[:, BOX_SH:],
+                 self.sphere_table[:, SPHERE_SH:SPHERE_SH + SH_COLS],
+                 self.media_table()[:, MEDIUM_SH:]]
+        return np.concatenate(rows).astype(np.float32)
+
+    def texture_kinds(self) -> set:
+        """The texture kinds the kernel evaluates (`tex_kinds`, :860-866)."""
+        return self._kinds("texk", SH_TEXK)
+
+    def material_kinds(self) -> set:
+        return self._kinds("kind", SH_KIND)
+
+    def _kinds(self, key: str, col: int) -> set:
+        prims = self.rects + self.boxes + self.sphere_media + self.box_media
+        return ({int(p[key]) for p in prims}
+                | {int(k) for k in self.sphere_table[:, SPHERE_SH + col]})
+
+    def features(self) -> int:
+        """The FEAT_* bits of the forward kernel instantiation this bake
+        needs; perlin textures take the instantiation that also has the
+        checker."""
+        f = FEAT_SPHERES if len(self.sphere_table) else 0
+        if self.sphere_media or self.box_media:
+            f |= FEAT_MEDIA
+        kinds = self.texture_kinds()
+        if kinds & _PERLIN_KINDS:
+            f |= FEAT_CHECKER | FEAT_PERLIN
+        elif st.TEX_CHECKER in kinds:
+            f |= FEAT_CHECKER
+        return f
+
+
+def _shading_row(prim: dict) -> tuple:
+    return (prim["kind"], *prim["c1"], *prim["c2"], prim["scale"],
+            prim["fuzz"], prim["ir"], prim["texk"], prim["mat"])
+
+
+def _box_geometry(b: dict) -> tuple:
+    return (*b["bmin"], *b["bmax"], b["cos"], b["sin"], *b["off"])
 
 
 def _mat_shading(scene: st.Scene, mat_id: int) -> dict:
@@ -111,49 +207,100 @@ def _mat_shading(scene: st.Scene, mat_id: int) -> dict:
 
 
 def bake_scene(scene: st.Scene) -> SceneBake:
-    """Snapshot the active rects and boxes, as `pallas_trace.bake_scene`
-    (`:253-288`) does for them."""
+    """Snapshot the active primitives, as `pallas_trace.bake_scene`
+    (`:253-320`) does for a scene without triangles and with at most 64
+    spheres."""
     rc = scene.rects
     rects = [dict(axis=int(rc.axis[i]), a0=float(rc.a0[i]),
                   a1=float(rc.a1[i]), b0=float(rc.b0[i]), b1=float(rc.b1[i]),
                   k=float(rc.k[i]), **_mat_shading(scene, int(rc.mat_id[i])))
              for i in range(len(rc.axis)) if rc.active[i]]
     bx = scene.boxes
-    boxes = [dict(bmin=tuple(float(x) for x in bx.bmin[i]),
-                  bmax=tuple(float(x) for x in bx.bmax[i]),
-                  cos=float(bx.cos_t[i]), sin=float(bx.sin_t[i]),
-                  off=tuple(float(x) for x in bx.offset[i]),
-                  **_mat_shading(scene, int(bx.mat_id[i])))
-             for i in range(len(bx.cos_t)) if bx.active[i] and not bx.medium[i]]
-    return SceneBake(rects=rects, boxes=boxes,
+    boxes, box_media = [], []
+    for i in range(len(bx.cos_t)):
+        if not bx.active[i]:
+            continue
+        row = dict(bmin=tuple(float(x) for x in bx.bmin[i]),
+                   bmax=tuple(float(x) for x in bx.bmax[i]),
+                   cos=float(bx.cos_t[i]), sin=float(bx.sin_t[i]),
+                   off=tuple(float(x) for x in bx.offset[i]),
+                   **_mat_shading(scene, int(bx.mat_id[i])))
+        if bx.medium[i]:
+            row["nid"] = float(bx.neg_inv_density[i])
+            box_media.append(row)
+        else:
+            boxes.append(row)
+    sp = scene.spheres
+    rows, sphere_media = [], []
+    for i in range(len(sp.radius)):
+        if not sp.active[i]:
+            continue
+        sh = _mat_shading(scene, int(sp.mat_id[i]))
+        c0, c1 = sp.center0[i], sp.center1[i]
+        if sp.medium[i]:
+            # the JAX bake names the centers c0/c1, and c1 is also the
+            # texture colour there (pallas_trace.py:300-307 cannot build
+            # this dict); here the centers are center0/center1
+            sphere_media.append(dict(
+                center0=tuple(float(x) for x in c0),
+                center1=tuple(float(x) for x in c1),
+                t0=float(sp.time0[i]), t1=float(sp.time1[i]),
+                radius=float(sp.radius[i]), nid=float(sp.neg_inv_density[i]),
+                **sh))
+            continue
+        rows.append([*c0, *c1, sp.time0[i], sp.time1[i], sp.radius[i],
+                     *_shading_row(sh), sp.u_off[i], 0.0, 0.0])
+    table = (np.asarray(rows, np.float32) if rows
+             else np.zeros((0, SPHERE_COLS), np.float32))
+    return SceneBake(rects=rects, boxes=boxes, sphere_table=table,
+                     sphere_media=sphere_media, box_media=box_media,
                      background=tuple(float(x) for x in scene.background))
 
 
+def used_texture_kinds(scene: st.Scene) -> set:
+    """Texture kinds bound to the materials of active primitives
+    (`pallas_trace._used_tex_kinds_by_class`, all classes together)."""
+    tkind = scene.textures.kind[scene.materials.tex_id]
+    used = set()
+    for tbl in (scene.spheres, scene.rects, scene.boxes, scene.triangles):
+        used |= {int(k) for k in tkind[tbl.mat_id[tbl.active]]}
+    return used
+
+
 def unported_feature(scene: st.Scene) -> Optional[str]:
-    """The first feature of `scene` that the port's kernel does not cover,
+    """The first feature of `scene` that the forward kernel does not cover,
     or None when it renders here."""
-    if scene.spheres.active.any():
-        return "spheres"
-    if scene.triangles.active.any():
+    if scene.triangles.active.any() or scene.tri_bvh is not None:
         return "triangles"
-    if (scene.boxes.medium & scene.boxes.active).any():
-        return "constant media"
-    used = np.concatenate([scene.rects.mat_id[scene.rects.active],
-                           scene.boxes.mat_id[scene.boxes.active]])
-    for m in used:
-        kind = int(scene.materials.kind[m])
-        if kind not in _SUPPORTED_MATERIALS:
-            return f"{_MATERIAL_NAMES.get(kind, kind)} material"
-    for m in used:
-        tk = int(scene.textures.kind[scene.materials.tex_id[m]])
-        if tk != st.TEX_SOLID:
-            return f"{TEXTURE_NAMES.get(tk, tk)} texture"
+    sp = scene.spheres
+    n_spheres = int((sp.active & ~sp.medium).sum())
+    if n_spheres > MAX_SPHERES or scene.sphere_bvh is not None:
+        return f"sphere BVH ({n_spheres} spheres, more than {MAX_SPHERES})"
+    n_media = int((sp.active & sp.medium).sum()
+                  + (scene.boxes.active & scene.boxes.medium).sum())
+    if n_media > MAX_MEDIA:
+        return f"{n_media} constant media (more than {MAX_MEDIA})"
+    if st.TEX_IMAGE in used_texture_kinds(scene):
+        return "image texture"
+    return None
+
+
+def unported_record_feature(scene: st.Scene) -> Optional[str]:
+    """As `unported_feature`, for the record walk: it also lacks the
+    hit-point (`need_p`) and uv (`need_uv`) planes, which a scene needs when
+    it uses a checker, perlin or image texture."""
+    feature = unported_feature(scene)
+    if feature is not None:
+        return feature
+    kinds = sorted(used_texture_kinds(scene) & _POSITION_KINDS)
+    if kinds:
+        return f"need_p plane ({TEXTURE_NAMES[kinds[0]]} texture)"
     return None
 
 
 def supports_forward(scene: st.Scene) -> bool:
-    """True when the kernel renders `scene`; otherwise `unported_feature`
-    names what is missing."""
+    """True when the forward kernel renders `scene`; otherwise
+    `unported_feature` names what is missing."""
     return unported_feature(scene) is None
 
 
@@ -270,9 +417,10 @@ def _guard(v: torch.Tensor) -> torch.Tensor:
 def _camera_rays(camera, img_h: int, img_w: int, pix_base: int, n: int,
                  base: torch.Tensor, dev: torch.device):
     """In-kernel thin-lens camera (pallas_trace.py:1569-1611): origins and
-    directions, each a tuple of three (n,) float32 tensors."""
+    directions, each a tuple of three (n,) float32 tensors, and the (n,)
+    shutter times."""
     f32 = torch.float32
-    (corg, cllc, chor, cver, cuv, cvv, clr, _t0, _t1,
+    (corg, cllc, chor, cver, cuv, cvv, clr, ct0, ct1,
      img_h, img_w) = _cam_tuple(camera, img_h, img_w)
     pix = torch.clamp(pix_base + torch.arange(n, dtype=torch.int64,
                                               device=dev),
@@ -293,50 +441,43 @@ def _camera_rays(camera, img_h: int, img_w: int, pix_base: int, n: int,
         offz = cuv[2] * rdx + cvv[2] * rdy
     else:
         offx = offy = offz = torch.zeros(n, dtype=f32, device=dev)
-    # The shutter time is not made: nothing in the ported feature set (no
-    # moving spheres, no media) reads it.
     ox = corg[0] + offx
     oy = corg[1] + offy
     oz = corg[2] + offz
     dx = cllc[0] + su * chor[0] + sv * cver[0] - ox
     dy = cllc[1] + su * chor[1] + sv * cver[1] - oy
     dz = cllc[2] + su * chor[2] + sv * cver[2] - oz
-    return (ox, oy, oz), (dx, dy, dz)
+    if ct1 != ct0:
+        tm = _f32(ct0) + _f32(ct1 - ct0) * uniform(cdraw, 4)
+    else:
+        tm = torch.full((n,), _f32(ct0), dtype=f32, device=dev)
+    return (ox, oy, oz), (dx, dy, dz), tm
 
 
 class _Hit(NamedTuple):
     t: torch.Tensor       # (n,) BIG where nothing was hit
     normal: tuple         # outward normal, three (n,) tensors
-    kind: torch.Tensor    # (n,) int32 material kind
-    albedo: tuple         # solid albedo, three (n,) tensors
-    mat: torch.Tensor     # (n,) int32 material id
+    idx: torch.Tensor     # (n,) int64 row of SceneBake.shading_table()
 
 
-def _closest_hit(bake: SceneBake, o3: tuple, d3: tuple, t_min: float,
-                 n: int, dev: torch.device) -> _Hit:
-    """Closest hit over the baked rects, then boxes, strict `<`
-    (pallas_trace.py:961-1043)."""
+def _closest_hit(bake: SceneBake, o3: tuple, d3: tuple, tm: torch.Tensor,
+                 t_min: float, n: int, dev: torch.device) -> _Hit:
+    """Closest hit over the baked rects, then boxes, then spheres, strict
+    `<` (pallas_trace.py:961-1043, 1105-1185)."""
     zeros = torch.zeros(n, dtype=torch.float32, device=dev)
     t_best = torch.full((n,), BIG, dtype=torch.float32, device=dev)
     nx, ny, nz = zeros, zeros, zeros
-    kind = torch.zeros(n, dtype=torch.int32, device=dev)
-    mat = torch.zeros(n, dtype=torch.int32, device=dev)
-    ar, ag, ab = zeros, zeros, zeros
+    idx = torch.zeros(n, dtype=torch.int64, device=dev)
 
-    def upd(ok, t, nxx, nyy, nzz, prim):
+    def upd(ok, t, nxx, nyy, nzz, row):
         better = ok & (t < t_best)
-        c1 = prim["c1"]
         return (torch.where(better, t, t_best),
                 torch.where(better, nxx, nx), torch.where(better, nyy, ny),
-                torch.where(better, nzz, nz),
-                torch.where(better, prim["kind"], kind),
-                torch.where(better, c1[0], ar),
-                torch.where(better, c1[1], ag),
-                torch.where(better, c1[2], ab),
-                torch.where(better, prim["mat"], mat))
+                torch.where(better, nzz, nz), torch.where(better, row, idx))
 
     ox, oy, oz = o3
     dx, dy, dz = d3
+    row = 1
     for prim in bake.rects:
         ax = prim["axis"]
         t = (prim["k"] - o3[ax]) / _guard(d3[ax])
@@ -348,29 +489,13 @@ def _closest_hit(bake: SceneBake, o3: tuple, d3: tuple, t_min: float,
               & (pb >= prim["b0"]) & (pb <= prim["b1"]))
         n3 = [zeros, zeros, zeros]
         n3[ax] = torch.ones_like(zeros)
-        t_best, nx, ny, nz, kind, ar, ag, ab, mat = upd(ok, t, *n3, prim)
+        t_best, nx, ny, nz, idx = upd(ok, t, *n3, row)
+        row += 1
 
     for prim in bake.boxes:
-        c, s = prim["cos"], prim["sin"]
-        offx_b, offy_b, offz_b = prim["off"]
-        ox_t = ox - offx_b
-        oy_t = oy - offy_b
-        oz_t = oz - offz_b
-        ox2 = c * ox_t - s * oz_t
-        oz2 = s * ox_t + c * oz_t
-        dx2 = c * dx - s * dz
-        dz2 = s * dx + c * dz
-        lo, hi = prim["bmin"], prim["bmax"]
-        ivx, ivy, ivz = 1.0 / _guard(dx2), 1.0 / _guard(dy), 1.0 / _guard(dz2)
-        tx0 = (lo[0] - ox2) * ivx
-        tx1 = (hi[0] - ox2) * ivx
-        ty0 = (lo[1] - oy_t) * ivy
-        ty1 = (hi[1] - oy_t) * ivy
-        tz0 = (lo[2] - oz2) * ivz
-        tz1 = (hi[2] - oz2) * ivz
-        tnx, tfx = torch.minimum(tx0, tx1), torch.maximum(tx0, tx1)
-        tny, tfy = torch.minimum(ty0, ty1), torch.maximum(ty0, ty1)
-        tnz, tfz = torch.minimum(tz0, tz1), torch.maximum(tz0, tz1)
+        (ox2, oy_t, oz2), (dx2, dz2) = _box_interval(prim, o3, d3)
+        tnx, tfx, tny, tfy, tnz, tfz = _slabs(prim, ox2, oy_t, oz2, dx2, dy,
+                                              dz2)
         tn = torch.maximum(torch.maximum(tnx, tny), tnz)
         tf = torch.minimum(torch.minimum(tfx, tfy), tfz)
         hit_iv = tf > torch.clamp(tn, min=0.0)
@@ -387,58 +512,317 @@ def _closest_hit(bake: SceneBake, o3: tuple, d3: tuple, t_min: float,
         nobj_y = torch.where(~is_x & is_y, sy, 0.0)
         nobj_z = torch.where(~is_x & ~is_y, sz, 0.0)
         # object -> world rotation of the normal
+        c, s = prim["cos"], prim["sin"]
         nwx = c * nobj_x + s * nobj_z
         nwz = (-s) * nobj_x + c * nobj_z
-        t_best, nx, ny, nz, kind, ar, ag, ab, mat = upd(ok, t, nwx, nobj_y,
-                                                        nwz, prim)
-    return _Hit(t_best, (nx, ny, nz), kind, (ar, ag, ab), mat)
+        t_best, nx, ny, nz, idx = upd(ok, t, nwx, nobj_y, nwz, row)
+        row += 1
+
+    if len(bake.sphere_table):
+        a = dx * dx + dy * dy + dz * dz
+        inv_a = 1.0 / torch.clamp(a, min=_EPS)
+    for rec in bake.sphere_table:
+        # float32 scalars, so host arithmetic on them rounds as the kernel's
+        c0x, c0y, c0z, c1x, c1y, c1z, tt0, tt1, rad = rec[:9]
+        span = tt1 - tt0
+        denom = float(span) if not abs(span) < np.float32(_EPS) else 1.0
+        frac = (tm - float(tt0)) / denom
+        cx = float(c0x) + frac * float(c1x - c0x)
+        cy = float(c0y) + frac * float(c1y - c0y)
+        cz = float(c0z) + frac * float(c1z - c0z)
+        ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
+        hb = ocx * dx + ocy * dy + ocz * dz
+        cc = ocx * ocx + ocy * ocy + ocz * ocz - float(rad * rad)
+        disc = hb * hb - a * cc
+        sq = torch.sqrt(torch.clamp(disc, min=0.0))
+        near = (-hb - sq) * inv_a
+        far = (-hb + sq) * inv_a
+        has = (disc > 0.0) & bool(abs(rad) > 0.0)
+        t = torch.where(has & (near >= t_min), near,
+                        torch.where(has & (far >= t_min), far, BIG))
+        ok = t < BIG * 0.5
+        inv_r = float(np.float32(1.0) / (np.float32(1.0)
+                                         if abs(rad) < np.float32(_EPS)
+                                         else rad))
+        nxx = (ox + t * dx - cx) * inv_r
+        nyy = (oy + t * dy - cy) * inv_r
+        nzz = (oz + t * dz - cz) * inv_r
+        t_best, nx, ny, nz, idx = upd(ok, t, nxx, nyy, nzz, row)
+        row += 1
+    return _Hit(t_best, (nx, ny, nz), idx)
 
 
-def _lambertian_bounce(base: torch.Tensor, b: int, hit: torch.Tensor,
-                       h: _Hit, o3: tuple, d3: tuple):
-    """The next ray (origins, directions) of the lanes in `hit`, the others
-    unchanged: set_face_normal + normalize (:1413-1419), the lambertian
-    scatter n + unit_vector (:1445-1456), the origin moved to the hit point
-    (:1549-1554)."""
+def _box_interval(prim, o3: tuple, d3: tuple):
+    """A box's world -> object transform (box.h + hittable.h wrappers):
+    (object-space origin, rotated direction x and z)."""
+    ox, oy, oz = o3
+    dx, _, dz = d3
+    c, s = prim["cos"], prim["sin"]
+    offx_b, offy_b, offz_b = prim["off"]
+    ox_t = ox - offx_b
+    oy_t = oy - offy_b
+    oz_t = oz - offz_b
+    ox2 = c * ox_t - s * oz_t
+    oz2 = s * ox_t + c * oz_t
+    dx2 = c * dx - s * dz
+    dz2 = s * dx + c * dz
+    return (ox2, oy_t, oz2), (dx2, dz2)
+
+
+def _slabs(prim, ox2, oy_t, oz2, dx2, dy, dz2):
+    """The near and far slab distances (tnx, tfx, tny, tfy, tnz, tfz)."""
+    lo, hi = prim["bmin"], prim["bmax"]
+    ivx, ivy, ivz = 1.0 / _guard(dx2), 1.0 / _guard(dy), 1.0 / _guard(dz2)
+    tx0 = (lo[0] - ox2) * ivx
+    tx1 = (hi[0] - ox2) * ivx
+    ty0 = (lo[1] - oy_t) * ivy
+    ty1 = (hi[1] - oy_t) * ivy
+    tz0 = (lo[2] - oz2) * ivz
+    tz1 = (hi[2] - oz2) * ivz
+    return (torch.minimum(tx0, tx1), torch.maximum(tx0, tx1),
+            torch.minimum(ty0, ty1), torch.maximum(ty0, ty1),
+            torch.minimum(tz0, tz1), torch.maximum(tz0, tz1))
+
+
+def _media_hit(bake: SceneBake, h: _Hit, o3: tuple, d3: tuple,
+               tm: torch.Tensor, t_min: float, draw: torch.Tensor) -> _Hit:
+    """Constant media (reference constant_medium.h:34-70,
+    pallas_trace.py:1297-1395): per boundary, its [enter, exit] interval
+    clipped by the closest solid hit and an exponential free path drawn
+    with salt 16 + index; the nearest scatter event wins over the surface,
+    with the arbitrary normal (1, 0, 0)."""
     ox, oy, oz = o3
     dx, dy, dz = d3
+    media = bake.media_table()
+    n_sph = len(bake.sphere_media)
+    first_row = 1 + len(bake.rects) + len(bake.boxes) + len(bake.sphere_table)
+    d_len = torch.sqrt(dx * dx + dy * dy + dz * dz)
+    inv_dlen = 1.0 / torch.clamp(d_len, min=_LEN_FLOOR)
+    m_t = torch.full_like(h.t, BIG)
+    m_idx = torch.zeros_like(h.idx)
+    for im, rec in enumerate(media):
+        if im < n_sph:
+            c0x, c0y, c0z, dcx, dcy, dcz, t0, inv_span, r2 = (
+                float(v) for v in rec[1:10])
+            frac = (tm - t0) * inv_span
+            ocx = ox - (c0x + frac * dcx)
+            ocy = oy - (c0y + frac * dcy)
+            ocz = oz - (c0z + frac * dcz)
+            a = dx * dx + dy * dy + dz * dz
+            hb = ocx * dx + ocy * dy + ocz * dz
+            cc = ocx * ocx + ocy * ocy + ocz * ocz - r2
+            disc = hb * hb - a * cc
+            sq = torch.sqrt(torch.clamp(disc, min=0.0))
+            inv_a = 1.0 / torch.clamp(a, min=_EPS)
+            lo = (-hb - sq) * inv_a
+            hi = (-hb + sq) * inv_a
+            exists = disc > 0.0
+        else:
+            m = bake.box_media[im - n_sph]
+            (ox2, oy_t, oz2), (dx2, dz2) = _box_interval(m, o3, d3)
+            tnx, tfx, tny, tfy, tnz, tfz = _slabs(m, ox2, oy_t, oz2, dx2, dy,
+                                                  dz2)
+            lo = torch.maximum(torch.maximum(tnx, tny), tnz)
+            hi = torch.minimum(torch.minimum(tfx, tfy), tfz)
+            exists = hi > lo
+        enter = torch.clamp(lo, min=t_min)
+        exit_ = torch.minimum(hi, h.t)
+        seg = (exit_ - enter) * d_len
+        u_fp = torch.clamp(uniform(draw, 16 + im), min=_EPS)
+        hit_dist = float(rec[0]) * torch.log(u_fp)
+        t_m = enter + hit_dist * inv_dlen
+        ok = exists & (exit_ > enter) & (hit_dist <= seg)
+        better = ok & (t_m < m_t)
+        m_t = torch.where(better, t_m, m_t)
+        m_idx = torch.where(better, first_row + im, m_idx)
+    win = m_t < h.t
     nx, ny, nz = h.normal
+    return _Hit(torch.where(win, m_t, h.t),
+                (torch.where(win, 1.0, nx), torch.where(win, 0.0, ny),
+                 torch.where(win, 0.0, nz)),
+                torch.where(win, m_idx, h.idx))
+
+
+def _scene_hit(bake: SceneBake, o3: tuple, d3: tuple, tm: torch.Tensor,
+               t_min: float, draw: torch.Tensor, n: int,
+               dev: torch.device) -> _Hit:
+    h = _closest_hit(bake, o3, d3, tm, t_min, n, dev)
+    if bake.sphere_media or bake.box_media:
+        h = _media_hit(bake, h, o3, d3, tm, t_min, draw)
+    return h
+
+
+def _draw_window(base: torch.Tensor, b: int) -> torch.Tensor:
+    """Bounce b's draw base: base + uint32(b * 32) * 0x68E31DA4 (:1294)."""
+    return (base + (((b * 32) * _DRAW_MUL) & _M32)) & _M32
+
+
+def _unit_vector(draw: torch.Tensor, salt: int) -> tuple:
+    """Uniform direction on the sphere, salts `salt` and `salt + 1`."""
+    z = 2.0 * uniform(draw, salt) - 1.0
+    phi = _TWO_PI * uniform(draw, salt + 1)
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    return r * torch.cos(phi), r * torch.sin(phi), z
+
+
+def _in_sphere(draw: torch.Tensor, salt: int) -> tuple:
+    """Uniform point in the unit ball, salts `salt` to `salt + 2`; the
+    radius u**(1/3) as exp(log(u) / 3) (:690-695)."""
+    ux, uy, uz = _unit_vector(draw, salt)
+    u = torch.clamp(uniform(draw, salt + 2), min=_EPS)
+    r = torch.exp(torch.log(u) * _THIRD)
+    return r * ux, r * uy, r * uz
+
+
+def _surface(h: _Hit, o3: tuple, d3: tuple):
+    """(front, unit normal against the ray, hit point): set_face_normal +
+    normalize (:1413-1423)."""
+    nx, ny, nz = h.normal
+    dx, dy, dz = d3
     front = (dx * nx + dy * ny + dz * nz) < 0.0
     flip = torch.where(front, 1.0, -1.0)
     nlen = 1.0 / torch.sqrt(torch.clamp(nx * nx + ny * ny + nz * nz,
                                         min=_NORM_FLOOR))
-    nx = nx * flip * nlen
-    ny = ny * flip * nlen
-    nz = nz * flip * nlen
-    px = ox + h.t * dx
-    py = oy + h.t * dy
-    pz = oz + h.t * dz
+    n3 = (nx * flip * nlen, ny * flip * nlen, nz * flip * nlen)
+    p3 = tuple(o + h.t * d for o, d in zip(o3, d3))
+    return front, n3, p3
 
-    draw = (base + (((b * 32) * _DRAW_MUL) & _M32)) & _M32
-    z = 2.0 * uniform(draw, 0) - 1.0
-    phi = _TWO_PI * uniform(draw, 1)
-    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
-    ldx = nx + r * torch.cos(phi)
-    ldy = ny + r * torch.sin(phi)
-    ldz = nz + z
+
+def _albedo(tex_kinds: set, sh: torch.Tensor, p3: tuple) -> tuple:
+    """Deferred texture evaluation on the winner's shading block
+    (`_deferred_albedo`, :782-818): solid c1, checker, noise, turbulence,
+    marble; the families the scene does not use are left out."""
+    ar, ag, ab = sh[:, SH_C1], sh[:, SH_C1 + 1], sh[:, SH_C1 + 2]
+    texk, scale = sh[:, SH_TEXK], sh[:, SH_SCALE]
+    px, py, pz = p3
+    if st.TEX_CHECKER in tex_kinds:
+        sines = (torch.sin(scale * px) * torch.sin(scale * py)
+                 * torch.sin(scale * pz))
+        odd = (texk == st.TEX_CHECKER) & (sines < 0.0)
+        ar = torch.where(odd, sh[:, SH_C2], ar)
+        ag = torch.where(odd, sh[:, SH_C2 + 1], ag)
+        ab = torch.where(odd, sh[:, SH_C2 + 2], ab)
+    if tex_kinds & _PERLIN_KINDS:
+        spx, spy, spz = scale * px, scale * py, scale * pz
+        turb_v = perlin.turb3(spx, spy, spz)
+        grays = []
+        if st.TEX_NOISE in tex_kinds:
+            grays.append((st.TEX_NOISE,
+                          0.5 * (1.0 + perlin.noise3(spx, spy, spz))))
+        if st.TEX_TURB in tex_kinds:
+            grays.append((st.TEX_TURB, turb_v))
+        if st.TEX_MARBLE in tex_kinds:
+            grays.append((st.TEX_MARBLE,
+                          0.5 * (1.0 + torch.sin(scale * pz + 10.0 * turb_v))))
+        for kind, gray in grays:
+            sel = texk == kind
+            ar = torch.where(sel, gray, ar)
+            ag = torch.where(sel, gray, ag)
+            ab = torch.where(sel, gray, ab)
+    return ar, ag, ab
+
+
+def _scatter(mat_kinds: set, draw: torch.Tensor, kind: torch.Tensor,
+             sh: torch.Tensor, front: torch.Tensor, n3: tuple, d3: tuple):
+    """(next direction, ok) of every lane (:1444-1513): lambertian n + unit
+    vector (salts 0-1); metal reflect + fuzz * in_sphere (salts 3-5), ok
+    only above the surface; dielectric Schlick reflect or refract (salt 7);
+    isotropic in_sphere.  Kinds the scene does not use are left out."""
+    nx, ny, nz = n3
+    ux, uy, uz = _unit_vector(draw, 0)
+    ldx, ldy, ldz = nx + ux, ny + uy, nz + uz
     degen = ((ldx.abs() < _DEGEN) & (ldy.abs() < _DEGEN)
              & (ldz.abs() < _DEGEN))
-    ldx = torch.where(degen, nx, ldx)
-    ldy = torch.where(degen, ny, ldy)
-    ldz = torch.where(degen, nz, ldz)
-    return ((torch.where(hit, px, ox), torch.where(hit, py, oy),
-             torch.where(hit, pz, oz)),
-            (torch.where(hit, ldx, dx), torch.where(hit, ldy, dy),
-             torch.where(hit, ldz, dz)))
+    out = (torch.where(degen, nx, ldx), torch.where(degen, ny, ldy),
+           torch.where(degen, nz, ldz))
+    ok = torch.ones_like(degen)
+    if not mat_kinds & {st.METAL, st.DIELECTRIC, st.ISOTROPIC}:
+        return out, ok
+
+    def pick(sel, new):
+        return tuple(torch.where(sel, a, b) for a, b in zip(new, out))
+
+    dx, dy, dz = d3
+    dlen = 1.0 / torch.sqrt(torch.clamp(dx * dx + dy * dy + dz * dz,
+                                        min=_NORM_FLOOR))
+    udx, udy, udz = dx * dlen, dy * dlen, dz * dlen
+    dn = udx * nx + udy * ny + udz * nz
+    r3 = (udx - 2.0 * dn * nx, udy - 2.0 * dn * ny, udz - 2.0 * dn * nz)
+    s3 = _in_sphere(draw, 3)
+    if st.METAL in mat_kinds:
+        fuzz = sh[:, SH_FUZZ]
+        m3 = tuple(r + fuzz * v for r, v in zip(r3, s3))
+        is_metal = kind == st.METAL
+        out = pick(is_metal, m3)
+        ok = ~is_metal | ((m3[0] * nx + m3[1] * ny + m3[2] * nz) > 0.0)
+    if st.DIELECTRIC in mat_kinds:
+        ir = sh[:, SH_IR]
+        ratio = torch.where(front, 1.0 / ir, ir)
+        cos_t = torch.clamp(-(udx * nx + udy * ny + udz * nz), max=1.0)
+        sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+        cannot = ratio * sin_t > 1.0
+        r0 = (1.0 - ratio) / (1.0 + ratio)
+        r0 = r0 * r0
+        om = 1.0 - cos_t
+        om2 = om * om
+        schlick = r0 + (1.0 - r0) * om2 * om2 * om
+        reflect = cannot | (schlick > uniform(draw, 7))
+        per = tuple(ratio * (u + cos_t * nn)
+                    for u, nn in zip((udx, udy, udz), n3))
+        k2 = torch.clamp(1.0 - (per[0] * per[0] + per[1] * per[1]
+                                + per[2] * per[2]), min=0.0)
+        par = -torch.sqrt(k2)
+        f3 = tuple(pp + par * nn for pp, nn in zip(per, n3))
+        out = pick(kind == st.DIELECTRIC,
+                   tuple(torch.where(reflect, r, f) for r, f in zip(r3, f3)))
+    if st.ISOTROPIC in mat_kinds:
+        out = pick(kind == st.ISOTROPIC, s3)
+    return out, ok
+
+
+class _Bounce(NamedTuple):
+    hit: torch.Tensor    # (n,) bool, alive and hit something
+    miss: torch.Tensor   # (n,) bool, alive and escaped
+    cont: torch.Tensor   # (n,) bool, the path goes on (before RR)
+    kind: torch.Tensor   # (n,) int32 material kind of the winner
+    sh: torch.Tensor     # (n, 12) the winner's shading block
+    p3: tuple            # hit point
+    d3: tuple            # next direction (where hit)
+
+
+def _bounce(bake: SceneBake, shading: torch.Tensor, base: torch.Tensor,
+            b: int, alive: torch.Tensor, o3: tuple, d3: tuple,
+            tm: torch.Tensor, t_min: float, n: int,
+            dev: torch.device) -> tuple:
+    """One bounce of every lane, shared by both modes: closest hit, media,
+    face normal and scatter; returns (the bounce's _Bounce, its draw)."""
+    draw = _draw_window(base, b)
+    h = _scene_hit(bake, o3, d3, tm, t_min, draw, n, dev)
+    hit = alive & (h.t < BIG * 0.5)
+    miss = alive & ~(h.t < BIG * 0.5)
+    sh = shading[h.idx]
+    kind = sh[:, SH_KIND].to(torch.int32)
+    front, n3, p3 = _surface(h, o3, d3)
+    new_d, ok = _scatter(bake.material_kinds(), draw, kind, sh, front, n3, d3)
+    cont = hit & ok & (kind != st.DIFFUSE_LIGHT)
+    return _Bounce(hit, miss, cont, kind, sh, p3, new_d), draw
+
+
+def _advance(bn: _Bounce, o3: tuple, d3: tuple) -> tuple:
+    """The next ray: origin moved to the hit point, the scattered
+    direction, on the lanes that hit (:1549-1554)."""
+    return (tuple(torch.where(bn.hit, p, o) for p, o in zip(bn.p3, o3)),
+            tuple(torch.where(bn.hit, nd, d) for nd, d in zip(bn.d3, d3)))
 
 
 def trace_pixels_reference(bake: SceneBake, camera, img_h: int, img_w: int,
                            pix_base: int, n: int, seed: int,
                            max_depth: int = 50, t_min: float = 0.001,
-                           device: torch.device | str = "cpu"
-                           ) -> torch.Tensor:
+                           device: torch.device | str = "cpu",
+                           rr_start: int = 0) -> torch.Tensor:
     """Forward radiance (n, 3) float32 for pixels [pix_base, pix_base + n)
-    of an img_h x img_w image, camera rays made from the PCG stream.
+    of an img_h x img_w image, camera rays made from the PCG stream, with
+    russian roulette from bounce `rr_start` when it is > 0.
 
     The plain PyTorch version of `megakernel_fwd`, vectorized over the
     lanes of the call: every lane runs every bounce under an `alive` mask,
@@ -448,7 +832,9 @@ def trace_pixels_reference(bake: SceneBake, camera, img_h: int, img_w: int,
     dev = torch.device(device)
     t_min = _f32(t_min)
     base = rng_base(n, seed, dev)
-    o3, d3 = _camera_rays(camera, img_h, img_w, pix_base, n, base, dev)
+    o3, d3, tm = _camera_rays(camera, img_h, img_w, pix_base, n, base, dev)
+    shading = torch.as_tensor(bake.shading_table(), device=dev)
+    tex_kinds = bake.texture_kinds()
 
     tr = torch.ones(n, dtype=torch.float32, device=dev)
     tg, tb = tr.clone(), tr.clone()
@@ -460,27 +846,36 @@ def trace_pixels_reference(bake: SceneBake, camera, img_h: int, img_w: int,
     for b in range(max_depth):
         if not bool(alive.any()):
             break
-        h = _closest_hit(bake, o3, d3, t_min, n, dev)
-        hit = alive & (h.t < BIG * 0.5)
-        miss = alive & ~(h.t < BIG * 0.5)
-        ar, ag, ab = h.albedo
+        bn, draw = _bounce(bake, shading, base, b, alive, o3, d3, tm, t_min,
+                           n, dev)
+        ar, ag, ab = _albedo(tex_kinds, bn.sh, bn.p3)
 
         # ---- background on miss, emission on a light (:1432-1442) ----
-        lr = lr + torch.where(miss, tr * bgr, 0.0)
-        lg = lg + torch.where(miss, tg * bgg, 0.0)
-        lb = lb + torch.where(miss, tb * bgb, 0.0)
-        is_light = h.kind == st.DIFFUSE_LIGHT
-        lit = hit & is_light
+        lr = lr + torch.where(bn.miss, tr * bgr, 0.0)
+        lg = lg + torch.where(bn.miss, tg * bgg, 0.0)
+        lb = lb + torch.where(bn.miss, tb * bgb, 0.0)
+        lit = bn.hit & (bn.kind == st.DIFFUSE_LIGHT)
         lr = lr + torch.where(lit, tr * ar, 0.0)
         lg = lg + torch.where(lit, tg * ag, 0.0)
         lb = lb + torch.where(lit, tb * ab, 0.0)
 
-        # ---- throughput and the next ray (:1512-1519, 1549-1554) ----
-        cont = hit & ~is_light
-        tr = torch.where(cont, tr * ar, tr)
-        tg = torch.where(cont, tg * ag, tg)
-        tb = torch.where(cont, tb * ab, tb)
-        o3, d3 = _lambertian_bounce(base, b, hit, h, o3, d3)
+        # ---- throughput, dielectric left out (:1515-1519) ----
+        cont = bn.cont
+        att = cont & (bn.kind != st.DIELECTRIC)
+        tr = torch.where(att, tr * ar, tr)
+        tg = torch.where(att, tg * ag, tg)
+        tb = torch.where(att, tb * ab, tb)
+        if rr_start > 0:
+            # russian roulette (:1521-1534): from bounce rr_start a path
+            # goes on with p = clip(max throughput, 0.05, 1), reweighted 1/p
+            p = torch.clamp(torch.maximum(tr, torch.maximum(tg, tb)),
+                            min=_RR_FLOOR, max=1.0)
+            survive = (b < rr_start) | (uniform(draw, 8) < p)
+            inv_p = torch.where((b >= rr_start) & survive & cont, 1.0 / p,
+                                1.0)
+            tr, tg, tb = tr * inv_p, tg * inv_p, tb * inv_p
+            cont = cont & survive
+        o3, d3 = _advance(bn, o3, d3)
         alive = cont
 
     return torch.stack((lr, lg, lb), dim=-1)
@@ -494,34 +889,36 @@ def walk_packed_pixels_reference(bake: SceneBake, camera, img_h: int,
                                  ) -> torch.Tensor:
     """Record planes (max_depth, n) int32 for pixels [pix_base, pix_base + n):
     per bounce the packed word `mat | hit<<16 | cont<<17 | miss<<18`
-    (pallas_trace.py:1536-1541), the same paths as `trace_pixels_reference`.
+    (pallas_trace.py:1536-1541), the same paths as `trace_pixels_reference`
+    without russian roulette (the record mode has none).
 
     The plain PyTorch version of `megakernel_record`.  A lane whose path
-    has ended records 0, as a kernel thread does; the Pallas kernel stores the stale `mat` of a dead lane's frozen ray there
-    (with every mask bit 0), so compare against it bits 16-18 everywhere
-    and bits 0-15 only where bit 16 is set.
+    has ended records 0, as a kernel thread does; the Pallas kernel stores
+    the stale `mat` of a dead lane's frozen ray there (with every mask bit
+    0), so compare against it bits 16-18 everywhere and bits 0-15 only where
+    bit 16 is set.
     """
     dev = torch.device(device)
     t_min = _f32(t_min)
     base = rng_base(n, seed, dev)
-    o3, d3 = _camera_rays(camera, img_h, img_w, pix_base, n, base, dev)
+    o3, d3, tm = _camera_rays(camera, img_h, img_w, pix_base, n, base, dev)
+    shading = torch.as_tensor(bake.shading_table(), device=dev)
     out = torch.zeros((max_depth, n), dtype=torch.int32, device=dev)
     alive = torch.ones(n, dtype=torch.bool, device=dev)
 
     for b in range(max_depth):
         if not bool(alive.any()):
             break
-        h = _closest_hit(bake, o3, d3, t_min, n, dev)
+        bn, _ = _bounce(bake, shading, base, b, alive, o3, d3, tm, t_min, n,
+                        dev)
         # hit, cont and miss as at pallas_trace.py:1397-1398, :1512-1513
-        hit = alive & (h.t < BIG * 0.5)
-        miss = alive & ~(h.t < BIG * 0.5)
-        cont = hit & (h.kind != st.DIFFUSE_LIGHT)
-        packed = (h.mat | (hit.to(torch.int32) << 16)
-                  | (cont.to(torch.int32) << 17)
-                  | (miss.to(torch.int32) << 18))
+        packed = (bn.sh[:, SH_MAT].to(torch.int32)
+                  | (bn.hit.to(torch.int32) << 16)
+                  | (bn.cont.to(torch.int32) << 17)
+                  | (bn.miss.to(torch.int32) << 18))
         out[b] = torch.where(alive, packed, 0)
-        o3, d3 = _lambertian_bounce(base, b, hit, h, o3, d3)
-        alive = cont
+        o3, d3 = _advance(bn, o3, d3)
+        alive = bn.cont
 
     return out
 
@@ -600,9 +997,11 @@ class Tracer:
     """Scene-specialized tracer on one device, in forward and record mode.
 
     On a CUDA device `trace_pixels` and `walk_packed_pixels` launch
-    `csrc/megakernel.cu`; on the CPU they run `trace_pixels_reference` and
-    `walk_packed_pixels_reference`.  Nothing falls back from one to the
-    other.
+    `csrc/megakernel.cuh`'s kernels; on the CPU they run
+    `trace_pixels_reference` and `walk_packed_pixels_reference`.  Nothing
+    falls back from one to the other.  The constructor raises
+    NotImplementedError for a scene the forward kernel does not cover, and
+    the record mode for one that needs the hit-point or uv planes.
     """
 
     launches = 0         # megakernel_fwd launches in this process, all tracers
@@ -612,25 +1011,27 @@ class Tracer:
         feature = unported_feature(scene)
         if feature is not None:
             raise NotImplementedError(f"{feature}: not yet ported")
+        self.record_feature = unported_record_feature(scene)
         self.device = torch.device(device)
         if self.device.type != "cpu":
             _require_cuda(self.device)
         self.bake = bake_scene(scene)
-        self.rect_table = torch.as_tensor(self.bake.rect_table(),
-                                          device=self.device)
-        self.box_table = torch.as_tensor(self.bake.box_table(),
-                                         device=self.device)
+        self.rect_table, self.box_table, self.sphere_table, self.media_table = (
+            torch.as_tensor(t, device=self.device) for t in (
+                self.bake.rect_table(), self.bake.box_table(),
+                self.bake.sphere_table, self.bake.media_table()))
 
     def trace_pixels(self, camera, img_h: int, img_w: int, pix_base: int,
                      n: int, seed: int, max_depth: int = 50,
-                     t_min: float = 0.001) -> torch.Tensor:
+                     t_min: float = 0.001, rr_start: int = 0) -> torch.Tensor:
         """Forward radiance (n, 3) float32 on the tracer's device for
         pixels [pix_base, pix_base + n), with the camera rays made from the
         kernel's PCG stream (contract of `PallasTracer.trace_pixels`).
         Pixel ids past the image clamp to its last pixel; `seed` is an
-        int32 (`wave_seed`)."""
-        return self.bind(camera, img_h, img_w, max_depth, t_min)(pix_base, n,
-                                                                  seed)
+        int32 (`wave_seed`); russian roulette from bounce `rr_start` when it
+        is > 0."""
+        return self.bind(camera, img_h, img_w, max_depth, t_min,
+                         rr_start)(pix_base, n, seed)
 
     def walk_packed_pixels(self, camera, img_h: int, img_w: int,
                            pix_base: int, n: int, seed: int,
@@ -645,22 +1046,26 @@ class Tracer:
             pix_base, n, seed)
 
     def bind(self, camera, img_h: int, img_w: int, max_depth: int = 50,
-             t_min: float = 0.001) -> Callable[[int, int, int], torch.Tensor]:
-        """`trace_pixels` with the camera, image size, depth and t_min fixed:
-        returns `launch(pix_base, n, seed) -> (n, 3)`.  The tables are
-        checked and the launch constants computed here, once, so a render's
-        host work per wave is the output allocation and the launch."""
+             t_min: float = 0.001, rr_start: int = 0
+             ) -> Callable[[int, int, int], torch.Tensor]:
+        """`trace_pixels` with the camera, image size, depth, t_min and
+        rr_start fixed: returns `launch(pix_base, n, seed) -> (n, 3)`.  The
+        tables are checked and the launch constants computed here, once, so
+        a render's host work per wave is the output allocation and the
+        launch."""
         if self.device.type == "cpu":
             def plain(pix_base: int, n: int, seed: int) -> torch.Tensor:
                 _check_count(n)
                 return trace_pixels_reference(self.bake, camera, img_h, img_w,
                                               pix_base, n, seed, max_depth,
-                                              t_min, self.device)
+                                              t_min, self.device, rr_start)
             return plain
 
-        rects, boxes, device = self.rect_table, self.box_table, self.device
-        p, check_range = self._launch_params(camera, img_h, img_w, max_depth,
-                                             t_min)
+        tables, device = self._checked_tables(), self.device
+        ptrs = tuple(t.data_ptr() for t in tables)
+        p, check_range = self._launch_params(
+            camera, img_h, img_w, max_depth, t_min, rr_start,
+            self.bake.features())
         lib = build.load()
 
         def launch(pix_base: int, n: int, seed: int) -> torch.Tensor:
@@ -669,13 +1074,13 @@ class Tracer:
             p.pix_base, p.n, p.seed = int(pix_base), int(n), _int32(seed)
             r = out.data_ptr()
             with torch.cuda.device(device):
-                rc = lib.rt_trace_pixels(rects.data_ptr(), boxes.data_ptr(), p,
-                                         r, r + 4 * n, r + 8 * n,
+                rc = lib.rt_trace_pixels(*ptrs, p, r, r + 4 * n, r + 8 * n,
                                          _stream(device))
             _check(lib, rc, "rt_trace_pixels")
             Tracer.launches += 1
             return out.T
 
+        launch.tables = tables  # the kernel reads them through ptrs
         return launch
 
     def bind_record(self, camera, img_h: int, img_w: int,
@@ -683,7 +1088,11 @@ class Tracer:
                     ) -> Callable[[int, int, int], torch.Tensor]:
         """`walk_packed_pixels` with the camera, image size, depth and t_min
         fixed: returns `launch(pix_base, n, seed) -> (max_depth, n)` int32,
-        with the launch constants computed once, as `bind` does."""
+        with the launch constants computed once, as `bind` does.  Raises
+        NotImplementedError for a scene that needs the hit-point or uv
+        planes."""
+        if self.record_feature is not None:
+            raise NotImplementedError(f"{self.record_feature}: not yet ported")
         if self.device.type == "cpu":
             def plain(pix_base: int, n: int, seed: int) -> torch.Tensor:
                 _check_count(n)
@@ -692,9 +1101,11 @@ class Tracer:
                     max_depth, t_min, self.device)
             return plain
 
-        rects, boxes, device = self.rect_table, self.box_table, self.device
-        p, check_range = self._launch_params(camera, img_h, img_w, max_depth,
-                                             t_min)
+        tables, device = self._checked_tables(), self.device
+        ptrs = tuple(t.data_ptr() for t in tables)
+        p, check_range = self._launch_params(
+            camera, img_h, img_w, max_depth, t_min, 0,
+            self.bake.features() & (FEAT_SPHERES | FEAT_MEDIA))
         lib = build.load()
 
         def launch(pix_base: int, n: int, seed: int) -> torch.Tensor:
@@ -702,34 +1113,48 @@ class Tracer:
             out = torch.empty((max_depth, n), dtype=torch.int32, device=device)
             p.pix_base, p.n, p.seed = int(pix_base), int(n), _int32(seed)
             with torch.cuda.device(device):
-                rc = lib.rt_walk_packed_pixels(rects.data_ptr(),
-                                               boxes.data_ptr(), p,
-                                               out.data_ptr(), _stream(device))
+                rc = lib.rt_walk_packed_pixels(*ptrs, p, out.data_ptr(),
+                                               _stream(device))
             _check(lib, rc, "rt_walk_packed_pixels")
             Tracer.record_launches += 1
             return out
 
+        launch.tables = tables  # the kernel reads them through ptrs
         return launch
 
+    def _checked_tables(self) -> tuple:
+        """The four kernel tables, checked.  A bound launch keeps them
+        alive: it may outlive the tracer (`compile_renderer`)."""
+        tables = (self.rect_table, self.box_table, self.sphere_table,
+                  self.media_table)
+        for t, cols in zip(tables, (RECT_COLS, BOX_COLS, SPHERE_COLS,
+                                    MEDIUM_COLS)):
+            _check_table(t, cols, self.device)
+        return tables
+
     def _launch_params(self, camera, img_h: int, img_w: int, max_depth: int,
-                       t_min: float):
+                       t_min: float, rr_start: int, features: int):
         """The kernels' parameter block for a bound camera and image, with
         the per-launch fields left to fill, and the check of a launch's
         pixel range."""
-        _check_table(self.rect_table, RECT_COLS, self.device)
-        _check_table(self.box_table, BOX_COLS, self.device)
-        (corg, cllc, chor, cver, cuv, cvv, clr, _t0, _t1,
+        (corg, cllc, chor, cver, cuv, cvv, clr, ct0, ct1,
          img_h, img_w) = _cam_tuple(camera, img_h, img_w)
-        if img_h <= 0 or img_w <= 0 or max_depth < 0:
-            raise ValueError(f"bad image {img_h}x{img_w} or depth {max_depth}")
+        if img_h <= 0 or img_w <= 0 or max_depth < 0 or rr_start < 0:
+            raise ValueError(f"bad image {img_h}x{img_w}, depth {max_depth} "
+                             f"or rr_start {rr_start}")
         c3 = ctypes.c_float * 3
         p = build.RtParams(
             origin=c3(*corg), llc=c3(*cllc), hor=c3(*chor), ver=c3(*cver),
             cu=c3(*cuv), cv=c3(*cvv), lens_radius=clr,
             inv_w=_inv_extent(img_w), inv_h=_inv_extent(img_h),
             t_min=_f32(t_min), bg=c3(*self.bake.background),
+            time0=_f32(ct0), time_span=_f32(ct1 - ct0),
             img_h=img_h, img_w=img_w, max_depth=int(max_depth),
-            n_rects=self.rect_table.shape[0], n_boxes=self.box_table.shape[0])
+            n_rects=len(self.bake.rects), n_boxes=len(self.bake.boxes),
+            n_spheres=len(self.bake.sphere_table),
+            n_sphere_media=len(self.bake.sphere_media),
+            n_box_media=len(self.bake.box_media), has_time=int(ct1 != ct0),
+            rr_start=int(rr_start), features=int(features))
 
         def check_range(pix_base: int, n: int) -> None:
             _check_count(n)

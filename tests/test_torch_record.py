@@ -107,11 +107,11 @@ def test_tables_carry_material_ids(setup):
     rects = tracer.rect_table.numpy()
     boxes = tracer.box_table.numpy()
     sc = tsd.scene
-    np.testing.assert_array_equal(rects[:, 10],
+    np.testing.assert_array_equal(rects[:, ct.RECT_SH + ct.SH_MAT],
                                   sc.rects.mat_id[sc.rects.active])
-    np.testing.assert_array_equal(boxes[:, 15],
+    np.testing.assert_array_equal(boxes[:, ct.BOX_SH + ct.SH_MAT],
                                   sc.boxes.mat_id[sc.boxes.active])
-    assert (rects[:, 11] == 0).all()
+    assert (rects[:, ct.RECT_SH + ct.SH_TEXK] == 0).all()  # solid
 
 
 def test_cpu_record_never_touches_the_library(setup, monkeypatch):

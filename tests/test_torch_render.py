@@ -90,11 +90,17 @@ def test_render_is_finite_and_reproducible(width, ray_batch):
     np.testing.assert_array_equal(a, b)
 
 
-def test_rr_start_is_refused():
+def test_rr_start_is_passed_to_the_tracer():
+    # cornell_box, 16x16, 8 spp, depth 6: russian roulette from bounce 1
+    # changes the paths but keeps the estimate unbiased; the chunk sums'
+    # mean stays within 25% (a few hundred paths) and the image finite
     tsd = tscenes.get("cornell_box")
-    with pytest.raises(NotImplementedError, match="russian roulette"):
-        compile_renderer(tsd.scene, tsd.camera, _settings(rr_start=4),
-                         device="cpu")
+    st = _settings(image_width=16, spp_per_chunk=8, max_depth=6)
+    plain = compile_renderer(tsd.scene, tsd.camera, st, device="cpu")(7)
+    rr = compile_renderer(tsd.scene, tsd.camera, st.with_(rr_start=1),
+                          device="cpu")(7)
+    assert torch.isfinite(rr).all() and not torch.equal(rr, plain)
+    assert abs(float(rr.mean()) / float(plain.mean()) - 1.0) < 0.25
 
 
 def _png_header(data: bytes):
@@ -125,7 +131,8 @@ def test_png_and_ppm_writers(tmp_path):
 
 def test_cli_list(capsys):
     assert cli.main(["list"]) == 0
-    assert capsys.readouterr().out.split() == ["cornell_box"]
+    assert capsys.readouterr().out.split() == tscenes.names()
+    assert "first" in tscenes.names() and "cornell_smoke" in tscenes.names()
 
 
 def test_cli_bench_reports_a_rate(capsys):

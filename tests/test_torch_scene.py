@@ -133,40 +133,68 @@ def test_bake_records_equal_jax(cornell):
     assert rt[2, 6] == 3 and tuple(rt[2, 7:10]) == (15.0, 15.0, 15.0)
 
 
-def test_first_scene_is_refused_with_the_feature_named():
-    jsd = jscenes.get("first")
-    scene = scene_from_numpy(_tree(jsd.scene._host_np))
+def test_big_scene1_is_refused_with_the_feature_named():
+    jsd = jscenes.get("big_scene1")
+    with pytest.raises(NotImplementedError, match="sphere_bvh: not yet"):
+        scene_from_numpy(_tree(jsd.scene._host_np))
+    tree = _tree(jsd.scene._host_np)
+    tree["sphere_bvh"] = None  # the tables alone still need the BVH
+    scene = scene_from_numpy(tree)
     assert ct.supports_forward(scene) is False
-    assert ct.unported_feature(scene) == "spheres"
+    assert ct.unported_feature(scene).startswith("sphere BVH")
     cam = camera_from_numpy(_tree(jsd.camera))
     st = RenderSettings(image_width=16, aspect_ratio=jsd.aspect,
                         spp_per_chunk=1, num_chunks=1, max_depth=2)
-    with pytest.raises(NotImplementedError, match="spheres: not yet ported"):
+    with pytest.raises(NotImplementedError, match="sphere BVH .*not yet"):
         compile_renderer(scene, cam, st, device="cpu")
-    with pytest.raises(NotImplementedError, match="spheres"):
+    with pytest.raises(NotImplementedError, match="sphere BVH"):
         ct.Tracer(scene, "cpu")
 
 
 def test_unported_material_and_texture_are_named(cornell):
     _, tsd = cornell
     s = tsd.scene
+    image = dataclasses.replace(s.textures, kind=np.full_like(
+        s.textures.kind, tst.TEX_IMAGE))
+    assert ct.unported_feature(dataclasses.replace(s, textures=image)) \
+        == "image texture"
+    # the forward kernel takes a checker; the record walk needs its p plane
+    checker = dataclasses.replace(s, textures=dataclasses.replace(
+        s.textures, kind=np.ones_like(s.textures.kind)))
+    assert ct.unported_feature(checker) is None
+    assert ct.unported_record_feature(checker) == "need_p plane (checker texture)"
     metal = dataclasses.replace(s.materials, kind=np.where(
         s.materials.kind == 0, np.int32(1), s.materials.kind))
-    assert ct.unported_feature(dataclasses.replace(s, materials=metal)) \
-        == "metal material"
-    checker = dataclasses.replace(s.textures, kind=np.ones_like(s.textures.kind))
-    assert ct.unported_feature(dataclasses.replace(s, textures=checker)) \
-        == "checker texture"
+    assert ct.unported_feature(dataclasses.replace(s, materials=metal)) is None
     assert ct.unported_feature(s) is None and ct.supports_forward(s)
+    assert ct.unported_record_feature(s) is None
+
+
+def _many_spheres(b):
+    for i in range(65):
+        b.sphere((i, 0, 0), 0.4, b.lambertian((0.5, 0.5, 0.5)))
+    return b.build()
+
+
+def _many_media(b):
+    for i in range(17):
+        b.box_medium((i, 0, 0), (i + 1, 1, 1), 0.01, (1, 1, 1))
+    return ct.Tracer(b.build(), "cpu")
+
+
+def _checker_record_walk(b):
+    b.rect("xy", 0, 1, 0, 1, 0, b.lambertian(b.checker((0, 0, 0), (1, 1, 1))))
+    cam = tscenes.get("cornell_box").camera
+    return ct.Tracer(b.build(), "cpu").walk_packed_pixels(cam, 4, 4, 0, 16, 1)
 
 
 @pytest.mark.parametrize("call", [
-    lambda b: b.sphere((0, 0, 0), 1.0, 0),
-    lambda b: b.metal((1, 1, 1), 0.1),
-    lambda b: b.dielectric(1.5),
-    lambda b: b.checker((0, 0, 0), (1, 1, 1)),
+    lambda b: b.image(np.zeros((2, 2, 3), np.float32)),
+    lambda b: b.mesh(np.eye(3), np.array([[0, 1, 2]]), 0),
+    _many_spheres,
+    _many_media,
     lambda b: b.triangle((0, 0, 0), (1, 0, 0), (0, 1, 0), 0),
-    lambda b: b.box_medium((0, 0, 0), (1, 1, 1), 0.01, (1, 1, 1)),
+    _checker_record_walk,
     lambda b: b.rect("xy", 0, 1, 0, 1, 0, 0, rotate_y=30.0),
 ])
 def test_builder_refuses_unported_features(call):
@@ -175,6 +203,7 @@ def test_builder_refuses_unported_features(call):
 
 
 def test_registry_lists_only_ported_scenes():
-    assert tscenes.names() == ["cornell_box"]
+    assert tscenes.names() == ["basic", "cornell_box", "cornell_smoke",
+                               "first", "two_perlin_spheres", "two_spheres"]
     with pytest.raises(KeyError, match="not ported"):
-        tscenes.get("first")
+        tscenes.get("big_scene1")

@@ -13,15 +13,22 @@ and writes, under `tests/data/torch_port/`:
   the wave, (spp * waves, depth, 512) int32 in (sample, wave) order), the
   fused chunk's primal, and the gradients of mean((chunk - target)**2)
   with respect to tex_c1, tex_c2 and atlas_data, with the base seed, the
-  target and the settings.
+  target and the settings;
+- `<scene>_32.npz` for each dense scene the forward kernel covers beyond
+  the Cornell box (`SCENES`): one forward chunk at width 32 (the scene's
+  aspect), 2 spp, depth 3, as `cornell_32.npz`; for the scenes whose
+  textures are all solid (`RECORD_SCENES`) also the record planes of the
+  same chunk in waves of 512 rays (`planes`, (spp * waves, depth, 512)
+  int32, with `record_ray_batch`).
 
 The port's CPU tests hold its plain versions to these files, and
 `chip_smoke.py` holds the CUDA kernels to them, so the card's output is tied
 to the JAX reference without JAX on that machine.
 
-    python tools/make_torch_goldens.py [cornell_32] [cornell_grad_32]
+    python tools/make_torch_goldens.py [cornell_32] [cornell_grad_32] [first_32] ...
 
-With no names it writes both.
+With no names it writes them all; name the one you mean to rewrite, since
+rewriting a file changes its zip timestamps.
 """
 
 from __future__ import annotations
@@ -33,6 +40,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(ROOT, "tests", "data", "torch_port")
 KEY_SEED = 2024
 GRAD_TARGET = 0.25
+SCENES = ("basic", "first", "two_spheres", "two_perlin_spheres",
+          "cornell_smoke")
+RECORD_SCENES = ("first", "cornell_smoke")
+RECORD_RAY_BATCH = 512
 
 
 def forward_golden() -> None:
@@ -108,7 +119,48 @@ def grad_golden() -> None:
           f"{primal.shape}, grads {({k: v.shape for k, v in grads.items()})}")
 
 
-GOLDENS = {"cornell_32": forward_golden, "cornell_grad_32": grad_golden}
+def scene_golden(name: str) -> None:
+    import jax
+    import numpy as np
+
+    from raytracing_gpu_tpu.core.config import RenderSettings
+    from raytracing_gpu_tpu.engine.render import compile_renderer
+    from raytracing_gpu_tpu.models import scenes
+    from raytracing_gpu_tpu.ops import pallas_trace
+
+    out = os.path.join(DATA, f"{name}_32.npz")
+    sd = scenes.get(name)
+    st = RenderSettings(image_width=32, aspect_ratio=sd.aspect,
+                        spp_per_chunk=2, num_chunks=1, max_depth=3,
+                        ray_batch=65536)
+    key = jax.random.PRNGKey(KEY_SEED)
+    base = int(pallas_trace.chunk_seed(key))
+    chunk = compile_renderer(sd.scene, sd.camera, st, engine="pallas")
+    sums = np.asarray(chunk(key), np.float32)
+    extra = {}
+    if name in RECORD_SCENES:
+        h, w, b = st.image_height, st.image_width, RECORD_RAY_BATCH
+        tracer = pallas_trace.PallasTracer(sd.scene)
+        extra = dict(record_ray_batch=b, planes=np.stack([
+            np.asarray(tracer.walk_packed_pixels(
+                sd.camera, h, w, bid * b, b,
+                pallas_trace.wave_seed(base, s, bid),
+                max_depth=st.max_depth, t_min=st.t_min)[0]
+            ).reshape(st.max_depth, -1)[:, :b]
+            for s in range(st.spp_per_chunk)
+            for bid in range(-(-h * w // b))]).astype(np.int32))
+    np.savez_compressed(
+        out, base=np.int32(base), key_seed=np.int32(KEY_SEED), sums=sums,
+        image_width=st.image_width, image_height=st.image_height,
+        aspect_ratio=np.float64(sd.aspect),
+        spp_per_chunk=st.spp_per_chunk, max_depth=st.max_depth,
+        ray_batch=st.ray_batch, t_min=np.float32(st.t_min), **extra)
+    print(f"wrote {out}: base {base}, sums {sums.shape}, mean "
+          f"{sums.mean(0)}, planes {extra.get('planes', np.zeros(0)).shape}")
+
+
+GOLDENS = {"cornell_32": forward_golden, "cornell_grad_32": grad_golden,
+           **{f"{n}_32": (lambda n=n: scene_golden(n)) for n in SCENES}}
 
 
 def main(argv=None) -> int:
