@@ -10,9 +10,12 @@ at 512x512, 64 spp, depth 8, through `raytracing_gpu_tpu_torch.render`
 512x512, 64 spp as 8 chunks of 8, depth 8, waves of 32,768 rays, through
 `engine.fused_diff.compile_fused_param_renderer` (training); BASELINE
 config 1 (`first`, 400x225, 16 spp, depth 8) and config 4
-(`cornell_smoke`, 512x512, 128 spp, depth 16) through `render`; and the
-ceiling probe whose rates every printed bound divides by.  It checks every
-kernel on the way.  Phases, each of which raises on failure:
+(`cornell_smoke`, 512x512, 128 spp, depth 16) through `render`; big_scene1
+on the megakernel route (800x450, 8 spp, depth 16: the sphere-BVH walk) and
+BASELINE config 2 (big_scene1, 800x450, 32 spp as 2 chunks of 16, depth
+16) through `render` on the regen route (the hit kernel); and the ceiling
+probe whose rates every printed bound divides by.  It checks every kernel
+on the way.  Phases, each of which raises on failure:
 
 1. environment: a CUDA device is required; prints the card's name and power
    limit (nvidia-smi) and torch's device name;
@@ -90,7 +93,33 @@ kernel on the way.  Phases, each of which raises on failure:
    depth 16, rr_start 2, against its plain version under the depth-8 rule
    with >= 99.9% bit-exact (and unlike the wave without it); then
    `render()` at 512x512, 32 spp, depth 16 with rr_start 2 and without,
-   one seed: finite, and the means within 5% of each other.
+   one seed: finite, and the means within 5% of each other;
+18. big_scene1's kernels: the sphere-BVH forward kernel against its plain
+   version (phase 5's rules at 64x64) and against the pinned JAX golden
+   (`big_scene1_32.npz`, `golden_cmp`); the hit kernel (`rt_hit`) against
+   the pinned Pallas hit golden (`big_scene1_hit.npz`: packed words equal
+   on every lane, the float outputs under `cuda_trace.hit_agreement`'s
+   rule) and against its plain version on 65,536 camera rays and one
+   bounce of them on big_scene1, first and cornell_box (packed words equal
+   on every lane, >= 99.9% of the float values bit-exact);
+19. big_scene1 on the megakernel route: `render()` at 800x450, 8 spp,
+   depth 16 (must launch the forward kernel 8 x 6 = 48 times and the hit
+   kernel never), its main wave against the plain version and timed beside
+   its bound (counted by the plain version: live bounces, scatters by
+   material kind, and the BVH walk's node and row tests); then the regen
+   and megakernel routes at 400x225, 16 spp, depth 16 agree statistically
+   (per channel, the mean per-pixel difference within 4 standard errors);
+20. BASELINE config 2: `render()` of big_scene1 at 800x450, 32 spp as 2
+   chunks of 16, depth 16, ray_batch 65,536, on the regen route (the hit
+   kernel launched once per step, the forward kernel never); Mrays/s,
+   steps (one host read each), host time per step and the busy share of a
+   profiled repeat; then the 65,536 rays of one steady-state step (step
+   CAPTURE_STEP of a chunk) through the hit kernel against its plain
+   version, timed beside the bound counted by the plain walk of the same
+   rays;
+21. the regen chunk on the card against the pinned JAX regen chunk
+   (`big_scene1_regen.npz`: 48x27, 16 spp, depth 8) statistically, and its
+   step count within 10% of JAX's.
 
 Prints each phase's seconds, a JSON line of kernels, the card's name and
 power limit, and as its last line `{"ok": true, "device": {...}}`.  Exits
@@ -111,6 +140,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CSRC = "raytracing_gpu_tpu_torch/ops/csrc"
 KERNEL_SOURCE = f"{CSRC}/megakernel.cuh"
 REPLACES = "raytracing_gpu_tpu/ops/pallas_trace.py:1703"
+HIT_SOURCE = f"{CSRC}/hit.cu"
+HIT_REPLACES = "raytracing_gpu_tpu/ops/pallas_trace.py:2252"
 FMA_SOURCE = f"{CSRC}/roofline.cu"
 FMA_REPLACES = "tools/roofline.py:121"
 DATA = os.path.join(ROOT, "tests", "data", "torch_port")
@@ -138,6 +169,17 @@ BASELINE = ((15, 1, "first", 400, 16, 1, 8),
 RR_RENDER = ("cornell_smoke", 512, 32, 16, 2)  # scene, width, spp, depth, rr
 RR_MEAN_TOL = 0.05
 FMA_CHECK_STEPS = (1, 7, 8, 13, 21)  # the unrolled-by-8 loop and its tail
+BIG = "big_scene1"
+# big_scene1 on the megakernel route (below 16 spp per chunk): phase 19;
+# (width, spp per chunk, chunks, depth)
+BIG_MEGAKERNEL = (800, 8, 1, 16)
+# BASELINE config 2 (bench_all.py:17, :374, :432; 2 chunks x 16 spp at this
+# shape, bench_all.py:110) as phase 20
+CONFIG2 = (800, 16, 2, 16)
+ROUTES_AGREE = (400, 16, 16)  # width, spp, depth of phase 19's comparison
+Z_LIMIT = 4.0       # standard errors of a statistical agreement
+CAPTURE_STEP = 40   # a regen step whose wave is full and still refilling
+HIT_RAYS = 65536
 # The Cornell forward wave (65,536 rays, depth 8) of the kernel before it
 # took spheres and media, H100 80GB HBM3 at 700 W (PERF.md, section 6)
 CORNELL_WAVE_MS_BEFORE = "0.0293-0.0294"
@@ -163,6 +205,14 @@ OPS_SCATTER = {0: 50,  # lambertian: face normal, normalize, draws, n + u
                4: 47}  # isotropic: face normal, in_sphere
 OPS_FWD_CONT = 3       # megakernel_fwd's throughput multiply per bounce
 OPS_FWD_END = 6        # megakernel_fwd's radiance update at the path's end
+OPS_NODE = 25          # one BVH node: 6 slabs, their min/max, the tests
+OPS_WALK = 19          # per walk: the guarded 1/d and the sphere 1/a
+# csrc/hit.cu per live ray: front face, normalize, the hit point; and a
+# sphere winner's uv through the polynomial atan2 and acos
+OPS_HIT_END = 27
+OPS_SPHERE_UV = 55
+HIT_IN_BYTES = 29      # o, d, tm float32 and alive uint8 per ray
+HIT_OUT_BYTES = 40     # packed int32, p, u, v, normal, slot float32
 
 
 def card_line() -> str:
@@ -232,11 +282,14 @@ def event_ms(fn, reps: int, hold_device: bool = False) -> float:
 
 def device_busy(fn) -> dict:
     """Profile one call of `fn` with torch.profiler: device time summed by
-    kernel name, wall time, and the device's busy share of the wall."""
+    kernel name, wall time, the device's busy share of the wall, and the
+    seconds the profiler spent around the call (start, trace collection,
+    `key_averages`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    t_start = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -251,6 +304,7 @@ def device_busy(fn) -> dict:
     busy = sum(ms for ms, _ in by_kernel.values())
     return dict(wall_ms=wall * 1e3, device_ms=busy,
                 busy_share=busy / (wall * 1e3) if busy else None,
+                profiler_s=time.perf_counter() - t_start - wall,
                 by_kernel=by_kernel)
 
 
@@ -318,34 +372,42 @@ def spec_bound_ms(ops: float, nbytes: float) -> float:
     return max(ops / SPEC_FP32_FLOPS, nbytes / SPEC_BYTES_PER_S) * 1e3
 
 
-def wave_ops(tracer, scene, plane, n: int) -> float:
-    """float32 operations of a forward wave of n rays whose paths the
-    record plane (max_depth, n) describes: the camera and the path's end
-    per ray; per live bounce the closest hit over every record and the
-    media; per hit that is not a light the scatter of its material kind;
-    per continued bounce the throughput."""
+def plane_counts(scene, plane) -> dict:
+    """The work counts (`trace_pixels_reference(counts=...)`'s keys) of the
+    paths a record plane (max_depth, n) describes."""
     import torch
 
-    bake = tracer.bake
     plane = plane.detach().cpu().to(torch.int64)
     live, cont = live_counts(plane)
+    kinds = torch.from_numpy(scene.materials.kind).to(torch.int64)
+    kind = kinds[(plane & 0xFFFF)[(plane & (1 << 16)) != 0]]
+    return dict(live=live, cont=cont, nodes=0, rows=0,
+                scatter={k: int((kind == k).sum()) for k in OPS_SCATTER})
+
+
+def wave_ops(bake, counts: dict, n: int) -> float:
+    """float32 operations of a forward wave of n rays that does the work in
+    `counts`: the camera and the path's end per ray; per live bounce the
+    closest hit over every record (or the sphere-BVH walk's node and row
+    tests) and the media; per hit that is not a light the scatter of its
+    material kind; per continued bounce the throughput."""
+    bvh = len(bake.sph_nodes) > 0
     hit_ops = (len(bake.rects) * OPS_RECT + len(bake.boxes) * OPS_BOX
-               + len(bake.sphere_table) * OPS_SPHERE
+               + (OPS_WALK if bvh else len(bake.sphere_table) * OPS_SPHERE)
                + (len(bake.sphere_media) + len(bake.box_media)) * OPS_MEDIUM
                + OPS_BOUNCE)
-    kinds = torch.from_numpy(scene.materials.kind).to(torch.int64)
-    hit = (plane & (1 << 16)) != 0
-    kind = kinds[(plane & 0xFFFF)[hit]]
-    scatter = sum(int((kind == k).sum()) * ops
+    scatter = sum(counts["scatter"].get(k, 0) * ops
                   for k, ops in OPS_SCATTER.items())
-    return (n * (OPS_CAMERA + OPS_FWD_END) + live * hit_ops + scatter
-            + cont * OPS_FWD_CONT)
+    return (n * (OPS_CAMERA + OPS_FWD_END) + counts["live"] * hit_ops
+            + counts["nodes"] * OPS_NODE + counts["rows"] * OPS_SPHERE
+            + scatter + counts["cont"] * OPS_FWD_CONT)
 
 
 def table_bytes(tracer) -> int:
     return 4 * sum(t.numel() for t in (tracer.rect_table, tracer.box_table,
                                        tracer.sphere_table,
-                                       tracer.media_table))
+                                       tracer.media_table, tracer.sph_nodes,
+                                       tracer.sph_links, tracer.sph_start))
 
 
 class Phase:
@@ -431,9 +493,10 @@ def time_wave(tracer, sd, st, base: int, card: str, label: str) -> dict:
     pix = n if h * w > n else 0
     wave = tracer.bind(sd.camera, h, w, depth, st.t_min, st.rr_start)
     seed = cuda_trace.wave_seed(base, 1, 1)
+    counts = {}
     cmp = compare(wave(pix, n, seed), cuda_trace.trace_pixels_reference(
         tracer.bake, sd.camera, h, w, pix, n, seed, depth, st.t_min,
-        tracer.device, st.rr_start), depth)
+        tracer.device, st.rr_start, counts=counts), depth)
     print(f"[kernel-vs-plain] {label} main wave of {n} rays, depth {depth}: "
           f"{cmp}")
     if not cmp["ok"]:
@@ -448,27 +511,27 @@ def time_wave(tracer, sd, st, base: int, card: str, label: str) -> dict:
     plain_ms = event_ms(lambda r: cuda_trace.trace_pixels_reference(
         tracer.bake, sd.camera, h, w, pix, n, cuda_trace.wave_seed(base, r, 1),
         depth, st.t_min, tracer.device, st.rr_start), reps=3)
-    plane = tracer.walk_packed_pixels(sd.camera, h, w, pix, n,
-                                      cuda_trace.wave_seed(base, 1, 1),
-                                      depth, st.t_min)
-    ops = wave_ops(tracer, sd.scene, plane, n)
+    ops = wave_ops(tracer.bake, counts, n)
     nbytes = 12 * n + table_bytes(tracer)
     bound_ms, bound_by = bound(ops, nbytes)
-    live, cont = live_counts(plane.cpu())
+    live, cont = counts["live"], counts["cont"]
     print(f"[time] {label} wave of {n} rays, depth {depth}: kernel {ms:.6f} "
           f"ms on the device ({loop_ms:.6f} ms per call in a Python loop), "
           f"plain {plain_ms:.6f} ms; bound {bound_ms:.6f} ms by {bound_by} "
-          f"({ops:.0f} ops from {live} live, {cont} continued bounces; "
+          f"({ops:.0f} ops from {live} live, {cont} continued bounces, "
+          f"{counts['nodes']} node and {counts['rows']} sphere-row tests; "
           f"{spec_bound_ms(ops, nbytes):.6f} ms over the spec sheet), on "
           f"{card}")
     return dict(ms=ms, loop_ms=loop_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, live_bounces=live, cont_bounces=cont,
+                node_tests=counts["nodes"], row_tests=counts["rows"],
                 max_abs_err=cmp["max_abs_err"], exact_frac=cmp["exact_frac"])
 
 
 def render_counted(sd, st, dev, card: str, label: str, png: str) -> dict:
     """`render()` with the launch counts set to 0 just before and read just
-    after: exactly spp x waves forward launches and no record launch; a
+    after: exactly spp x waves forward launches and no record or hit
+    launch; a
     finite, lit image written to `png`; Mrays/s and the busy share of a
     profiled repeat."""
     import numpy as np
@@ -484,20 +547,21 @@ def render_counted(sd, st, dev, card: str, label: str, png: str) -> dict:
            device=dev)  # warm-up
     torch.cuda.synchronize()
     cuda_trace.Tracer.launches = cuda_trace.Tracer.record_launches = 0
+    cuda_trace.Tracer.hit_launches = 0
     t0 = time.perf_counter()
     img = render(sd.scene, sd.camera, st, device=dev)
     wall = time.perf_counter() - t0
     launches = cuda_trace.Tracer.launches
-    stray = cuda_trace.Tracer.record_launches
+    stray = cuda_trace.Tracer.record_launches + cuda_trace.Tracer.hit_launches
     rays = st.num_pixels * st.rays_per_pixel
     print(f"[main] render {label} {st.image_width}x{st.image_height} "
           f"{st.rays_per_pixel}spp depth {st.max_depth}: {wall:.6f} s, "
           f"{rays / wall / 1e6:.6f} Mrays/s, launches {launches} (expected "
-          f"{expected}), record launches {stray} on {card}")
+          f"{expected}), record and hit launches {stray} on {card}")
     if launches != expected or stray != 0:
         raise AssertionError(f"{label}: {launches} forward and {stray} "
-                             f"record kernel launches, expected {expected} "
-                             "and 0")
+                             f"record or hit kernel launches, expected "
+                             f"{expected} and 0")
     if (img.shape != (st.image_height, st.image_width, 3)
             or not np.isfinite(img).all()):
         raise AssertionError(f"{label}: bad image: shape {img.shape}, "
@@ -518,6 +582,315 @@ def render_counted(sd, st, dev, card: str, label: str, png: str) -> dict:
     return dict(launches=launches, wall_s=wall, mrays_per_s=rays / wall / 1e6,
                 busy_share=busy, profiled_busy_share=prof["busy_share"],
                 image_mean=float(img.mean()))
+
+
+def camera_rays(sd, n: int, seed: int, dev):
+    """n camera rays of a scene at random viewport points on the card (the
+    lens and the shutter time drawn too), 10% of the lanes dead."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    s = torch.rand(n, generator=gen, device=dev)
+    t = torch.rand(n, generator=gen, device=dev)
+    o, d, tm = sd.camera.to(dev).get_rays(gen, s, t)
+    alive = torch.rand(n, generator=gen, device=dev) >= 0.1
+    return o.contiguous(), d.contiguous(), tm.contiguous(), alive
+
+
+def scattered_rays(sd, tracer, rays, seed: int):
+    """The rays that go on from the plain hit of `rays`, along the scattered
+    directions (the regen step's resolve and scatter)."""
+    import torch
+
+    from raytracing_gpu_tpu_torch.engine import diff, wavefront
+    from raytracing_gpu_tpu_torch.ops import cuda_trace
+    from raytracing_gpu_tpu_torch.scene import materials
+
+    o, d, tm, alive = rays
+    hr = cuda_trace.hit_reference(tracer.bake, o, d, tm, alive)
+    rec = wavefront.resolve_hit_packed(
+        wavefront.pack_attr_table(sd.scene, o.device), *hr, d)
+    gen = torch.Generator(device=o.device).manual_seed(seed)
+    sc = materials.scatter(sd.scene, diff.get_params(sd.scene, o.device), gen,
+                           d, rec.p, rec.normal, rec.front_face, rec.u, rec.v,
+                           rec.mat_id)
+    alive = alive & rec.hit & sc.ok
+    return (torch.where(alive[:, None], rec.p, o).contiguous(),
+            torch.where(alive[:, None], sc.direction, d).contiguous(), tm,
+            alive)
+
+
+def hit_vs_plain(tracer, rays, label: str) -> dict:
+    """`rt_hit` against `hit_reference` on the same rays on the card: the
+    packed words equal on every lane and >= EXACT_FLOOR of the float values
+    bit-exact."""
+    import torch
+
+    from raytracing_gpu_tpu_torch.ops import cuda_trace
+
+    got = tracer.hit(*rays)
+    want = cuda_trace.hit_reference(tracer.bake, *rays)
+    torch.cuda.synchronize()
+    res = cuda_trace.hit_agreement(got, want)
+    res["max_abs_err"] = max(res["max_err"].values())
+    print(f"[hit-vs-plain] {label}: {res}")
+    if not (res["packed_equal"] and res["exact_frac"] >= EXACT_FLOOR):
+        raise AssertionError(f"{label}: hit kernel disagrees with plain")
+    return res
+
+
+def z_scores(a, b):
+    """Per channel, the mean over pixels of the per-pixel difference of two
+    (npix, 3) estimates in standard errors (pixels are independent)."""
+    import numpy as np
+
+    diff = np.asarray(a, np.float64) - np.asarray(b, np.float64)
+    return diff.mean(0) / (diff.std(0, ddof=1) / np.sqrt(len(diff)))
+
+
+def hit_ops(bake, rays) -> tuple[float, dict]:
+    """float32 operations of one hit launch on `rays`, from the plain
+    octant walk of the same rays (`sphere_walk_reference`): per live ray
+    the rects, boxes, walk set-up and finalize, per node and row test its
+    operations, per sphere winner its uv."""
+    import torch
+
+    from raytracing_gpu_tpu_torch.ops import cuda_trace
+
+    o, d, tm, alive = rays
+    o3, d3 = tuple(o.unbind(1)), tuple(d.unbind(1))
+    walk = cuda_trace.sphere_walk_reference(
+        bake, o3, d3, tm, cuda_trace._f32(0.001),
+        torch.full_like(tm, cuda_trace.BIG), alive, octant=True)
+    live = int(alive.sum())
+    counts = dict(live=live, nodes=int(walk.nodes.sum()),
+                  rows=int(walk.rows.sum()),
+                  sphere_winners=int(walk.better.sum()))
+    ops = (live * (len(bake.rects) * OPS_RECT + len(bake.boxes) * OPS_BOX
+                   + OPS_WALK + OPS_HIT_END)
+           + counts["nodes"] * OPS_NODE + counts["rows"] * OPS_SPHERE
+           + counts["sphere_winners"] * OPS_SPHERE_UV)
+    return ops, counts
+
+
+def reset_counts() -> None:
+    """Every kernel launch count to 0."""
+    from raytracing_gpu_tpu_torch.ops import cuda_trace
+    from raytracing_gpu_tpu_torch.utils import roofline
+
+    cuda_trace.Tracer.launches = 0
+    cuda_trace.Tracer.record_launches = 0
+    cuda_trace.Tracer.hit_launches = 0
+    roofline.launches = 0
+
+
+def big_scene1_phases(dev, card: str, base: int, png: str) -> tuple:
+    """Phases 18-21 (big_scene1's kernels, its megakernel route, BASELINE
+    config 2 on the regen route, the regen chunk against its golden), after
+    phase 4 set `Ceilings`.  Returns the megakernel route's numbers and the
+    hit kernel's row of the kernels line."""
+    import numpy as np
+    import torch
+
+    from raytracing_gpu_tpu_torch import (RenderSettings, compile_renderer,
+                                         render, render_linear)
+    from raytracing_gpu_tpu_torch.engine import film
+    from raytracing_gpu_tpu_torch.engine.wavefront import (
+        compile_regen_renderer)
+    from raytracing_gpu_tpu_torch.models import scenes
+    from raytracing_gpu_tpu_torch.ops import cuda_trace
+
+    png_dir = os.path.dirname(os.path.abspath(png))
+    # ---- 18. big_scene1: the sphere-BVH forward kernel and the hit kernel
+    bsd = scenes.get(BIG)
+    btr = cuda_trace.Tracer(bsd.scene, dev)
+    with Phase("18 big_scene1 kernels"):
+        check_scene_kernel(btr, bsd, base, BIG)
+        g = np.load(os.path.join(DATA, f"{BIG}_32.npz"))
+        gst = golden_settings(g)
+        gchunk = compile_renderer(bsd.scene, bsd.camera, gst, dev)
+        gcmp = golden_cmp(gchunk(int(g["base"])), torch.from_numpy(g["sums"]))
+        print(f"[kernel-vs-jax-golden] {BIG} {gst.image_width}x"
+              f"{gst.image_height} 2spp depth {gst.max_depth} "
+              f"({gchunk.engine_name}): {gcmp}")
+        if not (gcmp["ok"] and gchunk.engine_name == "megakernel"):
+            raise AssertionError(f"{BIG}: kernel disagrees with the JAX "
+                                 "golden")
+        hg = np.load(os.path.join(DATA, f"{BIG}_hit.npz"))
+        for b in range(2):
+            got = btr.hit(*(torch.from_numpy(np.array(hg[f"{k}{b}"])).to(dev)
+                            for k in ("o", "d", "tm", "alive")))
+            hres = cuda_trace.hit_agreement(got, [hg[f"{k}{b}"] for k in (
+                "packed", "p", "u", "v", "normal")])
+            print(f"[hit-vs-jax-golden] {BIG} 4096 rays, bounce {b}: {hres}")
+            if not (hres["packed_equal"] and hres["within_limits"]
+                    and hres["frac_close"] >= 0.99):
+                raise AssertionError("hit kernel disagrees with the Pallas "
+                                     "hit golden")
+        for name in (BIG, "first", "cornell_box"):
+            hsd = scenes.get(name)
+            htr = btr if name == BIG else cuda_trace.Tracer(hsd.scene, dev)
+            rays = camera_rays(hsd, HIT_RAYS, 71, dev)
+            hit_vs_plain(htr, rays, f"{name} {HIT_RAYS} camera rays")
+            rays = scattered_rays(hsd, htr, rays, 72)
+            hit_vs_plain(htr, rays, f"{name} {HIT_RAYS} rays, one bounce on")
+
+    # ---- 19. big_scene1 on the megakernel route; the routes agree ----
+    with Phase("19 big_scene1 megakernel route"):
+        width, spp, chunks, depth = BIG_MEGAKERNEL
+        mst = RenderSettings(image_width=width, aspect_ratio=bsd.aspect,
+                             spp_per_chunk=spp, num_chunks=chunks,
+                             max_depth=depth, ray_batch=65536)
+        if compile_renderer(bsd.scene, bsd.camera, mst,
+                            dev).engine_name != "megakernel":
+            raise AssertionError("big_scene1 below 16 spp per chunk must "
+                                 "take the megakernel")
+        png = os.path.join(png_dir, f"chip_smoke_{BIG}_megakernel_{width}.png")
+        big_mega = render_counted(bsd, mst, dev, card,
+                                  f"{BIG} (megakernel route)", png)
+        big_mega.update(time_wave(btr, bsd, mst, base, card,
+                                  f"{BIG} (megakernel route)"))
+        print(f"[{BIG} megakernel] {big_mega}")
+        width, spp, depth = ROUTES_AGREE
+        ast = RenderSettings(image_width=width, aspect_ratio=bsd.aspect,
+                             spp_per_chunk=spp, num_chunks=1,
+                             max_depth=depth, ray_batch=65536)
+        regen_img = render_linear(bsd.scene, bsd.camera, ast, seed=1,
+                                  device=dev)
+        mega_img = render_linear(bsd.scene, bsd.camera,
+                                 ast.with_(spp_per_chunk=spp // 2,
+                                           num_chunks=2), seed=2, device=dev)
+        z = z_scores(regen_img.reshape(-1, 3), mega_img.reshape(-1, 3))
+        print(f"[routes] {BIG} {width}x{ast.image_height} {spp}spp depth "
+              f"{depth}: regen mean {regen_img.mean(axis=(0, 1))}, megakernel "
+              f"mean {mega_img.mean(axis=(0, 1))}, z {z}")
+        if not (np.abs(z) < Z_LIMIT).all():
+            raise AssertionError("the regen and megakernel routes disagree")
+
+    # ---- 20. BASELINE config 2 on the regen route ----
+    with Phase("20 BASELINE config 2"):
+        width, spp, chunks, depth = CONFIG2
+        c2 = RenderSettings(image_width=width, aspect_ratio=bsd.aspect,
+                            spp_per_chunk=spp, num_chunks=chunks,
+                            max_depth=depth, ray_batch=65536)
+        engine = compile_renderer(bsd.scene, bsd.camera, c2, dev).engine_name
+        if engine != "regen":
+            raise AssertionError(f"config 2 took {engine}, not regen")
+        render(bsd.scene, bsd.camera, c2.with_(image_width=160, num_chunks=1),
+               device=dev)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        img2 = render(bsd.scene, bsd.camera, c2, device=dev)
+        wall2 = time.perf_counter() - t0
+        steps = cuda_trace.Tracer.hit_launches
+        stray = cuda_trace.Tracer.launches + cuda_trace.Tracer.record_launches
+        rays2 = c2.num_pixels * c2.rays_per_pixel
+        mrays2 = rays2 / wall2 / 1e6
+        print(f"[main] render {BIG} (config 2, engine {engine}) {width}x"
+              f"{c2.image_height} {c2.rays_per_pixel}spp depth {depth}: "
+              f"{wall2:.6f} s, {mrays2:.6f} Mrays/s, hit launches {steps} "
+              f"(one per step, {steps / chunks:.1f} per chunk, each with one "
+              f"host read), host time per step {wall2 * 1e3 / steps:.6f} ms, "
+              f"megakernel launches {stray} on {card}")
+        if steps == 0 or stray != 0:
+            raise AssertionError(f"config 2: {steps} hit and {stray} "
+                                 "megakernel launches")
+        if (img2.shape != (c2.image_height, width, 3)
+                or not np.isfinite(img2).all()
+                or not 0.05 < float(img2.mean()) < 0.999):
+            raise AssertionError(f"config 2: bad image {img2.shape}, mean "
+                                 f"{img2.mean()}")
+        png = os.path.join(png_dir, f"chip_smoke_{BIG}_{width}.png")
+        film.write_png(png, img2)
+        print(f"[main] config 2 image mean {img2.mean():.6f} -> {png}")
+        prof2 = device_busy(lambda: render(bsd.scene, bsd.camera, c2,
+                                           device=dev))
+        busy2 = prof2["device_ms"] / (wall2 * 1e3)
+        top2 = sorted(prof2["by_kernel"].items(), key=lambda kv: -kv[1][0])
+        print(f"[main] config 2 profiled repeat: device "
+              f"{prof2['device_ms']:.3f} ms, wall {prof2['wall_ms']:.3f} ms, "
+              f"profiler {prof2['profiler_s']:.3f} s around it; top kernels "
+              f"(ms, count) {top2[:14]}")
+        print(f"[main] config 2 device busy share of the counted render: "
+              f"{busy2:.6f} ({prof2['device_ms']:.3f} ms of device time in "
+              f"{wall2 * 1e3:.3f} ms) on {card}")
+
+        # one steady-state step's rays, captured from a regen chunk
+        ctr = cuda_trace.Tracer(bsd.scene, dev)
+        bound_hit, captured = ctr.bind_hit, {}
+
+        def capturing_bind_hit(t_min=0.001):
+            launch, step = bound_hit(t_min), [0]
+
+            def hit(o, d, tm, alive):
+                if step[0] == CAPTURE_STEP:
+                    captured["rays"] = tuple(x.clone() for x in (o, d, tm,
+                                                                 alive))
+                step[0] += 1
+                return launch(o, d, tm, alive)
+            return hit
+
+        ctr.bind_hit = capturing_bind_hit
+        _, cstats = compile_regen_renderer(
+            bsd.scene, bsd.camera, c2.with_(num_chunks=1), tracer=ctr,
+            debug_stats=True, device=dev)(int(base))
+        hrays = captured["rays"]
+        hcmp = hit_vs_plain(btr, hrays, f"{BIG} regen step {CAPTURE_STEP} "
+                            f"({int(hrays[3].sum())} of {HIT_RAYS} live)")
+        hit_launch = btr.bind_hit()
+        hit_ms = event_ms(lambda r: hit_launch(*hrays), reps=50,
+                          hold_device=True)
+        hit_loop_ms = event_ms(lambda r: hit_launch(*hrays), reps=50)
+        hit_plain_ms = event_ms(lambda r: cuda_trace.hit_reference(
+            btr.bake, *hrays), reps=3)
+        t_walk = time.perf_counter()
+        h_ops, h_counts = hit_ops(btr.bake, hrays)
+        t_walk = time.perf_counter() - t_walk
+        h_bytes = HIT_RAYS * (HIT_IN_BYTES + HIT_OUT_BYTES) + 4 * (
+            btr.sphere_table.numel() + btr.sph_hit_nodes.numel())
+        hit_bound_ms, hit_bound_by = bound(h_ops, h_bytes)
+        print(f"[time] rt_hit on {BIG} regen step {CAPTURE_STEP} of a chunk "
+              f"({cstats}), {HIT_RAYS} rays: kernel {hit_ms:.6f} ms on the "
+              f"device ({hit_loop_ms:.6f} ms per call in a Python loop), "
+              f"plain {hit_plain_ms:.6f} ms; bound {hit_bound_ms:.6f} ms by "
+              f"{hit_bound_by} ({h_ops:.0f} ops, {h_bytes} bytes, {h_counts}, "
+              f"counted by the plain walk in {t_walk:.3f} s; "
+              f"{spec_bound_ms(h_ops, h_bytes):.6f} ms over the spec sheet) "
+              f"on {card}")
+
+    # ---- 21. the regen chunk against the JAX regen golden ----
+    with Phase("21 regen vs golden"):
+        rg = np.load(os.path.join(DATA, f"{BIG}_regen.npz"))
+        rst = golden_settings(rg)
+        rchunk = compile_regen_renderer(bsd.scene, bsd.camera, rst,
+                                        debug_stats=True, device=dev)
+        rsums, rstats = rchunk(20241)
+        npix = rst.num_pixels
+        z = z_scores(rsums.cpu().numpy()[:npix] / rst.spp_per_chunk,
+                     rg["sums"][:npix] / rst.spp_per_chunk)
+        step_ratio = rstats["iterations"] / int(rg["iterations"])
+        print(f"[regen-vs-jax-golden] {BIG} {rst.image_width}x"
+              f"{rst.image_height} {rst.spp_per_chunk}spp depth "
+              f"{rst.max_depth}: z {z}, steps {rstats} against JAX's "
+              f"{int(rg['iterations'])} and stream {int(rg['stream'])}")
+        if not ((np.abs(z) < Z_LIMIT).all() and abs(step_ratio - 1) < 0.1
+                and rstats["stream"] == int(rg["stream"])):
+            raise AssertionError("the regen chunk disagrees with the JAX "
+                                 "regen golden")
+
+    return big_mega, {
+        "name": "rt_hit", "route": "cuda", "source": HIT_SOURCE,
+        "replaces": HIT_REPLACES, "launches": steps,
+        "max_abs_err": hcmp["max_abs_err"], "exact_frac": hcmp["exact_frac"],
+        "ms": hit_ms, "plain_ms": hit_plain_ms,
+        "bound_ms": hit_bound_ms, "bound_by": hit_bound_by,
+        "library_ms": None,
+        "loop_ms": hit_loop_ms,
+        "config2_mrays_per_s": mrays2,
+        "config2_device_busy_share": busy2,
+        "config2_steps": steps,
+        "config2_host_ms_per_step": wall2 * 1e3 / steps}
 
 
 def main() -> int:
@@ -551,11 +924,6 @@ def main() -> int:
     from raytracing_gpu_tpu_torch.models import scenes
     from raytracing_gpu_tpu_torch.ops import build, cuda_trace
     from raytracing_gpu_tpu_torch.utils import roofline
-
-    def reset_counts():
-        cuda_trace.Tracer.launches = 0
-        cuda_trace.Tracer.record_launches = 0
-        roofline.launches = 0
 
     # ---- 2. build ----
     with Phase("2 build"):
@@ -775,7 +1143,8 @@ def main() -> int:
         fwd_plane = tracer.walk_packed_pixels(
             sd.camera, 512, 512, main_n, main_n,
             cuda_trace.wave_seed(base, 0, 1), max_depth=main_depth)
-        fwd_ops = wave_ops(tracer, sd.scene, fwd_plane, main_n)
+        fwd_ops = wave_ops(tracer.bake, plane_counts(sd.scene, fwd_plane),
+                           main_n)
         fwd_bound_ms, fwd_bound_by = bound(fwd_ops, 12 * main_n + tbytes)
         fwd_live, fwd_cont = live_counts(fwd_plane)
         print(f"[bound] forward wave: {fwd_live} live, {fwd_cont} continued "
@@ -997,6 +1366,8 @@ def main() -> int:
         if not (np.isfinite(rr_img).all() and rr_rel <= RR_MEAN_TOL):
             raise AssertionError("russian roulette render is off")
 
+    big_mega, hit_row = big_scene1_phases(dev, card, base, args.png)
+
     scene_rates = {name: dict(c) for name, c in configs.items()}
     print(json.dumps({"kernels": [{
         "name": "megakernel_fwd", "route": "cuda", "source": KERNEL_SOURCE,
@@ -1023,6 +1394,17 @@ def main() -> int:
         "train_mrays_per_s": t_mrays,
         "train_device_busy_share": t_busy,
         "train_peak_allocated_mib": peak_mb}, {
+        "name": "megakernel_fwd<sphere_bvh>", "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": REPLACES,
+        "launches": big_mega["launches"],
+        "max_abs_err": big_mega["max_abs_err"],
+        "exact_frac": big_mega["exact_frac"],
+        "ms": big_mega["ms"], "plain_ms": big_mega["plain_ms"],
+        "bound_ms": big_mega["bound_ms"], "bound_by": big_mega["bound_by"],
+        "library_ms": None,
+        "loop_ms": big_mega["loop_ms"],
+        "render_mrays_per_s": big_mega["mrays_per_s"],
+        "render_device_busy_share": big_mega["busy_share"]}, hit_row, {
         "name": "fma_chain", "route": "cuda", "source": FMA_SOURCE,
         "replaces": FMA_REPLACES, "launches": fma_launches,
         "max_abs_err": fma_err, "ms": fma_ms, "plain_ms": fma_plain_ms,

@@ -6,14 +6,16 @@
     python -m raytracing_gpu_tpu_torch.cli bench cornell_box --width 512
 
 `--device` defaults to `cuda`.  Without a CUDA device the CLI exits with an
-error unless `--device cpu` is given, which runs the kernel's plain PyTorch
-version on the CPU.
+error unless `--device cpu` is given, which runs the kernels' plain PyTorch
+versions on the CPU.  `render` logs the engine it takes ("megakernel" or
+"regen", as `engine.render.route` picks it) unless `--quiet`.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import logging
 import sys
 import time
 
@@ -109,11 +111,22 @@ def main(argv=None) -> int:
                   file=sys.stderr)
 
     from .engine import film
+    from .utils.profiling import logger
 
+    handler = logging.StreamHandler(sys.stderr)
+    handler.setFormatter(logging.Formatter("%(message)s"))
+    level = logger.level
+    if not args.quiet:  # render_linear logs the engine it takes
+        logger.addHandler(handler)
+        logger.setLevel(logging.INFO)
     timer = PhaseTimer()
     t0 = time.perf_counter()
-    linear = render_linear(sd.scene, sd.camera, st, seed=args.seed,
-                           progress=progress, device=device, timer=timer)
+    try:
+        linear = render_linear(sd.scene, sd.camera, st, seed=args.seed,
+                               progress=progress, device=device, timer=timer)
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
     elapsed = time.perf_counter() - t0
     img = film.finalize(linear * st.rays_per_pixel, st.rays_per_pixel)
     if args.output.endswith(".ppm"):

@@ -34,10 +34,11 @@ def _array(name: str, value) -> np.ndarray:
 
 def scene_from_numpy(tree: Mapping) -> st.Scene:
     """Port `Scene` from {table name: {field: array}, "background": (3,),
-    "has_sphere_media": bool, "has_box_media": bool}."""
-    for bvh in ("tri_bvh", "sphere_bvh"):
-        if tree.get(bvh) is not None:
-            raise NotImplementedError(f"{bvh}: not yet ported")
+    "has_sphere_media": bool, "has_box_media": bool}.  A `sphere_bvh`
+    entry (the XLA engine's) is dropped: the kernel bake builds its own from
+    the sphere table (`ops.cuda_trace.bake_scene`)."""
+    if tree.get("tri_bvh") is not None:
+        raise NotImplementedError("tri_bvh: not yet ported")
     tables = {}
     for name, cls in st.TABLES.items():
         leaves = tree[name]

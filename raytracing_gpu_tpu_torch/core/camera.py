@@ -77,6 +77,11 @@ class Camera:
             time1=f32(time1),
         )
 
+    def to(self, device: torch.device | str) -> "Camera":
+        """The same camera with its tensors on `device`."""
+        return Camera(**{f.name: getattr(self, f.name).to(device)
+                         for f in dataclasses.fields(self)})
+
     def get_rays(self, generator: torch.Generator, s: torch.Tensor,
                  t: torch.Tensor):
         """Batched `get_ray` (reference `camera.h:49-58`).

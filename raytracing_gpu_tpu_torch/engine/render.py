@@ -1,14 +1,17 @@
 """Render loop: sample chunks of kernel waves.
 
-Counterpart of `raytracing_gpu_tpu/engine/render.py` for the megakernel
-route.  A chunk is `spp_per_chunk` samples of every pixel; each sample is
-split into waves of `ray_batch` pixels, and each (sample, wave) is one
-kernel launch whose seed is scalar arithmetic on the chunk's base seed
-(`ops.cuda_trace.wave_seed`).  Chunk sums accumulate in float32 on the
-device; `render_linear` draws each chunk's base from a `torch.Generator`
-seeded with `settings.seed`.
+Counterpart of `raytracing_gpu_tpu/engine/render.py` for its megakernel
+and regen routes, chosen as `compile_renderer` chooses them there.  A
+chunk is `spp_per_chunk` samples of every pixel.  On the megakernel route
+each sample is split into waves of `ray_batch` pixels, and each (sample,
+wave) is one kernel launch whose seed is scalar arithmetic on the chunk's
+base seed (`ops.cuda_trace.wave_seed`); the regen route
+(`engine/wavefront.py`) seeds its generator with the base.  Chunk sums
+accumulate in float32 on the device; `render_linear` draws each chunk's
+base from a `torch.Generator` seeded with `settings.seed`.
 
-Not ported yet: the XLA and wavefront engines and checkpoint/resume.
+Not ported yet: the XLA, bounce-synchronous wavefront and record-walk
+engines, and checkpoint/resume.
 """
 
 from __future__ import annotations
@@ -40,19 +43,39 @@ def _ceil_to(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
 
 
+def route(tracer: cuda_trace.Tracer, settings: RenderSettings) -> str:
+    """The engine `compile_renderer` takes, as the JAX package routes
+    `engine="pallas"` (`engine/render.py:117-199`) among the ported ones: a
+    scene with a sphere BVH, no media, depth >= 8 and >= 16 spp per chunk
+    goes to "regen" (the megakernel's unsorted waves straggle at depth on
+    the deep BVH); everything else to "megakernel"."""
+    deep_sphere_bvh = (len(tracer.bake.sph_hit_nodes) > 0
+                       and settings.max_depth >= 8)
+    if (deep_sphere_bvh and tracer.supports_hit
+            and settings.spp_per_chunk >= 16):
+        return "regen"
+    return "megakernel"
+
+
 def compile_renderer(scene: Scene, camera: Camera, settings: RenderSettings,
                      device: torch.device | str = "cuda"
                      ) -> Callable[[int], torch.Tensor]:
     """Scene-specialized forward renderer: int32 base seed -> (npix_pad, 3)
-    float32 radiance sums on `device` over `spp_per_chunk` samples.
+    float32 radiance sums on `device` over `spp_per_chunk` samples; its
+    `engine_name` is the route (`route`).
 
-    The megakernel route of the JAX package (`engine/render.py:172-199`):
-    one launch per (sample, wave), with russian roulette from bounce
-    `settings.rr_start` when it is > 0.  Raises NotImplementedError for a
-    scene outside the ported feature set.
+    The megakernel route (`engine/render.py:172-199`) launches once per
+    (sample, wave), with russian roulette from bounce `settings.rr_start`
+    when it is > 0; the regen route is `wavefront.compile_regen_renderer`.
+    Raises NotImplementedError for a scene outside the ported feature set.
     """
     device = torch.device(device)
     tracer = cuda_trace.Tracer(scene, device)  # raises for unported scenes
+    if route(tracer, settings) == "regen":
+        from .wavefront import compile_regen_renderer
+
+        return compile_regen_renderer(scene, camera, settings, tracer=tracer,
+                                      device=device)
     h, w, _npix, npix_pad, b, nb = _grid_geometry(settings)
     trace = tracer.bind(camera, h, w, settings.max_depth, settings.t_min,
                         settings.rr_start)

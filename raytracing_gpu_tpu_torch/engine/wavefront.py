@@ -1,0 +1,262 @@
+"""The regenerative wavefront renderer, and the glue around the hit kernel.
+
+Counterpart of `raytracing_gpu_tpu/engine/wavefront.py` for scenes without
+triangles: `_part1by2`, `_sort_keys`, `pack_attr_table`,
+`resolve_hit_packed` and `compile_regen_renderer` (`:57-148`, `:457-684`).
+The bounce loop lives in torch around one closest-hit kernel launch per
+step (`ops.cuda_trace.Tracer.hit`): a persistent, always-full wave of
+`ray_batch` lanes in which a ray that ends deposits its radiance and its
+lane is refilled with a fresh camera ray from a pixel-major sample stream
+(ray s goes to pixel s // spp).  Each step:
+
+1. sorts the lanes by (terminated, direction octant, origin morton), so the
+   dead lanes move to the tail and the live ones into coherent packets;
+2. refills the dead tail with consecutive stream rays;
+3. takes one closest hit per lane and the torch half of the bounce: the
+   attribute resolve, `materials.scatter`, emission, background, throughput
+   and russian roulette;
+4. adds the radiance of the rays that ended into a small power-of-two ring
+   of pixel rows (the stream advances at most ray_batch / spp pixels a
+   step and a ray lives at most max_depth steps, so (max_depth + 4) such
+   windows never collide);
+5. copies ring blocks that no live ray can reach any more into the
+   framebuffer, at most two a step; a final flush adds what is left.
+
+The JAX package runs the loop as one `while_loop`; here it is a Python loop
+whose condition costs one host read per step (the live-lane count, which
+the refill needs as well), and the stream position, the drain cursor and
+the pixel history are host integers.  `argsort` is stable, as `jnp.argsort`
+is.  The camera, the scatter and the roulette draw from a `torch.Generator`
+seeded with the chunk's base seed, so a chunk is deterministic on the CPU
+for one seed and agrees with the JAX package statistically (on a CUDA
+device the ring's `index_add_` sums in no fixed order).  Not ported: the
+TPU packet rows (`hit_sub`) and the sharded form (`_local`).
+"""
+
+from __future__ import annotations
+
+import collections
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..core import rng, vec
+from ..core.camera import Camera
+from ..core.config import RenderSettings
+from ..ops import cuda_trace
+from ..scene import materials
+from ..scene.types import Scene
+from . import diff
+from .intersect import HitRecord
+
+
+def _part1by2(x: torch.Tensor) -> torch.Tensor:
+    """Spread the low 10 bits of int32 x to every third bit (morton)."""
+    x = (x | (x << 16)) & 0x030000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    x = (x | (x << 2)) & 0x09249249
+    return x
+
+
+def _sort_keys(o: torch.Tensor, d: torch.Tensor, alive: torch.Tensor,
+               lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """int32 sort key `dead << 30 | octant << 21 | morton`: terminated rays
+    last, live rays grouped by direction octant, then by a 7-bit-per-axis
+    morton code of the origin within [lo, hi]."""
+    i32 = torch.int32
+    okt = (((d[:, 0] < 0).to(i32) << 2) | ((d[:, 1] < 0).to(i32) << 1)
+           | (d[:, 2] < 0).to(i32))
+    q = torch.clamp((o - lo) / (hi - lo), 0.0, 1.0)
+    cell = torch.clamp((q * 128.0).to(i32), 0, 127)
+    morton = (_part1by2(cell[:, 0]) | (_part1by2(cell[:, 1]) << 1)
+              | (_part1by2(cell[:, 2]) << 2))
+    return ((~alive).to(i32) << 30) | (okt << 21) | morton
+
+
+def pack_attr_table(scene: Scene,
+                    device: torch.device | str = "cpu") -> torch.Tensor:
+    """(S, 16) float32 per-slot winner attributes for `resolve_hit_packed`:
+    for a scene without triangles the one zero row the resolve gathers
+    (the hit kernel never sets is_tri).  Triangle slots are not ported."""
+    if scene.triangles.active.any():
+        raise NotImplementedError("triangles: not yet ported")
+    return torch.zeros((1, 16), dtype=torch.float32, device=device)
+
+
+def resolve_hit_packed(attr_slot: torch.Tensor, packed: torch.Tensor,
+                       p: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                       normal: torch.Tensor, slot: torch.Tensor,
+                       d: torch.Tensor) -> HitRecord:
+    """Hit-kernel outputs to a HitRecord (`wavefront.resolve_hit_packed`):
+    a triangle winner's vertex normal, uv and material come from its slot's
+    row of `attr_slot` by barycentric interpolation; other winners arrive
+    resolved (normal faced and normalized, uv final, mat in the word)."""
+    hit = (packed & cuda_trace.HIT_BIT) != 0
+    front_nt = (packed & cuda_trace.FRONT_BIT) != 0
+    is_tri = (packed & cuda_trace.TRI_BIT) != 0
+    a = attr_slot[torch.clamp(slot.long(), 0, attr_slot.shape[0] - 1)]
+    w0 = (1.0 - u - v)[:, None]
+    vert_n = (w0 * a[:, 0:3] + u[:, None] * a[:, 3:6]
+              + v[:, None] * a[:, 6:9])
+    front_t = vec.dot(d, vert_n) < 0.0
+    n_t = vec.unit(vec.where(front_t, vert_n, -vert_n))
+    uv_t = (w0 * a[:, 9:11] + u[:, None] * a[:, 11:13]
+            + v[:, None] * a[:, 13:15])
+    mat = torch.where(is_tri, a[:, 15].to(torch.int32), packed & 0xFFFF)
+    return HitRecord(hit=hit, t=torch.zeros_like(u), p=p,
+                     normal=vec.where(is_tri, n_t, normal),
+                     front_face=torch.where(is_tri, front_t, front_nt),
+                     u=torch.where(is_tri, uv_t[:, 0], u),
+                     v=torch.where(is_tri, uv_t[:, 1], v), mat_id=mat)
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(int(n - 1).bit_length(), 0)
+
+
+def compile_regen_renderer(scene: Scene, camera: Camera,
+                           settings: RenderSettings,
+                           tracer: cuda_trace.Tracer | None = None,
+                           debug_stats: bool = False,
+                           device: torch.device | str = "cuda"
+                           ) -> Callable[[int], torch.Tensor]:
+    """Regenerative wavefront chunk: base seed -> (npix_pad, 3) float32
+    radiance sums over `spp_per_chunk` samples (npix_pad as
+    `render._grid_geometry`), on `device`.  With `debug_stats` a chunk
+    returns (sums, {"iterations": steps, "stream": rays issued}).  Raises
+    ValueError for a scene with media (`Tracer.supports_hit`)."""
+    from .render import _grid_geometry
+
+    device = torch.device(device)
+    if tracer is None:
+        tracer = cuda_trace.Tracer(scene, device)
+    hit = tracer.bind_hit(settings.t_min)  # raises without supports_hit
+    h, w = settings.image_height, settings.image_width
+    npix, n, spp = h * w, settings.ray_batch, settings.spp_per_chunk
+    max_depth, rr_start = settings.max_depth, settings.rr_start
+    cam = camera.to(device)
+    params = diff.get_params(scene, device)
+    bg = torch.as_tensor(np.asarray(scene.background), dtype=torch.float32,
+                         device=device)
+    lo = torch.as_tensor(tracer.world_lo, device=device)
+    hi = lo + torch.clamp(torch.as_tensor(tracer.world_hi, device=device)
+                          - lo, min=1e-6)
+    attr_slot = pack_attr_table(scene, device)
+
+    adv = -(-n // spp)                      # most pixels a step can issue
+    ring_w = _pow2_at_least((max_depth + 4) * adv)
+    drain_k = ring_w // 16                  # aligned drain block (>= adv)
+    npix_pad_out = _grid_geometry(settings)[3]
+    npix_pad = -(-npix // drain_k) * drain_k
+    total = npix_pad * spp                  # stream length (rays)
+    inv_w = 1.0 / max(w - 1, 1)
+    inv_h = 1.0 / max(h - 1, 1)
+    lane = torch.arange(n, dtype=torch.int64, device=device)
+
+    def chunk(base: int):
+        gen = torch.Generator(device=device).manual_seed(int(base) % 2**63)
+        fb = torch.zeros((npix_pad, 3), dtype=torch.float32, device=device)
+        ring = torch.zeros((ring_w, 3), dtype=torch.float32, device=device)
+        pay = torch.zeros((n, 15), dtype=torch.float32, device=device)
+        pay[:, 3] = 1.0                     # unit-ish directions for padding
+        alive = torch.zeros(n, dtype=torch.bool, device=device)
+        hist = collections.deque([0] * max_depth)
+        steps = stream_next = drained = 0
+        while True:
+            n_live = int(alive.sum())       # the step's one host read
+            if stream_next >= total and n_live == 0:
+                break
+            # 1. sort: dead lanes to the tail, live ones by octant, morton
+            order = torch.argsort(_sort_keys(pay[:, 0:3], pay[:, 3:6], alive,
+                                             lo, hi), stable=True)
+            pay, alive = pay[order], alive[order]
+
+            # 2. refill the dead tail with consecutive stream rays
+            s_idx = stream_next + (lane - n_live)
+            new = ~alive & (s_idx < total) & (lane >= n_live)
+            pix_new = torch.clamp(torch.div(s_idx, spp, rounding_mode="floor"),
+                                  0, npix_pad - 1)
+            row = torch.clamp(torch.div(pix_new, w, rounding_mode="floor"),
+                              max=h - 1)
+            col = torch.clamp(pix_new % w, max=w - 1)
+            jit2 = rng.uniform(gen, (n, 2))
+            su = (col.to(torch.float32) + jit2[:, 0]) * inv_w
+            sv = ((h - 1 - row).to(torch.float32) + jit2[:, 1]) * inv_h
+            o_n, d_n, tm_n = cam.get_rays(gen, su, sv)
+            newf = new[:, None].to(torch.float32)
+            o = vec.where(new, o_n, pay[:, 0:3])
+            d = vec.where(new, d_n, pay[:, 3:6])
+            tm = torch.where(new, tm_n, pay[:, 6])
+            thr = (1.0 - newf) * pay[:, 7:10] + newf
+            rad = (1.0 - newf) * pay[:, 10:13]
+            pix = torch.where(new, pix_new, pay[:, 13].to(torch.int64))
+            depth = torch.where(new, 0, pay[:, 14].to(torch.int64))
+            alive = alive | new
+            n_refill = min(max(n - n_live, 0), total - stream_next)
+
+            # 3. one closest hit, then the torch half of the bounce
+            hr = hit(o, d, tm, alive)
+            rec = resolve_hit_packed(attr_slot, *hr, d)
+            miss = (hr.packed & cuda_trace.MISS_BIT) != 0
+            sc = materials.scatter(scene, params, gen, d, rec.p, rec.normal,
+                                   rec.front_face, rec.u, rec.v, rec.mat_id)
+            rad = rad + torch.where(miss[:, None], thr * bg, 0.0)
+            rad = rad + torch.where(rec.hit[:, None], thr * sc.emitted, 0.0)
+            cont = rec.hit & sc.ok
+            thr = torch.where(cont[:, None], thr * sc.attenuation, thr)
+            if rr_start > 0:
+                p_s = torch.clamp(thr.amax(dim=-1), 0.05, 1.0)
+                do_rr = depth >= rr_start
+                survive = ~do_rr | (rng.uniform(gen, (n,)) < p_s)
+                scale = torch.where(do_rr & survive, 1.0 / p_s, 1.0)
+                thr = torch.where(cont[:, None], thr * scale[:, None], thr)
+                cont = cont & survive
+            depth = depth + 1
+            cont = cont & (depth < max_depth)
+            o = vec.where(rec.hit, rec.p, o)
+            d = vec.where(rec.hit, sc.direction, d)
+
+            # 4. deposit the rays that ended into the ring
+            died = alive & ~cont
+            ring.index_add_(0, pix & (ring_w - 1),
+                            torch.where(died[:, None], rad, 0.0))
+            alive = cont
+
+            # 5. drain final ring blocks: pixels below hist[0] // spp were
+            #    issued max_depth steps ago, so no live ray reaches them
+            safe_pix = hist.popleft() // spp
+            hist.append(stream_next + n_refill)
+            for _ in range(2):
+                if drained + drain_k <= safe_pix:
+                    k0 = drained % ring_w
+                    fb[drained:drained + drain_k] = ring[k0:k0 + drain_k]
+                    ring[k0:k0 + drain_k] = 0.0
+                    drained += drain_k
+
+            pay = torch.cat([o, d, tm[:, None], thr, rad,
+                             pix.to(torch.float32)[:, None],
+                             depth.to(torch.float32)[:, None]], dim=1)
+            stream_next += n_refill
+            steps += 1
+
+        # final flush: ring row r holds at most one undrained pixel,
+        # drained + ((r - drained) mod ring_w)
+        rows = torch.arange(ring_w, dtype=torch.int64, device=device)
+        p_cand = drained + (rows - drained) % ring_w
+        ok = p_cand < npix_pad
+        fb.index_add_(0, torch.where(ok, p_cand, 0),
+                      torch.where(ok[:, None], ring, 0.0))
+        if npix_pad_out <= npix_pad:
+            fb = fb[:npix_pad_out]
+        else:
+            fb = torch.cat([fb, torch.zeros((npix_pad_out - npix_pad, 3),
+                                            dtype=torch.float32,
+                                            device=device)])
+        if debug_stats:
+            return fb, {"iterations": steps, "stream": stream_next}
+        return fb
+
+    chunk.engine_name = "regen"
+    return chunk

@@ -1,15 +1,18 @@
 """Scene registry (counterpart of `raytracing_gpu_tpu/models/scenes.py`).
 
 Only the scenes whose features the port covers are registered: `names()`
-lists what renders here (the dense scenes: no triangles, no image
-textures, at most 64 spheres).  Camera parameters, materials and geometry
-are transcribed from the same reference lines as the JAX package
-(`raytracing_gpu_tpu/models/scenes.py:60-190`).
+lists what renders here (no triangles, no image textures).  Camera
+parameters, materials and geometry are transcribed from the same reference
+lines as the JAX package (`raytracing_gpu_tpu/models/scenes.py:60-190`);
+`big_scene1` draws its layout from the same numpy generator and seed, so
+its tables equal the JAX package's.
 """
 
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
+
+import numpy as np
 
 from ..core.camera import Camera
 from ..scene.builder import BLACK, SKY, SceneBuilder
@@ -76,6 +79,41 @@ def first_scene() -> SceneDef:
     b.sphere((0.0, 1.0, -0.75), -0.25, front)
     return SceneDef(b.build(), _cam((-2, 2, -3), (0, 0, -1), 20, 16 / 9),
                     16 / 9)
+
+
+@register("big_scene1")
+def big_scene1() -> SceneDef:
+    """RTOW cover scene, reference `create_big_world1` (`scenes.h:140-222`):
+    checkered ground, 22x22 random spheres (80% moving lambertian, 15%
+    metal, 5% glass) and three hero spheres, thin-lens camera with aperture
+    0.1.  The layout comes from `np.random.default_rng(1984)` in the JAX
+    package's draw order (`models/scenes.py:88-116`)."""
+    b = SceneBuilder(background=SKY)
+    rng = np.random.default_rng(b.seed)
+    checker = b.checker((0.2, 0.3, 0.1), (0.9, 0.9, 0.9))
+    b.sphere((0, -1000, 0), 1000, b.lambertian(checker))
+    for a in range(-11, 11):
+        for c in range(-11, 11):
+            choose = rng.random()
+            center = np.array([a + 0.9 * rng.random(), 0.2,
+                               c + 0.9 * rng.random()])
+            if np.sum((center - np.array([4, 0.2, 0])) ** 2) <= 0.9 * 0.9:
+                continue  # the reference fills a dummy micro-sphere here
+            if choose < 0.8:
+                albedo = rng.random(3) * rng.random(3)
+                center2 = center + np.array([0, rng.uniform(0, 0.5), 0])
+                b.moving_sphere(center, center2, 0.0, 1.0, 0.2,
+                                b.lambertian(albedo))
+            elif choose < 0.95:
+                albedo = rng.uniform(0.5, 1.0, 3)
+                b.sphere(center, 0.2, b.metal(albedo, rng.uniform(0, 0.5)))
+            else:
+                b.sphere(center, 0.2, b.dielectric(1.5))
+    b.sphere((0, 1, 0), 1.0, b.dielectric(1.5))
+    b.sphere((-4, 1, 0), 1.0, b.lambertian((0.4, 0.2, 0.1)))
+    b.sphere((4, 1, 0), 1.0, b.metal((0.7, 0.6, 0.5), 0.0))
+    cam = _cam((13, 2, -3), (0, 0, 0), 20, 16 / 9, aperture=0.1)
+    return SceneDef(b.build(), cam, 16 / 9)
 
 
 @register("two_spheres")

@@ -1,0 +1,279 @@
+// The pure closest-hit kernel of the wavefront drivers, for Hopper (sm_90a).
+//
+// Replaces the TPU kernel `_make_hit_kernel` launched by `_run_hit`
+// (raytracing_gpu_tpu/ops/pallas_trace.py:1722-2263, pl.pallas_call at
+// :2252; API `PallasTracer.hit` :2489-2517) for scenes without triangles or
+// media: one closest hit per ray, no shading, no scatter, no random numbers.
+// Rects and boxes first (:1792-1875), then spheres, by a dense loop up to 64
+// rows (:1993-1998) or a walk of the sphere BVH above (:1927-1991), strict
+// `<` throughout; then the finalize (:2187-2232): a sphere winner's uv from
+// its pre-flip outward normal through the polynomial atan2/acos plus its
+// rotate_y phase, the normal faced against the ray and normalized.
+//
+// Outputs, per ray i of N (the wrapper is `Tracer.bind_hit` in
+// ../cuda_trace.py, the plain version `hit_reference`): packed int32
+// `mat | hit<<16 | miss<<18 | front<<19 | is_tri<<20 | is_sph<<21`;
+// p (N, 3) = o + t d (t = 1e30 on a miss); u, v; normal (N, 3); slot, 0
+// without triangles.  A dead lane writes zeros.  The TPU kernel zeroes only
+// a tile with no live lane, and its dead lanes elsewhere carry the
+// arithmetic of their frozen rays; the packed word is 0 there either way.
+//
+// Design.  One thread per ray.  The TPU kernel walks a (32, 128) packet with
+// one scalar cursor and follows the threading of the packet's majority
+// direction octant (sum of dx < 0, ...); here every thread follows its own
+// ray's octant threading (`_octant_links`: near child first along the
+// children's separating axis), so the near surface is found first and far
+// subtrees prune against it.  A child's box lies inside its parent's, so a
+// lane tests the same leaves in either walk, in another order; the closest
+// hit is the same except where two rows tie exactly.
+//
+// What bounds it on Hopper.  Operations and their latency, not bytes: a
+// ray reads 28 bytes and writes 36, and tests ~20 nodes (a 6-slab test, ~20
+// operations) and ~30 sphere rows (~44 operations each) on big_scene1.  The
+// nodes (167 x 23 floats) and the leaf-contiguous table (672 x 24 floats)
+// stay in device memory: each thread reads only the nodes and leaves on its
+// own path, which L1 and L2 hold, and rects and boxes are a broadcast read.
+// Divergent walks within a warp are the cost; the wavefront's sort by
+// octant and origin keeps warps coherent.
+//
+// Rounding: as megakernel.cuh (-fmad=false, no fast math), and the normal's
+// length is 1.0f / sqrtf(x).  XLA's rsqrt on the CPU, which the JAX golden
+// ran, is within an ulp of that; the rest of the outputs round alike.
+
+#include "megakernel.cuh"
+
+namespace {
+
+constexpr int kHitNodeCols = 23;  // bounds | leaf start | 8 (hit, miss)
+constexpr int kShUvPhase = 12;    // a sphere row's uv phase, past its shading
+constexpr float kPi = static_cast<float>(3.14159265358979323846);
+constexpr float kHalfPi = static_cast<float>(3.14159265358979323846 / 2.0);
+constexpr float kInvTwoPi =
+    static_cast<float>(1.0 / (2.0 * 3.14159265358979323846));
+constexpr float kInvPi = static_cast<float>(1.0 / 3.14159265358979323846);
+
+struct HitParams {
+  const float* rects;
+  const float* boxes;
+  const float* spheres;
+  const float* nodes;
+  int n_rects, n_boxes, n_spheres, n_nodes, n;
+  float t_min;
+};
+
+// The closest winner so far: its distance, outward normal, material, uv
+// (final for rects and boxes, the uv phase for spheres), and whether it is a
+// sphere.
+struct Best {
+  float t, nx, ny, nz, u, v;
+  int mat;
+  bool sph;
+};
+
+__device__ __forceinline__ void take(Best& b, float t, float nx, float ny,
+                                     float nz, float mat, float u, float v,
+                                     bool sph) {
+  b.t = t;
+  b.nx = nx;
+  b.ny = ny;
+  b.nz = nz;
+  b.mat = static_cast<int>(mat);
+  b.u = u;
+  b.v = v;
+  b.sph = sph;
+}
+
+// float32(max(hi - lo, 1e-12)): the uv divisor the JAX kernel computes in
+// Python doubles from float32 bounds, rounded once.
+__device__ __forceinline__ float extent(float hi, float lo) {
+  return fmaxf(hi - lo, rt::kEps);
+}
+
+// Full-quadrant atan2 from the Abramowitz & Stegun 4.4.49 polynomial on
+// [0, 1] (_atan2_poly, _atan_unit, :698-719).
+__device__ __forceinline__ float atan2_poly(float y, float x) {
+  const float ax = fabsf(x), ay = fabsf(y);
+  const float z = fminf(ax, ay) / fmaxf(fmaxf(ax, ay), 1e-30f);
+  const float z2 = z * z;
+  float r = z * (0.9998660f +
+                 z2 * (-0.3302995f +
+                       z2 * (0.1801410f + z2 * (-0.0851330f + z2 * 0.0208351f))));
+  if (ay > ax) r = kHalfPi - r;
+  if (x < 0.0f) r = kPi - r;
+  return y < 0.0f ? -r : r;
+}
+
+__device__ __forceinline__ float acos_poly(float x) {
+  return atan2_poly(sqrtf(fmaxf(1.0f - x * x, 0.0f)), x);
+}
+
+__global__ void __launch_bounds__(rt::kThreads)
+hit_kernel(const HitParams hp, const float* __restrict__ o,
+           const float* __restrict__ d, const float* __restrict__ tm_in,
+           const uint8_t* __restrict__ alive, int32_t* __restrict__ packed,
+           float* __restrict__ p_out, float* __restrict__ u_out,
+           float* __restrict__ v_out, float* __restrict__ n_out,
+           float* __restrict__ slot) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= hp.n) return;
+  slot[i] = 0.0f;
+  if (!alive[i]) {
+    packed[i] = 0;
+    u_out[i] = v_out[i] = 0.0f;
+    for (int k = 0; k < 3; ++k) p_out[3 * i + k] = n_out[3 * i + k] = 0.0f;
+    return;
+  }
+  rt::Ray r;
+  r.ox = o[3 * i];
+  r.oy = o[3 * i + 1];
+  r.oz = o[3 * i + 2];
+  r.dx = d[3 * i];
+  r.dy = d[3 * i + 1];
+  r.dz = d[3 * i + 2];
+  const float tm = tm_in[i];
+  const float t_min = hp.t_min;
+  Best b;
+  b.t = rt::kBig;
+  b.nx = b.ny = b.nz = b.u = b.v = 0.0f;
+  b.mat = 0;
+  b.sph = false;
+
+  for (int k = 0; k < hp.n_rects; ++k) {
+    const float* q = hp.rects + k * rt::kRectCols;
+    const int ax = static_cast<int>(q[0]);
+    const float o_k = ax == 0 ? r.ox : (ax == 1 ? r.oy : r.oz);
+    const float d_k = ax == 0 ? r.dx : (ax == 1 ? r.dy : r.dz);
+    const float t = (q[5] - o_k) / rt::guard(d_k);
+    const float oa = ax == 0 ? r.oy : r.ox, da = ax == 0 ? r.dy : r.dx;
+    const float ob = ax == 2 ? r.oy : r.oz, db = ax == 2 ? r.dy : r.dz;
+    const float pa = oa + t * da;
+    const float pb = ob + t * db;
+    const bool ok = t >= t_min && pa >= q[1] && pa <= q[2] && pb >= q[3] &&
+                    pb <= q[4];
+    if (ok && t < b.t) {
+      take(b, t, ax == 0 ? 1.0f : 0.0f, ax == 1 ? 1.0f : 0.0f,
+           ax == 2 ? 1.0f : 0.0f, q[rt::kRectSh + rt::kShMat],
+           (pa - q[1]) / extent(q[2], q[1]), (pb - q[3]) / extent(q[4], q[3]),
+           false);
+    }
+  }
+  for (int k = 0; k < hp.n_boxes; ++k) {
+    const float* q = hp.boxes + k * rt::kBoxCols;
+    const rt::Slabs s = rt::box_slabs(q, r);
+    const float tn = fmaxf(fmaxf(s.tnx, s.tny), s.tnz);
+    const float tf = fminf(fminf(s.tfx, s.tfy), s.tfz);
+    const float t = tn >= t_min ? tn : tf;
+    const bool ok = tf > fmaxf(tn, 0.0f) && t >= t_min;
+    if (ok && t < b.t) {
+      const bool is_x = t == s.tnx || t == s.tfx;
+      const bool is_y = t == s.tny || t == s.tfy;
+      const bool exiting = t == tf;
+      const float sx = ((s.dx2 >= 0.0f) != exiting) ? -1.0f : 1.0f;
+      const float sy = ((r.dy >= 0.0f) != exiting) ? -1.0f : 1.0f;
+      const float sz = ((s.dz2 >= 0.0f) != exiting) ? -1.0f : 1.0f;
+      const float nobj_x = is_x ? sx : 0.0f;
+      const float nobj_y = (!is_x && is_y) ? sy : 0.0f;
+      const float nobj_z = (!is_x && !is_y) ? sz : 0.0f;
+      const float c = q[6], sn = q[7];
+      // the hit point in object space, for the face's uv (box.h:14-27)
+      const float ox2 = c * (r.ox - q[8]) - sn * (r.oz - q[10]);
+      const float oz2 = sn * (r.ox - q[8]) + c * (r.oz - q[10]);
+      const float ua = (ox2 + t * s.dx2 - q[0]) / extent(q[3], q[0]);
+      const float ub = ((r.oy - q[9]) + t * r.dy - q[1]) / extent(q[4], q[1]);
+      const float uc = (oz2 + t * s.dz2 - q[2]) / extent(q[5], q[2]);
+      take(b, t, c * nobj_x + sn * nobj_z, nobj_y, (-sn) * nobj_x + c * nobj_z,
+           q[rt::kBoxSh + rt::kShMat], is_x ? ub : ua,
+           (is_x || is_y) ? uc : ub, false);
+    }
+  }
+  if (hp.n_spheres > 0) {
+    // the sphere rows (sph_cand, :1877-1925, the megakernel's
+    // sphere_candidate) against the closest rect or box so far
+    rt::Hit hs;
+    hs.t = b.t;
+    hs.nx = hs.ny = hs.nz = 0.0f;
+    hs.sh = nullptr;
+    const float a = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
+    const float inv_a = 1.0f / fmaxf(a, rt::kEps);
+    if (hp.n_nodes == 0) {
+      for (int k = 0; k < hp.n_spheres; ++k)
+        rt::sphere_candidate(hp.spheres + k * rt::kSphCols, r, tm, a, inv_a,
+                             t_min, hs);
+    } else {
+      const float ivx = 1.0f / rt::guard(r.dx);
+      const float ivy = 1.0f / rt::guard(r.dy);
+      const float ivz = 1.0f / rt::guard(r.dz);
+      // the ray's own octant: bit 2 x negative, bit 1 y, bit 0 z
+      const int oct = (r.dx < 0.0f ? 4 : 0) | (r.dy < 0.0f ? 2 : 0) |
+                      (r.dz < 0.0f ? 1 : 0);
+      int node = 0;
+      while (node >= 0) {
+        const float* nd = hp.nodes + node * kHitNodeCols;
+        float tn, tf;
+        rt::node_slab(nd, r, ivx, ivy, ivz, &tn, &tf);
+        const bool hit_box = tf >= fmaxf(tn, t_min) && tn <= hs.t;
+        const int start = static_cast<int>(nd[6]);
+        if (hit_box && start >= 0) {
+          for (int k = 0; k < rt::kSphLeafK; ++k)
+            rt::sphere_candidate(hp.spheres + (start + k) * rt::kSphCols, r,
+                                 tm, a, inv_a, t_min, hs);
+        }
+        node = static_cast<int>(nd[7 + 2 * oct + (hit_box ? 0 : 1)]);
+      }
+    }
+    if (hs.sh != nullptr)  // a sphere row is the closest: its mat, uv phase
+      take(b, hs.t, hs.nx, hs.ny, hs.nz, hs.sh[rt::kShMat],
+           hs.sh[kShUvPhase], 0.0f, true);
+  }
+
+  const bool hit = b.t < rt::kBig * 0.5f;
+  float u = b.u, v = b.v;
+  if (b.sph) {  // sphere uv from the pre-flip outward normal (sphere.h:19-32)
+    const float theta = acos_poly(fminf(fmaxf(-b.ny, -1.0f), 1.0f));
+    const float phi = atan2_poly(-b.nz, b.nx) + kPi;
+    float su = fmodf(phi * kInvTwoPi + u, 1.0f);  // jnp.remainder(x, 1)
+    if (su < 0.0f) su = su + 1.0f;
+    u = su;
+    v = theta * kInvPi;
+  }
+  const bool front = (r.dx * b.nx + r.dy * b.ny + r.dz * b.nz) < 0.0f;
+  const float flip = front ? 1.0f : -1.0f;
+  const float nlen =
+      1.0f / sqrtf(fmaxf(b.nx * b.nx + b.ny * b.ny + b.nz * b.nz, 1e-20f));
+  packed[i] = b.mat | (hit ? rt::kHitBit : 0) | (hit ? 0 : rt::kMissBit) |
+              (front ? 1 << 19 : 0) | (b.sph ? 1 << 21 : 0);
+  p_out[3 * i] = r.ox + b.t * r.dx;
+  p_out[3 * i + 1] = r.oy + b.t * r.dy;
+  p_out[3 * i + 2] = r.oz + b.t * r.dz;
+  u_out[i] = u;
+  v_out[i] = v;
+  n_out[3 * i] = b.nx * flip * nlen;
+  n_out[3 * i + 1] = b.ny * flip * nlen;
+  n_out[3 * i + 2] = b.nz * flip * nlen;
+}
+
+}  // namespace
+
+// C entry (bound with ctypes): one launch over n rays on `stream`, never
+// synchronizing; returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for counts the kernel does not take (a dense loop
+// of more than 64 rows, a BVH table that is not whole leaves).
+extern "C" int rt_hit(const float* rects, const float* boxes,
+                      const float* spheres, const float* nodes, int n_rects,
+                      int n_boxes, int n_spheres, int n_nodes, int n,
+                      float t_min, const float* o, const float* d,
+                      const float* tm, const uint8_t* alive, int32_t* packed,
+                      float* p, float* u, float* v, float* normal,
+                      float* slot, void* stream) {
+  const bool ok = n > 0 && n_rects >= 0 && n_boxes >= 0 && n_spheres >= 0 &&
+                  n_nodes >= 0 &&
+                  (n_nodes > 0 ? n_spheres % rt::kSphLeafK == 0
+                               : n_spheres <= rt::kMaxSpheres);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const HitParams hp{rects,   boxes,     spheres, nodes, n_rects,
+                     n_boxes, n_spheres, n_nodes, n,     t_min};
+  const int blocks = (n + rt::kThreads - 1) / rt::kThreads;
+  hit_kernel<<<blocks, rt::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      hp, o, d, tm, alive, packed, p, u, v, normal, slot);
+  return static_cast<int>(cudaGetLastError());
+}

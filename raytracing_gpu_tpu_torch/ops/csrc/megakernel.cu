@@ -4,7 +4,7 @@
 //
 // Entry points (plain C, bound with ctypes): rt_trace_pixels launches the
 // forward kernel, picking the instantiation from p.features; rt_walk_packed_pixels
-// the record kernel; rt_pcg_uniform writes uniform(base, salt) per lane so a
+// the record kernel (no sphere BVH); rt_pcg_uniform writes uniform(base, salt) per lane so a
 // test can hold the device RNG against the plain version; rt_error_string
 // names a returned CUDA error.  Each entry returns cudaGetLastError() after
 // its launch (cudaErrorInvalidValue for parameters the kernels do not take)
@@ -44,9 +44,11 @@ pcg_uniform_kernel(uint32_t seed_mix, int lanes, uint32_t salt,
 
 extern "C" int rt_trace_pixels(const float* rects, const float* boxes,
                                const float* spheres, const float* media,
-                               RtParams p, float* out_r, float* out_g,
-                               float* out_b, void* stream) {
-  const RtTables t{rects, boxes, spheres, media};
+                               const float* sph_nodes, const int* sph_links,
+                               const int* sph_start, RtParams p, float* out_r,
+                               float* out_g, float* out_b, void* stream) {
+  const RtTables t{rects, boxes, spheres, media, sph_nodes, sph_links,
+                   sph_start};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned tex = static_cast<unsigned>(p.features) &
                        (kFeatChecker | kFeatPerlin);
@@ -60,9 +62,12 @@ extern "C" int rt_trace_pixels(const float* rects, const float* boxes,
 
 extern "C" int rt_walk_packed_pixels(const float* rects, const float* boxes,
                                      const float* spheres, const float* media,
-                                     RtParams p, int32_t* out_packed,
-                                     void* stream) {
-  const RtTables t{rects, boxes, spheres, media};
+                                     const float* sph_nodes,
+                                     const int* sph_links,
+                                     const int* sph_start, RtParams p,
+                                     int32_t* out_packed, void* stream) {
+  const RtTables t{rects, boxes, spheres, media, sph_nodes, sph_links,
+                   sph_start};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (static_cast<unsigned>(p.features)) {
     case 0: return launch_record<0>(t, p, out_packed, s);

@@ -3,9 +3,10 @@
 //
 // Replaces the TPU kernel `_make_kernel` launched by `_run`
 // (raytracing_gpu_tpu/ops/pallas_trace.py:821-1643, pl.pallas_call at :1703)
-// for the dense scenes: axis-aligned rects, boxes under rotate_y +
-// translate, up to 64 spheres (static, moving, hollow) in a dense loop, up
-// to 16 constant media in a sphere or a box; lambertian, metal, dielectric,
+// for scenes without triangles: axis-aligned rects, boxes under rotate_y +
+// translate, spheres (static, moving, hollow) in a dense loop up to 64 and
+// through a threaded BVH above (forward mode only), up to 16 constant media
+// in a sphere or a box; lambertian, metal, dielectric,
 // diffuse_light and isotropic materials; solid, checker, noise, turbulence
 // and marble albedo; russian roulette and the shutter time.  Two kernels
 // share one closest hit, one media test, one camera and one scatter, so
@@ -36,8 +37,9 @@
 // tile that is still live stores its frozen ray's `mat` with its mask bits
 // at zero; a thread here writes 0 instead.
 //
-// The kernels are templates over what the bake uses (kFeat* bits: spheres,
-// media, checker albedo, perlin albedo), as the JAX kernel
+// The kernels are templates over what the bake uses (kFeat* bits: dense
+// spheres, media, the sphere BVH, checker albedo, perlin albedo), as the JAX
+// kernel
 // compiles unused texture families away (`tex_kinds`, :860-866): the
 // Cornell box does not carry the sphere loop, the media test or the perlin
 // turbulence (7 octaves x 8 hashed corners) in its registers.  The material
@@ -58,6 +60,21 @@
 // the output stores.  Rays of a warp that die early leave their lanes idle
 // until the warp's longest path ends; regrouping live rays is work for a
 // later change.
+//
+// The sphere BVH (kFeatSphereBvh, kernel 1d's sphere half: the packet walk
+// of :1055-1103 over the leaf-contiguous table with leaves of 8,
+// :1170-1180).  The TPU walks a (64, 128) tile with one scalar cursor and
+// descends where any lane's box is hit; here each thread walks its own ray
+// through the same preorder threading (hit_link after a hit box, miss_link
+// after a missed one, -1 at the end), slab-testing a node against its own
+// closest hit so far (`tn <= t`) and testing the 8 rows of a hit leaf.  A
+// lane of a TPU tile tests a leaf only where its own box mask holds, and a
+// child's box lies inside its parent's, so both visit a lane's leaves in
+// the same order and keep the same winner.  The table (672 rows for
+// big_scene1) and nodes do not fit the 48 KB of static shared memory with
+// room to spare, and each thread reads only the nodes on its own path, so
+// they stay in device memory behind the L1 cache; rects, boxes and media are
+// staged as before.
 //
 // Rounding.  The build compiles this code with -fmad=false and without
 // --use_fast_math, so every multiply and add rounds on its own, as in the
@@ -89,22 +106,27 @@ struct RtParams {
   float bg[3];
   float time0, time_span;  // shutter time: time0 + time_span * u if has_time
   int img_h, img_w, pix_base, n, seed, max_depth;
-  int n_rects, n_boxes, n_spheres, n_sphere_media, n_box_media;
+  int n_rects, n_boxes, n_spheres, n_sph_nodes, n_sphere_media, n_box_media;
   int has_time, rr_start, features;
 };
 
-// The four record tables, in device memory.
+// The record tables, in device memory; the sphere BVH's nodes (lo xyz,
+// hi xyz), preorder (hit, miss) links and leaf start rows (-1: internal) are
+// read only by the kFeatSphereBvh instantiations.
 struct RtTables {
   const float* rects;
   const float* boxes;
   const float* spheres;
   const float* media;
+  const float* sph_nodes;
+  const int* sph_links;
+  const int* sph_start;
 };
 
 // Instantiation bits (FEAT_* in ../cuda_trace.py).
-constexpr unsigned kFeatSpheres = 1, kFeatMedia = 2;
+constexpr unsigned kFeatSpheres = 1, kFeatMedia = 2, kFeatSphereBvh = 4;
 constexpr unsigned kFeatChecker = 8, kFeatPerlin = 16;
-constexpr unsigned kFeatGeometry = kFeatSpheres | kFeatMedia;
+constexpr unsigned kFeatGeometry = kFeatSpheres | kFeatMedia | kFeatSphereBvh;
 
 // Forward launchers, one per albedo family, each in its own translation
 // unit: `features` selects the instantiation within it.
@@ -127,6 +149,7 @@ constexpr int kThreads = 128;
 constexpr size_t kMaxTableBytes = 48 * 1024;
 constexpr int kMaxSpheres = 64;
 constexpr int kMaxMedia = 16;
+constexpr int kSphLeafK = 8;  // sphere rows per BVH leaf (`_SPH_LEAF_K`)
 
 // record layouts (RECT_COLS ... in ../cuda_trace.py)
 constexpr int kShKind = 0, kShC1 = 1, kShC2 = 4, kShScale = 7, kShFuzz = 8;
@@ -176,9 +199,12 @@ struct Hit {
   const float* sh;
 };
 
-// Shared-memory views of the staged tables.
+// Views of the tables: rects, boxes and media staged in shared memory; the
+// spheres there too for the dense loop, in device memory under a BVH.
 struct Tables {
   const float *rects, *boxes, *spheres, *media;
+  const float* sph_nodes;
+  const int *sph_links, *sph_start;
 };
 
 // Copies the four tables into the block's shared memory; every thread of
@@ -188,13 +214,16 @@ __device__ __forceinline__ Tables stage_tables(const RtTables& t,
                                                float* smem) {
   const int rect_words = p.n_rects * kRectCols;
   const int box_words = p.n_boxes * kBoxCols;
-  const int sph_words = p.n_spheres * kSphCols;
+  const int sph_words = p.n_sph_nodes > 0 ? 0 : p.n_spheres * kSphCols;
   const int med_words = (p.n_sphere_media + p.n_box_media) * kMedCols;
   Tables s;
   s.rects = smem;
   s.boxes = s.rects + rect_words;
-  s.spheres = s.boxes + box_words;
-  s.media = s.spheres + sph_words;
+  s.spheres = p.n_sph_nodes > 0 ? t.spheres : s.boxes + box_words;
+  s.media = s.boxes + box_words + sph_words;
+  s.sph_nodes = t.sph_nodes;
+  s.sph_links = t.sph_links;
+  s.sph_start = t.sph_start;
   for (int k = threadIdx.x; k < rect_words; k += blockDim.x) smem[k] = t.rects[k];
   for (int k = threadIdx.x; k < box_words; k += blockDim.x)
     smem[rect_words + k] = t.boxes[k];
@@ -273,6 +302,78 @@ __device__ __forceinline__ Slabs box_slabs(const float* q, const Ray& r) {
   return b;
 }
 
+// One sphere row q (sphere_candidate, :1105-1168) against the ray, kept when
+// strictly closer than h: the center moves to the ray's shutter time, a
+// negative radius turns the normal inward, and an all-zero pad row of the
+// BVH's leaf-contiguous table never hits (radius 0).
+__device__ __forceinline__ void sphere_candidate(const float* q, const Ray& r,
+                                                 float tm, float a,
+                                                 float inv_a, float t_min,
+                                                 Hit& h) {
+  const float span = q[7] - q[6];
+  const float denom = fabsf(span) < kEps ? 1.0f : span;
+  const float frac = (tm - q[6]) / denom;
+  const float cx = q[0] + frac * (q[3] - q[0]);
+  const float cy = q[1] + frac * (q[4] - q[1]);
+  const float cz = q[2] + frac * (q[5] - q[2]);
+  const float ocx = r.ox - cx, ocy = r.oy - cy, ocz = r.oz - cz;
+  const float rad = q[8];
+  const float hb = ocx * r.dx + ocy * r.dy + ocz * r.dz;
+  const float cc = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
+  const float disc = hb * hb - a * cc;
+  const float sq = sqrtf(fmaxf(disc, 0.0f));
+  const float near = (-hb - sq) * inv_a;
+  const float far = (-hb + sq) * inv_a;
+  const bool has = disc > 0.0f && fabsf(rad) > 0.0f;
+  const float t = (has && near >= t_min) ? near
+                  : ((has && far >= t_min) ? far : kBig);
+  if (t < kBig * 0.5f && t < h.t) {
+    const float inv_r = 1.0f / (fabsf(rad) < kEps ? 1.0f : rad);
+    h.t = t;
+    h.nx = (r.ox + t * r.dx - cx) * inv_r;
+    h.ny = (r.oy + t * r.dy - cy) * inv_r;
+    h.nz = (r.oz + t * r.dz - cz) * inv_r;
+    h.sh = q + kSphSh;
+  }
+}
+
+// The ray's slab interval against a node's box (lo xyz, hi xyz), with the
+// guarded reciprocals of its direction.
+__device__ __forceinline__ void node_slab(const float* nd, const Ray& r,
+                                          float ivx, float ivy, float ivz,
+                                          float* tn, float* tf) {
+  const float tx0 = (nd[0] - r.ox) * ivx, tx1 = (nd[3] - r.ox) * ivx;
+  const float ty0 = (nd[1] - r.oy) * ivy, ty1 = (nd[4] - r.oy) * ivy;
+  const float tz0 = (nd[2] - r.oz) * ivz, tz1 = (nd[5] - r.oz) * ivz;
+  *tn = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1));
+  *tf = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
+}
+
+// The threaded sphere-BVH walk of one ray (packet_walk, :1055-1103, with the
+// leaves of :1170-1180): preorder links, a node pruned unless its box is hit
+// no farther than the closest hit so far.
+__device__ __forceinline__ void sphere_bvh_walk(const Tables& s, const Ray& r,
+                                                float tm, float a,
+                                                float inv_a, float t_min,
+                                                Hit& h) {
+  const float ivx = 1.0f / guard(r.dx);
+  const float ivy = 1.0f / guard(r.dy);
+  const float ivz = 1.0f / guard(r.dz);
+  int node = 0;
+  while (node >= 0) {
+    float tn, tf;
+    node_slab(s.sph_nodes + node * 6, r, ivx, ivy, ivz, &tn, &tf);
+    const bool hit_box = tf >= fmaxf(tn, t_min) && tn <= h.t;
+    const int start = s.sph_start[node];
+    if (hit_box && start >= 0) {
+      for (int k = 0; k < kSphLeafK; ++k)
+        sphere_candidate(s.spheres + (start + k) * kSphCols, r, tm, a, inv_a,
+                         t_min, h);
+    }
+    node = s.sph_links[2 * node + (hit_box ? 0 : 1)];
+  }
+}
+
 // ---- closest hit: rects, boxes, then spheres, strict < (:961-1185) ----
 template <unsigned F>
 __device__ __forceinline__ Hit closest_hit(const Tables& s, const RtParams& p,
@@ -329,38 +430,15 @@ __device__ __forceinline__ Hit closest_hit(const Tables& s, const RtParams& p,
       h.sh = q + kBoxSh;
     }
   }
-  if (F & kFeatSpheres) {
-    // dense sphere loop (sphere_candidate, :1105-1168), moving centers at
-    // the ray's shutter time, a negative radius turning the normal inward
+  if (F & (kFeatSpheres | kFeatSphereBvh)) {
     const float a = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
     const float inv_a = 1.0f / fmaxf(a, kEps);
-    for (int k = 0; k < p.n_spheres; ++k) {
-      const float* q = s.spheres + k * kSphCols;
-      const float span = q[7] - q[6];
-      const float denom = fabsf(span) < kEps ? 1.0f : span;
-      const float frac = (tm - q[6]) / denom;
-      const float cx = q[0] + frac * (q[3] - q[0]);
-      const float cy = q[1] + frac * (q[4] - q[1]);
-      const float cz = q[2] + frac * (q[5] - q[2]);
-      const float ocx = r.ox - cx, ocy = r.oy - cy, ocz = r.oz - cz;
-      const float rad = q[8];
-      const float hb = ocx * r.dx + ocy * r.dy + ocz * r.dz;
-      const float cc = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
-      const float disc = hb * hb - a * cc;
-      const float sq = sqrtf(fmaxf(disc, 0.0f));
-      const float near = (-hb - sq) * inv_a;
-      const float far = (-hb + sq) * inv_a;
-      const bool has = disc > 0.0f && fabsf(rad) > 0.0f;
-      const float t = (has && near >= p.t_min) ? near
-                      : ((has && far >= p.t_min) ? far : kBig);
-      if (t < kBig * 0.5f && t < h.t) {
-        const float inv_r = 1.0f / (fabsf(rad) < kEps ? 1.0f : rad);
-        h.t = t;
-        h.nx = (r.ox + t * r.dx - cx) * inv_r;
-        h.ny = (r.oy + t * r.dy - cy) * inv_r;
-        h.nz = (r.oz + t * r.dz - cz) * inv_r;
-        h.sh = q + kSphSh;
-      }
+    if (F & kFeatSpheres) {  // dense sphere loop
+      for (int k = 0; k < p.n_spheres; ++k)
+        sphere_candidate(s.spheres + k * kSphCols, r, tm, a, inv_a, p.t_min,
+                         h);
+    } else {
+      sphere_bvh_walk(s, r, tm, a, inv_a, p.t_min, h);
     }
   }
   return h;
@@ -749,20 +827,24 @@ megakernel_record(const RtTables tables, const RtParams p,
 // False when `p` is outside what the kernels take; else sets the
 // shared-memory bytes of the tables.
 inline bool check_launch(const RtParams& p, size_t* table_bytes) {
+  const bool spheres = (p.features & kFeatSpheres) != 0;
+  const bool media = (p.features & kFeatMedia) != 0;
+  const bool bvh = (p.features & kFeatSphereBvh) != 0;
   *table_bytes =
       (static_cast<size_t>(p.n_rects) * kRectCols +
        static_cast<size_t>(p.n_boxes) * kBoxCols +
-       static_cast<size_t>(p.n_spheres) * kSphCols +
+       (bvh ? 0 : static_cast<size_t>(p.n_spheres) * kSphCols) +
        static_cast<size_t>(p.n_sphere_media + p.n_box_media) * kMedCols) *
       sizeof(float);
-  const bool spheres = (p.features & kFeatSpheres) != 0;
-  const bool media = (p.features & kFeatMedia) != 0;
   return p.n > 0 && p.n_rects >= 0 && p.n_boxes >= 0 && p.img_h > 0 &&
          p.img_w > 0 && p.max_depth >= 0 && p.pix_base >= 0 &&
-         p.rr_start >= 0 && p.n_spheres >= 0 && p.n_spheres <= kMaxSpheres &&
+         p.rr_start >= 0 && p.n_spheres >= 0 && p.n_sph_nodes >= 0 &&
          p.n_sphere_media >= 0 && p.n_box_media >= 0 &&
-         p.n_sphere_media + p.n_box_media <= kMaxMedia &&
-         spheres == (p.n_spheres > 0) &&
+         p.n_sphere_media + p.n_box_media <= kMaxMedia && !(spheres && bvh) &&
+         spheres == (p.n_spheres > 0 && p.n_sph_nodes == 0) &&
+         bvh == (p.n_sph_nodes > 0) &&
+         (!bvh || p.n_spheres % kSphLeafK == 0) &&
+         (bvh || p.n_spheres <= kMaxSpheres) &&
          media == (p.n_sphere_media + p.n_box_media > 0) &&
          *table_bytes <= kMaxTableBytes;
 }
@@ -779,8 +861,9 @@ int launch_fwd(const RtTables& t, const RtParams& p, float* out_r,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The forward launcher of one albedo family: the four spheres x media
-// instantiations over TEX.  Russian roulette is a branch on p.rr_start,
+// The forward launcher of one albedo family: the six geometry
+// instantiations over TEX (no spheres, dense spheres or the sphere BVH, each
+// with or without media).  Russian roulette is a branch on p.rr_start,
 // uniform across the launch, not an instantiation.
 template <unsigned TEX>
 int launch_fwd_family(const RtTables& t, const RtParams& p, float* out_r,
@@ -789,7 +872,10 @@ int launch_fwd_family(const RtTables& t, const RtParams& p, float* out_r,
     case 0: return launch_fwd<TEX | 0>(t, p, out_r, out_g, out_b, s);
     case 1: return launch_fwd<TEX | 1>(t, p, out_r, out_g, out_b, s);
     case 2: return launch_fwd<TEX | 2>(t, p, out_r, out_g, out_b, s);
-    default: return launch_fwd<TEX | 3>(t, p, out_r, out_g, out_b, s);
+    case 3: return launch_fwd<TEX | 3>(t, p, out_r, out_g, out_b, s);
+    case 4: return launch_fwd<TEX | 4>(t, p, out_r, out_g, out_b, s);
+    case 6: return launch_fwd<TEX | 6>(t, p, out_r, out_g, out_b, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 

@@ -1,21 +1,30 @@
-"""Host side of the path-tracing megakernel, and its plain PyTorch versions.
+"""Host side of the path-tracing kernels, and their plain PyTorch versions.
 
-Counterpart of `raytracing_gpu_tpu/ops/pallas_trace.py` with the camera rays
-made inside the kernel, in its two modes: forward radiance
-(`PallasTracer.trace_pixels`) and the record walk
-(`PallasTracer.walk_packed_pixels`), for the dense scenes: axis-aligned
-rects, boxes under rotate_y + translate, up to 64 spheres (static, moving,
-hollow) in a dense loop, up to 16 constant media in a sphere or a box;
-lambertian, metal, dielectric, diffuse_light and isotropic materials;
-solid, checker, noise, turbulence and marble albedo; russian roulette and
-the shutter time.  The kernels are `csrc/megakernel.cuh`;
-`trace_pixels_reference` and `walk_packed_pixels_reference` are the same
-functions in plain PyTorch, written op for op in the kernels' order so that
-the two round alike.
+Counterpart of `raytracing_gpu_tpu/ops/pallas_trace.py` for scenes without
+triangles or image textures, in three functions:
 
-Not ported (`unported_feature` names them): triangles, the sphere BVH (more
-than 64 spheres), image textures; in record mode also the hit-point and uv
-planes that checker, perlin and image textures need (`need_p`/`need_uv`).
+- forward radiance with the camera rays made inside the kernel
+  (`PallasTracer.trace_pixels`): axis-aligned rects, boxes under
+  rotate_y + translate, spheres (static, moving, hollow) in a dense loop up
+  to 64 and through a threaded sphere BVH above, up to 16 constant media in
+  a sphere or a box; lambertian, metal, dielectric, diffuse_light and
+  isotropic materials; solid, checker, noise, turbulence and marble albedo;
+  russian roulette and the shutter time;
+- the record walk (`PallasTracer.walk_packed_pixels`), over the same
+  features with at most 64 spheres and solid textures;
+- the pure closest hit of the wavefront drivers (`PallasTracer.hit`), for
+  scenes without media.
+
+The kernels are `csrc/megakernel.cuh` and `csrc/hit.cu`;
+`trace_pixels_reference`, `walk_packed_pixels_reference` and
+`hit_reference` are the same functions in plain PyTorch, written op for op
+in the kernels' order so that the two round alike.  The plain versions test
+every sphere row densely, where the kernels walk the BVH; a pad row of the
+BVH's leaf-contiguous table has radius 0 and never hits.
+
+Not ported (`unported_feature` names them): triangles and image textures;
+in record mode also the sphere BVH and the hit-point and uv planes that
+checker, perlin and image textures need (`need_p`/`need_uv`).
 
 The random numbers are the JAX kernel's, bit for bit: a PCG hash of the
 lane index within the call mixed with an int32 seed, then one more hash per
@@ -24,10 +33,11 @@ arithmetic in int64 and mask after every multiply and add, because torch's
 uint32 dtype lacks those operations on the CPU.
 
 `Tracer` holds a baked scene on one device.  On a CUDA device its
-`trace_pixels` and `walk_packed_pixels` launch the kernels (a failed build
-or launch raises); on the CPU they run the plain versions.
-`Tracer.launches` and `Tracer.record_launches` count the launches of each
-kernel, so a caller can show that a render went through it.
+`trace_pixels`, `walk_packed_pixels` and `hit` launch the kernels (a failed
+build or launch raises); on the CPU they run the plain versions.
+`Tracer.launches`, `Tracer.record_launches` and `Tracer.hit_launches` count
+the launches of each kernel, so a caller can show that a render went
+through it.
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..accel import bvh as bvh_mod
 from ..scene import perlin
 from ..scene import types as st
 from ..scene.textures import TEXTURE_NAMES
@@ -67,6 +78,14 @@ _NORM_FLOOR = _f32(1e-20)
 _THIRD = _f32(1.0 / 3.0)
 _LEN_FLOOR = _f32(1e-30)
 _RR_FLOOR = _f32(0.05)
+# the hit kernel's sphere uv (pallas_trace.py:2197-2201, `_atan2_poly`)
+_PI = _f32(math.pi)
+_HALF_PI = _f32(math.pi / 2)
+_INV_TWO_PI = _f32(1.0 / (2.0 * math.pi))
+_INV_PI = _f32(1.0 / math.pi)
+_ATAN_COEFFS = tuple(_f32(c) for c in (0.9998660, -0.3302995, 0.1801410,
+                                       -0.0851330, 0.0208351))
+_HI_FLOOR = _f32(1e-30)
 
 # Kernel record layouts (csrc/megakernel.cuh reads these columns).  Every
 # record ends in, or holds at a fixed offset, the same 12-column shading
@@ -83,11 +102,15 @@ MEDIUM_COLS, MEDIUM_SH = 24, 12
 # 1 / (t1 - t0), radius**2 (3 pad), or a box's bmin xyz, bmax xyz, cos sin,
 # off xyz; then the shading block.  Sphere media come first, then box
 # media, in the JAX kernel's order (`:1303`).
-MAX_SPHERES = 64   # the JAX kernel's dense loop (`_SPH_BVH_MIN`, :149)
+MAX_SPHERES = 64   # the dense loop; a sphere BVH above (`_SPH_BVH_MIN`, :149)
+SPH_LEAF_K = 8     # sphere rows per BVH leaf (`_SPH_LEAF_K`, :150)
+HIT_NODE_COLS = 23  # bounds | leaf start | 8 octant (hit, miss) link pairs
 MAX_MEDIA = 16     # RNG salts per bounce for free paths (`_MAX_MEDIA`, :178)
 HIT_BIT, CONT_BIT, MISS_BIT = 1 << 16, 1 << 17, 1 << 18  # packed record word
+FRONT_BIT, TRI_BIT, SPH_BIT = 1 << 19, 1 << 20, 1 << 21  # hit kernel's word
 # what a launch's kernel instantiation covers (csrc/megakernel.cuh kFeat*)
-FEAT_SPHERES, FEAT_MEDIA, FEAT_CHECKER, FEAT_PERLIN = 1, 2, 8, 16
+FEAT_SPHERES, FEAT_MEDIA, FEAT_SPHERE_BVH = 1, 2, 4
+FEAT_CHECKER, FEAT_PERLIN = 8, 16
 _PERLIN_KINDS = {st.TEX_NOISE, st.TEX_TURB, st.TEX_MARBLE}
 _POSITION_KINDS = {st.TEX_CHECKER} | _PERLIN_KINDS
 
@@ -98,10 +121,11 @@ _POSITION_KINDS = {st.TEX_CHECKER} | _PERLIN_KINDS
 
 
 class SceneBake(NamedTuple):
-    """Host snapshot of what the kernel reads, as `pallas_trace.bake_scene`
-    makes it for the dense scenes: one dict of Python floats per active
-    rect, box and medium, with the JAX bake's keys; the dense sphere table
-    in the JAX column layout; and the background."""
+    """Host snapshot of what the kernels read, as `pallas_trace.bake_scene`
+    makes it for a scene without triangles: one dict of Python floats per
+    active rect, box and medium, with the JAX bake's keys; the sphere table
+    in the JAX column layout, reordered leaf-contiguous when it has a BVH;
+    the sphere BVH (M = 0 nodes without one); and the background."""
 
     rects: list
     boxes: list
@@ -109,6 +133,21 @@ class SceneBake(NamedTuple):
     sphere_media: list
     box_media: list
     background: tuple
+    sph_nodes: np.ndarray      # (M, 6) float32 node bounds: lo xyz, hi xyz
+    sph_links: np.ndarray      # (M, 2) int32 preorder (hit, miss) links
+    sph_start: np.ndarray      # (M, 1) int32 a leaf's first row, else -1
+    sph_hit_nodes: np.ndarray  # (M, 23) float32, HIT_NODE_COLS
+
+    def world_bounds(self) -> tuple:
+        """(lo, hi) float32 (3,) for the wavefront's morton keys: the union
+        of the sphere rows' bounds (pad rows included, as the JAX tracer
+        takes them, pallas_trace.py:2396-2404), else the cube [-1, 1]."""
+        tb = self.sphere_table
+        if not len(tb):
+            return (np.full(3, -1.0, np.float32), np.full(3, 1.0, np.float32))
+        c0, c1, r = tb[:, 0:3], tb[:, 3:6], np.abs(tb[:, 8:9])
+        return ((np.minimum(c0, c1) - r).min(0),
+                (np.maximum(c0, c1) + r).max(0))
 
     def rect_table(self) -> np.ndarray:
         """(R, RECT_COLS) float32 records for the kernel."""
@@ -172,8 +211,11 @@ class SceneBake(NamedTuple):
     def features(self) -> int:
         """The FEAT_* bits of the forward kernel instantiation this bake
         needs; perlin textures take the instantiation that also has the
-        checker."""
-        f = FEAT_SPHERES if len(self.sphere_table) else 0
+        checker.  Spheres are a dense loop or a BVH walk, never both."""
+        if len(self.sph_nodes):
+            f = FEAT_SPHERE_BVH
+        else:
+            f = FEAT_SPHERES if len(self.sphere_table) else 0
         if self.sphere_media or self.box_media:
             f |= FEAT_MEDIA
         kinds = self.texture_kinds()
@@ -208,8 +250,8 @@ def _mat_shading(scene: st.Scene, mat_id: int) -> dict:
 
 def bake_scene(scene: st.Scene) -> SceneBake:
     """Snapshot the active primitives, as `pallas_trace.bake_scene`
-    (`:253-320`) does for a scene without triangles and with at most 64
-    spheres."""
+    (`:253-344`) does for a scene without triangles: above 64 sphere rows
+    the table gets a BVH of leaves of 8 and is reordered leaf-contiguous."""
     rc = scene.rects
     rects = [dict(axis=int(rc.axis[i]), a0=float(rc.a0[i]),
                   a1=float(rc.a1[i]), b0=float(rc.b0[i]), b1=float(rc.b1[i]),
@@ -252,9 +294,88 @@ def bake_scene(scene: st.Scene) -> SceneBake:
                      *_shading_row(sh), sp.u_off[i], 0.0, 0.0])
     table = (np.asarray(rows, np.float32) if rows
              else np.zeros((0, SPHERE_COLS), np.float32))
+    sph_nodes = np.zeros((0, 6), np.float32)
+    sph_links = np.zeros((0, 2), np.int32)
+    sph_start = np.full((0, 1), -1, np.int32)
+    sph_hit_nodes = np.zeros((0, HIT_NODE_COLS), np.float32)
+    if len(table) > MAX_SPHERES:
+        # moving spheres: the union of the t0 and t1 boxes (moving_sphere.h)
+        c0s, c1s, rr = table[:, 0:3], table[:, 3:6], np.abs(table[:, 8:9])
+        bvh = bvh_mod.build(np.minimum(c0s, c1s) - rr,
+                            np.maximum(c0s, c1s) + rr, leaf_size=SPH_LEAF_K)
+        table, sph_nodes, sph_links, sph_start = _leaf_contiguous(
+            table, bvh, SPH_LEAF_K)
+        sph_hit_nodes = np.concatenate(
+            [sph_nodes, sph_start.astype(np.float32), _octant_links(bvh)],
+            axis=1)
     return SceneBake(rects=rects, boxes=boxes, sphere_table=table,
                      sphere_media=sphere_media, box_media=box_media,
-                     background=tuple(float(x) for x in scene.background))
+                     background=tuple(float(x) for x in scene.background),
+                     sph_nodes=sph_nodes, sph_links=sph_links,
+                     sph_start=sph_start, sph_hit_nodes=sph_hit_nodes)
+
+
+def _leaf_contiguous(rows: np.ndarray, bvh: bvh_mod.FlatBVH, leaf_k: int):
+    """Reorder primitive rows so each BVH leaf owns `leaf_k` contiguous rows
+    (`pallas_trace._leaf_contiguous`, :372-400): returns (table, nodes
+    (M, 6), links (M, 2), start (M, 1)); table row `start[i] + k` is leaf
+    i's k-th primitive, and the slots past a leaf's count hold an all-zero
+    row, which no sphere test accepts (radius 0)."""
+    lp = np.asarray(bvh.leaf_prims)
+    m = lp.shape[0]
+    start = np.full((m, 1), -1, np.int32)
+    leaf_nodes = np.nonzero(lp[:, 0] >= 0)[0]
+    start[leaf_nodes, 0] = (np.arange(len(leaf_nodes), dtype=np.int32)
+                            * leaf_k)
+    flat = np.full((len(leaf_nodes), leaf_k), -1, np.int64)
+    flat[:, :lp.shape[1]] = lp[leaf_nodes]
+    flat = flat.reshape(-1)
+    rows_pad = np.concatenate(
+        [rows, np.zeros((1, rows.shape[1]), rows.dtype)], axis=0)
+    table = rows_pad[np.where(flat >= 0, flat, rows.shape[0])]
+    nodes = np.concatenate([np.asarray(bvh.node_min, np.float32),
+                            np.asarray(bvh.node_max, np.float32)], axis=1)
+    links = np.stack([np.asarray(bvh.hit_link, np.int32),
+                      np.asarray(bvh.miss_link, np.int32)], axis=1)
+    return table, nodes, links, start
+
+
+def _octant_links(bvh: bvh_mod.FlatBVH) -> np.ndarray:
+    """Eight threadings of the BVH, one per ray-direction octant (bit 2: x
+    negative, bit 1: y, bit 0: z), each visiting the child nearer along its
+    children's separating axis first (`pallas_trace._octant_links`,
+    :596-643).  Returns (M, 16) float32: octant o's (hit, miss) links at
+    columns 2o, 2o + 1."""
+    hit0 = np.asarray(bvh.hit_link)
+    miss0 = np.asarray(bvh.miss_link)
+    m = len(hit0)
+    leaf = np.asarray(bvh.leaf_prims)[:, 0] >= 0
+    # children in the preorder threading: first i + 1, second miss(i + 1)
+    c1 = np.arange(1, m + 1)
+    c2 = np.where(~leaf, miss0[np.clip(c1, 0, m - 1)], -1)
+    cen = 0.5 * (np.asarray(bvh.node_min) + np.asarray(bvh.node_max))
+    out = np.zeros((m, 16), np.float32)
+    for oct_ in range(8):
+        neg = np.array([oct_ & 4, oct_ & 2, oct_ & 1]) != 0
+        hit = np.full(m, -1, np.int64)
+        miss = np.full(m, -1, np.int64)
+        stack = [(0, -1)]
+        while stack:
+            i, succ = stack.pop()
+            miss[i] = succ
+            if leaf[i]:
+                hit[i] = succ
+                continue
+            a, b = int(c1[i]), int(c2[i])
+            axis = int(np.argmax(np.abs(cen[b] - cen[a])))
+            if (cen[b][axis] < cen[a][axis]) != neg[axis]:
+                a, b = b, a  # b is the nearer child in this octant
+            hit[i] = a
+            stack.append((b, succ))
+            stack.append((a, b))
+        out[:, 2 * oct_] = hit.astype(np.float32)
+        out[:, 2 * oct_ + 1] = miss.astype(np.float32)
+    return out
 
 
 def used_texture_kinds(scene: st.Scene) -> set:
@@ -273,9 +394,6 @@ def unported_feature(scene: st.Scene) -> Optional[str]:
     if scene.triangles.active.any() or scene.tri_bvh is not None:
         return "triangles"
     sp = scene.spheres
-    n_spheres = int((sp.active & ~sp.medium).sum())
-    if n_spheres > MAX_SPHERES or scene.sphere_bvh is not None:
-        return f"sphere BVH ({n_spheres} spheres, more than {MAX_SPHERES})"
     n_media = int((sp.active & sp.medium).sum()
                   + (scene.boxes.active & scene.boxes.medium).sum())
     if n_media > MAX_MEDIA:
@@ -286,12 +404,17 @@ def unported_feature(scene: st.Scene) -> Optional[str]:
 
 
 def unported_record_feature(scene: st.Scene) -> Optional[str]:
-    """As `unported_feature`, for the record walk: it also lacks the
-    hit-point (`need_p`) and uv (`need_uv`) planes, which a scene needs when
-    it uses a checker, perlin or image texture."""
+    """As `unported_feature`, for the record walk: it also lacks the sphere
+    BVH and the hit-point (`need_p`) and uv (`need_uv`) planes, which a
+    scene needs when it uses a checker, perlin or image texture."""
     feature = unported_feature(scene)
     if feature is not None:
         return feature
+    sp = scene.spheres
+    n_spheres = int((sp.active & ~sp.medium).sum())
+    if n_spheres > MAX_SPHERES:
+        return (f"sphere BVH in record mode ({n_spheres} spheres, more than "
+                f"{MAX_SPHERES})")
     kinds = sorted(used_texture_kinds(scene) & _POSITION_KINDS)
     if kinds:
         return f"need_p plane ({TEXTURE_NAMES[kinds[0]]} texture)"
@@ -461,9 +584,13 @@ class _Hit(NamedTuple):
 
 
 def _closest_hit(bake: SceneBake, o3: tuple, d3: tuple, tm: torch.Tensor,
-                 t_min: float, n: int, dev: torch.device) -> _Hit:
+                 t_min: float, n: int, dev: torch.device,
+                 walk: Optional[dict] = None) -> _Hit:
     """Closest hit over the baked rects, then boxes, then spheres, strict
-    `<` (pallas_trace.py:961-1043, 1105-1185)."""
+    `<` (pallas_trace.py:961-1043, 1105-1185).  With `walk` (a
+    `WalkCounts` dict holding the bounce's `alive` mask), the node and row
+    tests that the kernel's sphere-BVH walk makes on the live lanes are
+    added to it."""
     zeros = torch.zeros(n, dtype=torch.float32, device=dev)
     t_best = torch.full((n,), BIG, dtype=torch.float32, device=dev)
     nx, ny, nz = zeros, zeros, zeros
@@ -518,38 +645,183 @@ def _closest_hit(bake: SceneBake, o3: tuple, d3: tuple, tm: torch.Tensor,
         t_best, nx, ny, nz, idx = upd(ok, t, nwx, nobj_y, nwz, row)
         row += 1
 
+    if walk is not None and len(bake.sph_nodes):
+        w = sphere_walk_reference(bake, o3, d3, tm, t_min, t_best,
+                                  walk["alive"])
+        walk["nodes"] += int(w.nodes.sum())
+        walk["rows"] += int(w.rows.sum())
     if len(bake.sphere_table):
-        a = dx * dx + dy * dy + dz * dz
-        inv_a = 1.0 / torch.clamp(a, min=_EPS)
-    for rec in bake.sphere_table:
-        # float32 scalars, so host arithmetic on them rounds as the kernel's
-        c0x, c0y, c0z, c1x, c1y, c1z, tt0, tt1, rad = rec[:9]
-        span = tt1 - tt0
-        denom = float(span) if not abs(span) < np.float32(_EPS) else 1.0
-        frac = (tm - float(tt0)) / denom
-        cx = float(c0x) + frac * float(c1x - c0x)
-        cy = float(c0y) + frac * float(c1y - c0y)
-        cz = float(c0z) + frac * float(c1z - c0z)
-        ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
-        hb = ocx * dx + ocy * dy + ocz * dz
-        cc = ocx * ocx + ocy * ocy + ocz * ocz - float(rad * rad)
+        sph = _closest_sphere(bake.sphere_table, o3, d3, tm, t_min, t_best)
+        t_best, nx, ny, nz, idx = upd(sph.better, sph.t, *sph.normal,
+                                      row + sph.row)
+    return _Hit(t_best, (nx, ny, nz), idx)
+
+
+class _SphereHit(NamedTuple):
+    better: torch.Tensor  # (n,) bool, a sphere row beats the given t_best
+    t: torch.Tensor       # (n,) its distance
+    normal: tuple         # its outward normal (n - c) / r, three (n,)
+    row: torch.Tensor     # (n,) int64 its row in the table
+
+
+_SPHERE_CHUNK = 128  # sphere rows per step of the plain versions' dense test
+
+
+class _SphereRows(NamedTuple):
+    """The (S, 24) sphere table on a device, with the per-row terms of the
+    kernels' sphere test (`sphere_candidate`, pallas_trace.py:1105-1168;
+    `sph_cand`, :1877-1925): shutter-span divisor, center motion,
+    radius and its square."""
+
+    q: torch.Tensor
+    denom: torch.Tensor
+    dc: torch.Tensor
+    rad: torch.Tensor
+    rr: torch.Tensor
+
+    @classmethod
+    def of(cls, table: np.ndarray, dev: torch.device) -> "_SphereRows":
+        q = torch.as_tensor(table, device=dev)
+        span = q[:, 7] - q[:, 6]
+        rad = q[:, 8]
+        return cls(q, torch.where(span.abs() < _EPS, 1.0, span),
+                   q[:, 3:6] - q[:, 0:3], rad, rad * rad)
+
+    def center(self, frac: torch.Tensor, rows) -> tuple:
+        return tuple(self.q[rows, k] + frac * self.dc[rows, k]
+                     for k in range(3))
+
+    def distance(self, rows, o3: tuple, d3: tuple, tm: torch.Tensor,
+                 a: torch.Tensor, inv_a: torch.Tensor,
+                 t_min: float) -> torch.Tensor:
+        """The nearest root past t_min of rows `rows` (a slice or an index
+        tensor) against rays that broadcast against them, BIG where none:
+        the center moves to the ray's time, and an all-zero pad row of the
+        leaf-contiguous table never hits (radius 0)."""
+        frac = (tm - self.q[rows, 6]) / self.denom[rows]
+        cx, cy, cz = self.center(frac, rows)
+        ocx, ocy, ocz = o3[0] - cx, o3[1] - cy, o3[2] - cz
+        hb = ocx * d3[0] + ocy * d3[1] + ocz * d3[2]
+        cc = ocx * ocx + ocy * ocy + ocz * ocz - self.rr[rows]
         disc = hb * hb - a * cc
         sq = torch.sqrt(torch.clamp(disc, min=0.0))
         near = (-hb - sq) * inv_a
         far = (-hb + sq) * inv_a
-        has = (disc > 0.0) & bool(abs(rad) > 0.0)
-        t = torch.where(has & (near >= t_min), near,
-                        torch.where(has & (far >= t_min), far, BIG))
-        ok = t < BIG * 0.5
-        inv_r = float(np.float32(1.0) / (np.float32(1.0)
-                                         if abs(rad) < np.float32(_EPS)
-                                         else rad))
-        nxx = (ox + t * dx - cx) * inv_r
-        nyy = (oy + t * dy - cy) * inv_r
-        nzz = (oz + t * dz - cz) * inv_r
-        t_best, nx, ny, nz, idx = upd(ok, t, nxx, nyy, nzz, row)
-        row += 1
-    return _Hit(t_best, (nx, ny, nz), idx)
+        has = (disc > 0.0) & (self.rad[rows].abs() > 0.0)
+        return torch.where(has & (near >= t_min), near,
+                           torch.where(has & (far >= t_min), far, BIG))
+
+
+def _closest_sphere(table: np.ndarray, o3: tuple, d3: tuple,
+                    tm: torch.Tensor, t_min: float,
+                    t_best: torch.Tensor) -> _SphereHit:
+    """The first sphere row with the least distance below `t_best`: every
+    row of the (S, 24) table against every lane, a chunk of rows at a
+    time, with the kernels' arithmetic per (lane, row).  The first
+    occurrence of the least distance is what a loop over the rows with a
+    strict `<` keeps.  A negative radius turns the normal inward."""
+    dev = tm.device
+    sr = _SphereRows.of(table, dev)
+    ox, oy, oz = o3
+    dx, dy, dz = d3
+    a = dx * dx + dy * dy + dz * dz
+    inv_a = 1.0 / torch.clamp(a, min=_EPS)
+    best_t = torch.full_like(tm, BIG)
+    best_row = torch.zeros(tm.shape, dtype=torch.int64, device=dev)
+    col = (lambda x: x[:, None])
+    for lo in range(0, len(sr.q), _SPHERE_CHUNK):
+        t = sr.distance(slice(lo, lo + _SPHERE_CHUNK), tuple(map(col, o3)),
+                        tuple(map(col, d3)), col(tm), col(a), col(inv_a),
+                        t_min)
+        j = torch.argmin(t, dim=1)  # the first of equal minima
+        t_j = torch.gather(t, 1, j[:, None])[:, 0]
+        take = t_j < best_t
+        best_t = torch.where(take, t_j, best_t)
+        best_row = torch.where(take, lo + j, best_row)
+
+    frac = (tm - sr.q[best_row, 6]) / sr.denom[best_row]
+    cx, cy, cz = sr.center(frac, best_row)
+    rad = sr.rad[best_row]
+    inv_r = 1.0 / torch.where(rad.abs() < _EPS, 1.0, rad)
+    normal = ((ox + best_t * dx - cx) * inv_r, (oy + best_t * dy - cy) * inv_r,
+              (oz + best_t * dz - cz) * inv_r)
+    return _SphereHit((best_t < BIG * 0.5) & (best_t < t_best), best_t,
+                      normal, best_row)
+
+
+class SphereWalk(NamedTuple):
+    """What the kernels' sphere-BVH walk finds and does, lane by lane."""
+
+    better: torch.Tensor  # (n,) bool, a sphere row beats the given t_best
+    t: torch.Tensor       # (n,) the walk's closest distance
+    row: torch.Tensor     # (n,) int64 its row in the leaf-contiguous table
+    nodes: torch.Tensor   # (n,) int64 node slab tests
+    rows: torch.Tensor    # (n,) int64 sphere rows tested
+
+
+def sphere_walk_reference(bake: SceneBake, o3: tuple, d3: tuple,
+                          tm: torch.Tensor, t_min: float,
+                          t_best: torch.Tensor, alive: torch.Tensor,
+                          octant: bool = False) -> SphereWalk:
+    """The stackless sphere-BVH walk of the kernels, every live lane in
+    lockstep: slab-test the lane's node against its closest hit so far
+    (`tn <= t`), test a hit leaf's SPH_LEAF_K rows in order with a strict
+    `<`, then follow the node's hit or miss link until -1.
+    `megakernel_fwd` follows the preorder links (`sph_links`, octant
+    False); `rt_hit` the links of the ray's own direction octant
+    (`sph_hit_nodes`, octant True).
+
+    The plain versions test every row densely instead; this one counts the
+    node and row tests a walk makes, which bound the kernels' work, and
+    shows that the walk keeps the dense loop's winner."""
+    ox, oy, oz = o3
+    dx, dy, dz = d3
+    dev = tm.device
+    nodes = torch.as_tensor(bake.sph_nodes, device=dev)
+    start = torch.as_tensor(bake.sph_start[:, 0], device=dev).long()
+    if octant:
+        links = torch.as_tensor(bake.sph_hit_nodes[:, 7:], device=dev).long()
+        oct_ = ((dx < 0).long() << 2) | ((dy < 0).long() << 1) | (dz < 0).long()
+        col = 2 * oct_
+    else:
+        links = torch.as_tensor(bake.sph_links, device=dev).long()
+        col = torch.zeros_like(tm, dtype=torch.int64)
+    sr = _SphereRows.of(bake.sphere_table, dev)
+    ivx, ivy, ivz = 1.0 / _guard(dx), 1.0 / _guard(dy), 1.0 / _guard(dz)
+    a = dx * dx + dy * dy + dz * dz
+    inv_a = 1.0 / torch.clamp(a, min=_EPS)
+    best_t = t_best.clone()
+    best_row = torch.zeros_like(col)
+    n_nodes, n_rows = torch.zeros_like(col), torch.zeros_like(col)
+    node = torch.where(alive, 0, -1).long()
+    while bool((node >= 0).any()):
+        active = node >= 0
+        at = node.clamp(min=0)
+        nd = nodes[at]
+        tx0, tx1 = (nd[:, 0] - ox) * ivx, (nd[:, 3] - ox) * ivx
+        ty0, ty1 = (nd[:, 1] - oy) * ivy, (nd[:, 4] - oy) * ivy
+        tz0, tz1 = (nd[:, 2] - oz) * ivz, (nd[:, 5] - oz) * ivz
+        tn = torch.maximum(torch.maximum(torch.minimum(tx0, tx1),
+                                         torch.minimum(ty0, ty1)),
+                           torch.minimum(tz0, tz1))
+        tf = torch.minimum(torch.minimum(torch.maximum(tx0, tx1),
+                                         torch.maximum(ty0, ty1)),
+                           torch.maximum(tz0, tz1))
+        hit_box = (active & (tf >= torch.clamp(tn, min=t_min))
+                   & (tn <= best_t))
+        leaf = hit_box & (start[at] >= 0)
+        for k in range(SPH_LEAF_K):
+            r = torch.where(leaf, start[at] + k, 0)
+            t = sr.distance(r, o3, d3, tm, a, inv_a, t_min)
+            take = leaf & (t < BIG * 0.5) & (t < best_t)
+            best_t = torch.where(take, t, best_t)
+            best_row = torch.where(take, r, best_row)
+        n_nodes += active.long()
+        n_rows += SPH_LEAF_K * leaf.long()
+        nxt = links[at, col + (~hit_box).long()]
+        node = torch.where(active, nxt, -1)
+    better = alive & (best_t < t_best)
+    return SphereWalk(better, best_t, best_row, n_nodes, n_rows)
 
 
 def _box_interval(prim, o3: tuple, d3: tuple):
@@ -645,8 +917,8 @@ def _media_hit(bake: SceneBake, h: _Hit, o3: tuple, d3: tuple,
 
 def _scene_hit(bake: SceneBake, o3: tuple, d3: tuple, tm: torch.Tensor,
                t_min: float, draw: torch.Tensor, n: int,
-               dev: torch.device) -> _Hit:
-    h = _closest_hit(bake, o3, d3, tm, t_min, n, dev)
+               dev: torch.device, walk: Optional[dict] = None) -> _Hit:
+    h = _closest_hit(bake, o3, d3, tm, t_min, n, dev, walk)
     if bake.sphere_media or bake.box_media:
         h = _media_hit(bake, h, o3, d3, tm, t_min, draw)
     return h
@@ -793,11 +1065,13 @@ class _Bounce(NamedTuple):
 def _bounce(bake: SceneBake, shading: torch.Tensor, base: torch.Tensor,
             b: int, alive: torch.Tensor, o3: tuple, d3: tuple,
             tm: torch.Tensor, t_min: float, n: int,
-            dev: torch.device) -> tuple:
+            dev: torch.device, counts: Optional[dict] = None) -> tuple:
     """One bounce of every lane, shared by both modes: closest hit, media,
-    face normal and scatter; returns (the bounce's _Bounce, its draw)."""
+    face normal and scatter; returns (the bounce's _Bounce, its draw).
+    With `counts` (see `trace_pixels_reference`), adds the bounce's work."""
     draw = _draw_window(base, b)
-    h = _scene_hit(bake, o3, d3, tm, t_min, draw, n, dev)
+    walk = None if counts is None else dict(alive=alive, nodes=0, rows=0)
+    h = _scene_hit(bake, o3, d3, tm, t_min, draw, n, dev, walk)
     hit = alive & (h.t < BIG * 0.5)
     miss = alive & ~(h.t < BIG * 0.5)
     sh = shading[h.idx]
@@ -805,6 +1079,14 @@ def _bounce(bake: SceneBake, shading: torch.Tensor, base: torch.Tensor,
     front, n3, p3 = _surface(h, o3, d3)
     new_d, ok = _scatter(bake.material_kinds(), draw, kind, sh, front, n3, d3)
     cont = hit & ok & (kind != st.DIFFUSE_LIGHT)
+    if counts is not None:
+        counts["live"] += int(alive.sum())
+        counts["nodes"] += walk["nodes"]
+        counts["rows"] += walk["rows"]
+        lit = kind == st.DIFFUSE_LIGHT
+        for k in torch.unique(kind[hit & ~lit]).tolist():
+            counts["scatter"][k] = (counts["scatter"].get(k, 0)
+                                    + int((hit & ~lit & (kind == k)).sum()))
     return _Bounce(hit, miss, cont, kind, sh, p3, new_d), draw
 
 
@@ -819,7 +1101,8 @@ def trace_pixels_reference(bake: SceneBake, camera, img_h: int, img_w: int,
                            pix_base: int, n: int, seed: int,
                            max_depth: int = 50, t_min: float = 0.001,
                            device: torch.device | str = "cpu",
-                           rr_start: int = 0) -> torch.Tensor:
+                           rr_start: int = 0,
+                           counts: Optional[dict] = None) -> torch.Tensor:
     """Forward radiance (n, 3) float32 for pixels [pix_base, pix_base + n)
     of an img_h x img_w image, camera rays made from the PCG stream, with
     russian roulette from bounce `rr_start` when it is > 0.
@@ -828,6 +1111,11 @@ def trace_pixels_reference(bake: SceneBake, camera, img_h: int, img_w: int,
     lanes of the call: every lane runs every bounce under an `alive` mask,
     and a dead lane adds nothing, so it matches a kernel thread that stops
     when its ray dies (pallas_trace.py:1397-1398, 1626-1637).
+
+    `counts`, when given a dict, receives the work the kernel does for these
+    paths: "live" bounces, "cont" bounces that go on, "scatter" {material
+    kind: hits that scatter}, and the sphere-BVH walk's "nodes" and "rows"
+    tests (`sphere_walk_reference`).
     """
     dev = torch.device(device)
     t_min = _f32(t_min)
@@ -842,12 +1130,14 @@ def trace_pixels_reference(bake: SceneBake, camera, img_h: int, img_w: int,
                   for _ in range(3))
     alive = torch.ones(n, dtype=torch.bool, device=dev)
     bgr, bgg, bgb = bake.background
+    if counts is not None:
+        counts.update(live=0, cont=0, scatter={}, nodes=0, rows=0)
 
     for b in range(max_depth):
         if not bool(alive.any()):
             break
         bn, draw = _bounce(bake, shading, base, b, alive, o3, d3, tm, t_min,
-                           n, dev)
+                           n, dev, counts)
         ar, ag, ab = _albedo(tex_kinds, bn.sh, bn.p3)
 
         # ---- background on miss, emission on a light (:1432-1442) ----
@@ -877,6 +1167,8 @@ def trace_pixels_reference(bake: SceneBake, camera, img_h: int, img_w: int,
             cont = cont & survive
         o3, d3 = _advance(bn, o3, d3)
         alive = cont
+        if counts is not None:
+            counts["cont"] += int(cont.sum())
 
     return torch.stack((lr, lg, lb), dim=-1)
 
@@ -957,6 +1249,221 @@ def record_agreement(got, want) -> dict:
                 bit_rule=bool(agree.all()))
 
 
+class HitResult(NamedTuple):
+    """One closest hit per ray, the contract of `PallasTracer.hit`."""
+
+    packed: torch.Tensor  # (N,) int32 mat | hit<<16 | miss<<18 | front<<19
+    #                       | is_tri<<20 | is_sph<<21; 0 on a dead lane
+    p: torch.Tensor       # (N, 3) o + t d (t = 1e30 on a miss)
+    u: torch.Tensor       # (N,) the winner's final uv
+    v: torch.Tensor       # (N,)
+    normal: torch.Tensor  # (N, 3) unit, faced against the ray
+    slot: torch.Tensor    # (N,) float32 triangle slot: 0, no triangles
+
+
+HIT_LIMITS = {"p": 5e-3, "u": 1e-2, "v": 1e-2, "normal": 3e-2}
+HIT_CLOSE = 2e-3  # the error that >= 99% of hit lanes stay within
+
+
+def hit_agreement(got, want) -> dict:
+    """How two hit results agree.  `got` and `want` are HitResults or
+    sequences (packed, p, u, v, normal, ...) of tensors or arrays.
+
+    Returns whether the packed words are equal on every lane
+    (`packed_equal`); over the lanes that hit, the largest error of each
+    float output (`max_err`, u taken modulo 1), the fraction of those lanes
+    within HIT_CLOSE in every output (`frac_close`) and whether every error
+    is within HIT_LIMITS (`within_limits`); and the fraction of all float
+    values equal bit for bit (`exact_frac`).  The hit rule against the JAX
+    kernel is `packed_equal`, `within_limits` and `frac_close >= 0.99`:
+    XLA on the CPU contracts multiply-adds into FMAs, which the sphere
+    quadratic's cancellation turns into up to ~1e-3 of t."""
+    def as_t(x):
+        return (x.detach().cpu() if isinstance(x, torch.Tensor)
+                else torch.from_numpy(np.array(x)))
+
+    g, w = [as_t(x) for x in got[:5]], [as_t(x) for x in want[:5]]
+    hit = (w[0] & HIT_BIT) != 0
+    close = hit.clone()
+    res = dict(packed_equal=bool(torch.equal(g[0].to(torch.int32),
+                                             w[0].to(torch.int32))),
+               max_err={}, within_limits=True)
+    exact = total = 0
+    for name, a, b in zip(HIT_LIMITS, g[1:], w[1:]):
+        err = (a.double() - b.double()).abs()
+        exact += int((a == b).sum())
+        total += a.numel()
+        err = err[hit]
+        if name == "u":
+            err = torch.minimum(err, 1.0 - err)
+        if err.dim() == 2:  # p, normal: the largest component's
+            err = err.amax(-1)
+        res["max_err"][name] = float(err.max()) if len(err) else 0.0
+        res["within_limits"] &= res["max_err"][name] <= HIT_LIMITS[name]
+        close[hit] &= err <= HIT_CLOSE
+    res["frac_close"] = (float(close.sum()) / max(int(hit.sum()), 1))
+    res["exact_frac"] = exact / max(total, 1)
+    res["hits"] = int(hit.sum())
+    return res
+
+
+def _atan2_poly(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Full-quadrant atan2 from the Abramowitz & Stegun 4.4.49 polynomial
+    on [0, 1] (`pallas_trace._atan2_poly`, `_atan_unit`; |err| < 1e-5)."""
+    ax, ay = x.abs(), y.abs()
+    z = torch.minimum(ax, ay) / torch.clamp(torch.maximum(ax, ay),
+                                            min=_HI_FLOOR)
+    z2 = z * z
+    c0, c1, c2, c3, c4 = _ATAN_COEFFS
+    r = z * (c0 + z2 * (c1 + z2 * (c2 + z2 * (c3 + z2 * c4))))
+    r = torch.where(ay > ax, _HALF_PI - r, r)
+    r = torch.where(x < 0.0, _PI - r, r)
+    return torch.where(y < 0.0, -r, r)
+
+
+def _acos_poly(x: torch.Tensor) -> torch.Tensor:
+    """acos(x) = atan2(sqrt(1 - x^2), x) (`pallas_trace._acos_poly`)."""
+    return _atan2_poly(torch.sqrt(torch.clamp(1.0 - x * x, min=0.0)), x)
+
+
+def _mod1(x: torch.Tensor) -> torch.Tensor:
+    """x mod 1 with the sign of the divisor, as `jnp.remainder`: the exact
+    fmod, plus 1 where that is negative."""
+    r = torch.fmod(x, 1.0)
+    return torch.where(r < 0.0, r + 1.0, r)
+
+
+def _extent(hi: float, lo: float) -> float:
+    """float32(max(hi - lo, 1e-12)): a uv divisor, a Python double in the
+    JAX kernel (pallas_trace.py:1807, :1866), so rounded once."""
+    return _f32(max(hi - lo, 1e-12))
+
+
+def hit_reference(bake: SceneBake, o: torch.Tensor, d: torch.Tensor,
+                  tm: torch.Tensor, alive: torch.Tensor,
+                  t_min: float = 0.001) -> HitResult:
+    """One closest hit per ray over the baked rects, boxes and spheres
+    (strict `<` in that order), intersection only: no shading, no scatter,
+    no random numbers.  The plain PyTorch version of `rt_hit`
+    (`pallas_trace._make_hit_kernel`, :1722-2235) for a scene without
+    triangles or media.
+
+    o, d: (N, 3) float32; tm: (N,) float32 shutter times; alive: (N,)
+    bool.  The winner's uv is final: a rect's or a box face's, or a
+    sphere's from its pre-flip outward normal through the polynomial
+    atan2/acos plus its rotate_y phase; the normal is faced against the ray
+    and normalized with 1 / sqrt (XLA's rsqrt on the CPU is within an ulp
+    of it).  A dead lane is all zeros.
+    """
+    if bake.sphere_media or bake.box_media:
+        raise ValueError("the hit kernel draws no random numbers: scenes "
+                         "with media take the megakernel")
+    dev, n = o.device, o.shape[0]
+    t_min = _f32(t_min)
+    o3 = (o[:, 0], o[:, 1], o[:, 2])
+    d3 = (d[:, 0], d[:, 1], d[:, 2])
+    ox, oy, oz = o3
+    dx, dy, dz = d3
+    zeros = torch.zeros(n, dtype=torch.float32, device=dev)
+    t2 = torch.full((n,), BIG, dtype=torch.float32, device=dev)
+    nx, ny, nz, uu, vv = zeros, zeros, zeros, zeros, zeros
+    mat = torch.zeros(n, dtype=torch.int32, device=dev)
+    sph = torch.zeros(n, dtype=torch.bool, device=dev)
+
+    def take(better, t, n3, m, u_, v_):
+        nonlocal t2, nx, ny, nz, mat, uu, vv, sph
+        t2 = torch.where(better, t, t2)
+        nx = torch.where(better, n3[0], nx)
+        ny = torch.where(better, n3[1], ny)
+        nz = torch.where(better, n3[2], nz)
+        mat = torch.where(better, m, mat)
+        uu = torch.where(better, u_, uu)
+        vv = torch.where(better, v_, vv)
+        sph = sph & ~better
+
+    def div(num, den: float):
+        # a divisor tensor: a CUDA kernel multiplies by the reciprocal of a
+        # host scalar divisor
+        return num / torch.full_like(num, den)
+
+    for prim in bake.rects:
+        ax = prim["axis"]
+        t = (prim["k"] - o3[ax]) / _guard(d3[ax])
+        a_ax = 1 if ax == 0 else 0
+        b_ax = 1 if ax == 2 else 2
+        pa = o3[a_ax] + t * d3[a_ax]
+        pb = o3[b_ax] + t * d3[b_ax]
+        ok = ((t >= t_min) & (pa >= prim["a0"]) & (pa <= prim["a1"])
+              & (pb >= prim["b0"]) & (pb <= prim["b1"]))
+        n3 = [zeros, zeros, zeros]
+        n3[ax] = torch.ones_like(zeros)
+        take(ok & (t < t2), t, n3, prim["mat"],
+             div(pa - prim["a0"], _extent(prim["a1"], prim["a0"])),
+             div(pb - prim["b0"], _extent(prim["b1"], prim["b0"])))
+
+    for prim in bake.boxes:
+        (ox2, oy_t, oz2), (dx2, dz2) = _box_interval(prim, o3, d3)
+        tnx, tfx, tny, tfy, tnz, tfz = _slabs(prim, ox2, oy_t, oz2, dx2, dy,
+                                              dz2)
+        tn = torch.maximum(torch.maximum(tnx, tny), tnz)
+        tf = torch.minimum(torch.minimum(tfx, tfy), tfz)
+        t = torch.where(tn >= t_min, tn, tf)
+        ok = (tf > torch.clamp(tn, min=0.0)) & (t >= t_min)
+        is_x = (t == tnx) | (t == tfx)
+        is_y = (t == tny) | (t == tfy)
+        exiting = t == tf
+        sx = torch.where((dx2 >= 0) ^ exiting, -1.0, 1.0)
+        sy = torch.where((dy >= 0) ^ exiting, -1.0, 1.0)
+        sz = torch.where((dz2 >= 0) ^ exiting, -1.0, 1.0)
+        nobj_x = torch.where(is_x, sx, 0.0)
+        nobj_y = torch.where(~is_x & is_y, sy, 0.0)
+        nobj_z = torch.where(~is_x & ~is_y, sz, 0.0)
+        c, s = prim["cos"], prim["sin"]
+        lo, hi = prim["bmin"], prim["bmax"]
+        # per-face uv, as the reference's six rects (box.h:14-27)
+        ua = div(ox2 + t * dx2 - lo[0], _extent(hi[0], lo[0]))
+        ub = div(oy_t + t * dy - lo[1], _extent(hi[1], lo[1]))
+        uc = div(oz2 + t * dz2 - lo[2], _extent(hi[2], lo[2]))
+        take(ok & (t < t2), t,
+             (c * nobj_x + s * nobj_z, nobj_y, (-s) * nobj_x + c * nobj_z),
+             prim["mat"], torch.where(is_x, ub, ua),
+             torch.where(is_x | is_y, uc, ub))
+
+    table = bake.sphere_table
+    if len(table):
+        hs = _closest_sphere(table, o3, d3, tm, t_min, t2)
+        q = torch.as_tensor(table, device=dev)[hs.row]
+        take(hs.better, hs.t, hs.normal,
+             q[:, SPHERE_SH + SH_MAT].to(torch.int32),
+             q[:, SPHERE_SH + SH_COLS], zeros)  # the mat, the uv phase
+        sph = sph | hs.better
+
+    hit = alive & (t2 < BIG * 0.5)
+    miss = alive & ~(t2 < BIG * 0.5)
+    if len(table):
+        # sphere uv from the pre-flip outward normal (sphere.h:19-32)
+        theta = _acos_poly(torch.clamp(-ny, -1.0, 1.0))
+        phi = _atan2_poly(-nz, nx) + _PI
+        uu = torch.where(sph, _mod1(phi * _INV_TWO_PI + uu), uu)
+        vv = torch.where(sph, theta * _INV_PI, vv)
+    front = (dx * nx + dy * ny + dz * nz) < 0.0
+    flip = torch.where(front, 1.0, -1.0)
+    nlen = 1.0 / torch.sqrt(torch.clamp(nx * nx + ny * ny + nz * nz,
+                                        min=_NORM_FLOOR))
+    normal = torch.stack((nx * flip * nlen, ny * flip * nlen,
+                          nz * flip * nlen), dim=-1)
+    packed = (mat | (hit.to(torch.int32) << 16) | (miss.to(torch.int32) << 18)
+              | (front.to(torch.int32) << 19) | (sph.to(torch.int32) << 21))
+    p = torch.stack((ox + t2 * dx, oy + t2 * dy, oz + t2 * dz), dim=-1)
+    live = alive[:, None]
+    return HitResult(packed=torch.where(alive, packed, 0),
+                     p=torch.where(live, p, 0.0),
+                     u=torch.where(alive, uu, 0.0),
+                     v=torch.where(alive, vv, 0.0),
+                     normal=torch.where(live, normal, 0.0),
+                     slot=zeros.clone())
+
+
 # --------------------------------------------------------------------------
 # the kernel wrapper
 # --------------------------------------------------------------------------
@@ -985,27 +1492,53 @@ def _check_count(n: int) -> None:
         raise ValueError(f"n must be positive, got {n}")
 
 
-def _check_table(t: torch.Tensor, cols: int, device: torch.device) -> None:
-    if (t.device != device or t.dtype != torch.float32
+def _check_table(t: torch.Tensor, cols: int, device: torch.device,
+                 dtype: torch.dtype = torch.float32) -> None:
+    if (t.device != device or t.dtype != dtype
             or not t.is_contiguous() or t.dim() != 2 or t.shape[1] != cols):
-        raise ValueError(f"kernel table must be a contiguous float32 "
+        raise ValueError(f"kernel table must be a contiguous {dtype} "
                          f"(rows, {cols}) tensor on {device}, got "
                          f"{tuple(t.shape)} {t.dtype} on {t.device}")
 
 
-class Tracer:
-    """Scene-specialized tracer on one device, in forward and record mode.
+def _check_rays(o: torch.Tensor, d: torch.Tensor, tm: torch.Tensor,
+                alive: torch.Tensor, device: torch.device) -> int:
+    """The ray count N of a hit query, after checking the planes: o, d
+    contiguous float32 (N, 3), tm float32 (N,), alive bool (N,), all on
+    `device`."""
+    n = o.shape[0] if o.dim() == 2 else -1
+    for name, t, shape, dtype in (("o", o, (n, 3), torch.float32),
+                                  ("d", d, (n, 3), torch.float32),
+                                  ("tm", tm, (n,), torch.float32),
+                                  ("alive", alive, (n,), torch.bool)):
+        if (t.device != device or t.dtype != dtype or not t.is_contiguous()
+                or tuple(t.shape) != shape):
+            raise ValueError(f"{name} must be a contiguous {dtype} {shape} "
+                             f"tensor on {device}, got {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}")
+    _check_count(n)
+    if n > 2**31 - 1:
+        raise ValueError(f"{n} rays do not fit int32")
+    return n
 
-    On a CUDA device `trace_pixels` and `walk_packed_pixels` launch
-    `csrc/megakernel.cuh`'s kernels; on the CPU they run
-    `trace_pixels_reference` and `walk_packed_pixels_reference`.  Nothing
-    falls back from one to the other.  The constructor raises
-    NotImplementedError for a scene the forward kernel does not cover, and
-    the record mode for one that needs the hit-point or uv planes.
+
+class Tracer:
+    """Scene-specialized tracer on one device: forward radiance, the record
+    walk and the pure closest hit.
+
+    On a CUDA device `trace_pixels`, `walk_packed_pixels` and `hit` launch
+    the kernels (`csrc/megakernel.cuh`, `csrc/hit.cu`); on the CPU they run
+    `trace_pixels_reference`, `walk_packed_pixels_reference` and
+    `hit_reference`.  Nothing falls back from one to the other.  The
+    constructor raises NotImplementedError for a scene the forward kernel
+    does not cover, the record mode for one with a sphere BVH or that needs
+    the hit-point or uv planes, and `hit` ValueError for one with media
+    (`supports_hit`).
     """
 
     launches = 0         # megakernel_fwd launches in this process, all tracers
     record_launches = 0  # megakernel_record launches, likewise
+    hit_launches = 0     # rt_hit launches, likewise
 
     def __init__(self, scene: st.Scene, device: torch.device | str):
         feature = unported_feature(scene)
@@ -1015,11 +1548,18 @@ class Tracer:
         self.device = torch.device(device)
         if self.device.type != "cpu":
             _require_cuda(self.device)
-        self.bake = bake_scene(scene)
-        self.rect_table, self.box_table, self.sphere_table, self.media_table = (
+        self.bake = bake = bake_scene(scene)
+        (self.rect_table, self.box_table, self.sphere_table, self.media_table,
+         self.sph_nodes, self.sph_links, self.sph_start,
+         self.sph_hit_nodes) = (
             torch.as_tensor(t, device=self.device) for t in (
-                self.bake.rect_table(), self.bake.box_table(),
-                self.bake.sphere_table, self.bake.media_table()))
+                bake.rect_table(), bake.box_table(), bake.sphere_table,
+                bake.media_table(), bake.sph_nodes, bake.sph_links,
+                bake.sph_start, bake.sph_hit_nodes))
+        # the hit kernel draws no random numbers, so no media
+        # (pallas_trace.py:2383-2387; the VMEM budget has no meaning here)
+        self.supports_hit = not (bake.sphere_media or bake.box_media)
+        self.world_lo, self.world_hi = bake.world_bounds()
 
     def trace_pixels(self, camera, img_h: int, img_w: int, pix_base: int,
                      n: int, seed: int, max_depth: int = 50,
@@ -1122,14 +1662,67 @@ class Tracer:
         launch.tables = tables  # the kernel reads them through ptrs
         return launch
 
-    def _checked_tables(self) -> tuple:
-        """The four kernel tables, checked.  A bound launch keeps them
-        alive: it may outlive the tracer (`compile_renderer`)."""
+    def bind_hit(self, t_min: float = 0.001
+                 ) -> Callable[..., HitResult]:
+        """`hit` with t_min fixed: returns `launch(o, d, tm, alive) ->
+        HitResult`, with the tables checked once."""
+        if not self.supports_hit:
+            raise ValueError("the hit kernel takes no media; this scene "
+                             "takes the megakernel")
+        t_min = _f32(t_min)
+        if self.device.type == "cpu":
+            def plain(o, d, tm, alive) -> HitResult:
+                _check_rays(o, d, tm, alive, self.device)
+                return hit_reference(self.bake, o, d, tm, alive, t_min)
+            return plain
+
         tables = (self.rect_table, self.box_table, self.sphere_table,
-                  self.media_table)
+                  self.sph_hit_nodes)
         for t, cols in zip(tables, (RECT_COLS, BOX_COLS, SPHERE_COLS,
-                                    MEDIUM_COLS)):
+                                    HIT_NODE_COLS)):
             _check_table(t, cols, self.device)
+        ptrs = tuple(t.data_ptr() for t in tables)
+        counts = (len(self.bake.rects), len(self.bake.boxes),
+                  len(self.bake.sphere_table), len(self.bake.sph_hit_nodes))
+        device, lib = self.device, build.load()
+
+        def launch(o, d, tm, alive) -> HitResult:
+            n = _check_rays(o, d, tm, alive, device)
+            packed = torch.empty(n, dtype=torch.int32, device=device)
+            f = torch.empty((3, n), dtype=torch.float32, device=device)
+            p = torch.empty((n, 3), dtype=torch.float32, device=device)
+            normal = torch.empty((n, 3), dtype=torch.float32, device=device)
+            with torch.cuda.device(device):
+                rc = lib.rt_hit(*ptrs, *counts, n, t_min, o.data_ptr(),
+                                d.data_ptr(), tm.data_ptr(), alive.data_ptr(),
+                                packed.data_ptr(), p.data_ptr(),
+                                f[0].data_ptr(), f[1].data_ptr(),
+                                normal.data_ptr(), f[2].data_ptr(),
+                                _stream(device))
+            _check(lib, rc, "rt_hit")
+            Tracer.hit_launches += 1
+            return HitResult(packed, p, f[0], f[1], normal, f[2])
+
+        launch.tables = tables  # the kernel reads them through ptrs
+        return launch
+
+    def hit(self, o: torch.Tensor, d: torch.Tensor, tm: torch.Tensor,
+            alive: torch.Tensor, t_min: float = 0.001) -> HitResult:
+        """One closest hit per ray (contract of `PallasTracer.hit`, see
+        `hit_reference`): o, d (N, 3) float32, tm (N,) float32 and alive
+        (N,) bool, contiguous on the tracer's device."""
+        return self.bind_hit(t_min)(o, d, tm, alive)
+
+    def _checked_tables(self) -> tuple:
+        """The megakernels' seven tables, checked.  A bound launch keeps
+        them alive: it may outlive the tracer (`compile_renderer`)."""
+        tables = (self.rect_table, self.box_table, self.sphere_table,
+                  self.media_table, self.sph_nodes, self.sph_links,
+                  self.sph_start)
+        for t, cols, dtype in zip(
+                tables, (RECT_COLS, BOX_COLS, SPHERE_COLS, MEDIUM_COLS, 6, 2,
+                         1), (torch.float32,) * 5 + (torch.int32,) * 2):
+            _check_table(t, cols, self.device, dtype)
         return tables
 
     def _launch_params(self, camera, img_h: int, img_w: int, max_depth: int,
@@ -1152,6 +1745,7 @@ class Tracer:
             img_h=img_h, img_w=img_w, max_depth=int(max_depth),
             n_rects=len(self.bake.rects), n_boxes=len(self.bake.boxes),
             n_spheres=len(self.bake.sphere_table),
+            n_sph_nodes=len(self.bake.sph_nodes),
             n_sphere_media=len(self.bake.sphere_media),
             n_box_media=len(self.bake.box_media), has_time=int(ct1 != ct0),
             rr_start=int(rr_start), features=int(features))

@@ -7,10 +7,11 @@ spheres (rotate_y + translate baked, a negative radius for a hollow
 sphere), axis-aligned rects (with a pure translation), boxes under
 rotate_y + translate, and constant media in a box or a sphere.  Still
 refused, with the feature named (`NotImplementedError`): image textures,
-triangles, meshes, a rotated rect (it lowers to triangles) and a build of
-more than 64 spheres (the JAX package puts those in a sphere BVH).
-`build()` packs the same numpy tables, with the same padding, as the host
-snapshot that the JAX `SceneBuilder.build` keeps (`_host_np`).
+triangles, meshes and a rotated rect (it lowers to triangles).  `build()`
+packs the same numpy tables, with the same padding, as the host snapshot
+that the JAX `SceneBuilder.build` keeps (`_host_np`); the kernel bake builds
+its own sphere BVH from them (`ops/cuda_trace.py`), so the scene carries
+none.
 """
 
 from __future__ import annotations
@@ -50,7 +51,6 @@ BLACK = (0.0, 0.0, 0.0)    # reference `scenes.h:73`
 
 ColorLike = Union[tuple, list, np.ndarray]
 _PAD = 4  # pad primitive tables to a multiple of this
-SPHERE_BVH_MIN = 64  # more spheres than this need the (unported) sphere BVH
 
 
 def _rot_y(p: np.ndarray, degrees: float) -> np.ndarray:
@@ -79,6 +79,7 @@ def _not_ported(feature: str):
 @dataclass
 class SceneBuilder:
     background: tuple = SKY
+    seed: int = 1984  # reference world seed (`scenes.h:30`)
 
     _tex: list = field(default_factory=list)
     _mat: list = field(default_factory=list)
@@ -227,13 +228,7 @@ class SceneBuilder:
     # -- packing -----------------------------------------------------------
 
     def build(self) -> Scene:
-        """Pack everything into the Scene tables (host numpy arrays).
-        Raises NotImplementedError for more than 64 spheres, which the JAX
-        package would put in a sphere BVH."""
-        if len(self._spheres) > SPHERE_BVH_MIN:
-            raise NotImplementedError(
-                f"sphere BVH ({len(self._spheres)} spheres, more than "
-                f"{SPHERE_BVH_MIN}): not yet ported")
+        """Pack everything into the Scene tables (host numpy arrays)."""
         if not self._mat:
             self.lambertian((0.5, 0.5, 0.5))
         if not self._tex:

@@ -1,9 +1,13 @@
-"""Material shading: (attenuation, emitted) per hit, differentiable.
+"""Material scatter and shading per hit.
 
-Counterpart of the shading half of `raytracing_gpu_tpu/scene/materials.py`
-(`shade`, `_fast_shade`).  Direction sampling is the record kernel's work
-(`ops/csrc/megakernel.cu`); what is left here depends on the parameters
-only through the texture colors, so gradients of an image flow into them.
+Counterpart of `raytracing_gpu_tpu/scene/materials.py`: `scatter_direction`
+samples the scattered direction of every material kind for the whole batch
+and selects by the winner's kind (reference `material.h:16-138`), with the
+draws from a `torch.Generator` or given as tensors; `shade` (`_fast_shade`)
+gives (attenuation, emitted), which depend on the parameters only through
+the texture colors, so gradients of an image flow into them.  The
+megakernels scatter in the kernel from their PCG stream; the wavefront
+drivers (`engine/wavefront.py`) scatter here.
 
 The material kinds and the texture bindings are the scene's host numpy
 arrays, so every per-material branch below is decided on the host, as the
@@ -12,11 +16,15 @@ JAX package decides it at trace time on a baked scene.
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import numpy as np
 import torch
 
+from ..core import rng, vec
 from .textures import PORTED, eval_texture
-from .types import DIELECTRIC, DIFFUSE_LIGHT, TEX_CHECKER, Scene, host_table
+from .types import (DIELECTRIC, DIFFUSE_LIGHT, ISOTROPIC, METAL, TEX_CHECKER,
+                    Scene, host_table)
 
 _UNROLL_MAX = 32  # materials up to which the per-material select is unrolled
 
@@ -111,3 +119,97 @@ def shade(scene: Scene, params: dict, mat_id: torch.Tensor, u: torch.Tensor,
     attenuation = tex_color + is_diel * (1.0 - tex_color)
     emitted = is_light * tex_color
     return attenuation, emitted
+
+
+class ScatterResult(NamedTuple):
+    direction: torch.Tensor    # (N, 3) new ray direction, not normalized
+    attenuation: torch.Tensor  # (N, 3)
+    emitted: torch.Tensor      # (N, 3)
+    ok: torch.Tensor           # (N,) bool: False when absorbed or a light
+
+
+class ScatterDraws(NamedTuple):
+    """The four draws of one scatter (`materials.scatter_direction`
+    :59-63): a unit vector (N, 3), two points in the unit ball (N, 3) and
+    one uniform (N,)."""
+
+    unit: torch.Tensor
+    sphere: torch.Tensor
+    iso: torch.Tensor
+    u_refl: torch.Tensor
+
+
+def draw_scatter(generator: torch.Generator, n: int) -> ScatterDraws:
+    """Fresh draws for n hits from `generator`."""
+    return ScatterDraws(rng.unit_vector(generator, (n,)),
+                        rng.in_unit_sphere(generator, (n,)),
+                        rng.in_unit_sphere(generator, (n,)),
+                        rng.uniform(generator, (n,)))
+
+
+def scatter_direction(scene: Scene, draws: ScatterDraws,
+                      in_dir: torch.Tensor, normal: torch.Tensor,
+                      front_face: torch.Tensor, mat_id: torch.Tensor):
+    """(direction (N, 3), ok (N,)) of every hit: the direction sampling of
+    `material::scatter`, every kind computed and the winner's selected.
+
+    normal: (N, 3) unit, faced against the ray; front_face: (N,) bool;
+    mat_id: (N,) int.  Lambertian n + unit vector (material.h:16-36), metal
+    reflect + fuzz * ball point, ok above the surface (:39-56), dielectric
+    Schlick reflect or refract (:59-104), isotropic a ball point; a light
+    ends the path.
+    """
+    dev = in_dir.device
+    mats = scene.materials
+    mat_id = mat_id.long()
+    kind = host_table(mats.kind, dev)[mat_id]
+    fuzz = host_table(mats.fuzz, dev)[mat_id]
+    ir = host_table(mats.ir, dev)[mat_id]
+
+    lam_dir = normal + draws.unit
+    lam_dir = vec.where(vec.near_zero(lam_dir), normal, lam_dir)
+
+    unit_dir = vec.unit(in_dir)
+    refl = vec.reflect(unit_dir, normal)
+    metal_dir = refl + fuzz[..., None] * draws.sphere
+    metal_ok = vec.dot(metal_dir, normal) > 0.0
+
+    ratio = torch.where(front_face, 1.0 / ir, ir)
+    cos_theta = torch.clamp(vec.dot(-unit_dir, normal), max=1.0)
+    sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
+    cannot_refract = ratio * sin_theta > 1.0
+    choose_reflect = cannot_refract | (_schlick(cos_theta, ratio)
+                                       > draws.u_refl)
+    diel_dir = vec.where(choose_reflect, refl,
+                         vec.refract(unit_dir, normal, ratio))
+
+    is_metal = kind == METAL
+    direction = vec.where(is_metal, metal_dir, lam_dir)
+    direction = vec.where(kind == DIELECTRIC, diel_dir, direction)
+    direction = vec.where(kind == ISOTROPIC, draws.iso, direction)
+    ok = torch.where(is_metal, metal_ok, True) & (kind != DIFFUSE_LIGHT)
+    return direction.detach(), ok
+
+
+def scatter(scene: Scene, params: dict, generator: Optional[torch.Generator],
+            in_dir: torch.Tensor, p: torch.Tensor, normal: torch.Tensor,
+            front_face: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+            mat_id: torch.Tensor,
+            draws: Optional[ScatterDraws] = None) -> ScatterResult:
+    """`material::scatter` + `emitted` (`material.h:16-138`): the sampled
+    direction (detached) and the differentiable shading.  The draws come
+    from `generator`, or are given (`draws`), e.g. the JAX package's own."""
+    if draws is None:
+        draws = draw_scatter(generator, in_dir.shape[0])
+    direction, ok = scatter_direction(scene, draws, in_dir, normal,
+                                      front_face, mat_id)
+    attenuation, emitted = shade(scene, params, mat_id, u, v, p)
+    return ScatterResult(direction, attenuation, emitted, ok)
+
+
+def _schlick(cosine: torch.Tensor, ref_idx: torch.Tensor) -> torch.Tensor:
+    """Schlick's reflectance (reference `material.h:97-103`)."""
+    sqrt_r0 = (1.0 - ref_idx) / (1.0 + ref_idx)
+    r0 = sqrt_r0 * sqrt_r0
+    return r0 + (1.0 - r0) * torch.pow(torch.clamp(1.0 - cosine, min=0.0),
+                                       5.0)

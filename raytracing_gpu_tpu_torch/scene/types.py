@@ -157,7 +157,9 @@ class Scene:
     textures: Textures
     atlas: ImageAtlas
     background: np.ndarray  # (3,) miss color (reference `scenes.h:69-78`)
-    tri_bvh: Optional[Any] = None     # no BVH is ported yet: always None
+    # the XLA engine's BVHs, not ported: always None (the kernel bake builds
+    # the sphere BVH from the sphere table, ops/cuda_trace.py)
+    tri_bvh: Optional[Any] = None
     sphere_bvh: Optional[Any] = None
     has_sphere_media: bool = True
     has_box_media: bool = True

@@ -295,3 +295,119 @@ def test_fma_chain_kernel_matches_plain_and_ceilings(dev):
     assert 1e12 < fma < 1.05 * peaks["flops_per_s"]
     assert 1e11 < roofline.hbm_ceiling(dev)["bytes_per_s"] < \
         1.05 * peaks["bytes_per_s"]
+
+
+# ---------------------------------------------------------------------------
+# the sphere BVH and the pure closest-hit kernel (big_scene1)
+# ---------------------------------------------------------------------------
+
+
+def _camera_rays(sd, n, seed):
+    """n camera rays of a scene on the CPU, 10% of the lanes dead."""
+    gen = torch.Generator().manual_seed(seed)
+    s, t = torch.rand(n, generator=gen), torch.rand(n, generator=gen)
+    o, d, tm = sd.camera.get_rays(gen, s, t)
+    alive = torch.rand(n, generator=gen) >= 0.1
+    return o.contiguous(), d.contiguous(), tm.contiguous(), alive
+
+
+def _one_bounce(sd, bake, rays, seed):
+    """The rays scattered from the plain hit of `rays`, on the CPU."""
+    from raytracing_gpu_tpu_torch.engine import wavefront
+    from raytracing_gpu_tpu_torch.scene import materials
+
+    o, d, tm, alive = rays
+    hr = ct.hit_reference(bake, o, d, tm, alive)
+    rec = wavefront.resolve_hit_packed(
+        wavefront.pack_attr_table(sd.scene), *hr, d)
+    sc = materials.scatter(sd.scene, diff.get_params(sd.scene, "cpu"),
+                           torch.Generator().manual_seed(seed), d, rec.p,
+                           rec.normal, rec.front_face, rec.u, rec.v,
+                           rec.mat_id)
+    alive = alive & rec.hit & sc.ok
+    return (torch.where(alive[:, None], rec.p, o).contiguous(),
+            torch.where(alive[:, None], sc.direction, d).contiguous(), tm,
+            alive)
+
+
+@pytest.mark.parametrize("name", ["big_scene1", "first", "cornell_box"])
+def test_hit_kernel_matches_plain(dev, name):
+    sd = scenes.get(name)
+    tracer = ct.Tracer(sd.scene, dev)
+    rays = _camera_rays(sd, 65536, 61)
+    for bounce in range(2):
+        before = ct.Tracer.hit_launches
+        got = tracer.hit(*(x.to(dev) for x in rays))
+        assert ct.Tracer.hit_launches == before + 1
+        want = ct.hit_reference(tracer.bake, *(x.to(dev) for x in rays))
+        torch.cuda.synchronize()
+        res = ct.hit_agreement(got, want)
+        assert res["packed_equal"] and res["exact_frac"] >= EXACT_FLOOR, res
+        assert res["hits"] > 10000, res
+        rays = _one_bounce(sd, ct.bake_scene(sd.scene), rays, 62)
+
+
+def test_hit_kernel_matches_pallas_golden(dev):
+    g = np.load(os.path.join(DATA, "big_scene1_hit.npz"))
+    tracer = ct.Tracer(scenes.get("big_scene1").scene, dev)
+    for b in range(2):
+        got = tracer.hit(*(torch.from_numpy(np.array(g[f"{k}{b}"])).to(dev)
+                           for k in ("o", "d", "tm", "alive")))
+        res = ct.hit_agreement(got, [g[f"{k}{b}"] for k in (
+            "packed", "p", "u", "v", "normal")])
+        assert res["packed_equal"] and res["within_limits"], res
+        assert res["frac_close"] >= 0.99, res
+
+
+def test_hit_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    tracer = ct.Tracer(scenes.get("big_scene1").scene, dev)
+    o, d, tm, alive = _camera_rays(scenes.get("big_scene1"), 64, 3)
+    with pytest.raises(ValueError, match="must be a contiguous"):
+        tracer.hit(o, d, tm, alive)  # CPU tensors for a CUDA tracer
+    with pytest.raises(ValueError, match="no media"):
+        ct.Tracer(scenes.get("cornell_smoke").scene, dev).bind_hit()
+
+
+@pytest.mark.parametrize("depth", [1, 8])
+def test_sphere_bvh_kernel_matches_plain(dev, depth):
+    sd = scenes.get("big_scene1")
+    tracer = ct.Tracer(sd.scene, dev)
+    assert tracer.bake.features() & ct.FEAT_SPHERE_BVH
+    before = ct.Tracer.launches
+    got = tracer.trace_pixels(sd.camera, 64, 64, 0, 4096, 91,
+                              max_depth=depth)
+    assert ct.Tracer.launches == before + 1
+    want = ct.trace_pixels_reference(tracer.bake, sd.camera, 64, 64, 0, 4096,
+                                     91, max_depth=depth, device=dev)
+    torch.cuda.synchronize()
+    assert_matches(got, want, depth)
+
+
+def test_sphere_bvh_kernel_matches_jax_golden(dev):
+    g = np.load(os.path.join(DATA, "big_scene1_32.npz"))
+    st = _golden_settings(g).with_(aspect_ratio=float(g["aspect_ratio"]))
+    sd = scenes.get("big_scene1")
+    chunk = compile_renderer(sd.scene, sd.camera, st, dev)
+    assert chunk.engine_name == "megakernel"
+    assert_matches(chunk(int(g["base"])), torch.from_numpy(g["sums"]),
+                   st.max_depth, exact_floor=0.0, mean_rtol=3e-3)
+
+
+def test_regen_route_on_the_card_matches_jax_golden(dev):
+    """The regen chunk at the pinned golden's settings, statistically: per
+    channel the mean per-pixel difference within 4 standard errors."""
+    g = np.load(os.path.join(DATA, "big_scene1_regen.npz"))
+    st = _golden_settings(g).with_(aspect_ratio=float(g["aspect_ratio"]))
+    sd = scenes.get("big_scene1")
+    chunk = compile_renderer(sd.scene, sd.camera, st, dev)
+    assert chunk.engine_name == "regen"
+    fwd, hits = ct.Tracer.launches, ct.Tracer.hit_launches
+    got = chunk(20241)
+    steps = ct.Tracer.hit_launches - hits
+    assert ct.Tracer.launches == fwd and 0.9 < steps / int(g["iterations"]) \
+        < 1.1
+    npix = st.num_pixels
+    diff_ = (got.cpu().double()[:npix] - torch.from_numpy(
+        g["sums"][:npix]).double()) / st.spp_per_chunk
+    z = diff_.mean(0) / (diff_.std(0) / npix ** 0.5)
+    assert bool((z.abs() < 4.0).all()), z

@@ -134,21 +134,31 @@ def test_bake_records_equal_jax(cornell):
 
 
 def test_big_scene1_is_refused_with_the_feature_named():
+    # big_scene1 itself renders (the kernel bake builds its sphere BVH and
+    # the XLA engine's BVH in the JAX tree is dropped); with a triangle or
+    # an image texture added it is refused with that feature named, and the
+    # record walk still refuses its sphere BVH
     jsd = jscenes.get("big_scene1")
-    with pytest.raises(NotImplementedError, match="sphere_bvh: not yet"):
-        scene_from_numpy(_tree(jsd.scene._host_np))
-    tree = _tree(jsd.scene._host_np)
-    tree["sphere_bvh"] = None  # the tables alone still need the BVH
-    scene = scene_from_numpy(tree)
-    assert ct.supports_forward(scene) is False
-    assert ct.unported_feature(scene).startswith("sphere BVH")
+    assert jsd.scene._host_np.sphere_bvh is not None
+    scene = scene_from_numpy(_tree(jsd.scene._host_np))
+    assert ct.supports_forward(scene) and ct.Tracer(scene, "cpu").supports_hit
+    assert ct.unported_record_feature(scene).startswith(
+        "sphere BVH in record mode (484 spheres")
     cam = camera_from_numpy(_tree(jsd.camera))
     st = RenderSettings(image_width=16, aspect_ratio=jsd.aspect,
                         spp_per_chunk=1, num_chunks=1, max_depth=2)
-    with pytest.raises(NotImplementedError, match="sphere BVH .*not yet"):
-        compile_renderer(scene, cam, st, device="cpu")
-    with pytest.raises(NotImplementedError, match="sphere BVH"):
-        ct.Tracer(scene, "cpu")
+    tri = dataclasses.replace(scene, triangles=dataclasses.replace(
+        scene.triangles, active=np.ones_like(scene.triangles.active)))
+    image = dataclasses.replace(scene, textures=dataclasses.replace(
+        scene.textures, kind=np.where(scene.textures.kind == tst.TEX_CHECKER,
+                                      np.int32(tst.TEX_IMAGE),
+                                      scene.textures.kind)))
+    for bad, feature in ((tri, "triangles"), (image, "image texture")):
+        assert ct.unported_feature(bad) == feature
+        with pytest.raises(NotImplementedError, match=f"{feature}: not yet"):
+            compile_renderer(bad, cam, st, device="cpu")
+        with pytest.raises(NotImplementedError, match=feature):
+            ct.Tracer(bad, "cpu")
 
 
 def test_unported_material_and_texture_are_named(cornell):
@@ -171,9 +181,11 @@ def test_unported_material_and_texture_are_named(cornell):
 
 
 def _many_spheres(b):
+    # the forward kernel walks their BVH; the record walk has none yet
     for i in range(65):
         b.sphere((i, 0, 0), 0.4, b.lambertian((0.5, 0.5, 0.5)))
-    return b.build()
+    cam = tscenes.get("cornell_box").camera
+    return ct.Tracer(b.build(), "cpu").walk_packed_pixels(cam, 4, 4, 0, 16, 1)
 
 
 def _many_media(b):
@@ -203,7 +215,8 @@ def test_builder_refuses_unported_features(call):
 
 
 def test_registry_lists_only_ported_scenes():
-    assert tscenes.names() == ["basic", "cornell_box", "cornell_smoke",
-                               "first", "two_perlin_spheres", "two_spheres"]
+    assert tscenes.names() == ["basic", "big_scene1", "cornell_box",
+                               "cornell_smoke", "first", "two_perlin_spheres",
+                               "two_spheres"]
     with pytest.raises(KeyError, match="not ported"):
-        tscenes.get("big_scene1")
+        tscenes.get("earth")  # an image texture

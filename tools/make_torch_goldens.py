@@ -19,7 +19,19 @@ and writes, under `tests/data/torch_port/`:
   aspect), 2 spp, depth 3, as `cornell_32.npz`; for the scenes whose
   textures are all solid (`RECORD_SCENES`) also the record planes of the
   same chunk in waves of 512 rays (`planes`, (spp * waves, depth, 512)
-  int32, with `record_ray_batch`).
+  int32, with `record_ray_batch`);
+- `big_scene1_32`: the same forward chunk of `big_scene1` (the megakernel
+  route at 2 spp, with the sphere BVH);
+- `big_scene1_hit`: `PallasTracer.hit` (sub 8) on 4,096 camera rays of
+  `big_scene1` (10% of the lanes dead) and on one bounce of them (the hit
+  points, `materials.scatter`'s directions, alive where the path goes on),
+  beside the XLA engine's `closest_hit` on the same rays: the rays
+  (`o0 d0 tm0 alive0`, `o1 ...`), the kernel's outputs (`packed0 p0 u0 v0
+  normal0`, ...) and closest_hit's (`ref_hit0 ref_mat0 ref_p0
+  ref_normal0`, ...);
+- `big_scene1_regen`: one chunk of `compile_regen_renderer` (sub 8) on
+  `big_scene1` at width 48, 16 spp, depth 8, waves of 1,024 rays, with its
+  step and stream counts.
 
 The port's CPU tests hold its plain versions to these files, and
 `chip_smoke.py` holds the CUDA kernels to them, so the card's output is tied
@@ -41,9 +53,13 @@ DATA = os.path.join(ROOT, "tests", "data", "torch_port")
 KEY_SEED = 2024
 GRAD_TARGET = 0.25
 SCENES = ("basic", "first", "two_spheres", "two_perlin_spheres",
-          "cornell_smoke")
+          "cornell_smoke", "big_scene1")
 RECORD_SCENES = ("first", "cornell_smoke")
 RECORD_RAY_BATCH = 512
+HIT_RAYS = 4096
+HIT_DEAD = 0.1   # share of dead lanes in the hit golden
+REGEN = dict(image_width=48, spp_per_chunk=16, num_chunks=1, max_depth=8,
+             ray_batch=1024)
 
 
 def forward_golden() -> None:
@@ -159,8 +175,76 @@ def scene_golden(name: str) -> None:
           f"{sums.mean(0)}, planes {extra.get('planes', np.zeros(0)).shape}")
 
 
+def hit_golden() -> None:
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from raytracing_gpu_tpu.engine.intersect import closest_hit
+    from raytracing_gpu_tpu.engine.wavefront import (pack_attr_table,
+                                                     resolve_hit_packed)
+    from raytracing_gpu_tpu.models import scenes
+    from raytracing_gpu_tpu.ops import pallas_trace
+    from raytracing_gpu_tpu.scene import materials
+
+    out = os.path.join(DATA, "big_scene1_hit.npz")
+    sd = scenes.get("big_scene1")
+    tracer = pallas_trace.PallasTracer(sd.scene)
+    key = jax.random.PRNGKey(KEY_SEED)
+    k_px, k_py, k_cam, k_alive, k_scat = jax.random.split(key, 5)
+    n = HIT_RAYS
+    o, d, tm = sd.camera.get_rays(k_cam, jax.random.uniform(k_px, (n,)),
+                                  jax.random.uniform(k_py, (n,)))
+    alive = jax.random.uniform(k_alive, (n,)) >= HIT_DEAD
+    attr = pack_attr_table(sd.scene, tracer.bake.tri_perm)
+    arrays = {}
+    for b in range(2):
+        packed, p, u, v, normal, slot = tracer.hit(o, d, tm, alive, sub=8)
+        ref = closest_hit(sd.scene, o, d, tm, jax.random.PRNGKey(9))
+        arrays.update({f"{k}{b}": np.asarray(x) for k, x in (
+            ("o", o), ("d", d), ("tm", tm), ("alive", alive),
+            ("packed", packed), ("p", p), ("u", u), ("v", v),
+            ("normal", normal), ("ref_hit", ref.hit), ("ref_mat", ref.mat_id),
+            ("ref_p", ref.p), ("ref_normal", ref.normal))})
+        # one bounce: from the hit points along the scattered directions
+        rec = resolve_hit_packed(attr, packed, p, u, v, normal, slot, d)
+        sc = materials.scatter(sd.scene, k_scat, d, rec.p, rec.normal,
+                               rec.front_face, rec.u, rec.v, rec.mat_id)
+        alive = alive & rec.hit & sc.ok
+        o = jnp.where(alive[:, None], rec.p, o)
+        d = jnp.where(alive[:, None], sc.direction, d)
+    np.savez_compressed(out, key_seed=np.int32(KEY_SEED), **arrays)
+    print(f"wrote {out}: {n} rays x 2 bounces, hits "
+          f"{[int(((arrays[f'packed{b}'] >> 16) & 1).sum()) for b in (0, 1)]}")
+
+
+def regen_golden() -> None:
+    import jax
+    import numpy as np
+
+    from raytracing_gpu_tpu.core.config import RenderSettings
+    from raytracing_gpu_tpu.engine.wavefront import compile_regen_renderer
+    from raytracing_gpu_tpu.models import scenes
+
+    out = os.path.join(DATA, "big_scene1_regen.npz")
+    sd = scenes.get("big_scene1")
+    st = RenderSettings(aspect_ratio=sd.aspect, **REGEN)
+    chunk = compile_regen_renderer(sd.scene, sd.camera, st, debug_stats=True,
+                                   hit_sub=8)
+    sums, stats = chunk(jax.random.PRNGKey(KEY_SEED))
+    sums = np.asarray(sums, np.float32)
+    np.savez_compressed(
+        out, key_seed=np.int32(KEY_SEED), sums=sums,
+        iterations=np.int32(stats["iterations"]),
+        stream=np.int32(stats["stream"]), aspect_ratio=np.float64(sd.aspect),
+        t_min=np.float32(st.t_min), **REGEN)
+    print(f"wrote {out}: sums {sums.shape}, mean "
+          f"{sums[:st.num_pixels].mean(0) / st.spp_per_chunk}, {stats}")
+
+
 GOLDENS = {"cornell_32": forward_golden, "cornell_grad_32": grad_golden,
-           **{f"{n}_32": (lambda n=n: scene_golden(n)) for n in SCENES}}
+           **{f"{n}_32": (lambda n=n: scene_golden(n)) for n in SCENES},
+           "big_scene1_hit": hit_golden, "big_scene1_regen": regen_golden}
 
 
 def main(argv=None) -> int:
