@@ -13,9 +13,13 @@ config 1 (`first`, 400x225, 16 spp, depth 8) and config 4
 (`cornell_smoke`, 512x512, 128 spp, depth 16) through `render`; big_scene1
 on the megakernel route (800x450, 8 spp, depth 16: the sphere-BVH walk) and
 BASELINE config 2 (big_scene1, 800x450, 32 spp as 2 chunks of 16, depth
-16) through `render` on the regen route (the hit kernel); and the ceiling
-probe whose rates every printed bound divides by.  It checks every kernel
-on the way.  Phases, each of which raises on failure:
+16) through `render` on the regen route (the hit kernel); BASELINE config
+5 (`backpack`, the 100,352-triangle stand-in, 800x600, 256 spp as 4
+chunks of 64, depth 16) through `render` on the regen route (the hit
+kernel's triangle tier), the same scene on the wavefront route (8 spp a
+chunk), and `triangles` on the megakernel route (its triangle walk); and
+the ceiling probe whose rates every printed bound divides by.  It checks
+every kernel on the way.  Phases, each of which raises on failure:
 
 1. environment: a CUDA device is required; prints the card's name and power
    limit (nvidia-smi) and torch's device name;
@@ -119,7 +123,37 @@ on the way.  Phases, each of which raises on failure:
    rays;
 21. the regen chunk on the card against the pinned JAX regen chunk
    (`big_scene1_regen.npz`: 48x27, 16 spp, depth 8) statistically, and its
-   step count within 10% of JAX's.
+   step count within 10% of JAX's;
+22. the triangle kernels against their plain versions on the card (packed
+   words equal on every lane and >= 99.9% of the values bit-exact):
+   `rt_hit`'s triangle tier on REDUCED_RAYS camera rays of config 5 and one
+   scattered bounce of them (the plain walk over 100k triangles is slow, so
+   the wave is reduced), the triangle megakernel on `triangles` at 64x64,
+   4 spp, depth 1 and 8 (phase 5's rules), and both against the pinned JAX
+   goldens (`mesh_hit.npz` under `hit_agreement`'s rule with triangle ids
+   equal but across shared edges; `triangles_32.npz` under `golden_cmp`);
+23. config 5's four 64-spp regen chunks at the seeds `render()` draws,
+   through `compile_regen_renderer`'s `debug_stats`: their steps, each
+   with one hit launch; then timing at full size with CUDA events: `rt_hit`
+   on the 65,536 rays of a steady-state step of the first chunk
+   (CAPTURE_STEP) and the triangle megakernel's 65,536-ray wave of
+   backpack at 800x600, depth 16 (the centre wave, data for re-deriving
+   the mesh routing); each held against its plain version on the same
+   inputs, timed beside the plain version and the bound counted by the
+   plain walk of the same rays (the bytes are the parts of the triangle
+   tables that walk reads);
+24. BASELINE config 5: `render()` of backpack at 800x600, 256 spp as 4
+   chunks of 64, depth 16, ray_batch 65,536 on the regen route: the hit
+   kernel launched as many times as phase 23 counted regen steps, the
+   megakernels never; finite and lit, PNG written; Mrays/s, steps, host
+   time per step, peak device memory, and the busy share of a bounded
+   sub-run (one 16-spp chunk, profiled with CUDA activity only);
+25. the wavefront route: `render()` of backpack at 800x600, 8 spp, one
+   chunk, depth 16 (engine "wavefront", one hit launch per bounce that the
+   same chunk's `debug_stats` count), then the wavefront and regen routes
+   at 160x120 agree statistically;
+26. `triangles` on the megakernel route: `render()` at 400x225, 16 spp,
+   depth 8 (the triangle megakernel 16 x 2 = 32 times, no hit launch).
 
 Prints each phase's seconds, a JSON line of kernels, the card's name and
 power limit, and as its last line `{"ok": true, "device": {...}}`.  Exits
@@ -142,6 +176,7 @@ KERNEL_SOURCE = f"{CSRC}/megakernel.cuh"
 REPLACES = "raytracing_gpu_tpu/ops/pallas_trace.py:1703"
 HIT_SOURCE = f"{CSRC}/hit.cu"
 HIT_REPLACES = "raytracing_gpu_tpu/ops/pallas_trace.py:2252"
+TRI_SOURCE = f"{CSRC}/megakernel.cuh"  # tri_bvh_walk, kFeatTriBvh
 FMA_SOURCE = f"{CSRC}/roofline.cu"
 FMA_REPLACES = "tools/roofline.py:121"
 DATA = os.path.join(ROOT, "tests", "data", "torch_port")
@@ -180,6 +215,17 @@ ROUTES_AGREE = (400, 16, 16)  # width, spp, depth of phase 19's comparison
 Z_LIMIT = 4.0       # standard errors of a statistical agreement
 CAPTURE_STEP = 40   # a regen step whose wave is full and still refilling
 HIT_RAYS = 65536
+# BASELINE config 5 (bench_all.py:21, :377: 800x600 with the scene's 16:9
+# camera, as the JAX package renders it), phase 24: (width, spp per chunk,
+# chunks, depth); its bounded profiled sub-run
+CONFIG5 = (800, 64, 4, 16)
+CONFIG5_ASPECT = 4 / 3
+CONFIG5_PROFILED_SPP = 16
+WAVEFRONT_ROUTE = (800, 8, 1, 16)  # phase 25, below 16 spp a chunk
+WAVEFRONT_AGREE = (160, 16, 16)    # width, spp, depth of the routes' check
+TRIANGLES_ROUTE = (400, 16, 1, 8)  # phase 26
+REDUCED_RAYS = 8192  # phase 22's waves: the plain walk over 100k triangles
+MESH_WAVE = 3        # the centre 65,536-pixel wave of an 800x600 frame
 # The Cornell forward wave (65,536 rays, depth 8) of the kernel before it
 # took spheres and media, H100 80GB HBM3 at 700 W (PERF.md, section 6)
 CORNELL_WAVE_MS_BEFORE = "0.0293-0.0294"
@@ -211,8 +257,20 @@ OPS_WALK = 19          # per walk: the guarded 1/d and the sphere 1/a
 # sphere winner's uv through the polynomial atan2 and acos
 OPS_HIT_END = 27
 OPS_SPHERE_UV = 55
+OPS_TRI = 57           # one Moller-Trumbore candidate and its test
+OPS_TRI_WALK = 6       # the triangle walk's guarded 1/d
+OPS_TRI_WIN = 17       # a triangle winner's interpolated normal
 HIT_IN_BYTES = 29      # o, d, tm float32 and alive uint8 per ray
 HIT_OUT_BYTES = 40     # packed int32, p, u, v, normal, slot float32
+# Bytes a triangle walk reads (csrc/megakernel.cuh tri_bvh_walk, csrc/hit.cu
+# OctantNodes): per node tested its box and leaf start, per link column
+# followed 4, per candidate its 9 geometry floats; per winning megakernel row
+# its vertex normals and shading columns (9 + 12 floats), read once after
+# the walk.  The uv and pad columns of the 40-column row are never read.
+TRI_NODE_BYTES = 28
+TRI_LINK_BYTES = 4
+TRI_GEOM_BYTES = 36
+TRI_WIN_BYTES = 84
 
 
 def card_line() -> str:
@@ -281,17 +339,16 @@ def event_ms(fn, reps: int, hold_device: bool = False) -> float:
 
 
 def device_busy(fn) -> dict:
-    """Profile one call of `fn` with torch.profiler: device time summed by
-    kernel name, wall time, the device's busy share of the wall, and the
-    seconds the profiler spent around the call (start, trace collection,
-    `key_averages`)."""
+    """Profile one call of `fn` with torch.profiler, recording device
+    activity alone: device time summed by kernel name, wall time, the
+    device's busy share of the wall, and the seconds the profiler spent
+    around the call (start, trace collection, `key_averages`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t_start = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -381,7 +438,8 @@ def plane_counts(scene, plane) -> dict:
     live, cont = live_counts(plane)
     kinds = torch.from_numpy(scene.materials.kind).to(torch.int64)
     kind = kinds[(plane & 0xFFFF)[(plane & (1 << 16)) != 0]]
-    return dict(live=live, cont=cont, nodes=0, rows=0,
+    return dict(live=live, cont=cont, nodes=0, rows=0, tri_nodes=0,
+                tri_rows=0, tri_wins=0,
                 scatter={k: int((kind == k).sum()) for k in OPS_SCATTER})
 
 
@@ -398,16 +456,31 @@ def wave_ops(bake, counts: dict, n: int) -> float:
                + OPS_BOUNCE)
     scatter = sum(counts["scatter"].get(k, 0) * ops
                   for k, ops in OPS_SCATTER.items())
+    tri = (counts["live"] * OPS_TRI_WALK if len(bake.tri_nodes) else 0)
     return (n * (OPS_CAMERA + OPS_FWD_END) + counts["live"] * hit_ops
             + counts["nodes"] * OPS_NODE + counts["rows"] * OPS_SPHERE
+            + tri + counts["tri_nodes"] * OPS_NODE
+            + counts["tri_rows"] * OPS_TRI + counts["tri_wins"] * OPS_TRI_WIN
             + scatter + counts["cont"] * OPS_FWD_CONT)
 
 
 def table_bytes(tracer) -> int:
-    return 4 * sum(t.numel() for t in (tracer.rect_table, tracer.box_table,
-                                       tracer.sphere_table,
-                                       tracer.media_table, tracer.sph_nodes,
-                                       tracer.sph_links, tracer.sph_start))
+    """Bytes of the megakernels' tables other than the triangle BVH's, each
+    read once."""
+    return 4 * sum(t.numel() for t in tracer._checked_tables()[:7])
+
+
+def tri_bytes(reads, leaf_k: int, win_bytes: int) -> int:
+    """Bytes of a triangle BVH's tables that the walks in `reads`
+    (`cuda_trace.tri_reads`, None without triangles) touch, each once: the
+    nodes tested, the link columns followed, the leaves tested and the
+    winners' `win_bytes`."""
+    if reads is None:
+        return 0
+    return (TRI_NODE_BYTES * int(reads["nodes"].sum())
+            + TRI_LINK_BYTES * int(reads["links"].sum())
+            + TRI_GEOM_BYTES * leaf_k * int(reads["leaves"].sum())
+            + win_bytes * int(reads["won"].sum()))
 
 
 class Phase:
@@ -480,17 +553,18 @@ def golden_settings(g):
                           t_min=float(g["t_min"]))
 
 
-def time_wave(tracer, sd, st, base: int, card: str, label: str) -> dict:
-    """A render's main wave (wave 1 of its grid, full width): the kernel
-    against its plain version on the same seed (phase 5's rules), kernel
-    device time (device held), loop time, the plain version's time, and the
-    bound from the live bounces by material kind of a record walk of the
-    same seed."""
+def time_wave(tracer, sd, st, base: int, card: str, label: str,
+              wave_id: int = 1) -> dict:
+    """A render's main wave (wave `wave_id` of its grid, full width): the
+    kernel against its plain version on the same seed (phase 5's rules),
+    kernel device time (device held), loop time, the plain version's time,
+    and the bound from the work the plain version counts on the same
+    seed."""
     from raytracing_gpu_tpu_torch.ops import cuda_trace
 
     h, w, n, depth = st.image_height, st.image_width, st.ray_batch, \
         st.max_depth
-    pix = n if h * w > n else 0
+    pix = n * wave_id if h * w > n * wave_id else 0
     wave = tracer.bind(sd.camera, h, w, depth, st.t_min, st.rr_start)
     seed = cuda_trace.wave_seed(base, 1, 1)
     counts = {}
@@ -512,19 +586,25 @@ def time_wave(tracer, sd, st, base: int, card: str, label: str) -> dict:
         tracer.bake, sd.camera, h, w, pix, n, cuda_trace.wave_seed(base, r, 1),
         depth, st.t_min, tracer.device, st.rr_start), reps=3)
     ops = wave_ops(tracer.bake, counts, n)
-    nbytes = 12 * n + table_bytes(tracer)
+    nbytes = 12 * n + table_bytes(tracer) + tri_bytes(
+        counts["tri_read"], cuda_trace.TRI_LEAF_K, TRI_WIN_BYTES)
     bound_ms, bound_by = bound(ops, nbytes)
     live, cont = counts["live"], counts["cont"]
     print(f"[time] {label} wave of {n} rays, depth {depth}: kernel {ms:.6f} "
           f"ms on the device ({loop_ms:.6f} ms per call in a Python loop), "
           f"plain {plain_ms:.6f} ms; bound {bound_ms:.6f} ms by {bound_by} "
           f"({ops:.0f} ops from {live} live, {cont} continued bounces, "
-          f"{counts['nodes']} node and {counts['rows']} sphere-row tests; "
-          f"{spec_bound_ms(ops, nbytes):.6f} ms over the spec sheet), on "
+          f"{counts['nodes']} node and {counts['rows']} sphere-row tests, "
+          f"{counts['tri_nodes']} triangle-node and {counts['tri_rows']} "
+          f"triangle tests, {counts['tri_wins']} triangle winners; "
+          f"{nbytes} bytes; {spec_bound_ms(ops, nbytes):.6f} ms over the "
+          f"spec sheet), on "
           f"{card}")
     return dict(ms=ms, loop_ms=loop_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, live_bounces=live, cont_bounces=cont,
                 node_tests=counts["nodes"], row_tests=counts["rows"],
+                tri_node_tests=counts["tri_nodes"],
+                tri_tests=counts["tri_rows"], pix_base=pix,
                 max_abs_err=cmp["max_abs_err"], exact_frac=cmp["exact_frac"])
 
 
@@ -609,7 +689,8 @@ def scattered_rays(sd, tracer, rays, seed: int):
     o, d, tm, alive = rays
     hr = cuda_trace.hit_reference(tracer.bake, o, d, tm, alive)
     rec = wavefront.resolve_hit_packed(
-        wavefront.pack_attr_table(sd.scene, o.device), *hr, d)
+        wavefront.pack_attr_table(sd.scene, tracer.bake.tri_perm, o.device),
+        *hr, d)
     gen = torch.Generator(device=o.device).manual_seed(seed)
     sc = materials.scatter(sd.scene, diff.get_params(sd.scene, o.device), gen,
                            d, rec.p, rec.normal, rec.front_face, rec.u, rec.v,
@@ -633,8 +714,11 @@ def hit_vs_plain(tracer, rays, label: str) -> dict:
     torch.cuda.synchronize()
     res = cuda_trace.hit_agreement(got, want)
     res["max_abs_err"] = max(res["max_err"].values())
+    res["slot_equal"] = bool(torch.equal(got.slot, want.slot))
+    res["triangle_winners"] = int(((want.packed >> 20) & 1).sum())
     print(f"[hit-vs-plain] {label}: {res}")
-    if not (res["packed_equal"] and res["exact_frac"] >= EXACT_FLOOR):
+    if not (res["packed_equal"] and res["exact_frac"] >= EXACT_FLOOR
+            and res["slot_equal"]):
         raise AssertionError(f"{label}: hit kernel disagrees with plain")
     return res
 
@@ -649,28 +733,96 @@ def z_scores(a, b):
 
 
 def hit_ops(bake, rays) -> tuple[float, dict]:
-    """float32 operations of one hit launch on `rays`, from the plain
-    octant walk of the same rays (`sphere_walk_reference`): per live ray
-    the rects, boxes, walk set-up and finalize, per node and row test its
-    operations, per sphere winner its uv."""
+    """float32 operations of one hit launch on `rays`, from the plain walks
+    of the same rays: per live ray the rects, boxes, finalize and the dense
+    spheres or the sphere walk's set-up, per node and row test its
+    operations, per sphere winner its uv; per live ray the triangle walk's
+    set-up, per triangle node and candidate its operations."""
     import torch
 
     from raytracing_gpu_tpu_torch.ops import cuda_trace
 
     o, d, tm, alive = rays
     o3, d3 = tuple(o.unbind(1)), tuple(d.unbind(1))
-    walk = cuda_trace.sphere_walk_reference(
-        bake, o3, d3, tm, cuda_trace._f32(0.001),
-        torch.full_like(tm, cuda_trace.BIG), alive, octant=True)
+    t_min, big = cuda_trace._f32(0.001), torch.full_like(tm, cuda_trace.BIG)
+    plain = cuda_trace.hit_reference(bake, o, d, tm, alive)
     live = int(alive.sum())
-    counts = dict(live=live, nodes=int(walk.nodes.sum()),
-                  rows=int(walk.rows.sum()),
-                  sphere_winners=int(walk.better.sum()))
-    ops = (live * (len(bake.rects) * OPS_RECT + len(bake.boxes) * OPS_BOX
-                   + OPS_WALK + OPS_HIT_END)
-           + counts["nodes"] * OPS_NODE + counts["rows"] * OPS_SPHERE
-           + counts["sphere_winners"] * OPS_SPHERE_UV)
+    counts = dict(live=live, nodes=0, rows=0, tri_nodes=0, tri_rows=0,
+                  sphere_winners=int(((plain.packed >> 21) & 1).sum()),
+                  triangle_winners=int(((plain.packed >> 20) & 1).sum()),
+                  tri_bytes=0)
+    ops = live * (len(bake.rects) * OPS_RECT + len(bake.boxes) * OPS_BOX
+                  + OPS_HIT_END)
+    if len(bake.sph_nodes):
+        walk = cuda_trace.sphere_walk_reference(bake, o3, d3, tm, t_min, big,
+                                                alive, octant=True)
+        counts.update(nodes=int(walk.nodes.sum()), rows=int(walk.rows.sum()))
+        ops += live * OPS_WALK
+    else:
+        ops += live * len(bake.sphere_table) * OPS_SPHERE
+    if len(bake.tri_hit_nodes):
+        tw = cuda_trace.tri_walk_reference(bake, o3, d3, t_min, big, alive,
+                                           octant=True)
+        counts.update(tri_nodes=int(tw.nodes.sum()),
+                      tri_rows=int(tw.rows.sum()),
+                      tri_bytes=tri_bytes(cuda_trace.tri_reads(
+                          tw, len(bake.tri_geom)), cuda_trace.HIT_TRI_LEAF_K,
+                          0))
+        ops += live * OPS_TRI_WALK
+    ops += ((counts["nodes"] + counts["tri_nodes"]) * OPS_NODE
+            + counts["rows"] * OPS_SPHERE + counts["tri_rows"] * OPS_TRI
+            + counts["sphere_winners"] * OPS_SPHERE_UV)
     return ops, counts
+
+
+def hit_bytes(tracer, n: int, counts: dict) -> int:
+    """Bytes of one hit launch on n rays: the rays in, the outputs out, the
+    tables other than the triangle tier's, each once, and the parts of the
+    triangle tier that the plain walk of the same rays reads (`hit_ops`'s
+    counts; the tier reads geometry only, no winner's columns)."""
+    return n * (HIT_IN_BYTES + HIT_OUT_BYTES) + counts["tri_bytes"] + 4 * sum(
+        t.numel() for t in (tracer.rect_table, tracer.box_table,
+                            tracer.sphere_table, tracer.sph_hit_nodes))
+
+
+def render_bases(st) -> list:
+    """The chunk seeds `render(..., st)` draws (`render_linear`)."""
+    import torch
+
+    from raytracing_gpu_tpu_torch.ops import cuda_trace
+
+    gen = torch.Generator().manual_seed(st.seed)
+    return [cuda_trace.chunk_seed(gen) for _ in range(st.num_chunks)]
+
+
+def capture_step(sd, st, dev, bases: list) -> tuple:
+    """Regen chunks of `st` at the seeds `bases`, through
+    `compile_regen_renderer`'s `debug_stats`: the rays of one steady-state
+    step of the first (CAPTURE_STEP, whose wave is full and still
+    refilling), each chunk's stats, and the hit launches they made."""
+    from raytracing_gpu_tpu_torch.engine.wavefront import (
+        compile_regen_renderer)
+    from raytracing_gpu_tpu_torch.ops import cuda_trace
+
+    tracer = cuda_trace.Tracer(sd.scene, dev)
+    bound_hit, captured = tracer.bind_hit, {}
+
+    def capturing_bind_hit(t_min=0.001):
+        launch, step = bound_hit(t_min), [0]
+
+        def hit(o, d, tm, alive):
+            if step[0] == CAPTURE_STEP:
+                captured["rays"] = tuple(x.clone() for x in (o, d, tm, alive))
+            step[0] += 1
+            return launch(o, d, tm, alive)
+        return hit
+
+    tracer.bind_hit = capturing_bind_hit
+    chunk = compile_regen_renderer(sd.scene, sd.camera, st, tracer=tracer,
+                                   debug_stats=True, device=dev)
+    launches = cuda_trace.Tracer.hit_launches
+    stats = [chunk(int(b))[1] for b in bases]
+    return captured["rays"], stats, cuda_trace.Tracer.hit_launches - launches
 
 
 def reset_counts() -> None:
@@ -816,26 +968,8 @@ def big_scene1_phases(dev, card: str, base: int, png: str) -> tuple:
               f"{busy2:.6f} ({prof2['device_ms']:.3f} ms of device time in "
               f"{wall2 * 1e3:.3f} ms) on {card}")
 
-        # one steady-state step's rays, captured from a regen chunk
-        ctr = cuda_trace.Tracer(bsd.scene, dev)
-        bound_hit, captured = ctr.bind_hit, {}
-
-        def capturing_bind_hit(t_min=0.001):
-            launch, step = bound_hit(t_min), [0]
-
-            def hit(o, d, tm, alive):
-                if step[0] == CAPTURE_STEP:
-                    captured["rays"] = tuple(x.clone() for x in (o, d, tm,
-                                                                 alive))
-                step[0] += 1
-                return launch(o, d, tm, alive)
-            return hit
-
-        ctr.bind_hit = capturing_bind_hit
-        _, cstats = compile_regen_renderer(
-            bsd.scene, bsd.camera, c2.with_(num_chunks=1), tracer=ctr,
-            debug_stats=True, device=dev)(int(base))
-        hrays = captured["rays"]
+        hrays, (cstats,), _ = capture_step(bsd, c2.with_(num_chunks=1), dev,
+                                           [base])
         hcmp = hit_vs_plain(btr, hrays, f"{BIG} regen step {CAPTURE_STEP} "
                             f"({int(hrays[3].sum())} of {HIT_RAYS} live)")
         hit_launch = btr.bind_hit()
@@ -847,8 +981,7 @@ def big_scene1_phases(dev, card: str, base: int, png: str) -> tuple:
         t_walk = time.perf_counter()
         h_ops, h_counts = hit_ops(btr.bake, hrays)
         t_walk = time.perf_counter() - t_walk
-        h_bytes = HIT_RAYS * (HIT_IN_BYTES + HIT_OUT_BYTES) + 4 * (
-            btr.sphere_table.numel() + btr.sph_hit_nodes.numel())
+        h_bytes = hit_bytes(btr, HIT_RAYS, h_counts)
         hit_bound_ms, hit_bound_by = bound(h_ops, h_bytes)
         print(f"[time] rt_hit on {BIG} regen step {CAPTURE_STEP} of a chunk "
               f"({cstats}), {HIT_RAYS} rays: kernel {hit_ms:.6f} ms on the "
@@ -891,6 +1024,261 @@ def big_scene1_phases(dev, card: str, base: int, png: str) -> tuple:
         "config2_device_busy_share": busy2,
         "config2_steps": steps,
         "config2_host_ms_per_step": wall2 * 1e3 / steps}
+
+
+def triangle_phases(dev, card: str, base: int, png: str) -> list:
+    """Phases 22-26 (the triangle kernels against their plain versions and
+    the goldens, their timing, BASELINE config 5 on the regen route, the
+    wavefront route, `triangles` on the megakernel route), after phase 4
+    set `Ceilings`.  Returns their rows of the kernels line."""
+    import numpy as np
+    import torch
+
+    from raytracing_gpu_tpu_torch import (RenderSettings, compile_renderer,
+                                         render, render_linear)
+    from raytracing_gpu_tpu_torch.engine import film, wavefront
+    from raytracing_gpu_tpu_torch.models import scenes
+    from raytracing_gpu_tpu_torch.ops import cuda_trace
+
+    png_dir = os.path.dirname(os.path.abspath(png))
+    psd = scenes.get("backpack")
+    ptr = cuda_trace.Tracer(psd.scene, dev)
+    tsd = scenes.get("triangles")
+    ttr = cuda_trace.Tracer(tsd.scene, dev)
+    print(f"[mesh] backpack bake: {len(ptr.bake.tri_table)} megakernel rows "
+          f"in leaves of {cuda_trace.TRI_LEAF_K}, {len(ptr.bake.tri_nodes)} "
+          f"nodes; hit tier {len(ptr.bake.tri_geom)} slots, "
+          f"{len(ptr.bake.tri_hit_nodes)} nodes; JAX routing predicate "
+          f"(tri_stream) {ptr.bake.jax_tri_stream}")
+
+    # ---- 22. the triangle kernels against their plain versions ----
+    with Phase("22 triangle kernels"):
+        rays = camera_rays(psd, REDUCED_RAYS, 81, dev)
+        hit_vs_plain(ptr, rays, f"backpack {REDUCED_RAYS} camera rays "
+                     "(reduced wave)")
+        rays = scattered_rays(psd, ptr, rays, 82)
+        hit_vs_plain(ptr, rays, f"backpack {REDUCED_RAYS} rays, one bounce "
+                     "on (reduced wave)")
+        check_scene_kernel(ttr, tsd, base, "triangles")
+        g = np.load(os.path.join(DATA, "triangles_32.npz"))
+        gst = golden_settings(g)
+        gchunk = compile_renderer(tsd.scene, tsd.camera, gst, dev)
+        gcmp = golden_cmp(gchunk(int(g["base"])), torch.from_numpy(g["sums"]))
+        print(f"[kernel-vs-jax-golden] triangles {gst.image_width}x"
+              f"{gst.image_height} 2spp depth {gst.max_depth} "
+              f"({gchunk.engine_name}): {gcmp}")
+        if not (gcmp["ok"] and gchunk.engine_name == "megakernel"):
+            raise AssertionError("triangles: kernel disagrees with the JAX "
+                                 "golden")
+        msd = scenes.backpack_standin((16, 16))
+        mtr = cuda_trace.Tracer(msd.scene, dev)
+        mg = np.load(os.path.join(DATA, "mesh_hit.npz"))
+        perm = mg["perm"]
+        if not np.array_equal(mtr.bake.tri_perm, perm):
+            raise AssertionError("the small mesh's slot map differs from "
+                                 "the golden's")
+        for b in range(2):
+            got = mtr.hit(*(torch.from_numpy(np.array(mg[f"{k}{b}"])).to(dev)
+                            for k in ("o", "d", "tm", "alive")))
+            hres = cuda_trace.hit_agreement(got, [mg[f"{k}{b}"] for k in (
+                "packed", "p", "u", "v", "normal")])
+            tri = ((mg[f"packed{b}"] >> 20) & 1).astype(bool)
+            ids = perm[got.slot.cpu().numpy().astype(np.int64)[tri]]
+            other = ids != perm[mg[f"slot{b}"].astype(np.int64)[tri]]
+            print(f"[hit-vs-jax-golden] small mesh 4096 rays, bounce {b}: "
+                  f"{hres}; {int(tri.sum())} triangle winners, "
+                  f"{int(other.sum())} with another id (shared edges)")
+            if not (hres["packed_equal"] and hres["within_limits"]
+                    and hres["frac_close"] >= 0.99 and other.mean() <= 0.01):
+                raise AssertionError("hit kernel's triangle tier disagrees "
+                                     "with the Pallas hit golden")
+
+    # ---- 23. timing at full size ----
+    with Phase("23 triangle kernels timed"):
+        width, spp, chunks, depth = CONFIG5
+        c5 = RenderSettings(image_width=width, aspect_ratio=CONFIG5_ASPECT,
+                            spp_per_chunk=spp, num_chunks=chunks,
+                            max_depth=depth, ray_batch=65536)
+        # config 5's chunks at the seeds render() draws (phase 24 renders
+        # them), for the step count and a steady-state step's rays
+        hrays, c5_stats, c5_launches = capture_step(psd, c5, dev,
+                                                    render_bases(c5))
+        c5_steps = sum(x["iterations"] for x in c5_stats)
+        print(f"[regen] config 5 chunks through debug_stats: {c5_stats}, "
+              f"{c5_steps} steps, {c5_launches} hit launches")
+        if c5_launches != c5_steps:
+            raise AssertionError(f"config 5: {c5_launches} hit launches for "
+                                 f"{c5_steps} regen steps")
+        hcmp = hit_vs_plain(ptr, hrays, f"backpack regen step {CAPTURE_STEP} "
+                            f"({int(hrays[3].sum())} of {HIT_RAYS} live)")
+        hit_launch = ptr.bind_hit()
+        hit_ms = event_ms(lambda r: hit_launch(*hrays), reps=50,
+                          hold_device=True)
+        hit_loop_ms = event_ms(lambda r: hit_launch(*hrays), reps=50)
+        hit_plain_ms = event_ms(lambda r: cuda_trace.hit_reference(
+            ptr.bake, *hrays), reps=1)
+        h_ops, h_counts = hit_ops(ptr.bake, hrays)
+        h_bytes = hit_bytes(ptr, HIT_RAYS, h_counts)
+        hit_bound_ms, hit_bound_by = bound(h_ops, h_bytes)
+        print(f"[time] rt_hit (triangle tier) on backpack regen step "
+              f"{CAPTURE_STEP} of config 5's first {spp}-spp chunk "
+              f"({c5_stats[0]}), {HIT_RAYS} rays: kernel {hit_ms:.6f} ms on "
+              f"the "
+              f"device ({hit_loop_ms:.6f} ms per call in a Python loop), "
+              f"plain {hit_plain_ms:.6f} ms; bound {hit_bound_ms:.6f} ms by "
+              f"{hit_bound_by} ({h_ops:.0f} ops, {h_bytes} bytes, "
+              f"{h_counts}; {spec_bound_ms(h_ops, h_bytes):.6f} ms over the "
+              f"spec sheet) on {card}")
+        mst = c5.with_(spp_per_chunk=1, num_chunks=1)
+        mesh_wave = time_wave(ptr, psd, mst, base, card,
+                              "backpack (triangle megakernel)", MESH_WAVE)
+        print(f"[backpack megakernel wave] {mesh_wave}")
+
+    # ---- 24. BASELINE config 5 on the regen route ----
+    with Phase("24 BASELINE config 5"):
+        engine = compile_renderer(psd.scene, psd.camera, c5, dev).engine_name
+        if engine != "regen":
+            raise AssertionError(f"config 5 took {engine}, not regen")
+        render(psd.scene, psd.camera, c5.with_(image_width=160, num_chunks=1,
+                                               spp_per_chunk=16),
+               device=dev)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        img5 = render(psd.scene, psd.camera, c5, device=dev)
+        wall5 = time.perf_counter() - t0
+        steps5 = cuda_trace.Tracer.hit_launches
+        stray = cuda_trace.Tracer.launches + cuda_trace.Tracer.record_launches
+        peak5 = torch.cuda.max_memory_allocated() / 2**20
+        rays5 = c5.num_pixels * c5.rays_per_pixel
+        mrays5 = rays5 / wall5 / 1e6
+        print(f"[main] render backpack (config 5, engine {engine}) {width}x"
+              f"{c5.image_height} {c5.rays_per_pixel}spp depth {depth}: "
+              f"{wall5:.6f} s, {mrays5:.6f} Mrays/s, hit launches {steps5} "
+              f"for {c5_steps} regen steps ({steps5 / chunks:.1f} per "
+              f"chunk, each with one host read), host time per step "
+              f"{wall5 * 1e3 / max(steps5, 1):.6f} ms, megakernel launches "
+              f"{stray}, peak allocated {peak5:.3f} MiB on {card}")
+        if steps5 == 0 or steps5 != c5_steps or stray != 0:
+            raise AssertionError(f"config 5: {steps5} hit launches for "
+                                 f"{c5_steps} steps, {stray} megakernel "
+                                 "launches")
+        if (img5.shape != (c5.image_height, width, 3)
+                or not np.isfinite(img5).all()
+                or not 0.05 < float(img5.mean()) < 0.999):
+            raise AssertionError(f"config 5: bad image {img5.shape}, mean "
+                                 f"{img5.mean()}")
+        png5 = os.path.join(png_dir, f"chip_smoke_backpack_{width}.png")
+        film.write_png(png5, img5)
+        print(f"[main] config 5 image mean {img5.mean():.6f} -> {png5}")
+        # the busy share of a bounded sub-run: one 16-spp chunk
+        sub = c5.with_(spp_per_chunk=CONFIG5_PROFILED_SPP, num_chunks=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render(psd.scene, psd.camera, sub, device=dev)
+        sub_wall = time.perf_counter() - t0
+        prof5 = device_busy(lambda: render(psd.scene, psd.camera, sub,
+                                           device=dev))
+        busy5 = prof5["device_ms"] / (sub_wall * 1e3)
+        top5 = sorted(prof5["by_kernel"].items(), key=lambda kv: -kv[1][0])
+        print(f"[main] config 5 bounded sub-run (one {CONFIG5_PROFILED_SPP}"
+              f"-spp chunk, not the counted render), profiled with CUDA "
+              f"activity only: device {prof5['device_ms']:.3f} ms, wall "
+              f"{prof5['wall_ms']:.3f} ms profiled and {sub_wall * 1e3:.3f} "
+              f"ms unprofiled, profiler {prof5['profiler_s']:.3f} s around "
+              f"it; top kernels (ms, count) {top5[:14]}")
+        print(f"[main] config 5 device busy share of the sub-run: "
+              f"{busy5:.6f} on {card}")
+
+    # ---- 25. the wavefront route ----
+    with Phase("25 wavefront route"):
+        width, spp, chunks, depth = WAVEFRONT_ROUTE
+        wst = RenderSettings(image_width=width, aspect_ratio=CONFIG5_ASPECT,
+                             spp_per_chunk=spp, num_chunks=chunks,
+                             max_depth=depth, ray_batch=65536)
+        engine = compile_renderer(psd.scene, psd.camera, wst,
+                                  dev).engine_name
+        if engine != "wavefront":
+            raise AssertionError(f"backpack at {spp} spp took {engine}")
+        render(psd.scene, psd.camera, wst.with_(image_width=160),
+               device=dev)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        wimg = render(psd.scene, psd.camera, wst, device=dev)
+        wwall = time.perf_counter() - t0
+        wlaunches = cuda_trace.Tracer.hit_launches
+        stray = cuda_trace.Tracer.launches + cuda_trace.Tracer.record_launches
+        # the bounces of the same chunk, through debug_stats
+        _, wstats = wavefront.compile_wavefront_renderer(
+            psd.scene, psd.camera, wst, debug_stats=True,
+            device=dev)(render_bases(wst)[0])
+        bounces = wstats["iterations"]
+        wrays = wst.num_pixels * wst.rays_per_pixel
+        print(f"[main] render backpack (engine {engine}) {width}x"
+              f"{wst.image_height} {wst.rays_per_pixel}spp depth {depth}: "
+              f"{wwall:.6f} s, {wrays / wwall / 1e6:.6f} Mrays/s, hit "
+              f"launches {wlaunches} for {bounces} bounces, megakernel "
+              f"launches {stray} on {card}")
+        if (wlaunches == 0 or wlaunches != bounces or stray != 0
+                or not np.isfinite(wimg).all()
+                or not 0.05 < float(wimg.mean()) < 0.999):
+            raise AssertionError("the wavefront route is off")
+        width, spp, depth = WAVEFRONT_AGREE
+        ast = RenderSettings(image_width=width, aspect_ratio=CONFIG5_ASPECT,
+                             spp_per_chunk=spp, num_chunks=1,
+                             max_depth=depth, ray_batch=65536)
+        regen_img = render_linear(psd.scene, psd.camera, ast, seed=1,
+                                  device=dev)
+        wave_img = render_linear(psd.scene, psd.camera,
+                                 ast.with_(spp_per_chunk=spp // 2,
+                                           num_chunks=2), seed=2, device=dev)
+        z = z_scores(regen_img.reshape(-1, 3), wave_img.reshape(-1, 3))
+        print(f"[routes] backpack {width}x{ast.image_height} {spp}spp depth "
+              f"{depth}: regen mean {regen_img.mean(axis=(0, 1))}, wavefront "
+              f"mean {wave_img.mean(axis=(0, 1))}, z {z}")
+        if not (np.abs(z) < Z_LIMIT).all():
+            raise AssertionError("the regen and wavefront routes disagree")
+
+    # ---- 26. triangles on the megakernel route ----
+    with Phase("26 triangles megakernel route"):
+        width, spp, chunks, depth = TRIANGLES_ROUTE
+        tst = RenderSettings(image_width=width, aspect_ratio=tsd.aspect,
+                             spp_per_chunk=spp, num_chunks=chunks,
+                             max_depth=depth, ray_batch=65536)
+        tri_render = render_counted(
+            tsd, tst, dev, card, "triangles (megakernel route)",
+            os.path.join(png_dir, f"chip_smoke_triangles_{width}.png"))
+        tri_render.update(time_wave(ttr, tsd, tst, base, card,
+                                    "triangles (megakernel route)"))
+        print(f"[triangles megakernel] {tri_render}")
+
+    return [{
+        "name": "megakernel_fwd<tri_bvh>", "route": "cuda",
+        "source": TRI_SOURCE, "replaces": REPLACES,
+        "launches": tri_render["launches"],
+        "max_abs_err": mesh_wave["max_abs_err"],
+        "exact_frac": mesh_wave["exact_frac"],
+        "ms": mesh_wave["ms"], "plain_ms": mesh_wave["plain_ms"],
+        "bound_ms": mesh_wave["bound_ms"], "bound_by": mesh_wave["bound_by"],
+        "library_ms": None,
+        "loop_ms": mesh_wave["loop_ms"],
+        "triangles_render_mrays_per_s": tri_render["mrays_per_s"],
+        "triangles_wave_ms": tri_render["ms"]}, {
+        "name": "rt_hit<tri>", "route": "cuda", "source": HIT_SOURCE,
+        "replaces": HIT_REPLACES, "launches": steps5,
+        "max_abs_err": hcmp["max_abs_err"], "exact_frac": hcmp["exact_frac"],
+        "ms": hit_ms, "plain_ms": hit_plain_ms,
+        "bound_ms": hit_bound_ms, "bound_by": hit_bound_by,
+        "library_ms": None,
+        "loop_ms": hit_loop_ms,
+        "config5_mrays_per_s": mrays5,
+        "config5_steps": steps5,
+        "config5_host_ms_per_step": wall5 * 1e3 / steps5,
+        "config5_peak_allocated_mib": peak5,
+        "config5_subrun_device_busy_share": busy5,
+        "wavefront_route_mrays_per_s": wrays / wwall / 1e6}]
 
 
 def main() -> int:
@@ -1367,6 +1755,7 @@ def main() -> int:
             raise AssertionError("russian roulette render is off")
 
     big_mega, hit_row = big_scene1_phases(dev, card, base, args.png)
+    tri_rows = triangle_phases(dev, card, base, args.png)
 
     scene_rates = {name: dict(c) for name, c in configs.items()}
     print(json.dumps({"kernels": [{
@@ -1404,7 +1793,8 @@ def main() -> int:
         "library_ms": None,
         "loop_ms": big_mega["loop_ms"],
         "render_mrays_per_s": big_mega["mrays_per_s"],
-        "render_device_busy_share": big_mega["busy_share"]}, hit_row, {
+        "render_device_busy_share": big_mega["busy_share"]}, hit_row,
+        *tri_rows, {
         "name": "fma_chain", "route": "cuda", "source": FMA_SOURCE,
         "replaces": FMA_REPLACES, "launches": fma_launches,
         "max_abs_err": fma_err, "ms": fma_ms, "plain_ms": fma_plain_ms,

@@ -7,8 +7,10 @@
 
 `--device` defaults to `cuda`.  Without a CUDA device the CLI exits with an
 error unless `--device cpu` is given, which runs the kernels' plain PyTorch
-versions on the CPU.  `render` logs the engine it takes ("megakernel" or
-"regen", as `engine.render.route` picks it) unless `--quiet`.
+versions on the CPU.  `list` prints the registered scenes, meshes included
+(`triangle`, `triangles`, `door`, `backpack`, `cup`).  `render` logs the
+engine it takes ("megakernel", "regen" or "wavefront", as
+`engine.render.route` picks it) unless `--quiet`.
 """
 
 from __future__ import annotations

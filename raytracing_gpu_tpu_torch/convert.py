@@ -34,11 +34,10 @@ def _array(name: str, value) -> np.ndarray:
 
 def scene_from_numpy(tree: Mapping) -> st.Scene:
     """Port `Scene` from {table name: {field: array}, "background": (3,),
-    "has_sphere_media": bool, "has_box_media": bool}.  A `sphere_bvh`
-    entry (the XLA engine's) is dropped: the kernel bake builds its own from
-    the sphere table (`ops.cuda_trace.bake_scene`)."""
-    if tree.get("tri_bvh") is not None:
-        raise NotImplementedError("tri_bvh: not yet ported")
+    "has_sphere_media": bool, "has_box_media": bool}.  The `sphere_bvh` and
+    `tri_bvh` entries (the XLA engine's) are dropped: the kernel bake builds
+    its own BVHs from the sphere and triangle tables
+    (`ops.cuda_trace.bake_scene`)."""
     tables = {}
     for name, cls in st.TABLES.items():
         leaves = tree[name]

@@ -1,17 +1,16 @@
 """Render loop: sample chunks of kernel waves.
 
-Counterpart of `raytracing_gpu_tpu/engine/render.py` for its megakernel
-and regen routes, chosen as `compile_renderer` chooses them there.  A
-chunk is `spp_per_chunk` samples of every pixel.  On the megakernel route
-each sample is split into waves of `ray_batch` pixels, and each (sample,
-wave) is one kernel launch whose seed is scalar arithmetic on the chunk's
-base seed (`ops.cuda_trace.wave_seed`); the regen route
-(`engine/wavefront.py`) seeds its generator with the base.  Chunk sums
-accumulate in float32 on the device; `render_linear` draws each chunk's
-base from a `torch.Generator` seeded with `settings.seed`.
+Counterpart of `raytracing_gpu_tpu/engine/render.py` for its megakernel,
+regen and wavefront routes, chosen as `compile_renderer` chooses them
+there.  A chunk is `spp_per_chunk` samples of every pixel.  On the
+megakernel route each sample is split into waves of `ray_batch` pixels, and
+each (sample, wave) is one kernel launch whose seed is scalar arithmetic on
+the chunk's base seed (`ops.cuda_trace.wave_seed`); the regen and wavefront
+routes (`engine/wavefront.py`) seed their generators with the base.  Chunk
+sums accumulate in float32 on the device; `render_linear` draws each
+chunk's base from a `torch.Generator` seeded with `settings.seed`.
 
-Not ported yet: the XLA, bounce-synchronous wavefront and record-walk
-engines, and checkpoint/resume.
+Not ported yet: the XLA and record-walk engines, and checkpoint/resume.
 """
 
 from __future__ import annotations
@@ -45,15 +44,22 @@ def _ceil_to(n: int, m: int) -> int:
 
 def route(tracer: cuda_trace.Tracer, settings: RenderSettings) -> str:
     """The engine `compile_renderer` takes, as the JAX package routes
-    `engine="pallas"` (`engine/render.py:117-199`) among the ported ones: a
-    scene with a sphere BVH, no media, depth >= 8 and >= 16 spp per chunk
-    goes to "regen" (the megakernel's unsorted waves straggle at depth on
-    the deep BVH); everything else to "megakernel"."""
+    `engine="pallas"` (`engine/render.py:117-199`) among the ported ones.
+    A scene without media goes to a wavefront when the JAX bake would
+    stream its triangle table (`SceneBake.jax_tri_stream`: the 100k-triangle
+    meshes) or when it has a sphere BVH and depth >= 8 (the megakernel's
+    unsorted waves straggle at depth on the deep BVH): to "regen" at >= 16
+    spp per chunk, else to the bounce-synchronous "wavefront" for the
+    meshes.  Everything else goes to "megakernel".  The JAX package's clause
+    for image-textured scenes waits for image textures."""
+    mesh = tracer.bake.jax_tri_stream
     deep_sphere_bvh = (len(tracer.bake.sph_hit_nodes) > 0
                        and settings.max_depth >= 8)
-    if (deep_sphere_bvh and tracer.supports_hit
-            and settings.spp_per_chunk >= 16):
-        return "regen"
+    if (mesh or deep_sphere_bvh) and tracer.supports_hit:
+        if settings.spp_per_chunk >= 16:
+            return "regen"
+        if mesh:
+            return "wavefront"
     return "megakernel"
 
 
@@ -66,16 +72,21 @@ def compile_renderer(scene: Scene, camera: Camera, settings: RenderSettings,
 
     The megakernel route (`engine/render.py:172-199`) launches once per
     (sample, wave), with russian roulette from bounce `settings.rr_start`
-    when it is > 0; the regen route is `wavefront.compile_regen_renderer`.
+    when it is > 0; the regen and wavefront routes are
+    `wavefront.compile_regen_renderer` and
+    `wavefront.compile_wavefront_renderer`.
     Raises NotImplementedError for a scene outside the ported feature set.
     """
     device = torch.device(device)
     tracer = cuda_trace.Tracer(scene, device)  # raises for unported scenes
-    if route(tracer, settings) == "regen":
-        from .wavefront import compile_regen_renderer
+    engine = route(tracer, settings)
+    if engine != "megakernel":
+        from . import wavefront
 
-        return compile_regen_renderer(scene, camera, settings, tracer=tracer,
-                                      device=device)
+        compile_wave = (wavefront.compile_regen_renderer if engine == "regen"
+                        else wavefront.compile_wavefront_renderer)
+        return compile_wave(scene, camera, settings, tracer=tracer,
+                            device=device)
     h, w, _npix, npix_pad, b, nb = _grid_geometry(settings)
     trace = tracer.bind(camera, h, w, settings.max_depth, settings.t_min,
                         settings.rr_start)

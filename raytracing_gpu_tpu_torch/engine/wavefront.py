@@ -1,10 +1,13 @@
-"""The regenerative wavefront renderer, and the glue around the hit kernel.
+"""The wavefront renderers, and the glue around the hit kernel.
 
-Counterpart of `raytracing_gpu_tpu/engine/wavefront.py` for scenes without
-triangles: `_part1by2`, `_sort_keys`, `pack_attr_table`,
-`resolve_hit_packed` and `compile_regen_renderer` (`:57-148`, `:457-684`).
-The bounce loop lives in torch around one closest-hit kernel launch per
-step (`ops.cuda_trace.Tracer.hit`): a persistent, always-full wave of
+Counterpart of `raytracing_gpu_tpu/engine/wavefront.py`: `_part1by2`,
+`_sort_keys`, `pack_attr_table`, `resolve_hit_packed`, `make_trace_wave`,
+`compile_wavefront_renderer` and `compile_regen_renderer` (`:57-277`,
+`:400-684`).  The bounce loop lives in torch around one closest-hit kernel
+launch per bounce or step (`ops.cuda_trace.Tracer.hit`), whose triangle
+winners resolve here by one gather of the slot-attribute table.
+
+The regenerative renderer keeps a persistent, always-full wave of
 `ray_batch` lanes in which a ray that ends deposits its radiance and its
 lane is refilled with a fresh camera ray from a pixel-major sample stream
 (ray s goes to pixel s // spp).  Each step:
@@ -22,21 +25,27 @@ lane is refilled with a fresh camera ray from a pixel-major sample stream
 5. copies ring blocks that no live ray can reach any more into the
    framebuffer, at most two a step; a final flush adds what is left.
 
-The JAX package runs the loop as one `while_loop`; here it is a Python loop
-whose condition costs one host read per step (the live-lane count, which
-the refill needs as well), and the stream position, the drain cursor and
-the pixel history are host integers.  `argsort` is stable, as `jnp.argsort`
-is.  The camera, the scatter and the roulette draw from a `torch.Generator`
-seeded with the chunk's base seed, so a chunk is deterministic on the CPU
-for one seed and agrees with the JAX package statistically (on a CUDA
-device the ring's `index_add_` sums in no fixed order).  Not ported: the
-TPU packet rows (`hit_sub`) and the sharded form (`_local`).
+The bounce-synchronous renderer (`make_trace_wave`) traces one wave of
+camera rays to the end: bounce 0 in pixel order, then each bounce sorted by
+the same keys with one packed gather of the lanes' state, and one scatter
+back to pixel order at the end.
+
+The JAX package runs these loops as a `while_loop` and a `scan`; here they
+are Python loops whose condition costs one host read per step or bounce
+(the live-lane count, which the refill needs as well), and the stream
+position, the drain cursor and the pixel history are host integers.
+`argsort` is stable, as `jnp.argsort` is.  The camera, the scatter and the
+roulette draw from a `torch.Generator` seeded with the chunk's base seed,
+so a chunk is deterministic on the CPU for one seed and agrees with the
+JAX package statistically (on a CUDA device the ring's `index_add_` sums in
+no fixed order).  Not ported: the TPU packet rows (`hit_sub`), the sharded
+form (`_local`) and the record walk (`make_record_trace_wave`).
 """
 
 from __future__ import annotations
 
 import collections
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -75,14 +84,32 @@ def _sort_keys(o: torch.Tensor, d: torch.Tensor, alive: torch.Tensor,
     return ((~alive).to(i32) << 30) | (okt << 21) | morton
 
 
-def pack_attr_table(scene: Scene,
+def pack_attr_table(scene: Scene, tri_perm: Optional[np.ndarray] = None,
                     device: torch.device | str = "cpu") -> torch.Tensor:
-    """(S, 16) float32 per-slot winner attributes for `resolve_hit_packed`:
-    for a scene without triangles the one zero row the resolve gathers
-    (the hit kernel never sets is_tri).  Triangle slots are not ported."""
-    if scene.triangles.active.any():
-        raise NotImplementedError("triangles: not yet ported")
-    return torch.zeros((1, 16), dtype=torch.float32, device=device)
+    """(S, 16) float32 per-slot winner attributes for `resolve_hit_packed`
+    (`wavefront.pack_attr_table`, :86-118), indexed by the hit kernel's
+    triangle slot (`tri_perm` maps a slot to its triangle, -1 on a pad
+    slot, as `SceneBake.tri_perm`): n0 n1 n2 (the face normal cross(e2, e1)
+    thrice for a mesh without vertex normals) | uv0 uv1 uv2 | mat_id; a pad
+    slot's row is 0.  A scene without triangles gets the one zero row the
+    resolve gathers (the hit kernel never sets is_tri there)."""
+    tr = scene.triangles
+    perm = np.zeros(0, np.int32) if tri_perm is None else np.asarray(tri_perm)
+    if not len(perm):
+        if tr.active.any():
+            raise ValueError("a scene with triangles needs the hit tier's "
+                             "tri_perm")
+        return torch.zeros((1, 16), dtype=torch.float32, device=device)
+    has = np.asarray(tr.has_vn)[:, None]
+    face = np.cross(np.asarray(tr.e2, np.float32),
+                    np.asarray(tr.e1, np.float32))
+    attr = np.concatenate([
+        np.where(has, tr.n0, face), np.where(has, tr.n1, face),
+        np.where(has, tr.n2, face), tr.uv0, tr.uv1, tr.uv2,
+        np.asarray(tr.mat_id, np.float32)[:, None]], axis=1)
+    out = attr[np.clip(perm, 0, len(attr) - 1)].astype(np.float32)
+    out[perm < 0] = 0.0
+    return torch.as_tensor(out, device=device)
 
 
 def resolve_hit_packed(attr_slot: torch.Tensor, packed: torch.Tensor,
@@ -110,6 +137,141 @@ def resolve_hit_packed(attr_slot: torch.Tensor, packed: torch.Tensor,
                      front_face=torch.where(is_tri, front_t, front_nt),
                      u=torch.where(is_tri, uv_t[:, 0], u),
                      v=torch.where(is_tri, uv_t[:, 1], v), mat_id=mat)
+
+
+def _world_box(tracer: cuda_trace.Tracer, device: torch.device) -> tuple:
+    """The morton keys' box: the tracer's world bounds, at least 1e-6 wide."""
+    lo = torch.as_tensor(tracer.world_lo, device=device)
+    hi = lo + torch.clamp(torch.as_tensor(tracer.world_hi, device=device)
+                          - lo, min=1e-6)
+    return lo, hi
+
+
+def make_trace_wave(scene: Scene, tracer: cuda_trace.Tracer, max_depth: int,
+                    t_min: float, rr_start: int = 0,
+                    device: torch.device | str = "cuda"
+                    ) -> Callable[..., torch.Tensor]:
+    """Bounce-synchronous sorted wavefront for one wave of rays
+    (`wavefront.make_trace_wave`, :189-277): returns `trace_wave(o, d, tm,
+    gen) -> ((n, 3) radiance in the rays' order, bounces traced)`, drawing
+    the scatter and the roulette from `gen`.  Bounce 0 runs in the given
+    (pixel) order;
+    each later bounce sorts the lanes by `_sort_keys` with one packed
+    gather of their state, and a bounce with no live lane ends the wave
+    (one host read a bounce)."""
+    device = torch.device(device)
+    hit = tracer.bind_hit(t_min)  # raises without supports_hit
+    params = diff.get_params(scene, device)
+    bg = torch.as_tensor(np.asarray(scene.background), dtype=torch.float32,
+                         device=device)
+    lo, hi = _world_box(tracer, device)
+    attr_slot = pack_attr_table(scene, tracer.bake.tri_perm, device)
+
+    def bounce_shade(o, d, tm, thr, rad, alive, gen, depth: int):
+        """One closest hit and the torch half of the bounce, as the regen
+        step's (`integrator.trace`'s update, `render.h:55-81`)."""
+        hr = hit(o, d, tm, alive)
+        rec = resolve_hit_packed(attr_slot, *hr, d)
+        miss = (hr.packed & cuda_trace.MISS_BIT) != 0
+        sc = materials.scatter(scene, params, gen, d, rec.p, rec.normal,
+                               rec.front_face, rec.u, rec.v, rec.mat_id)
+        rad = rad + torch.where(miss[:, None], thr * bg, 0.0)
+        rad = rad + torch.where(rec.hit[:, None], thr * sc.emitted, 0.0)
+        cont = rec.hit & sc.ok
+        thr = torch.where(cont[:, None], thr * sc.attenuation, thr)
+        if rr_start > 0 and depth >= rr_start:
+            p_s = torch.clamp(thr.amax(dim=-1), 0.05, 1.0)
+            survive = rng.uniform(gen, (thr.shape[0],)) < p_s
+            thr = torch.where((cont & survive)[:, None],
+                              thr * (1.0 / p_s)[:, None], thr)
+            cont = cont & survive
+        o = vec.where(rec.hit, rec.p, o).contiguous()
+        d = vec.where(rec.hit, sc.direction, d).contiguous()
+        return o, d, thr, rad, cont
+
+    def trace_wave(o: torch.Tensor, d: torch.Tensor, tm: torch.Tensor,
+                   gen: torch.Generator) -> tuple[torch.Tensor, int]:
+        n = o.shape[0]
+        thr = torch.ones((n, 3), dtype=torch.float32, device=device)
+        rad = torch.zeros((n, 3), dtype=torch.float32, device=device)
+        perm = torch.arange(n, dtype=torch.float32, device=device)
+        alive = torch.ones(n, dtype=torch.bool, device=device)
+        tm = tm.contiguous()
+        # bounce 0 unsorted: camera rays are pixel-coherent already
+        o, d, thr, rad, alive = bounce_shade(o.contiguous(), d.contiguous(),
+                                             tm, thr, rad, alive, gen, 0)
+        bounces = 1
+        for depth in range(1, max_depth):
+            if not bool(alive.any()):  # the bounce's one host read
+                break
+            order = torch.argsort(_sort_keys(o, d, alive, lo, hi),
+                                  stable=True)
+            pay = torch.cat([o, d, tm[:, None], thr, rad, perm[:, None]],
+                            dim=1)[order]
+            o, d = pay[:, 0:3].contiguous(), pay[:, 3:6].contiguous()
+            tm, thr, rad = pay[:, 6].contiguous(), pay[:, 7:10], pay[:, 10:13]
+            perm, alive = pay[:, 13], alive[order]
+            o, d, thr, rad, alive = bounce_shade(o, d, tm, thr, rad, alive,
+                                                 gen, depth)
+            bounces += 1
+        # undo the accumulated permutation (one scatter per wave)
+        out = torch.zeros((n, 3), dtype=torch.float32, device=device)
+        out[perm.long()] = rad
+        return out, bounces
+
+    return trace_wave
+
+
+def compile_wavefront_renderer(scene: Scene, camera: Camera,
+                               settings: RenderSettings,
+                               tracer: cuda_trace.Tracer | None = None,
+                               debug_stats: bool = False,
+                               device: torch.device | str = "cuda"
+                               ) -> Callable[[int], torch.Tensor]:
+    """Bounce-synchronous wavefront chunk (`compile_wavefront_renderer`,
+    :400-450): base seed -> (npix_pad, 3) float32 radiance sums over
+    `spp_per_chunk` samples, in waves of `ray_batch` pixels as the
+    megakernel route splits them, each wave traced by `make_trace_wave`.
+    Its estimator is the regen route's; the camera jitter, the lens and
+    the shutter time draw from a generator seeded with the base.  With
+    `debug_stats` a chunk returns (sums, {"iterations": bounces traced,
+    each one hit launch and one host read}).  Raises ValueError for a
+    scene with media (`Tracer.supports_hit`)."""
+    from .render import _grid_geometry
+
+    device = torch.device(device)
+    if tracer is None:
+        tracer = cuda_trace.Tracer(scene, device)
+    h, w, _npix, npix_pad, b, nb = _grid_geometry(settings)
+    trace_wave = make_trace_wave(scene, tracer, settings.max_depth,
+                                 settings.t_min, settings.rr_start, device)
+    cam = camera.to(device)
+    flat = torch.arange(npix_pad, dtype=torch.int64, device=device)
+    rows = torch.clamp(torch.div(flat, w, rounding_mode="floor"), max=h - 1)
+    cols = torch.clamp(flat % w, max=w - 1)
+    inv_w = 1.0 / max(w - 1, 1)
+    inv_h = 1.0 / max(h - 1, 1)
+
+    def chunk(base: int) -> torch.Tensor:
+        gen = torch.Generator(device=device).manual_seed(int(base) % 2**63)
+        sums = torch.zeros((npix_pad, 3), dtype=torch.float32, device=device)
+        bounces = 0
+        for _s in range(settings.spp_per_chunk):
+            for bid in range(nb):
+                r, c = rows[bid * b:(bid + 1) * b], cols[bid * b:(bid + 1) * b]
+                jit2 = rng.uniform(gen, (b, 2))
+                su = (c.to(torch.float32) + jit2[:, 0]) * inv_w
+                sv = ((h - 1 - r).to(torch.float32) + jit2[:, 1]) * inv_h
+                o, d, tm = cam.get_rays(gen, su, sv)
+                rad, traced = trace_wave(o, d, tm, gen)
+                sums[bid * b:(bid + 1) * b] += rad
+                bounces += traced
+        if debug_stats:
+            return sums, {"iterations": bounces}
+        return sums
+
+    chunk.engine_name = "wavefront"
+    return chunk
 
 
 def _pow2_at_least(n: int) -> int:
@@ -140,10 +302,8 @@ def compile_regen_renderer(scene: Scene, camera: Camera,
     params = diff.get_params(scene, device)
     bg = torch.as_tensor(np.asarray(scene.background), dtype=torch.float32,
                          device=device)
-    lo = torch.as_tensor(tracer.world_lo, device=device)
-    hi = lo + torch.clamp(torch.as_tensor(tracer.world_hi, device=device)
-                          - lo, min=1e-6)
-    attr_slot = pack_attr_table(scene, device)
+    lo, hi = _world_box(tracer, device)
+    attr_slot = pack_attr_table(scene, tracer.bake.tri_perm, device)
 
     adv = -(-n // spp)                      # most pixels a step can issue
     ring_w = _pow2_at_least((max_depth + 4) * adv)

@@ -1,16 +1,25 @@
 """Scene registry (counterpart of `raytracing_gpu_tpu/models/scenes.py`).
 
 Only the scenes whose features the port covers are registered: `names()`
-lists what renders here (no triangles, no image textures).  Camera
-parameters, materials and geometry are transcribed from the same reference
-lines as the JAX package (`raytracing_gpu_tpu/models/scenes.py:60-190`);
-`big_scene1` draws its layout from the same numpy generator and seed, so
-its tables equal the JAX package's.
+lists what renders here (no image textures).  Camera parameters, materials
+and geometry are transcribed from the same reference lines as the JAX
+package (`raytracing_gpu_tpu/models/scenes.py:60-316`); `big_scene1` draws
+its layout from the same numpy generator and seed, so its tables equal the
+JAX package's.
+
+The mesh scenes (`door`, `backpack`, `cup`) read their OBJ and diffuse map
+from the reference assets under `$RT_REFERENCE_ASSETS` only.  Without them
+each takes the JAX package's procedural stand-in: a 224 x 224 UV sphere of
+100,352 triangles with a solid (0.8, 0.2, 0.2) texture, sized to the
+scene's framing.  With either file present the scene needs the OBJ loader
+and image textures, which are not ported yet, and raises
+NotImplementedError.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+import os
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 
@@ -45,6 +54,10 @@ def get(name: str) -> SceneDef:
         raise KeyError(f"scene {name!r} is not ported; ported scenes: "
                        f"{', '.join(names())}")
     return _REGISTRY[name]()
+
+
+def _reference_root() -> Optional[str]:
+    return os.environ.get("RT_REFERENCE_ASSETS")
 
 
 def _cam(lookfrom, lookat, vfov, aspect, aperture=0.0, focus=10.0) -> Camera:
@@ -175,3 +188,130 @@ def cornell_smoke() -> SceneDef:
                  rotate_y=-18, translate=(130, 0, 65))
     cam = _cam((278, 278, -800), (278, 278, 0), 40, 1.0)
     return SceneDef(b.build(), cam, 1.0)
+
+
+@register("triangle")
+def triangle_scene() -> SceneDef:
+    """reference `create_triangle_world` (`scenes.h:409-428`)."""
+    b = SceneBuilder(background=SKY)
+    b.triangle((-0.5, 0, 0), (0, 1, 10), (0.0, 0, 0), b.lambertian((0, 1, 0)),
+               uv0=(0, 0), uv1=(0, 1), uv2=(1, 0))
+    b.sphere((0, -100.5, -1), 100, b.lambertian((0, 0, 1)))
+    return SceneDef(b.build(), _cam((0, 0, -3), (0, 0, 0), 40, 16 / 9),
+                    16 / 9)
+
+
+@register("triangles")
+def triangles_scene() -> SceneDef:
+    """reference `create_triangles_world` (`scenes.h:432-475`)."""
+    b = SceneBuilder(background=SKY)
+    uv = dict(uv0=(0, 0), uv1=(0, 1), uv2=(1, 0))
+    b.triangle((-0.5, 0, 0), (0, 1, 10), (0.5, 0, 0), b.lambertian((0, 1, 0)),
+               **uv)
+    b.triangle((0.5, 0, 0), (0, 1, 10), (0.5, 1, 0), b.lambertian((1, 1, 0)),
+               **uv)
+    b.triangle((1.5, 0, 0), (0, 2, 10), (1.5, 1, 0), b.lambertian((1, 1, 1)),
+               **uv)
+    b.triangle((1.5, 0, 0), (1.5, 1, 10), (1.5, 0, 2),
+               b.lambertian((1, 1, 1)), **uv)
+    b.sphere((0, -100.5, -1), 100, b.lambertian((0, 0, 1)))
+    return SceneDef(b.build(), _cam((0, 0, -3), (0, 0, 0), 40, 16 / 9),
+                    16 / 9)
+
+
+def _add_obj(b: SceneBuilder, asset: tuple, diffuse: tuple,
+             standin_scale: float = 1.0) -> None:
+    """A mesh asset, as the JAX package's `_add_obj` adds it: the OBJ at
+    `asset` (path parts under the reference assets) with its diffuse map
+    `diffuse`, or, when the OBJ is missing, the procedural stand-in
+    (`_standin_mesh`) with a solid texture, since the diffuse map is
+    missing too.  Either file present needs the OBJ loader and image
+    textures, which are not ported."""
+    root = _reference_root()
+    for parts, what in ((asset, "OBJ asset"), (diffuse, "diffuse map")):
+        if root is not None and os.path.exists(os.path.join(root, *parts)):
+            raise NotImplementedError(
+                f"OBJ assets / image textures ({what} "
+                f"{os.path.join(*parts)}): not yet ported")
+    _standin_mesh(b, (224, 224), standin_scale)
+
+
+def _standin_mesh(b: SceneBuilder, res: tuple, scale: float) -> None:
+    """A UV sphere of `res` (224 x 224 gives 100,352 triangles, the scale
+    of the real backpack and cup) sized to the scene's framing and resting
+    on y = 0, lambertian with the solid texture (0.8, 0.2, 0.2)."""
+    tex = b.solid((0.8, 0.2, 0.2))
+    v, f, uvs, n = _uv_sphere(*res)
+    v = v * scale
+    v[:, 1] += scale
+    b.mesh(v, f, b.lambertian(tex), uvs=uvs, normals=n)
+
+
+def _uv_sphere(n_lat: int, n_lon: int, radius: float = 1.0):
+    """Procedural UV-sphere mesh: (vertices, faces, uvs, normals), two
+    triangles per latitude-longitude cell, in the JAX package's order."""
+    lat = np.linspace(0, np.pi, n_lat + 1)
+    lon = np.linspace(0, 2 * np.pi, n_lon + 1)
+    tt, pp = np.meshgrid(lat, lon, indexing="ij")
+    x = radius * np.sin(tt) * np.cos(pp)
+    y = radius * np.cos(tt)
+    z = radius * np.sin(tt) * np.sin(pp)
+    v = np.stack((x, y, z), -1).reshape(-1, 3)
+    uvs = np.stack((pp / (2 * np.pi), 1.0 - tt / np.pi), -1).reshape(-1, 2)
+    normals = v / radius
+    idx = np.arange((n_lat + 1) * (n_lon + 1)).reshape(n_lat + 1, n_lon + 1)
+    a, b = idx[:-1, :-1], idx[1:, :-1]
+    c, d = idx[1:, 1:], idx[:-1, 1:]
+    faces = np.stack((np.stack((a, b, c), -1), np.stack((a, c, d), -1)),
+                     axis=2).reshape(-1, 3)
+    return (v.astype(np.float32), faces, uvs.astype(np.float32),
+            normals.astype(np.float32))
+
+
+@register("door")
+def door_scene() -> SceneDef:
+    """reference `door_scene` (`scenes.h:478-523`): door.obj mesh + ground."""
+    b = SceneBuilder(background=SKY)
+    _add_obj(b, ("assets", "door", "door.obj"),
+             ("assets", "door", "Door_C.jpg"))
+    b.sphere((0, -100, -1), 100, b.lambertian((0, 1, 0)))
+    return SceneDef(b.build(), _cam((-3, 4, -5), (0, 1, 0), 20, 16 / 9),
+                    16 / 9)
+
+
+@register("backpack")
+def backpack_scene() -> SceneDef:
+    """reference `backpack_scene` (`scenes.h:526-572`), BASELINE config 5:
+    the mesh and the ground (the reference build overwrites the mesh with
+    the ground sphere; the JAX package builds the intended scene)."""
+    b = SceneBuilder(background=SKY)
+    _add_obj(b, ("assets", "backpack", "backpack.obj"),
+             ("assets", "backpack", "diffuse.jpg"), standin_scale=0.45)
+    b.sphere((0, -100, -1), 100, b.lambertian((0, 1, 0)))
+    return SceneDef(b.build(), _cam((0, 0, -3), (0, 0, 0), 20, 16 / 9),
+                    16 / 9)
+
+
+def backpack_standin(res: tuple = (224, 224)) -> SceneDef:
+    """The backpack scene with its procedural stand-in at `res` (`backpack`
+    itself when the assets are absent and `res` is (224, 224)): smaller
+    meshes of the same framing for tests and the pinned goldens
+    (`tools/make_torch_goldens.py` builds the same one in the JAX
+    package)."""
+    b = SceneBuilder(background=SKY)
+    _standin_mesh(b, res, 0.45)
+    b.sphere((0, -100, -1), 100, b.lambertian((0, 1, 0)))
+    return SceneDef(b.build(), _cam((0, 0, -3), (0, 0, 0), 20, 16 / 9),
+                    16 / 9)
+
+
+@register("cup")
+def cup_scene() -> SceneDef:
+    """reference `cup_scene` (`scenes.h:576-621`)."""
+    b = SceneBuilder(background=SKY)
+    _add_obj(b, ("assets", "cup", "cup.obj"),
+             ("assets", "cup", "MaryRoseTankard_100kMesh.jpg"),
+             standin_scale=0.12)
+    b.sphere((0, -100, -1), 100, b.lambertian((0, 1, 0)))
+    return SceneDef(b.build(), _cam((0, 0, -1), (0, 0, 0), 20, 16 / 9),
+                    16 / 9)

@@ -56,6 +56,7 @@ class RtParams(ctypes.Structure):
         ("seed", ctypes.c_int), ("max_depth", ctypes.c_int),
         ("n_rects", ctypes.c_int), ("n_boxes", ctypes.c_int),
         ("n_spheres", ctypes.c_int), ("n_sph_nodes", ctypes.c_int),
+        ("n_tri_rows", ctypes.c_int), ("n_tri_nodes", ctypes.c_int),
         ("n_sphere_media", ctypes.c_int),
         ("n_box_media", ctypes.c_int), ("has_time", ctypes.c_int),
         ("rr_start", ctypes.c_int), ("features", ctypes.c_int),
@@ -141,15 +142,17 @@ def load() -> ctypes.CDLL:
             build()
             lib = ctypes.CDLL(LIBRARY)
             ptr = ctypes.c_void_p
-            tables = [ptr] * 7  # rects boxes spheres media nodes links start
+            # rects boxes spheres media, the sphere BVH's nodes links start,
+            # the triangle rows and their BVH's nodes links start
+            tables = [ptr] * 11
             lib.rt_trace_pixels.argtypes = [*tables, RtParams, ptr, ptr, ptr,
                                             ptr]
             lib.rt_trace_pixels.restype = ctypes.c_int
             lib.rt_walk_packed_pixels.argtypes = [*tables, RtParams, ptr, ptr]
             lib.rt_walk_packed_pixels.restype = ctypes.c_int
             i32 = ctypes.c_int
-            lib.rt_hit.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
-                                   ctypes.c_float, *[ptr] * 11]
+            lib.rt_hit.argtypes = [*[ptr] * 6, *[i32] * 7, ctypes.c_float,
+                                   *[ptr] * 11]
             lib.rt_hit.restype = ctypes.c_int
             lib.rt_pcg_uniform.argtypes = [ctypes.c_int, ctypes.c_int,
                                            ctypes.c_int, ptr, ptr]

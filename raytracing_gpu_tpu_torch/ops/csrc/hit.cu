@@ -2,21 +2,31 @@
 //
 // Replaces the TPU kernel `_make_hit_kernel` launched by `_run_hit`
 // (raytracing_gpu_tpu/ops/pallas_trace.py:1722-2263, pl.pallas_call at
-// :2252; API `PallasTracer.hit` :2489-2517) for scenes without triangles or
-// media: one closest hit per ray, no shading, no scatter, no random numbers.
-// Rects and boxes first (:1792-1875), then spheres, by a dense loop up to 64
-// rows (:1993-1998) or a walk of the sphere BVH above (:1927-1991), strict
-// `<` throughout; then the finalize (:2187-2232): a sphere winner's uv from
-// its pre-flip outward normal through the polynomial atan2/acos plus its
-// rotate_y phase, the normal faced against the ray and normalized.
+// :2252; API `PallasTracer.hit` :2489-2517) for scenes without media: one
+// closest hit per ray, no shading, no scatter, no random numbers.  Rects and
+// boxes first (:1792-1875), then spheres, by a dense loop up to 64 rows
+// (:1993-1998) or a walk of the sphere BVH above (:1927-1991), strict `<`
+// throughout; then the triangle tier (:2000-2186), a walk of the packed
+// geometry's BVH pruned by min(its own best, the closest hit so far); then
+// the merge and finalize (:2187-2232): a triangle wins when strictly closer
+// (`t1 < t2`), a sphere winner's uv comes from its pre-flip outward normal
+// through the polynomial atan2/acos plus its rotate_y phase, the normal is
+// faced against the ray and normalized.
 //
 // Outputs, per ray i of N (the wrapper is `Tracer.bind_hit` in
 // ../cuda_trace.py, the plain version `hit_reference`): packed int32
 // `mat | hit<<16 | miss<<18 | front<<19 | is_tri<<20 | is_sph<<21`;
-// p (N, 3) = o + t d (t = 1e30 on a miss); u, v; normal (N, 3); slot, 0
-// without triangles.  A dead lane writes zeros.  The TPU kernel zeroes only
-// a tile with no live lane, and its dead lanes elsewhere carry the
-// arithmetic of their frozen rays; the packed word is 0 there either way.
+// p (N, 3) = o + t d (t = 1e30 on a miss); u, v; normal (N, 3); slot.  A
+// triangle winner has bit 20, its barycentric weights of vertices 1 and 2
+// in u, v and its slot (the packed table's, mapped to the triangle by
+// `tri_perm`) in slot; its mat and front bits and the normal stay the
+// closest non-triangle hit's, as the TPU kernel leaves them, since the
+// wavefront resolves a triangle from its attributes.  slot is 0 where no
+// triangle wins (the TPU kernel writes its tier's best candidate there
+// whether or not it won).  A dead lane writes zeros.  The TPU kernel
+// zeroes only a tile with no live lane, and its dead lanes elsewhere carry
+// the arithmetic of their frozen rays; the packed word is 0 there either
+// way.
 //
 // Design.  One thread per ray.  The TPU kernel walks a (32, 128) packet with
 // one scalar cursor and follows the threading of the packet's majority
@@ -26,6 +36,21 @@
 // subtrees prune against it.  A child's box lies inside its parent's, so a
 // lane tests the same leaves in either walk, in another order; the closest
 // hit is the same except where two rows tie exactly.
+//
+// The triangle tier.  Geometry only: 9 floats (v0 e1 e2) a slot, leaves of
+// 28 contiguous slots (the TPU kernel's two 128-lane rows of 14 triangles),
+// pad slots all zero; nodes as the sphere tier's (bounds, a leaf's first
+// slot, 8 octant link pairs).  Each candidate is the megakernel's
+// `tri_candidate` (Moller-Trumbore, 1e-7 determinant cut); the walk keeps
+// the winner's t, slot and barycentrics.  It starts from the closest
+// non-triangle hit t2 and keeps a candidate only when strictly closer, which
+// prunes and picks the same winner as the TPU kernel's own best t1 starting
+// at 1e30 and pruned by min(t1, t2).  A ray through an edge that two
+// triangles share hits both at one t: the first in the ray's own visit
+// order wins, so the slot may differ from the TPU kernel's (which follows
+// the packet's majority octant) while t agrees.  The kernel is a template
+// on the tier, so a triangle-free scene carries none of its code or
+// registers.
 //
 // What bounds it on Hopper.  Operations and their latency, not bytes: a
 // ray reads 28 bytes and writes 36, and tests ~20 nodes (a 6-slab test, ~20
@@ -45,6 +70,8 @@
 namespace {
 
 constexpr int kHitNodeCols = 23;  // bounds | leaf start | 8 (hit, miss)
+constexpr int kHitTriLeafK = 28;  // packed triangle slots per leaf
+constexpr int kTriGeom = 9;       // v0 e1 e2 per slot
 constexpr int kShUvPhase = 12;    // a sphere row's uv phase, past its shading
 constexpr float kPi = static_cast<float>(3.14159265358979323846);
 constexpr float kHalfPi = static_cast<float>(3.14159265358979323846 / 2.0);
@@ -57,8 +84,28 @@ struct HitParams {
   const float* boxes;
   const float* spheres;
   const float* nodes;
-  int n_rects, n_boxes, n_spheres, n_nodes, n;
+  const float* tri_geom;
+  const float* tri_nodes;
+  int n_rects, n_boxes, n_spheres, n_nodes, n_tri_slots, n_tri_nodes, n;
   float t_min;
+};
+
+// A BVH's nodes in the hit tiers' layout (HIT_NODE_COLS): bounds, a leaf's
+// first row or slot (-1: internal), then the (hit, miss) links of the 8
+// direction octants; the walk follows octant `oct`'s.
+struct OctantNodes {
+  const float* rec;
+  int oct;
+  __device__ __forceinline__ const float* box(int node) const {
+    return rec + node * kHitNodeCols;
+  }
+  __device__ __forceinline__ int leaf(int node) const {
+    return static_cast<int>(rec[node * kHitNodeCols + 6]);
+  }
+  __device__ __forceinline__ int next(int node, bool hit) const {
+    return static_cast<int>(
+        rec[node * kHitNodeCols + 7 + 2 * oct + (hit ? 0 : 1)]);
+  }
 };
 
 // The closest winner so far: its distance, outward normal, material, uv
@@ -107,6 +154,13 @@ __device__ __forceinline__ float acos_poly(float x) {
   return atan2_poly(sqrtf(fmaxf(1.0f - x * x, 0.0f)), x);
 }
 
+// The ray's own direction octant: bit 2 x negative, bit 1 y, bit 0 z.
+__device__ __forceinline__ int octant(const rt::Ray& r) {
+  return (r.dx < 0.0f ? 4 : 0) | (r.dy < 0.0f ? 2 : 0) |
+         (r.dz < 0.0f ? 1 : 0);
+}
+
+template <bool kTri>
 __global__ void __launch_bounds__(rt::kThreads)
 hit_kernel(const HitParams hp, const float* __restrict__ o,
            const float* __restrict__ d, const float* __restrict__ tm_in,
@@ -203,30 +257,45 @@ hit_kernel(const HitParams hp, const float* __restrict__ o,
       const float ivx = 1.0f / rt::guard(r.dx);
       const float ivy = 1.0f / rt::guard(r.dy);
       const float ivz = 1.0f / rt::guard(r.dz);
-      // the ray's own octant: bit 2 x negative, bit 1 y, bit 0 z
-      const int oct = (r.dx < 0.0f ? 4 : 0) | (r.dy < 0.0f ? 2 : 0) |
-                      (r.dz < 0.0f ? 1 : 0);
-      int node = 0;
-      while (node >= 0) {
-        const float* nd = hp.nodes + node * kHitNodeCols;
-        float tn, tf;
-        rt::node_slab(nd, r, ivx, ivy, ivz, &tn, &tf);
-        const bool hit_box = tf >= fmaxf(tn, t_min) && tn <= hs.t;
-        const int start = static_cast<int>(nd[6]);
-        if (hit_box && start >= 0) {
-          for (int k = 0; k < rt::kSphLeafK; ++k)
-            rt::sphere_candidate(hp.spheres + (start + k) * rt::kSphCols, r,
-                                 tm, a, inv_a, t_min, hs);
-        }
-        node = static_cast<int>(nd[7 + 2 * oct + (hit_box ? 0 : 1)]);
-      }
+      rt::bvh_walk(OctantNodes{hp.nodes, octant(r)}, r, ivx, ivy, ivz, t_min,
+                   hs.t, [&](int start) {
+                     for (int k = 0; k < rt::kSphLeafK; ++k)
+                       rt::sphere_candidate(
+                           hp.spheres + (start + k) * rt::kSphCols, r, tm, a,
+                           inv_a, t_min, hs);
+                   });
     }
     if (hs.sh != nullptr)  // a sphere row is the closest: its mat, uv phase
       take(b, hs.t, hs.nx, hs.ny, hs.nz, hs.sh[rt::kShMat],
            hs.sh[kShUvPhase], 0.0f, true);
   }
 
-  const bool hit = b.t < rt::kBig * 0.5f;
+  // ---- the triangle tier, from the closest non-triangle hit t2 = b.t ----
+  float t_best = b.t, tu = 0.0f, tv = 0.0f;
+  int slot_win = -1;
+  if (kTri) {
+    const float ivx = 1.0f / rt::guard(r.dx);
+    const float ivy = 1.0f / rt::guard(r.dy);
+    const float ivz = 1.0f / rt::guard(r.dz);
+    rt::bvh_walk(OctantNodes{hp.tri_nodes, octant(r)}, r, ivx, ivy, ivz,
+                 t_min, t_best, [&](int start) {
+                   for (int k = 0; k < kHitTriLeafK; ++k) {
+                     float t, ub, vb;
+                     if (rt::tri_candidate(
+                             hp.tri_geom + (start + k) * kTriGeom, r, t_min,
+                             &t, &ub, &vb) &&
+                         t < t_best) {
+                       t_best = t;
+                       slot_win = start + k;
+                       tu = ub;
+                       tv = vb;
+                     }
+                   }
+                 });
+  }
+  const bool tri = slot_win >= 0;  // strictly closer than every other hit
+  if (tri) b.sph = false;
+  const bool hit = t_best < rt::kBig * 0.5f;
   float u = b.u, v = b.v;
   if (b.sph) {  // sphere uv from the pre-flip outward normal (sphere.h:19-32)
     const float theta = acos_poly(fminf(fmaxf(-b.ny, -1.0f), 1.0f));
@@ -241,12 +310,14 @@ hit_kernel(const HitParams hp, const float* __restrict__ o,
   const float nlen =
       1.0f / sqrtf(fmaxf(b.nx * b.nx + b.ny * b.ny + b.nz * b.nz, 1e-20f));
   packed[i] = b.mat | (hit ? rt::kHitBit : 0) | (hit ? 0 : rt::kMissBit) |
-              (front ? 1 << 19 : 0) | (b.sph ? 1 << 21 : 0);
-  p_out[3 * i] = r.ox + b.t * r.dx;
-  p_out[3 * i + 1] = r.oy + b.t * r.dy;
-  p_out[3 * i + 2] = r.oz + b.t * r.dz;
-  u_out[i] = u;
-  v_out[i] = v;
+              (front ? 1 << 19 : 0) | (tri ? 1 << 20 : 0) |
+              (b.sph ? 1 << 21 : 0);
+  p_out[3 * i] = r.ox + t_best * r.dx;
+  p_out[3 * i + 1] = r.oy + t_best * r.dy;
+  p_out[3 * i + 2] = r.oz + t_best * r.dz;
+  u_out[i] = tri ? tu : u;
+  v_out[i] = tri ? tv : v;
+  if (tri) slot[i] = static_cast<float>(slot_win);  // else 0, above
   n_out[3 * i] = b.nx * flip * nlen;
   n_out[3 * i + 1] = b.ny * flip * nlen;
   n_out[3 * i + 2] = b.nz * flip * nlen;
@@ -257,23 +328,35 @@ hit_kernel(const HitParams hp, const float* __restrict__ o,
 // C entry (bound with ctypes): one launch over n rays on `stream`, never
 // synchronizing; returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for counts the kernel does not take (a dense loop
-// of more than 64 rows, a BVH table that is not whole leaves).
+// of more than 64 rows, a BVH table that is not whole leaves, triangle
+// slots without nodes).
 extern "C" int rt_hit(const float* rects, const float* boxes,
-                      const float* spheres, const float* nodes, int n_rects,
-                      int n_boxes, int n_spheres, int n_nodes, int n,
-                      float t_min, const float* o, const float* d,
-                      const float* tm, const uint8_t* alive, int32_t* packed,
-                      float* p, float* u, float* v, float* normal,
-                      float* slot, void* stream) {
+                      const float* spheres, const float* nodes,
+                      const float* tri_geom, const float* tri_nodes,
+                      int n_rects, int n_boxes, int n_spheres, int n_nodes,
+                      int n_tri_slots, int n_tri_nodes, int n, float t_min,
+                      const float* o, const float* d, const float* tm,
+                      const uint8_t* alive, int32_t* packed, float* p,
+                      float* u, float* v, float* normal, float* slot,
+                      void* stream) {
   const bool ok = n > 0 && n_rects >= 0 && n_boxes >= 0 && n_spheres >= 0 &&
                   n_nodes >= 0 &&
                   (n_nodes > 0 ? n_spheres % rt::kSphLeafK == 0
-                               : n_spheres <= rt::kMaxSpheres);
+                               : n_spheres <= rt::kMaxSpheres) &&
+                  n_tri_slots >= 0 && n_tri_slots % kHitTriLeafK == 0 &&
+                  (n_tri_nodes > 0) == (n_tri_slots > 0);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  const HitParams hp{rects,   boxes,     spheres, nodes, n_rects,
-                     n_boxes, n_spheres, n_nodes, n,     t_min};
+  const HitParams hp{rects,     boxes,       spheres,     nodes,
+                     tri_geom,  tri_nodes,   n_rects,     n_boxes,
+                     n_spheres, n_nodes,     n_tri_slots, n_tri_nodes,
+                     n,         t_min};
   const int blocks = (n + rt::kThreads - 1) / rt::kThreads;
-  hit_kernel<<<blocks, rt::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      hp, o, d, tm, alive, packed, p, u, v, normal, slot);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_tri_nodes > 0)
+    hit_kernel<true><<<blocks, rt::kThreads, 0, s>>>(
+        hp, o, d, tm, alive, packed, p, u, v, normal, slot);
+  else
+    hit_kernel<false><<<blocks, rt::kThreads, 0, s>>>(
+        hp, o, d, tm, alive, packed, p, u, v, normal, slot);
   return static_cast<int>(cudaGetLastError());
 }

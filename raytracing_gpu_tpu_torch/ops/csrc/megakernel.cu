@@ -1,10 +1,11 @@
 // C entry points of the path-tracing megakernel (device code and design
 // notes: megakernel.cuh), and the forward instantiations for scenes whose
-// textures are all solid.
+// textures are all solid and that have no triangles.
 //
 // Entry points (plain C, bound with ctypes): rt_trace_pixels launches the
-// forward kernel, picking the instantiation from p.features; rt_walk_packed_pixels
-// the record kernel (no sphere BVH); rt_pcg_uniform writes uniform(base, salt) per lane so a
+// forward kernel, picking the instantiation (and its translation unit) from
+// p.features; rt_walk_packed_pixels the record kernel (no sphere or
+// triangle BVH); rt_pcg_uniform writes uniform(base, salt) per lane so a
 // test can hold the device RNG against the plain version; rt_error_string
 // names a returned CUDA error.  Each entry returns cudaGetLastError() after
 // its launch (cudaErrorInvalidValue for parameters the kernels do not take)
@@ -45,18 +46,26 @@ pcg_uniform_kernel(uint32_t seed_mix, int lanes, uint32_t salt,
 extern "C" int rt_trace_pixels(const float* rects, const float* boxes,
                                const float* spheres, const float* media,
                                const float* sph_nodes, const int* sph_links,
-                               const int* sph_start, RtParams p, float* out_r,
+                               const int* sph_start, const float* tri_rows,
+                               const float* tri_nodes, const int* tri_links,
+                               const int* tri_start, RtParams p, float* out_r,
                                float* out_g, float* out_b, void* stream) {
-  const RtTables t{rects, boxes, spheres, media, sph_nodes, sph_links,
-                   sph_start};
+  const RtTables t{rects,    boxes,     spheres,   media,
+                   sph_nodes, sph_links, sph_start, tri_rows,
+                   tri_nodes, tri_links, tri_start};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned tex = static_cast<unsigned>(p.features) &
-                       (kFeatChecker | kFeatPerlin);
-  if (tex == 0) return launch_fwd_solid(t, p, out_r, out_g, out_b, s);
+  const unsigned feat = static_cast<unsigned>(p.features);
+  const unsigned tex = feat & (kFeatChecker | kFeatPerlin);
+  const bool tri = (feat & kFeatTriBvh) != 0;
+  if (tex == 0)
+    return (tri ? launch_fwd_tri_solid : launch_fwd_solid)(t, p, out_r, out_g,
+                                                           out_b, s);
   if (tex == kFeatChecker)
-    return launch_fwd_checker(t, p, out_r, out_g, out_b, s);
+    return (tri ? launch_fwd_tri_checker : launch_fwd_checker)(
+        t, p, out_r, out_g, out_b, s);
   if (tex == (kFeatChecker | kFeatPerlin))
-    return launch_fwd_perlin(t, p, out_r, out_g, out_b, s);
+    return (tri ? launch_fwd_tri_perlin : launch_fwd_perlin)(t, p, out_r,
+                                                             out_g, out_b, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -64,10 +73,15 @@ extern "C" int rt_walk_packed_pixels(const float* rects, const float* boxes,
                                      const float* spheres, const float* media,
                                      const float* sph_nodes,
                                      const int* sph_links,
-                                     const int* sph_start, RtParams p,
+                                     const int* sph_start,
+                                     const float* tri_rows,
+                                     const float* tri_nodes,
+                                     const int* tri_links,
+                                     const int* tri_start, RtParams p,
                                      int32_t* out_packed, void* stream) {
-  const RtTables t{rects, boxes, spheres, media, sph_nodes, sph_links,
-                   sph_start};
+  const RtTables t{rects,    boxes,     spheres,   media,
+                   sph_nodes, sph_links, sph_start, tri_rows,
+                   tri_nodes, tri_links, tri_start};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (static_cast<unsigned>(p.features)) {
     case 0: return launch_record<0>(t, p, out_packed, s);

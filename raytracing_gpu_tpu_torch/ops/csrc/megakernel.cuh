@@ -3,10 +3,11 @@
 //
 // Replaces the TPU kernel `_make_kernel` launched by `_run`
 // (raytracing_gpu_tpu/ops/pallas_trace.py:821-1643, pl.pallas_call at :1703)
-// for scenes without triangles: axis-aligned rects, boxes under rotate_y +
-// translate, spheres (static, moving, hollow) in a dense loop up to 64 and
-// through a threaded BVH above (forward mode only), up to 16 constant media
-// in a sphere or a box; lambertian, metal, dielectric,
+// for scenes without image textures: axis-aligned rects, boxes under
+// rotate_y + translate, spheres (static, moving, hollow) in a dense loop up
+// to 64 and through a threaded BVH above, triangles through a threaded BVH
+// of their own (both BVHs forward mode only), up to 16 constant media in a
+// sphere or a box; lambertian, metal, dielectric,
 // diffuse_light and isotropic materials; solid, checker, noise, turbulence
 // and marble albedo; russian roulette and the shutter time.  Two kernels
 // share one closest hit, one media test, one camera and one scatter, so
@@ -21,9 +22,10 @@
 //   (need_p = need_uv = False), so the packed plane is the only output.
 //
 // This header holds the device code; the C entry points are in
-// megakernel.cu, and the forward instantiations are spread over three
+// megakernel.cu, and the forward instantiations are spread over five
 // translation units (megakernel.cu: solid albedo; megakernel_checker.cu;
-// megakernel_perlin.cu) that nvcc compiles in parallel.  The host side and
+// megakernel_perlin.cu; megakernel_tri.cu and megakernel_tri_perlin.cu: the
+// same families with triangles) that nvcc compiles in parallel.  The host side and
 // the plain PyTorch versions of both functions are in ../cuda_trace.py.
 //
 // Design.  One thread traces one ray of the wave and runs its own bounce
@@ -38,8 +40,8 @@
 // at zero; a thread here writes 0 instead.
 //
 // The kernels are templates over what the bake uses (kFeat* bits: dense
-// spheres, media, the sphere BVH, checker albedo, perlin albedo), as the JAX
-// kernel
+// spheres, media, the sphere BVH, the triangle BVH, checker albedo, perlin
+// albedo), as the JAX kernel
 // compiles unused texture families away (`tex_kinds`, :860-866): the
 // Cornell box does not carry the sphere loop, the media test or the perlin
 // turbulence (7 octaves x 8 hashed corners) in its registers.  The material
@@ -76,6 +78,22 @@
 // they stay in device memory behind the L1 cache; rects, boxes and media are
 // staged as before.
 //
+// The triangle BVH (kFeatTriBvh, kernel 1d's triangle half: the packet walk
+// of :1187-1289 over the 40-column rows of :128-133, leaves of 4, preorder
+// links).  The same threaded walk (`bvh_walk`, one walk for both BVHs, the
+// leaf test a functor) over the leaf-contiguous triangle table, after the
+// spheres, with a strict `<` throughout.  Each candidate reads its 9
+// geometry floats (v0 e1 e2) for Moller-Trumbore with the 1e-7 determinant
+// cut; the walk keeps only the winner's row and barycentrics (ub, vb), and
+// the winner's vertex normals and shading columns are read once after the
+// walk.  The normal is interpolated with the expression order of
+// :1227-1234, so it rounds as the TPU kernel's per-candidate select did (it
+// selects every column per candidate only because it has no gather).  The
+// winner's shading block, in this header's order, goes into a 12-float
+// array of the thread that the Hit points at.  A 100k-triangle mesh's table
+// (~22 MB) and nodes (~1.4 MB) live in device memory: the JAX kernel's
+// HBM-streamed leaf tier and its VMEM budget have no counterpart here.
+//
 // Rounding.  The build compiles this code with -fmad=false and without
 // --use_fast_math, so every multiply and add rounds on its own, as in the
 // plain versions and in XLA; the normal's and the direction's lengths use
@@ -106,13 +124,15 @@ struct RtParams {
   float bg[3];
   float time0, time_span;  // shutter time: time0 + time_span * u if has_time
   int img_h, img_w, pix_base, n, seed, max_depth;
-  int n_rects, n_boxes, n_spheres, n_sph_nodes, n_sphere_media, n_box_media;
+  int n_rects, n_boxes, n_spheres, n_sph_nodes, n_tri_rows, n_tri_nodes;
+  int n_sphere_media, n_box_media;
   int has_time, rr_start, features;
 };
 
 // The record tables, in device memory; the sphere BVH's nodes (lo xyz,
 // hi xyz), preorder (hit, miss) links and leaf start rows (-1: internal) are
-// read only by the kFeatSphereBvh instantiations.
+// read only by the kFeatSphereBvh instantiations, the triangle rows and
+// their BVH's arrays (the same layout) only by the kFeatTriBvh ones.
 struct RtTables {
   const float* rects;
   const float* boxes;
@@ -121,21 +141,32 @@ struct RtTables {
   const float* sph_nodes;
   const int* sph_links;
   const int* sph_start;
+  const float* tri_rows;
+  const float* tri_nodes;
+  const int* tri_links;
+  const int* tri_start;
 };
 
 // Instantiation bits (FEAT_* in ../cuda_trace.py).
 constexpr unsigned kFeatSpheres = 1, kFeatMedia = 2, kFeatSphereBvh = 4;
-constexpr unsigned kFeatChecker = 8, kFeatPerlin = 16;
+constexpr unsigned kFeatChecker = 8, kFeatPerlin = 16, kFeatTriBvh = 32;
 constexpr unsigned kFeatGeometry = kFeatSpheres | kFeatMedia | kFeatSphereBvh;
 
-// Forward launchers, one per albedo family, each in its own translation
-// unit: `features` selects the instantiation within it.
+// Forward launchers, one per albedo family without and with triangles, in
+// five translation units: `features` selects the instantiation.
 int launch_fwd_solid(const RtTables& t, const RtParams& p, float* out_r,
                      float* out_g, float* out_b, cudaStream_t s);
 int launch_fwd_checker(const RtTables& t, const RtParams& p, float* out_r,
                        float* out_g, float* out_b, cudaStream_t s);
 int launch_fwd_perlin(const RtTables& t, const RtParams& p, float* out_r,
                       float* out_g, float* out_b, cudaStream_t s);
+int launch_fwd_tri_solid(const RtTables& t, const RtParams& p, float* out_r,
+                         float* out_g, float* out_b, cudaStream_t s);
+int launch_fwd_tri_checker(const RtTables& t, const RtParams& p,
+                           float* out_r, float* out_g, float* out_b,
+                           cudaStream_t s);
+int launch_fwd_tri_perlin(const RtTables& t, const RtParams& p, float* out_r,
+                          float* out_g, float* out_b, cudaStream_t s);
 
 namespace rt {
 
@@ -150,6 +181,8 @@ constexpr size_t kMaxTableBytes = 48 * 1024;
 constexpr int kMaxSpheres = 64;
 constexpr int kMaxMedia = 16;
 constexpr int kSphLeafK = 8;  // sphere rows per BVH leaf (`_SPH_LEAF_K`)
+constexpr int kTriLeafK = 4;  // triangle rows per BVH leaf (`_TRI_LEAF_K`)
+constexpr float kTriDet = 1e-7f;  // Moller-Trumbore determinant cut
 
 // record layouts (RECT_COLS ... in ../cuda_trace.py)
 constexpr int kShKind = 0, kShC1 = 1, kShC2 = 4, kShScale = 7, kShFuzz = 8;
@@ -158,6 +191,11 @@ constexpr int kRectCols = 18, kRectSh = 6;
 constexpr int kBoxCols = 24, kBoxSh = 12;
 constexpr int kSphCols = 24, kSphSh = 9;
 constexpr int kMedCols = 24, kMedSh = 12;
+// triangle rows (`_TRI_*`, pallas_trace.py:128-133): v0 e1 e2 | n0 n1 n2 |
+// uv0 uv1 uv2 | kind fuzz ir mat | c1 c2 scale texk | pad
+constexpr int kTriCols = 40, kTriN0 = 9, kTriKind = 24, kTriFuzz = 25;
+constexpr int kTriIr = 26, kTriMat = 27, kTriC1 = 28, kTriC2 = 31;
+constexpr int kTriScale = 34, kTriTexk = 35;
 
 // material and texture kinds (scene/types.py)
 constexpr int kMetal = 1, kDielectric = 2, kDiffuseLight = 3, kIsotropic = 4;
@@ -205,6 +243,8 @@ struct Tables {
   const float *rects, *boxes, *spheres, *media;
   const float* sph_nodes;
   const int *sph_links, *sph_start;
+  const float *tri_rows, *tri_nodes;
+  const int *tri_links, *tri_start;
 };
 
 // Copies the four tables into the block's shared memory; every thread of
@@ -224,6 +264,10 @@ __device__ __forceinline__ Tables stage_tables(const RtTables& t,
   s.sph_nodes = t.sph_nodes;
   s.sph_links = t.sph_links;
   s.sph_start = t.sph_start;
+  s.tri_rows = t.tri_rows;
+  s.tri_nodes = t.tri_nodes;
+  s.tri_links = t.tri_links;
+  s.tri_start = t.tri_start;
   for (int k = threadIdx.x; k < rect_words; k += blockDim.x) smem[k] = t.rects[k];
   for (int k = threadIdx.x; k < box_words; k += blockDim.x)
     smem[rect_words + k] = t.boxes[k];
@@ -349,9 +393,43 @@ __device__ __forceinline__ void node_slab(const float* nd, const Ray& r,
   *tf = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
 }
 
-// The threaded sphere-BVH walk of one ray (packet_walk, :1055-1103, with the
-// leaves of :1170-1180): preorder links, a node pruned unless its box is hit
-// no farther than the closest hit so far.
+// A BVH's nodes in the megakernel's layout: bounds (lo xyz, hi xyz), the
+// preorder (hit, miss) links, a leaf's first row (-1: internal).
+struct PreorderNodes {
+  const float* bounds;
+  const int* links;
+  const int* start;
+  __device__ __forceinline__ const float* box(int node) const {
+    return bounds + node * 6;
+  }
+  __device__ __forceinline__ int leaf(int node) const { return start[node]; }
+  __device__ __forceinline__ int next(int node, bool hit) const {
+    return links[2 * node + (hit ? 0 : 1)];
+  }
+};
+
+// The threaded walk of one ray (packet_walk, :1055-1103): a node is pruned
+// unless its box is hit no farther than the closest hit so far (`t_best`,
+// which `leaf` may lower); `leaf(first row)` tests a hit leaf's rows.  The
+// node layout (`Nodes`) picks the threading: the preorder links here, a
+// direction octant's in the hit kernel.
+template <class Nodes, class Leaf>
+__device__ __forceinline__ void bvh_walk(const Nodes& nodes, const Ray& r,
+                                         float ivx, float ivy, float ivz,
+                                         float t_min, const float& t_best,
+                                         Leaf leaf) {
+  int node = 0;
+  while (node >= 0) {
+    float tn, tf;
+    node_slab(nodes.box(node), r, ivx, ivy, ivz, &tn, &tf);
+    const bool hit_box = tf >= fmaxf(tn, t_min) && tn <= t_best;
+    const int start = nodes.leaf(node);
+    if (hit_box && start >= 0) leaf(start);
+    node = nodes.next(node, hit_box);
+  }
+}
+
+// The threaded sphere-BVH walk of one ray, with the leaves of :1170-1180.
 __device__ __forceinline__ void sphere_bvh_walk(const Tables& s, const Ray& r,
                                                 float tm, float a,
                                                 float inv_a, float t_min,
@@ -359,25 +437,92 @@ __device__ __forceinline__ void sphere_bvh_walk(const Tables& s, const Ray& r,
   const float ivx = 1.0f / guard(r.dx);
   const float ivy = 1.0f / guard(r.dy);
   const float ivz = 1.0f / guard(r.dz);
-  int node = 0;
-  while (node >= 0) {
-    float tn, tf;
-    node_slab(s.sph_nodes + node * 6, r, ivx, ivy, ivz, &tn, &tf);
-    const bool hit_box = tf >= fmaxf(tn, t_min) && tn <= h.t;
-    const int start = s.sph_start[node];
-    if (hit_box && start >= 0) {
-      for (int k = 0; k < kSphLeafK; ++k)
-        sphere_candidate(s.spheres + (start + k) * kSphCols, r, tm, a, inv_a,
-                         t_min, h);
-    }
-    node = s.sph_links[2 * node + (hit_box ? 0 : 1)];
-  }
+  bvh_walk(PreorderNodes{s.sph_nodes, s.sph_links, s.sph_start}, r, ivx, ivy,
+           ivz, t_min, h.t, [&](int start) {
+             for (int k = 0; k < kSphLeafK; ++k)
+               sphere_candidate(s.spheres + (start + k) * kSphCols, r, tm, a,
+                                inv_a, t_min, h);
+           });
 }
 
-// ---- closest hit: rects, boxes, then spheres, strict < (:961-1185) ----
+// Moller-Trumbore (reference triangle.h:120-178, :1193-1250) of one
+// candidate g = v0 e1 e2 against the ray: true when it is hit at t >= t_min
+// inside the triangle, with t and the barycentric weights (ub, vb) of
+// vertices 1 and 2.  A degenerate triangle, or an all-zero pad row, fails
+// the determinant cut.
+__device__ __forceinline__ bool tri_candidate(const float* g, const Ray& r,
+                                              float t_min, float* t,
+                                              float* ub, float* vb) {
+  const float e1x = g[3], e1y = g[4], e1z = g[5];
+  const float e2x = g[6], e2y = g[7], e2z = g[8];
+  const float hx = r.dy * e2z - r.dz * e2y;
+  const float hy = r.dz * e2x - r.dx * e2z;
+  const float hz = r.dx * e2y - r.dy * e2x;
+  const float a = e1x * hx + e1y * hy + e1z * hz;
+  const float f = 1.0f / (fabsf(a) < kTriDet ? kTriDet : a);
+  const float sx = r.ox - g[0], sy = r.oy - g[1], sz = r.oz - g[2];
+  *ub = f * (sx * hx + sy * hy + sz * hz);
+  const float qx = sy * e1z - sz * e1y;
+  const float qy = sz * e1x - sx * e1z;
+  const float qz = sx * e1y - sy * e1x;
+  *vb = f * (r.dx * qx + r.dy * qy + r.dz * qz);
+  *t = f * (e2x * qx + e2y * qy + e2z * qz);
+  return fabsf(a) > kTriDet && *ub >= 0.0f && *ub <= 1.0f && *vb >= 0.0f &&
+         *ub + *vb <= 1.0f && *t >= t_min;
+}
+
+// The triangle walk of one ray (kernel 1d's triangle half, :1252-1289)
+// after every other primitive: a triangle strictly closer than h wins, its
+// normal the vertex normals weighted by (1 - ub - vb, ub, vb) and its
+// shading block copied into `tri_sh`, which h.sh then points at.
+__device__ __forceinline__ void tri_bvh_walk(const Tables& s, const Ray& r,
+                                             float t_min, float* tri_sh,
+                                             Hit& h) {
+  const float ivx = 1.0f / guard(r.dx);
+  const float ivy = 1.0f / guard(r.dy);
+  const float ivz = 1.0f / guard(r.dz);
+  int best = -1;
+  float bu = 0.0f, bv = 0.0f;
+  bvh_walk(PreorderNodes{s.tri_nodes, s.tri_links, s.tri_start}, r, ivx, ivy,
+           ivz, t_min, h.t, [&](int start) {
+             for (int k = 0; k < kTriLeafK; ++k) {
+               float t, ub, vb;
+               if (tri_candidate(s.tri_rows + (start + k) * kTriCols, r,
+                                 t_min, &t, &ub, &vb) &&
+                   t < h.t) {
+                 h.t = t;
+                 best = start + k;
+                 bu = ub;
+                 bv = vb;
+               }
+             }
+           });
+  if (best < 0) return;
+  const float* q = s.tri_rows + best * kTriCols + kTriN0;
+  const float wb = 1.0f - bu - bv;
+  h.nx = wb * q[0] + bu * q[3] + bv * q[6];
+  h.ny = wb * q[1] + bu * q[4] + bv * q[7];
+  h.nz = wb * q[2] + bu * q[5] + bv * q[8];
+  q = s.tri_rows + best * kTriCols;
+  tri_sh[kShKind] = q[kTriKind];
+  for (int c = 0; c < 3; ++c) {
+    tri_sh[kShC1 + c] = q[kTriC1 + c];
+    tri_sh[kShC2 + c] = q[kTriC2 + c];
+  }
+  tri_sh[kShScale] = q[kTriScale];
+  tri_sh[kShFuzz] = q[kTriFuzz];
+  tri_sh[kShIr] = q[kTriIr];
+  tri_sh[kShTexk] = q[kTriTexk];
+  tri_sh[kShMat] = q[kTriMat];
+  h.sh = tri_sh;
+}
+
+// ---- closest hit: rects, boxes, spheres, then triangles, strict <
+// (:961-1289); a triangle winner's shading block goes into `tri_sh` ----
 template <unsigned F>
 __device__ __forceinline__ Hit closest_hit(const Tables& s, const RtParams& p,
-                                           const Ray& r, float tm) {
+                                           const Ray& r, float tm,
+                                           float* tri_sh) {
   Hit h;
   h.t = kBig;
   h.nx = h.ny = h.nz = 0.0f;
@@ -441,6 +586,7 @@ __device__ __forceinline__ Hit closest_hit(const Tables& s, const RtParams& p,
       sphere_bvh_walk(s, r, tm, a, inv_a, p.t_min, h);
     }
   }
+  if (F & kFeatTriBvh) tri_bvh_walk(s, r, p.t_min, tri_sh, h);
   return h;
 }
 
@@ -709,8 +855,8 @@ __device__ __forceinline__ bool surface(const Hit& h, const Ray& r, float& nx,
 template <unsigned F>
 __device__ __forceinline__ Hit scene_hit(const Tables& s, const RtParams& p,
                                          const Ray& r, float tm,
-                                         uint32_t draw) {
-  Hit h = closest_hit<F>(s, p, r, tm);
+                                         uint32_t draw, float* tri_sh) {
+  Hit h = closest_hit<F>(s, p, r, tm, tri_sh);
   if (F & kFeatMedia) media_hit(s, p, r, tm, draw, h);
   return h;
 }
@@ -739,9 +885,10 @@ megakernel_fwd(const RtTables tables, const RtParams p,
 
   float tr = 1.0f, tg = 1.0f, tb = 1.0f;
   float lr = 0.0f, lg = 0.0f, lb = 0.0f;
+  float tri_sh[12];  // a triangle winner's shading block (kFeatTriBvh)
   for (int b = 0; b < p.max_depth; ++b) {
     const uint32_t draw = draw_window(rng_base, b);
-    const Hit h = scene_hit<F>(s, p, r, tm, draw);
+    const Hit h = scene_hit<F>(s, p, r, tm, draw, tri_sh);
     if (!(h.t < kBig * 0.5f)) {  // miss: background, then the path ends
       lr = lr + tr * p.bg[0];
       lg = lg + tg * p.bg[1];
@@ -803,7 +950,7 @@ megakernel_record(const RtTables tables, const RtParams p,
     if (alive) {
       // hit, cont and miss as at pallas_trace.py:1397-1398 and :1512-1513
       const uint32_t draw = draw_window(rng_base, b);
-      const Hit h = scene_hit<F>(s, p, r, tm, draw);
+      const Hit h = scene_hit<F>(s, p, r, tm, draw, nullptr);  // no triangles
       if (!(h.t < kBig * 0.5f)) {
         word = kMissBit;
         alive = false;
@@ -830,6 +977,7 @@ inline bool check_launch(const RtParams& p, size_t* table_bytes) {
   const bool spheres = (p.features & kFeatSpheres) != 0;
   const bool media = (p.features & kFeatMedia) != 0;
   const bool bvh = (p.features & kFeatSphereBvh) != 0;
+  const bool tri = (p.features & kFeatTriBvh) != 0;
   *table_bytes =
       (static_cast<size_t>(p.n_rects) * kRectCols +
        static_cast<size_t>(p.n_boxes) * kBoxCols +
@@ -846,6 +994,8 @@ inline bool check_launch(const RtParams& p, size_t* table_bytes) {
          (!bvh || p.n_spheres % kSphLeafK == 0) &&
          (bvh || p.n_spheres <= kMaxSpheres) &&
          media == (p.n_sphere_media + p.n_box_media > 0) &&
+         tri == (p.n_tri_nodes > 0) && p.n_tri_rows >= 0 &&
+         p.n_tri_rows % kTriLeafK == 0 && (!tri || p.n_tri_rows > 0) &&
          *table_bytes <= kMaxTableBytes;
 }
 
@@ -861,10 +1011,11 @@ int launch_fwd(const RtTables& t, const RtParams& p, float* out_r,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The forward launcher of one albedo family: the six geometry
-// instantiations over TEX (no spheres, dense spheres or the sphere BVH, each
-// with or without media).  Russian roulette is a branch on p.rr_start,
-// uniform across the launch, not an instantiation.
+// The forward launcher of one albedo family, with or without triangles (TEX
+// holds the texture bits and kFeatTriBvh): the six geometry instantiations
+// over TEX (no spheres, dense spheres or the sphere BVH, each with or
+// without media).  Russian roulette is a branch on p.rr_start, uniform
+// across the launch, not an instantiation.
 template <unsigned TEX>
 int launch_fwd_family(const RtTables& t, const RtParams& p, float* out_r,
                       float* out_g, float* out_b, cudaStream_t s) {

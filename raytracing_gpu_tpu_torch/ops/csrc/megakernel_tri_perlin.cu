@@ -1,0 +1,11 @@
+// Forward megakernel instantiations for scenes with triangles and a noise,
+// turbulence or marble texture, checker albedo included (device code:
+// megakernel.cuh).
+
+#include "megakernel.cuh"
+
+int launch_fwd_tri_perlin(const RtTables& t, const RtParams& p, float* out_r,
+                          float* out_g, float* out_b, cudaStream_t s) {
+  return rt::launch_fwd_family<kFeatTriBvh | kFeatChecker | kFeatPerlin>(
+      t, p, out_r, out_g, out_b, s);
+}

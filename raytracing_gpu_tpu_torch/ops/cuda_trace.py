@@ -1,29 +1,32 @@
 """Host side of the path-tracing kernels, and their plain PyTorch versions.
 
 Counterpart of `raytracing_gpu_tpu/ops/pallas_trace.py` for scenes without
-triangles or image textures, in three functions:
+image textures, in three functions:
 
 - forward radiance with the camera rays made inside the kernel
   (`PallasTracer.trace_pixels`): axis-aligned rects, boxes under
   rotate_y + translate, spheres (static, moving, hollow) in a dense loop up
-  to 64 and through a threaded sphere BVH above, up to 16 constant media in
-  a sphere or a box; lambertian, metal, dielectric, diffuse_light and
-  isotropic materials; solid, checker, noise, turbulence and marble albedo;
-  russian roulette and the shutter time;
+  to 64 and through a threaded sphere BVH above, triangles through a
+  threaded triangle BVH, up to 16 constant media in a sphere or a box;
+  lambertian, metal, dielectric, diffuse_light and isotropic materials;
+  solid, checker, noise, turbulence and marble albedo; russian roulette and
+  the shutter time;
 - the record walk (`PallasTracer.walk_packed_pixels`), over the same
-  features with at most 64 spheres and solid textures;
+  features without triangles, with at most 64 spheres and solid textures;
 - the pure closest hit of the wavefront drivers (`PallasTracer.hit`), for
-  scenes without media.
+  scenes without media, with the triangle tier over the packed geometry.
 
 The kernels are `csrc/megakernel.cuh` and `csrc/hit.cu`;
 `trace_pixels_reference`, `walk_packed_pixels_reference` and
 `hit_reference` are the same functions in plain PyTorch, written op for op
 in the kernels' order so that the two round alike.  The plain versions test
 every sphere row densely, where the kernels walk the BVH; a pad row of the
-BVH's leaf-contiguous table has radius 0 and never hits.
+BVH's leaf-contiguous table has radius 0 and never hits.  Triangles they
+walk lane by lane as the kernels do (`tri_walk_reference`), so that rays
+through a shared edge keep the same one of its two triangles.
 
-Not ported (`unported_feature` names them): triangles and image textures;
-in record mode also the sphere BVH and the hit-point and uv planes that
+Not ported (`unported_feature` names them): image textures; in record mode
+also triangles, the sphere BVH and the hit-point and uv planes that
 checker, perlin and image textures need (`need_p`/`need_uv`).
 
 The random numbers are the JAX kernel's, bit for bit: a PCG hash of the
@@ -106,11 +109,20 @@ MAX_SPHERES = 64   # the dense loop; a sphere BVH above (`_SPH_BVH_MIN`, :149)
 SPH_LEAF_K = 8     # sphere rows per BVH leaf (`_SPH_LEAF_K`, :150)
 HIT_NODE_COLS = 23  # bounds | leaf start | 8 octant (hit, miss) link pairs
 MAX_MEDIA = 16     # RNG salts per bounce for free paths (`_MAX_MEDIA`, :178)
+# triangle rows of the megakernel (`_TRI_*`, pallas_trace.py:128-133): v0 e1
+# e2 | n0 n1 n2 | uv0 uv1 uv2 | kind fuzz ir mat | c1 c2 scale texk | pad
+TRI_V0, TRI_N0, TRI_UV0 = 0, 9, 18
+TRI_KIND, TRI_FUZZ, TRI_IR, TRI_MAT = 24, 25, 26, 27
+TRI_C1, TRI_C2, TRI_SCALE, TRI_TEXK = 28, 31, 34, 35
+TRI_COLS = 40
+TRI_LEAF_K = 4      # triangle rows per megakernel BVH leaf (`_TRI_LEAF_K`)
+HIT_TRI_LEAF_K = 28  # hit-tier slots per leaf: 2 rows of 14 (:155-156)
+TRI_DET = _f32(1e-7)  # Moller-Trumbore determinant cut (:1208-1214)
 HIT_BIT, CONT_BIT, MISS_BIT = 1 << 16, 1 << 17, 1 << 18  # packed record word
 FRONT_BIT, TRI_BIT, SPH_BIT = 1 << 19, 1 << 20, 1 << 21  # hit kernel's word
 # what a launch's kernel instantiation covers (csrc/megakernel.cuh kFeat*)
 FEAT_SPHERES, FEAT_MEDIA, FEAT_SPHERE_BVH = 1, 2, 4
-FEAT_CHECKER, FEAT_PERLIN = 8, 16
+FEAT_CHECKER, FEAT_PERLIN, FEAT_TRI_BVH = 8, 16, 32
 _PERLIN_KINDS = {st.TEX_NOISE, st.TEX_TURB, st.TEX_MARBLE}
 _POSITION_KINDS = {st.TEX_CHECKER} | _PERLIN_KINDS
 
@@ -122,10 +134,11 @@ _POSITION_KINDS = {st.TEX_CHECKER} | _PERLIN_KINDS
 
 class SceneBake(NamedTuple):
     """Host snapshot of what the kernels read, as `pallas_trace.bake_scene`
-    makes it for a scene without triangles: one dict of Python floats per
-    active rect, box and medium, with the JAX bake's keys; the sphere table
-    in the JAX column layout, reordered leaf-contiguous when it has a BVH;
-    the sphere BVH (M = 0 nodes without one); and the background."""
+    makes it: one dict of Python floats per active rect, box and medium,
+    with the JAX bake's keys; the sphere table in the JAX column layout,
+    reordered leaf-contiguous when it has a BVH; the sphere BVH (M = 0
+    nodes without one); the triangles in two tiers (`_bake_triangles`);
+    and the background."""
 
     rects: list
     boxes: list
@@ -137,11 +150,44 @@ class SceneBake(NamedTuple):
     sph_links: np.ndarray      # (M, 2) int32 preorder (hit, miss) links
     sph_start: np.ndarray      # (M, 1) int32 a leaf's first row, else -1
     sph_hit_nodes: np.ndarray  # (M, 23) float32, HIT_NODE_COLS
+    # the megakernel's triangles: (T, TRI_COLS) float32 rows, leaf-contiguous
+    # in leaves of TRI_LEAF_K, the original triangle id of each row (-1 on
+    # a pad row), and their BVH as the sphere BVH's arrays
+    tri_table: np.ndarray      # (T, 40) float32
+    tri_ids: np.ndarray        # (T,) int32
+    tri_nodes: np.ndarray      # (Mt, 6) float32
+    tri_links: np.ndarray      # (Mt, 2) int32
+    tri_start: np.ndarray      # (Mt, 1) int32
+    # the hit kernel's triangle tier: geometry only (v0 e1 e2) per slot,
+    # leaf-contiguous in leaves of HIT_TRI_LEAF_K, the slot -> original
+    # triangle id map (-1 on a pad slot), and nodes in the HIT_NODE_COLS
+    # layout with a leaf's first slot in column 6
+    tri_geom: np.ndarray       # (Sl, 9) float32
+    tri_perm: np.ndarray       # (Sl,) int32
+    tri_hit_nodes: np.ndarray  # (Mh, 23) float32
+
+    @property
+    def jax_tri_stream(self) -> bool:
+        """The JAX package's routing predicate for meshes, kept as such: its
+        bake streams the triangle table from HBM (`tri_mode == "stream"`,
+        `_bake_triangles`, pallas_trace.py:482-490) when 512 bytes a
+        triangle, or 512 bytes a row and a node of the leaf-4 table, exceed
+        8 MiB of VMEM; `compile_renderer` then sends the scene to a
+        wavefront.  A threshold measured on the TPU, kept until it is
+        derived again on the H100; this port has one triangle tier."""
+        n_tris = int((self.tri_ids >= 0).sum())
+        budget = 8 * 2**20
+        return n_tris > 0 and (
+            n_tris * 512 > budget
+            or (len(self.tri_table) + len(self.tri_nodes)) * 512 > budget)
 
     def world_bounds(self) -> tuple:
-        """(lo, hi) float32 (3,) for the wavefront's morton keys: the union
-        of the sphere rows' bounds (pad rows included, as the JAX tracer
-        takes them, pallas_trace.py:2396-2404), else the cube [-1, 1]."""
+        """(lo, hi) float32 (3,) for the wavefront's morton keys
+        (pallas_trace.py:2388-2404): the triangle BVH's root box when a
+        mesh exists, else the union of the sphere rows' bounds (pad rows
+        included, as the JAX tracer takes them), else the cube [-1, 1]."""
+        if len(self.tri_nodes):
+            return self.tri_nodes[0, :3].copy(), self.tri_nodes[0, 3:6].copy()
         tb = self.sphere_table
         if not len(tb):
             return (np.full(3, -1.0, np.float32), np.full(3, 1.0, np.float32))
@@ -186,14 +232,15 @@ class SceneBake(NamedTuple):
         return t
 
     def shading_table(self) -> np.ndarray:
-        """(1 + R + B + S + M, 12) float32: a default row (what a miss
+        """(1 + R + B + S + M + T, 12) float32: a default row (what a miss
         carries: everything 0 but ir = 1), then every primitive's shading
-        block in the closest-hit order.  The plain versions carry an index
-        into it."""
+        block in the closest-hit order, media and then the triangle rows
+        last.  The plain versions carry an index into it."""
         rows = [np.array([0] * SH_IR + [1, 0, 0], np.float32)[None]]
         rows += [self.rect_table()[:, RECT_SH:], self.box_table()[:, BOX_SH:],
                  self.sphere_table[:, SPHERE_SH:SPHERE_SH + SH_COLS],
-                 self.media_table()[:, MEDIUM_SH:]]
+                 self.media_table()[:, MEDIUM_SH:],
+                 tri_shading(self.tri_table)]
         return np.concatenate(rows).astype(np.float32)
 
     def texture_kinds(self) -> set:
@@ -205,8 +252,10 @@ class SceneBake(NamedTuple):
 
     def _kinds(self, key: str, col: int) -> set:
         prims = self.rects + self.boxes + self.sphere_media + self.box_media
+        tris = tri_shading(self.tri_table[self.tri_ids >= 0])
         return ({int(p[key]) for p in prims}
-                | {int(k) for k in self.sphere_table[:, SPHERE_SH + col]})
+                | {int(k) for k in self.sphere_table[:, SPHERE_SH + col]}
+                | {int(k) for k in tris[:, col]})
 
     def features(self) -> int:
         """The FEAT_* bits of the forward kernel instantiation this bake
@@ -218,12 +267,25 @@ class SceneBake(NamedTuple):
             f = FEAT_SPHERES if len(self.sphere_table) else 0
         if self.sphere_media or self.box_media:
             f |= FEAT_MEDIA
+        if len(self.tri_nodes):
+            f |= FEAT_TRI_BVH
         kinds = self.texture_kinds()
         if kinds & _PERLIN_KINDS:
             f |= FEAT_CHECKER | FEAT_PERLIN
         elif st.TEX_CHECKER in kinds:
             f |= FEAT_CHECKER
         return f
+
+
+def tri_shading(rows: np.ndarray) -> np.ndarray:
+    """(T, 12) float32: the shading block (SH_* order) of each triangle row,
+    read from its kind, fuzz, ir, mat, c1, c2, scale and texk columns."""
+    return np.concatenate(
+        [rows[:, TRI_KIND:TRI_KIND + 1], rows[:, TRI_C1:TRI_C1 + 3],
+         rows[:, TRI_C2:TRI_C2 + 3], rows[:, TRI_SCALE:TRI_SCALE + 1],
+         rows[:, TRI_FUZZ:TRI_FUZZ + 1], rows[:, TRI_IR:TRI_IR + 1],
+         rows[:, TRI_TEXK:TRI_TEXK + 1], rows[:, TRI_MAT:TRI_MAT + 1]],
+        axis=1).astype(np.float32)
 
 
 def _shading_row(prim: dict) -> tuple:
@@ -250,8 +312,9 @@ def _mat_shading(scene: st.Scene, mat_id: int) -> dict:
 
 def bake_scene(scene: st.Scene) -> SceneBake:
     """Snapshot the active primitives, as `pallas_trace.bake_scene`
-    (`:253-344`) does for a scene without triangles: above 64 sphere rows
-    the table gets a BVH of leaves of 8 and is reordered leaf-contiguous."""
+    (`:253-344`) does: above 64 sphere rows the table gets a BVH of leaves
+    of 8 and is reordered leaf-contiguous; the triangles are baked by
+    `_bake_triangles`."""
     rc = scene.rects
     rects = [dict(axis=int(rc.axis[i]), a0=float(rc.a0[i]),
                   a1=float(rc.a1[i]), b0=float(rc.b0[i]), b1=float(rc.b1[i]),
@@ -312,7 +375,92 @@ def bake_scene(scene: st.Scene) -> SceneBake:
                      sphere_media=sphere_media, box_media=box_media,
                      background=tuple(float(x) for x in scene.background),
                      sph_nodes=sph_nodes, sph_links=sph_links,
-                     sph_start=sph_start, sph_hit_nodes=sph_hit_nodes)
+                     sph_start=sph_start, sph_hit_nodes=sph_hit_nodes,
+                     **_bake_triangles(scene))
+
+
+def _bake_triangles(scene: st.Scene) -> dict:
+    """The triangle fields of SceneBake (`pallas_trace._bake_triangles`,
+    :402-505, and `_bake_tri_packed`, :508-593), in one tier each:
+
+    - the megakernel's denormalized rows (TRI_COLS; the face normal
+      cross(e2, e1) in all three normal slots when the mesh has none),
+      leaf-contiguous in leaves of TRI_LEAF_K under a BVH of their own;
+      the JAX bake's resident table, whatever the mesh's size (its HBM
+      streaming tier has no counterpart in device memory);
+    - the hit kernel's packed geometry, leaf-contiguous in leaves of
+      HIT_TRI_LEAF_K (the JAX bake's two rows of 14, without its escalation
+      or row boxes), with the slot -> triangle id map and octant-threaded
+      nodes.
+
+    Both BVHs bound each triangle by its vertices, a flat extent padded by
+    BBOX_PAD (:466-474)."""
+    tr = scene.triangles
+    act = np.asarray(tr.active)
+    if not act.any():
+        return dict(tri_table=np.zeros((0, TRI_COLS), np.float32),
+                    tri_ids=np.zeros(0, np.int32),
+                    tri_nodes=np.zeros((0, 6), np.float32),
+                    tri_links=np.zeros((0, 2), np.int32),
+                    tri_start=np.full((0, 1), -1, np.int32),
+                    tri_geom=np.zeros((0, 9), np.float32),
+                    tri_perm=np.zeros(0, np.int32),
+                    tri_hit_nodes=np.zeros((0, HIT_NODE_COLS), np.float32))
+    rows = np.zeros((act.shape[0], TRI_COLS), np.float32)
+    v0 = np.asarray(tr.v0, np.float32)
+    e1 = np.asarray(tr.e1, np.float32)
+    e2 = np.asarray(tr.e2, np.float32)
+    rows[:, 0:3], rows[:, 3:6], rows[:, 6:9] = v0, e1, e2
+    has_vn = np.asarray(tr.has_vn)[:, None]
+    face_n = np.cross(e2, e1).astype(np.float32)
+    for k, nn in enumerate((tr.n0, tr.n1, tr.n2)):
+        rows[:, TRI_N0 + 3 * k:TRI_N0 + 3 * k + 3] = np.where(
+            has_vn, np.asarray(nn, np.float32), face_n)
+    for k, uv in enumerate((tr.uv0, tr.uv1, tr.uv2)):
+        rows[:, TRI_UV0 + 2 * k:TRI_UV0 + 2 * k + 2] = np.asarray(uv,
+                                                                 np.float32)
+    mat_ids = np.asarray(tr.mat_id)
+    mats, texs = scene.materials, scene.textures
+    tex = np.asarray(mats.tex_id)[mat_ids]
+    rows[:, TRI_KIND] = np.asarray(mats.kind, np.float32)[mat_ids]
+    rows[:, TRI_FUZZ] = np.asarray(mats.fuzz, np.float32)[mat_ids]
+    rows[:, TRI_IR] = np.asarray(mats.ir, np.float32)[mat_ids]
+    rows[:, TRI_MAT] = mat_ids.astype(np.float32)
+    rows[:, TRI_C1:TRI_C1 + 3] = np.asarray(texs.c1, np.float32)[tex]
+    rows[:, TRI_C2:TRI_C2 + 3] = np.asarray(texs.c2, np.float32)[tex]
+    rows[:, TRI_SCALE] = np.asarray(texs.scale, np.float32)[tex]
+    rows[:, TRI_TEXK] = np.asarray(texs.kind, np.float32)[tex]
+
+    keep = np.nonzero(act)[0]
+    v1, v2 = v0 + e1, v0 + e2
+    bmin = np.minimum(np.minimum(v0, v1), v2)
+    bmax = np.maximum(np.maximum(v0, v1), v2)
+    flat = (bmax - bmin) < 1e-6
+    bmin = np.where(flat, bmin - bvh_mod.BBOX_PAD, bmin)[keep]
+    bmax = np.where(flat, bmax + bvh_mod.BBOX_PAD, bmax)[keep]
+
+    # each row carries its id + 1 through the reorder (a pad row is all 0;
+    # ids stay far below 2**24, exact in float32)
+    idcol = (keep + 1).astype(np.float32)[:, None]
+    bvh = bvh_mod.build(bmin, bmax, leaf_size=TRI_LEAF_K)
+    table, nodes, links, start = _leaf_contiguous(
+        np.concatenate([rows[keep], idcol], axis=1), bvh, TRI_LEAF_K)
+    tri_ids = table[:, -1].astype(np.int64) - 1
+
+    hbvh = bvh_mod.build(bmin, bmax, leaf_size=HIT_TRI_LEAF_K)
+    geom, _, _, hstart = _leaf_contiguous(
+        np.concatenate([rows[keep, :9], idcol], axis=1), hbvh,
+        HIT_TRI_LEAF_K)
+    perm = geom[:, 9].astype(np.int64) - 1
+    hit_nodes = np.concatenate(
+        [np.asarray(hbvh.node_min, np.float32),
+         np.asarray(hbvh.node_max, np.float32),
+         hstart.astype(np.float32), _octant_links(hbvh)], axis=1)
+    return dict(tri_table=np.ascontiguousarray(table[:, :TRI_COLS]),
+                tri_ids=tri_ids.astype(np.int32), tri_nodes=nodes,
+                tri_links=links, tri_start=start,
+                tri_geom=np.ascontiguousarray(geom[:, :9]),
+                tri_perm=perm.astype(np.int32), tri_hit_nodes=hit_nodes)
 
 
 def _leaf_contiguous(rows: np.ndarray, bvh: bvh_mod.FlatBVH, leaf_k: int):
@@ -391,8 +539,6 @@ def used_texture_kinds(scene: st.Scene) -> set:
 def unported_feature(scene: st.Scene) -> Optional[str]:
     """The first feature of `scene` that the forward kernel does not cover,
     or None when it renders here."""
-    if scene.triangles.active.any() or scene.tri_bvh is not None:
-        return "triangles"
     sp = scene.spheres
     n_media = int((sp.active & sp.medium).sum()
                   + (scene.boxes.active & scene.boxes.medium).sum())
@@ -404,12 +550,16 @@ def unported_feature(scene: st.Scene) -> Optional[str]:
 
 
 def unported_record_feature(scene: st.Scene) -> Optional[str]:
-    """As `unported_feature`, for the record walk: it also lacks the sphere
-    BVH and the hit-point (`need_p`) and uv (`need_uv`) planes, which a
-    scene needs when it uses a checker, perlin or image texture."""
+    """As `unported_feature`, for the record walk: it also lacks the
+    triangle and sphere BVHs and the hit-point (`need_p`) and uv
+    (`need_uv`) planes, which a scene needs when it uses a checker, perlin
+    or image texture."""
     feature = unported_feature(scene)
     if feature is not None:
         return feature
+    n_tris = int(scene.triangles.active.sum())
+    if n_tris:
+        return f"triangles in record mode ({n_tris} triangles)"
     sp = scene.spheres
     n_spheres = int((sp.active & ~sp.medium).sum())
     if n_spheres > MAX_SPHERES:
@@ -585,12 +735,13 @@ class _Hit(NamedTuple):
 
 def _closest_hit(bake: SceneBake, o3: tuple, d3: tuple, tm: torch.Tensor,
                  t_min: float, n: int, dev: torch.device,
-                 walk: Optional[dict] = None) -> _Hit:
-    """Closest hit over the baked rects, then boxes, then spheres, strict
-    `<` (pallas_trace.py:961-1043, 1105-1185).  With `walk` (a
-    `WalkCounts` dict holding the bounce's `alive` mask), the node and row
-    tests that the kernel's sphere-BVH walk makes on the live lanes are
-    added to it."""
+                 alive: torch.Tensor, walk: Optional[dict] = None) -> _Hit:
+    """Closest hit over the baked rects, then boxes, then spheres, then
+    triangles, strict `<` (pallas_trace.py:961-1043, 1105-1289).  With
+    `walk` (a dict of counts), the node and row tests that the kernel's
+    sphere-BVH walk makes on the `alive` lanes, and its triangle walk's
+    node and candidate tests, are added to it.  Only the `alive` lanes walk
+    the triangles."""
     zeros = torch.zeros(n, dtype=torch.float32, device=dev)
     t_best = torch.full((n,), BIG, dtype=torch.float32, device=dev)
     nx, ny, nz = zeros, zeros, zeros
@@ -646,14 +797,25 @@ def _closest_hit(bake: SceneBake, o3: tuple, d3: tuple, tm: torch.Tensor,
         row += 1
 
     if walk is not None and len(bake.sph_nodes):
-        w = sphere_walk_reference(bake, o3, d3, tm, t_min, t_best,
-                                  walk["alive"])
+        w = sphere_walk_reference(bake, o3, d3, tm, t_min, t_best, alive)
         walk["nodes"] += int(w.nodes.sum())
         walk["rows"] += int(w.rows.sum())
     if len(bake.sphere_table):
         sph = _closest_sphere(bake.sphere_table, o3, d3, tm, t_min, t_best)
         t_best, nx, ny, nz, idx = upd(sph.better, sph.t, *sph.normal,
                                       row + sph.row)
+    if len(bake.tri_nodes):
+        tw = tri_walk_reference(bake, o3, d3, t_min, t_best, alive)
+        first = (row + len(bake.sphere_table) + len(bake.sphere_media)
+                 + len(bake.box_media))
+        t_best, nx, ny, nz, idx = upd(tw.better, tw.t,
+                                      *tri_normal(bake.tri_table, tw, dev),
+                                      first + tw.row)
+        if walk is not None:
+            walk["tri_nodes"] += int(tw.nodes.sum())
+            walk["tri_rows"] += int(tw.rows.sum())
+            walk["tri_wins"] += int(tw.better.sum())
+            walk["tri_read"] = tri_reads(tw, len(bake.tri_table))
     return _Hit(t_best, (nx, ny, nz), idx)
 
 
@@ -824,6 +986,169 @@ def sphere_walk_reference(bake: SceneBake, o3: tuple, d3: tuple,
     return SphereWalk(better, best_t, best_row, n_nodes, n_rows)
 
 
+class TriWalk(NamedTuple):
+    """What the kernels' triangle-BVH walk finds and does, lane by lane."""
+
+    better: torch.Tensor  # (n,) bool, a triangle beats the given t_best
+    t: torch.Tensor       # (n,) the walk's closest distance
+    row: torch.Tensor     # (n,) int64 the winner's row (megakernel) or slot
+    ub: torch.Tensor      # (n,) its barycentric weights of vertices 1, 2
+    vb: torch.Tensor
+    nodes: torch.Tensor   # (n,) int64 node slab tests
+    rows: torch.Tensor    # (n,) int64 triangle candidates tested
+    node_seen: torch.Tensor   # (M,) bool, the nodes any lane tested
+    link_seen: torch.Tensor   # (M, links) bool, the link columns followed
+    leaf_seen: torch.Tensor   # (leaves,) bool, the leaves any lane tested
+
+
+def tri_candidates(g: torch.Tensor, o3: tuple, d3: tuple, t_min: float):
+    """Moller-Trumbore (reference triangle.h:120-178, pallas_trace.py:
+    1193-1250, :2066-2099) of rays against candidates: g (..., 9) the
+    candidates' v0 e1 e2, o3/d3 broadcasting against g[..., 0].  Returns
+    (t, ub, vb, ok); an all-zero pad candidate fails the |det| > 1e-7 test,
+    and so do degenerate triangles."""
+    ox, oy, oz = o3
+    dx, dy, dz = d3
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = g.unbind(-1)
+    hx = dy * e2z - dz * e2y
+    hy = dz * e2x - dx * e2z
+    hz = dx * e2y - dy * e2x
+    a = e1x * hx + e1y * hy + e1z * hz
+    f = 1.0 / torch.where(a.abs() < TRI_DET, TRI_DET, a)
+    sx = ox - v0x
+    sy = oy - v0y
+    sz = oz - v0z
+    ub = f * (sx * hx + sy * hy + sz * hz)
+    qx = sy * e1z - sz * e1y
+    qy = sz * e1x - sx * e1z
+    qz = sx * e1y - sy * e1x
+    vb = f * (dx * qx + dy * qy + dz * qz)
+    t = f * (e2x * qx + e2y * qy + e2z * qz)
+    ok = ((a.abs() > TRI_DET) & (ub >= 0.0) & (ub <= 1.0) & (vb >= 0.0)
+          & (ub + vb <= 1.0) & (t >= t_min))
+    return t, ub, vb, ok
+
+
+def tri_walk_reference(bake: SceneBake, o3: tuple, d3: tuple, t_min: float,
+                       t_best: torch.Tensor, alive: torch.Tensor,
+                       octant: bool = False) -> TriWalk:
+    """The stackless triangle-BVH walk of the kernels, every live lane in
+    lockstep: slab-test the lane's node against its closest hit so far
+    (`tn <= t`), test a hit leaf's candidates in order and keep one only
+    when strictly closer, then follow the node's hit or miss link until -1.
+    A lane's closest hit starts at `t_best` (what it hit before the
+    triangles), so `better` marks the lanes a triangle wins.
+
+    octant False: `megakernel_fwd`'s walk, preorder links over the rows of
+    `tri_table` in leaves of TRI_LEAF_K (`row` is a table row).  octant
+    True: `rt_hit`'s triangle tier, the links of the ray's own direction
+    octant over `tri_geom` in leaves of HIT_TRI_LEAF_K (`row` is a slot).
+    Among equal distances the first in the lane's visit order wins, so a
+    ray through an edge that two triangles share keeps the one the kernel
+    keeps.  The node and candidate tests are counted for the bounds."""
+    dx, dy, dz = d3
+    dev = t_best.device
+    if octant:
+        hn = torch.as_tensor(bake.tri_hit_nodes, device=dev)
+        bounds, start = hn[:, :6], hn[:, 6].long()
+        links = hn[:, 7:].long()
+        oct_ = ((dx < 0).long() << 2) | ((dy < 0).long() << 1) | (dz < 0).long()
+        col = 2 * oct_
+        geom = torch.as_tensor(bake.tri_geom, device=dev)
+        leaf_k = HIT_TRI_LEAF_K
+    else:
+        bounds = torch.as_tensor(bake.tri_nodes, device=dev)
+        start = torch.as_tensor(bake.tri_start[:, 0], device=dev).long()
+        links = torch.as_tensor(bake.tri_links, device=dev).long()
+        col = torch.zeros_like(t_best, dtype=torch.int64)
+        geom = torch.as_tensor(bake.tri_table[:, :9], device=dev)
+        leaf_k = TRI_LEAF_K
+    ivx, ivy, ivz = 1.0 / _guard(dx), 1.0 / _guard(dy), 1.0 / _guard(dz)
+    best_t = t_best.clone()
+    zero_f = torch.zeros_like(best_t)
+    best_row = torch.full_like(col, -1)
+    best_u, best_v = zero_f.clone(), zero_f.clone()
+    n_nodes, n_rows = torch.zeros_like(col), torch.zeros_like(col)
+    node_seen = torch.zeros(len(bounds), dtype=torch.bool, device=dev)
+    link_seen = torch.zeros(links.shape, dtype=torch.bool, device=dev)
+    leaf_seen = torch.zeros(len(geom) // leaf_k, dtype=torch.bool,
+                            device=dev)
+    ks = torch.arange(leaf_k, device=dev)
+    node = torch.where(alive, 0, -1).long()
+    while bool((node >= 0).any()):
+        active = node >= 0
+        at = node.clamp(min=0)
+        nd = bounds[at]
+        ox, oy, oz = o3
+        tx0, tx1 = (nd[:, 0] - ox) * ivx, (nd[:, 3] - ox) * ivx
+        ty0, ty1 = (nd[:, 1] - oy) * ivy, (nd[:, 4] - oy) * ivy
+        tz0, tz1 = (nd[:, 2] - oz) * ivz, (nd[:, 5] - oz) * ivz
+        tn = torch.maximum(torch.maximum(torch.minimum(tx0, tx1),
+                                         torch.minimum(ty0, ty1)),
+                           torch.minimum(tz0, tz1))
+        tf = torch.minimum(torch.minimum(torch.maximum(tx0, tx1),
+                                         torch.maximum(ty0, ty1)),
+                           torch.maximum(tz0, tz1))
+        hit_box = (active & (tf >= torch.clamp(tn, min=t_min))
+                   & (tn <= best_t))
+        leaf = hit_box & (start[at] >= 0)
+        lanes = torch.nonzero(leaf)[:, 0]
+        if len(lanes):
+            # the leaf's candidates side by side: the first of the least
+            # distances is what a strict `<` over them in order keeps
+            rows = start[at[lanes]][:, None] + ks
+            col1 = (lambda x: x[lanes][:, None])
+            t, ub, vb, ok = tri_candidates(
+                geom[rows], tuple(map(col1, o3)), tuple(map(col1, d3)), t_min)
+            t = torch.where(ok, t, BIG)
+            j = torch.argmin(t, dim=1)
+            pick = (lambda x: torch.gather(x, 1, j[:, None])[:, 0])
+            t_j = pick(t)
+            take = t_j < best_t[lanes]
+            won = lanes[take]
+            best_t[won] = t_j[take]
+            best_row[won] = pick(rows)[take]
+            best_u[won] = pick(ub)[take]
+            best_v[won] = pick(vb)[take]
+            leaf_seen[start[at[lanes]] // leaf_k] = True
+        n_nodes += active.long()
+        n_rows += leaf_k * leaf.long()
+        link = col + (~hit_box).long()
+        node_seen[at[active]] = True
+        link_seen[at[active], link[active]] = True
+        nxt = links[at, link]
+        node = torch.where(active, nxt, -1)
+    better = alive & (best_t < t_best)
+    return TriWalk(better, best_t, best_row, best_u, best_v, n_nodes, n_rows,
+                   node_seen, link_seen, leaf_seen)
+
+
+def tri_reads(walk: TriWalk, n_rows: int) -> dict:
+    """The parts of a triangle BVH's tables that a walk reads, as masks:
+    the nodes it tests, the link columns it follows, the leaves it tests
+    and the rows (megakernel) or slots (hit tier) that win."""
+    won = torch.zeros(n_rows, dtype=torch.bool, device=walk.row.device)
+    won[walk.row[walk.better]] = True
+    return dict(nodes=walk.node_seen, links=walk.link_seen,
+                leaves=walk.leaf_seen, won=won)
+
+
+def merge_reads(a: Optional[dict], b: Optional[dict]) -> Optional[dict]:
+    """The union of two `tri_reads`; `a` is None before the first walk,
+    and both are None in a scene without triangles."""
+    return b if a is None else {k: a[k] | b[k] for k in a}
+
+
+def tri_normal(table: np.ndarray, tw: TriWalk, dev: torch.device) -> tuple:
+    """A triangle winner's outward normal, its vertex normals (or its face
+    normal thrice) weighted by (1 - ub - vb, ub, vb), with the kernels'
+    order of operations (pallas_trace.py:1227-1234)."""
+    q = torch.as_tensor(table, device=dev)[tw.row.clamp(min=0)]
+    wb = 1.0 - tw.ub - tw.vb
+    return tuple(wb * q[:, TRI_N0 + k] + tw.ub * q[:, TRI_N0 + 3 + k]
+                 + tw.vb * q[:, TRI_N0 + 6 + k] for k in range(3))
+
+
 def _box_interval(prim, o3: tuple, d3: tuple):
     """A box's world -> object transform (box.h + hittable.h wrappers):
     (object-space origin, rotated direction x and z)."""
@@ -917,8 +1242,9 @@ def _media_hit(bake: SceneBake, h: _Hit, o3: tuple, d3: tuple,
 
 def _scene_hit(bake: SceneBake, o3: tuple, d3: tuple, tm: torch.Tensor,
                t_min: float, draw: torch.Tensor, n: int,
-               dev: torch.device, walk: Optional[dict] = None) -> _Hit:
-    h = _closest_hit(bake, o3, d3, tm, t_min, n, dev, walk)
+               dev: torch.device, alive: torch.Tensor,
+               walk: Optional[dict] = None) -> _Hit:
+    h = _closest_hit(bake, o3, d3, tm, t_min, n, dev, alive, walk)
     if bake.sphere_media or bake.box_media:
         h = _media_hit(bake, h, o3, d3, tm, t_min, draw)
     return h
@@ -1070,8 +1396,10 @@ def _bounce(bake: SceneBake, shading: torch.Tensor, base: torch.Tensor,
     face normal and scatter; returns (the bounce's _Bounce, its draw).
     With `counts` (see `trace_pixels_reference`), adds the bounce's work."""
     draw = _draw_window(base, b)
-    walk = None if counts is None else dict(alive=alive, nodes=0, rows=0)
-    h = _scene_hit(bake, o3, d3, tm, t_min, draw, n, dev, walk)
+    walk = None if counts is None else dict(nodes=0, rows=0, tri_nodes=0,
+                                            tri_rows=0, tri_wins=0,
+                                            tri_read=None)
+    h = _scene_hit(bake, o3, d3, tm, t_min, draw, n, dev, alive, walk)
     hit = alive & (h.t < BIG * 0.5)
     miss = alive & ~(h.t < BIG * 0.5)
     sh = shading[h.idx]
@@ -1081,8 +1409,9 @@ def _bounce(bake: SceneBake, shading: torch.Tensor, base: torch.Tensor,
     cont = hit & ok & (kind != st.DIFFUSE_LIGHT)
     if counts is not None:
         counts["live"] += int(alive.sum())
-        counts["nodes"] += walk["nodes"]
-        counts["rows"] += walk["rows"]
+        for k in ("nodes", "rows", "tri_nodes", "tri_rows", "tri_wins"):
+            counts[k] += walk[k]
+        counts["tri_read"] = merge_reads(counts["tri_read"], walk["tri_read"])
         lit = kind == st.DIFFUSE_LIGHT
         for k in torch.unique(kind[hit & ~lit]).tolist():
             counts["scatter"][k] = (counts["scatter"].get(k, 0)
@@ -1114,8 +1443,11 @@ def trace_pixels_reference(bake: SceneBake, camera, img_h: int, img_w: int,
 
     `counts`, when given a dict, receives the work the kernel does for these
     paths: "live" bounces, "cont" bounces that go on, "scatter" {material
-    kind: hits that scatter}, and the sphere-BVH walk's "nodes" and "rows"
-    tests (`sphere_walk_reference`).
+    kind: hits that scatter}, the sphere-BVH walk's "nodes" and "rows"
+    tests (`sphere_walk_reference`), and the triangle walk's "tri_nodes"
+    and "tri_rows" tests and "tri_wins" (`tri_walk_reference`), and
+    "tri_read", the union of the walks' `tri_reads` (None without
+    triangles).
     """
     dev = torch.device(device)
     t_min = _f32(t_min)
@@ -1131,7 +1463,8 @@ def trace_pixels_reference(bake: SceneBake, camera, img_h: int, img_w: int,
     alive = torch.ones(n, dtype=torch.bool, device=dev)
     bgr, bgg, bgb = bake.background
     if counts is not None:
-        counts.update(live=0, cont=0, scatter={}, nodes=0, rows=0)
+        counts.update(live=0, cont=0, scatter={}, nodes=0, rows=0,
+                      tri_nodes=0, tri_rows=0, tri_wins=0, tri_read=None)
 
     for b in range(max_depth):
         if not bool(alive.any()):
@@ -1258,7 +1591,7 @@ class HitResult(NamedTuple):
     u: torch.Tensor       # (N,) the winner's final uv
     v: torch.Tensor       # (N,)
     normal: torch.Tensor  # (N, 3) unit, faced against the ray
-    slot: torch.Tensor    # (N,) float32 triangle slot: 0, no triangles
+    slot: torch.Tensor    # (N,) float32 a triangle winner's slot, else 0
 
 
 HIT_LIMITS = {"p": 5e-3, "u": 1e-2, "v": 1e-2, "normal": 3e-2}
@@ -1343,17 +1676,24 @@ def hit_reference(bake: SceneBake, o: torch.Tensor, d: torch.Tensor,
                   tm: torch.Tensor, alive: torch.Tensor,
                   t_min: float = 0.001) -> HitResult:
     """One closest hit per ray over the baked rects, boxes and spheres
-    (strict `<` in that order), intersection only: no shading, no scatter,
-    no random numbers.  The plain PyTorch version of `rt_hit`
-    (`pallas_trace._make_hit_kernel`, :1722-2235) for a scene without
-    triangles or media.
+    (strict `<` in that order), then the triangle tier, intersection only:
+    no shading, no scatter, no random numbers.  The plain PyTorch version
+    of `rt_hit` (`pallas_trace._make_hit_kernel`, :1722-2235) for a scene
+    without media.
 
     o, d: (N, 3) float32; tm: (N,) float32 shutter times; alive: (N,)
-    bool.  The winner's uv is final: a rect's or a box face's, or a
-    sphere's from its pre-flip outward normal through the polynomial
-    atan2/acos plus its rotate_y phase; the normal is faced against the ray
+    bool.  A non-triangle winner's uv is final: a rect's or a box face's,
+    or a sphere's from its pre-flip outward normal through the polynomial
+    atan2/acos plus its rotate_y phase.  The triangles are walked in the
+    packed tier (`tri_walk_reference`, octant threading), pruned by the
+    closest non-triangle hit; a triangle wins when strictly closer (bit 20),
+    and then u, v are its barycentric weights of vertices 1 and 2 and
+    `slot` its slot (`tri_perm` maps it to the triangle), while the packed
+    word's mat and front bits and the normal stay the closest non-triangle
+    hit's, as the Pallas kernel leaves them (the resolve takes the
+    triangle's from its attributes).  The normal is faced against the ray
     and normalized with 1 / sqrt (XLA's rsqrt on the CPU is within an ulp
-    of it).  A dead lane is all zeros.
+    of it).  `slot` is 0 where no triangle wins; a dead lane is all zeros.
     """
     if bake.sphere_media or bake.box_media:
         raise ValueError("the hit kernel draws no random numbers: scenes "
@@ -1438,6 +1778,13 @@ def hit_reference(bake: SceneBake, o: torch.Tensor, d: torch.Tensor,
              q[:, SPHERE_SH + SH_COLS], zeros)  # the mat, the uv phase
         sph = sph | hs.better
 
+    if len(bake.tri_hit_nodes):
+        tw = tri_walk_reference(bake, o3, d3, t_min, t2, alive, octant=True)
+        tri = tw.better
+        sph = sph & ~tri
+        t2 = torch.where(tri, tw.t, t2)
+    else:
+        tri = torch.zeros_like(sph)
     hit = alive & (t2 < BIG * 0.5)
     miss = alive & ~(t2 < BIG * 0.5)
     if len(table):
@@ -1446,6 +1793,11 @@ def hit_reference(bake: SceneBake, o: torch.Tensor, d: torch.Tensor,
         phi = _atan2_poly(-nz, nx) + _PI
         uu = torch.where(sph, _mod1(phi * _INV_TWO_PI + uu), uu)
         vv = torch.where(sph, theta * _INV_PI, vv)
+    slot = zeros
+    if len(bake.tri_hit_nodes):
+        uu = torch.where(tri, tw.ub, uu)
+        vv = torch.where(tri, tw.vb, vv)
+        slot = torch.where(tri, tw.row.to(torch.float32), 0.0)
     front = (dx * nx + dy * ny + dz * nz) < 0.0
     flip = torch.where(front, 1.0, -1.0)
     nlen = 1.0 / torch.sqrt(torch.clamp(nx * nx + ny * ny + nz * nz,
@@ -1453,7 +1805,8 @@ def hit_reference(bake: SceneBake, o: torch.Tensor, d: torch.Tensor,
     normal = torch.stack((nx * flip * nlen, ny * flip * nlen,
                           nz * flip * nlen), dim=-1)
     packed = (mat | (hit.to(torch.int32) << 16) | (miss.to(torch.int32) << 18)
-              | (front.to(torch.int32) << 19) | (sph.to(torch.int32) << 21))
+              | (front.to(torch.int32) << 19) | (tri.to(torch.int32) << 20)
+              | (sph.to(torch.int32) << 21))
     p = torch.stack((ox + t2 * dx, oy + t2 * dy, oz + t2 * dz), dim=-1)
     live = alive[:, None]
     return HitResult(packed=torch.where(alive, packed, 0),
@@ -1461,7 +1814,7 @@ def hit_reference(bake: SceneBake, o: torch.Tensor, d: torch.Tensor,
                      u=torch.where(alive, uu, 0.0),
                      v=torch.where(alive, vv, 0.0),
                      normal=torch.where(live, normal, 0.0),
-                     slot=zeros.clone())
+                     slot=torch.where(alive, slot, 0.0))
 
 
 # --------------------------------------------------------------------------
@@ -1524,16 +1877,17 @@ def _check_rays(o: torch.Tensor, d: torch.Tensor, tm: torch.Tensor,
 
 class Tracer:
     """Scene-specialized tracer on one device: forward radiance, the record
-    walk and the pure closest hit.
+    walk and the pure closest hit.  `jax_tri_stream` (of `bake`) is the JAX
+    package's mesh routing predicate (`engine.render.route`).
 
     On a CUDA device `trace_pixels`, `walk_packed_pixels` and `hit` launch
     the kernels (`csrc/megakernel.cuh`, `csrc/hit.cu`); on the CPU they run
     `trace_pixels_reference`, `walk_packed_pixels_reference` and
     `hit_reference`.  Nothing falls back from one to the other.  The
     constructor raises NotImplementedError for a scene the forward kernel
-    does not cover, the record mode for one with a sphere BVH or that needs
-    the hit-point or uv planes, and `hit` ValueError for one with media
-    (`supports_hit`).
+    does not cover, the record mode for one with triangles, a sphere BVH or
+    a texture that needs the hit-point or uv planes, and `hit` ValueError
+    for one with media (`supports_hit`).
     """
 
     launches = 0         # megakernel_fwd launches in this process, all tracers
@@ -1551,13 +1905,16 @@ class Tracer:
         self.bake = bake = bake_scene(scene)
         (self.rect_table, self.box_table, self.sphere_table, self.media_table,
          self.sph_nodes, self.sph_links, self.sph_start,
-         self.sph_hit_nodes) = (
+         self.sph_hit_nodes, self.tri_table, self.tri_nodes, self.tri_links,
+         self.tri_start, self.tri_geom, self.tri_hit_nodes) = (
             torch.as_tensor(t, device=self.device) for t in (
                 bake.rect_table(), bake.box_table(), bake.sphere_table,
                 bake.media_table(), bake.sph_nodes, bake.sph_links,
-                bake.sph_start, bake.sph_hit_nodes))
+                bake.sph_start, bake.sph_hit_nodes, bake.tri_table,
+                bake.tri_nodes, bake.tri_links, bake.tri_start,
+                bake.tri_geom, bake.tri_hit_nodes))
         # the hit kernel draws no random numbers, so no media
-        # (pallas_trace.py:2383-2387; the VMEM budget has no meaning here)
+        # (pallas_trace.py:2372-2387; the VMEM budget has no meaning here)
         self.supports_hit = not (bake.sphere_media or bake.box_media)
         self.world_lo, self.world_hi = bake.world_bounds()
 
@@ -1677,13 +2034,14 @@ class Tracer:
             return plain
 
         tables = (self.rect_table, self.box_table, self.sphere_table,
-                  self.sph_hit_nodes)
+                  self.sph_hit_nodes, self.tri_geom, self.tri_hit_nodes)
         for t, cols in zip(tables, (RECT_COLS, BOX_COLS, SPHERE_COLS,
-                                    HIT_NODE_COLS)):
+                                    HIT_NODE_COLS, 9, HIT_NODE_COLS)):
             _check_table(t, cols, self.device)
         ptrs = tuple(t.data_ptr() for t in tables)
         counts = (len(self.bake.rects), len(self.bake.boxes),
-                  len(self.bake.sphere_table), len(self.bake.sph_hit_nodes))
+                  len(self.bake.sphere_table), len(self.bake.sph_hit_nodes),
+                  len(self.bake.tri_geom), len(self.bake.tri_hit_nodes))
         device, lib = self.device, build.load()
 
         def launch(o, d, tm, alive) -> HitResult:
@@ -1714,14 +2072,17 @@ class Tracer:
         return self.bind_hit(t_min)(o, d, tm, alive)
 
     def _checked_tables(self) -> tuple:
-        """The megakernels' seven tables, checked.  A bound launch keeps
+        """The megakernels' eleven tables, checked.  A bound launch keeps
         them alive: it may outlive the tracer (`compile_renderer`)."""
         tables = (self.rect_table, self.box_table, self.sphere_table,
                   self.media_table, self.sph_nodes, self.sph_links,
-                  self.sph_start)
+                  self.sph_start, self.tri_table, self.tri_nodes,
+                  self.tri_links, self.tri_start)
+        f32, i32 = torch.float32, torch.int32
         for t, cols, dtype in zip(
                 tables, (RECT_COLS, BOX_COLS, SPHERE_COLS, MEDIUM_COLS, 6, 2,
-                         1), (torch.float32,) * 5 + (torch.int32,) * 2):
+                         1, TRI_COLS, 6, 2, 1),
+                (f32,) * 5 + (i32,) * 2 + (f32,) * 2 + (i32,) * 2):
             _check_table(t, cols, self.device, dtype)
         return tables
 
@@ -1746,6 +2107,8 @@ class Tracer:
             n_rects=len(self.bake.rects), n_boxes=len(self.bake.boxes),
             n_spheres=len(self.bake.sphere_table),
             n_sph_nodes=len(self.bake.sph_nodes),
+            n_tri_rows=len(self.bake.tri_table),
+            n_tri_nodes=len(self.bake.tri_nodes),
             n_sphere_media=len(self.bake.sphere_media),
             n_box_media=len(self.bake.box_media), has_time=int(ct1 != ct0),
             rr_start=int(rr_start), features=int(features))

@@ -1,24 +1,25 @@
 """Host-side scene construction.
 
-Counterpart of `raytracing_gpu_tpu/scene/builder.py` for the dense scenes:
-solid, checker, noise, turbulence and marble textures; lambertian, metal,
-dielectric, diffuse_light and isotropic materials; spheres and moving
-spheres (rotate_y + translate baked, a negative radius for a hollow
-sphere), axis-aligned rects (with a pure translation), boxes under
-rotate_y + translate, and constant media in a box or a sphere.  Still
-refused, with the feature named (`NotImplementedError`): image textures,
-triangles, meshes and a rotated rect (it lowers to triangles).  `build()`
-packs the same numpy tables, with the same padding, as the host snapshot
-that the JAX `SceneBuilder.build` keeps (`_host_np`); the kernel bake builds
-its own sphere BVH from them (`ops/cuda_trace.py`), so the scene carries
-none.
+Counterpart of `raytracing_gpu_tpu/scene/builder.py`: solid, checker,
+noise, turbulence and marble textures; lambertian, metal, dielectric,
+diffuse_light and isotropic materials; spheres and moving spheres
+(rotate_y + translate baked, a negative radius for a hollow sphere),
+axis-aligned rects (a pure translation offsets them, a rotation lowers them
+to two triangles), boxes under rotate_y + translate, constant media in a box
+or a sphere, triangles and triangle meshes (rotate_y, translate and scale
+baked into the vertices).  Still refused, with the feature named
+(`NotImplementedError`): image textures.  `build()` packs the same numpy
+tables, with the same padding, as the host snapshot that the JAX
+`SceneBuilder.build` keeps (`_host_np`); the kernel bake builds its own
+sphere and triangle BVHs from them (`ops/cuda_trace.py`), so the scene
+carries none.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Union
+from typing import Optional, Sequence, Union
 
 import numpy as np
 
@@ -86,6 +87,10 @@ class SceneBuilder:
     _spheres: list = field(default_factory=list)
     _rects: list = field(default_factory=list)
     _boxes: list = field(default_factory=list)
+    _tris: list = field(default_factory=list)
+    # columnar triangle blocks appended by mesh(): a 100k-triangle mesh
+    # must not pay a dict per face
+    _tri_blocks: list = field(default_factory=list)
 
     # -- textures (reference texture.h) ------------------------------------
 
@@ -172,20 +177,32 @@ class SceneBuilder:
              rotate_y: float = 0.0, translate=(0.0, 0.0, 0.0)) -> None:
         """reference `aarect.h`: orientation in {"xy", "xz", "yz"}, argument
         order as the reference ctors, e.g. xy_rect(x0, x1, y0, y1, k).  A pure
-        translation offsets the bounds; a rotation would lower the rect to
-        triangles, which are not ported."""
-        if rotate_y % 360.0 != 0.0:
-            raise NotImplementedError(
-                "rotated rect (lowers to triangles): not yet ported")
+        translation offsets the bounds; a rotation lowers the rect to two
+        triangles carrying its uv parameterization and rotated normal."""
         axis = {"yz": RECT_YZ, "xz": RECT_XZ, "xy": RECT_XY}[orientation]
         tx, ty, tz = (float(x) for x in np.asarray(translate, np.float64))
-        da, db, dk = {RECT_YZ: (ty, tz, tx), RECT_XZ: (tx, tz, ty),
-                      RECT_XY: (tx, ty, tz)}[axis]
-        self._rects.append(
-            dict(axis=axis, a0=float(a0) + da, a1=float(a1) + da,
-                 b0=float(b0) + db, b1=float(b1) + db, k=float(k) + dk,
-                 mat=mat)
-        )
+        if rotate_y % 360.0 == 0.0:
+            da, db, dk = {RECT_YZ: (ty, tz, tx), RECT_XZ: (tx, tz, ty),
+                          RECT_XY: (tx, ty, tz)}[axis]
+            self._rects.append(
+                dict(axis=axis, a0=float(a0) + da, a1=float(a1) + da,
+                     b0=float(b0) + db, b1=float(b1) + db, k=float(k) + dk,
+                     mat=mat))
+            return
+
+        # uv corners follow u = (a - a0) / (a1 - a0), v = (b - b0) / (b1 - b0)
+        def pt(a, b):
+            p = {RECT_YZ: (k, a, b), RECT_XZ: (a, k, b),
+                 RECT_XY: (a, b, k)}[axis]
+            return _rot_y(_v3(p), rotate_y) + _v3(translate)
+
+        p00, p10 = pt(a0, b0), pt(a1, b0)
+        p11, p01 = pt(a1, b1), pt(a0, b1)
+        n = _rot_y(np.eye(3, dtype=np.float32)[axis], rotate_y)
+        self.triangle(p00, p11, p10, mat, uv0=(0, 0), uv1=(1, 1), uv2=(1, 0),
+                      normals=(n, n, n))
+        self.triangle(p00, p01, p11, mat, uv0=(0, 0), uv1=(0, 1), uv2=(1, 1),
+                      normals=(n, n, n))
 
     def box(self, p0, p1, mat: int, rotate_y: float = 0.0,
             translate=(0.0, 0.0, 0.0)) -> None:
@@ -222,8 +239,83 @@ class SceneBuilder:
                  mat=mat, medium=medium,
                  nid=(-1.0 / float(density)) if medium else 0.0))
 
-    triangle = _not_ported("triangles")
-    mesh = _not_ported("triangle meshes")
+    def triangle(self, v0, v1, v2, mat: int, uv0=(0, 0), uv1=(0, 0),
+                 uv2=(0, 0), normals: Optional[Sequence] = None) -> None:
+        """reference `triangle.h` ctors, with or without vertex normals;
+        without them every vertex carries the face normal
+        cross(v2 - v0, v1 - v0), the reference's order."""
+        v0, v1, v2 = _v3(v0), _v3(v1), _v3(v2)
+        if normals is None:
+            n0 = n1 = n2 = np.cross(v2 - v0, v1 - v0)
+            has_vn = False
+        else:
+            n0, n1, n2 = (_v3(x) for x in normals)
+            has_vn = True
+        self._tris.append(dict(
+            v0=v0, e1=v1 - v0, e2=v2 - v0, n0=n0, n1=n1, n2=n2,
+            uv0=np.asarray(uv0, np.float32), uv1=np.asarray(uv1, np.float32),
+            uv2=np.asarray(uv2, np.float32), has_vn=has_vn, mat=mat))
+
+    def mesh(self, vertices: np.ndarray, faces: np.ndarray, mat: int,
+             uvs: Optional[np.ndarray] = None,
+             normals: Optional[np.ndarray] = None,
+             rotate_y: float = 0.0, translate=(0.0, 0.0, 0.0),
+             scale: float = 1.0) -> None:
+        """Triangle mesh (`triangle_mesh.h:147-204`): the vertices scaled,
+        rotated about y and translated, the normals rotated, one columnar
+        block per call."""
+        vertices = np.asarray(vertices, np.float32) * scale
+        faces = np.asarray(faces, np.int64)
+        if rotate_y:
+            vertices = _rot_y_rows(vertices, rotate_y)
+        vertices = vertices + _v3(translate)
+        i, j, k = faces[:, 0], faces[:, 1], faces[:, 2]
+        v0 = vertices[i]
+        e1 = vertices[j] - v0
+        e2 = vertices[k] - v0
+        if normals is None:
+            n0 = n1 = n2 = np.cross(e2, e1).astype(np.float32)
+            has_vn = np.zeros(len(faces), bool)
+        else:
+            normals = np.asarray(normals, np.float32)
+            if rotate_y:
+                normals = _rot_y_rows(normals, rotate_y)
+            n0, n1, n2 = normals[i], normals[j], normals[k]
+            has_vn = np.ones(len(faces), bool)
+        z2 = np.zeros((len(faces), 2), np.float32)
+        self._tri_blocks.append(dict(
+            v0=v0, e1=e1, e2=e2, n0=n0, n1=n1, n2=n2,
+            uv0=uvs[i].astype(np.float32) if uvs is not None else z2,
+            uv1=uvs[j].astype(np.float32) if uvs is not None else z2,
+            uv2=uvs[k].astype(np.float32) if uvs is not None else z2,
+            has_vn=has_vn, mat=np.full(len(faces), mat, np.int32)))
+
+    def _tri_columns(self) -> dict:
+        """Every triangle as one columnar dict, in insertion order: the
+        single triangles first, then the mesh blocks (None per column when
+        there are none)."""
+        cols = ("v0", "e1", "e2", "n0", "n1", "n2", "uv0", "uv1", "uv2",
+                "has_vn", "mat")
+        blocks = []
+        if self._tris:
+            blocks.append({c: np.stack([t[c] for t in self._tris])
+                           for c in cols if c not in ("has_vn", "mat")})
+            blocks[0]["has_vn"] = np.asarray(
+                [t["has_vn"] for t in self._tris], bool)
+            blocks[0]["mat"] = np.asarray([t["mat"] for t in self._tris],
+                                          np.int32)
+        blocks.extend(self._tri_blocks)
+        if not blocks:
+            return {c: None for c in cols}
+        out = {c: np.concatenate([b[c] for b in blocks]) for c in cols}
+        for c in cols:
+            if c not in ("has_vn", "mat"):
+                out[c] = out[c].astype(np.float32)
+        return out
+
+    @property
+    def n_tris(self) -> int:
+        return len(self._tris) + sum(len(b["mat"]) for b in self._tri_blocks)
 
     # -- packing -----------------------------------------------------------
 
@@ -248,7 +340,8 @@ class SceneBuilder:
         )
         return Scene(
             spheres=self._pack_spheres(), rects=self._pack_rects(),
-            boxes=self._pack_boxes(), triangles=_empty_triangles(),
+            boxes=self._pack_boxes(),
+            triangles=_pack_tris(self._tri_columns()),
             materials=materials, textures=textures,
             atlas=ImageAtlas(data=np.zeros(3, np.float32),
                              offset=np.zeros(1, np.int32),
@@ -318,21 +411,35 @@ class SceneBuilder:
                      mat_id=mat, active=act, medium=med, neg_inv_density=nid)
 
 
-def _empty_triangles() -> Triangles:
-    """The padding-only triangle table the JAX builder packs for no
-    triangles (degenerate-safe edges)."""
-    n = _padded(0)
+def _pack_tris(cols: dict) -> Triangles:
+    """The triangle table, padded as the JAX builder pads it: pad rows have
+    the degenerate-safe edges e1 = x, e2 = y and are inactive."""
+    k = 0 if cols["mat"] is None else len(cols["mat"])
+    n = _padded(k)
     z3 = np.zeros((n, 3), np.float32)
     z2 = np.zeros((n, 2), np.float32)
-    e1, e2 = z3.copy(), z3.copy()
-    e1[:, 0] = 1.0
-    e2[:, 1] = 1.0
-    return Triangles(
-        v0=z3.copy(), e1=e1, e2=e2, n0=z3.copy(), n1=z3.copy(),
-        n2=z3.copy(), uv0=z2.copy(), uv1=z2.copy(), uv2=z2.copy(),
-        has_vn=np.zeros(n, bool), mat_id=np.zeros(n, np.int32),
-        active=np.zeros(n, bool),
-    )
+    t = dict(v0=z3, e1=z3.copy(), e2=z3.copy(), n0=z3.copy(), n1=z3.copy(),
+             n2=z3.copy(), uv0=z2, uv1=z2.copy(), uv2=z2.copy(),
+             has_vn=np.zeros(n, bool), mat_id=np.zeros(n, np.int32),
+             active=np.zeros(n, bool))
+    t["e1"][:, 0] = 1.0
+    t["e2"][:, 1] = 1.0
+    if k:
+        for c in ("v0", "e1", "e2", "n0", "n1", "n2", "uv0", "uv1", "uv2",
+                  "has_vn"):
+            t[c][:k] = cols[c]
+        t["mat_id"][:k] = cols["mat"]
+        t["active"][:k] = True
+    return Triangles(**t)
+
+
+def _rot_y_rows(p: np.ndarray, degrees: float) -> np.ndarray:
+    """Rotate (N, 3) float32 rows about y as `_rot_y` rotates one point, in
+    float32 as the JAX builder's mesh() does."""
+    th = math.radians(degrees)
+    c, s = math.cos(th), math.sin(th)
+    x, y, z = p[:, 0].copy(), p[:, 1], p[:, 2].copy()
+    return np.stack((c * x + s * z, y, -s * x + c * z), axis=-1)
 
 
 def _padded(n: int) -> int:

@@ -158,7 +158,7 @@ class Scene:
     atlas: ImageAtlas
     background: np.ndarray  # (3,) miss color (reference `scenes.h:69-78`)
     # the XLA engine's BVHs, not ported: always None (the kernel bake builds
-    # the sphere BVH from the sphere table, ops/cuda_trace.py)
+    # the sphere and triangle BVHs from the tables, ops/cuda_trace.py)
     tri_bvh: Optional[Any] = None
     sphere_bvh: Optional[Any] = None
     has_sphere_media: bool = True

@@ -27,6 +27,11 @@ ulp here and there, and one diverging path moves a mean of these small
 chunks on its own: at most 2.52e-3 over 16 keys per scene,
 `tools/golden_spread.py`).  The FMA chain: rtol 1e-5 against its plain
 version (one rounding a step against two).
+
+Triangles: the hit kernel's tier and the megakernel's triangle walk under
+the same rules against their plain versions; against the Pallas hit golden
+the packed words equal on every lane and a triangle winner's id equal
+except across a shared edge (`tests/test_torch_tri_hit.py`).
 """
 
 import gc
@@ -319,7 +324,7 @@ def _one_bounce(sd, bake, rays, seed):
     o, d, tm, alive = rays
     hr = ct.hit_reference(bake, o, d, tm, alive)
     rec = wavefront.resolve_hit_packed(
-        wavefront.pack_attr_table(sd.scene), *hr, d)
+        wavefront.pack_attr_table(sd.scene, bake.tri_perm), *hr, d)
     sc = materials.scatter(sd.scene, diff.get_params(sd.scene, "cpu"),
                            torch.Generator().manual_seed(seed), d, rec.p,
                            rec.normal, rec.front_face, rec.u, rec.v,
@@ -406,6 +411,100 @@ def test_regen_route_on_the_card_matches_jax_golden(dev):
     steps = ct.Tracer.hit_launches - hits
     assert ct.Tracer.launches == fwd and 0.9 < steps / int(g["iterations"]) \
         < 1.1
+    npix = st.num_pixels
+    diff_ = (got.cpu().double()[:npix] - torch.from_numpy(
+        g["sums"][:npix]).double()) / st.spp_per_chunk
+    z = diff_.mean(0) / (diff_.std(0) / npix ** 0.5)
+    assert bool((z.abs() < 4.0).all()), z
+
+
+# ---------------------------------------------------------------------------
+# triangles: the hit kernel's tier and the megakernel's triangle walk
+# ---------------------------------------------------------------------------
+
+
+def _mesh(name):
+    return (scenes.backpack_standin((16, 16)) if name == "mesh"
+            else scenes.get(name))
+
+
+@pytest.mark.parametrize("name,n", [("mesh", 65536), ("backpack", 8192)])
+def test_tri_hit_kernel_matches_plain(dev, name, n):
+    sd = _mesh(name)
+    tracer = ct.Tracer(sd.scene, dev)
+    rays = _camera_rays(sd, n, 63)
+    for bounce in range(2):
+        before = ct.Tracer.hit_launches
+        got = tracer.hit(*(x.to(dev) for x in rays))
+        assert ct.Tracer.hit_launches == before + 1
+        want = ct.hit_reference(tracer.bake, *(x.to(dev) for x in rays))
+        torch.cuda.synchronize()
+        res = ct.hit_agreement(got, want)
+        assert res["packed_equal"] and res["exact_frac"] >= EXACT_FLOOR, res
+        assert torch.equal(got.slot, want.slot)
+        tri = ((got.packed >> 20) & 1).bool()
+        assert int(tri.sum()) > (n // 10 if bounce == 0 else 0)
+        rays = _one_bounce(sd, tracer.bake, rays, 64)
+
+
+def test_tri_hit_kernel_matches_pallas_golden(dev):
+    g = np.load(os.path.join(DATA, "mesh_hit.npz"))
+    tracer = ct.Tracer(_mesh("mesh").scene, dev)
+    perm = g["perm"]
+    assert np.array_equal(tracer.bake.tri_perm, perm)
+    for b in range(2):
+        got = tracer.hit(*(torch.from_numpy(np.array(g[f"{k}{b}"])).to(dev)
+                           for k in ("o", "d", "tm", "alive")))
+        res = ct.hit_agreement(got, [g[f"{k}{b}"] for k in (
+            "packed", "p", "u", "v", "normal")])
+        assert res["packed_equal"] and res["within_limits"], res
+        assert res["frac_close"] >= 0.99, res
+        tri = ((g[f"packed{b}"] >> 20) & 1).astype(bool)
+        ids = perm[got.slot.cpu().numpy().astype(np.int64)[tri]]
+        other = ids != perm[g[f"slot{b}"].astype(np.int64)[tri]]
+        assert other.mean() <= 0.01, other.mean()
+
+
+@pytest.mark.parametrize("name,depth", [("triangles", 1), ("triangles", 8),
+                                        ("mesh", 8)])
+def test_tri_bvh_kernel_matches_plain(dev, name, depth):
+    sd = _mesh(name)
+    tracer = ct.Tracer(sd.scene, dev)
+    assert tracer.bake.features() & ct.FEAT_TRI_BVH
+    before = ct.Tracer.launches
+    got = tracer.trace_pixels(sd.camera, 64, 64, 0, 4096, 93,
+                              max_depth=depth)
+    assert ct.Tracer.launches == before + 1
+    want = ct.trace_pixels_reference(tracer.bake, sd.camera, 64, 64, 0, 4096,
+                                     93, max_depth=depth, device=dev)
+    torch.cuda.synchronize()
+    assert_matches(got, want, depth)
+
+
+def test_tri_bvh_kernel_matches_jax_golden(dev):
+    g = np.load(os.path.join(DATA, "triangles_32.npz"))
+    st = _golden_settings(g).with_(aspect_ratio=float(g["aspect_ratio"]))
+    sd = scenes.get("triangles")
+    chunk = compile_renderer(sd.scene, sd.camera, st, dev)
+    assert chunk.engine_name == "megakernel"
+    assert_matches(chunk(int(g["base"])), torch.from_numpy(g["sums"]),
+                   st.max_depth, exact_floor=0.0, mean_rtol=3e-3)
+
+
+@pytest.mark.parametrize("engine", ["regen", "wavefront"])
+def test_mesh_wavefronts_on_the_card_match_jax_golden(dev, engine):
+    """Both wavefront drivers on the small mesh at the pinned JAX regen
+    chunk's settings, statistically (z < 4 per channel)."""
+    from raytracing_gpu_tpu_torch.engine import wavefront
+
+    g = np.load(os.path.join(DATA, "mesh_regen.npz"))
+    st = _golden_settings(g).with_(aspect_ratio=float(g["aspect_ratio"]))
+    sd = _mesh("mesh")
+    compile_wave = (wavefront.compile_regen_renderer if engine == "regen"
+                    else wavefront.compile_wavefront_renderer)
+    fwd, hits = ct.Tracer.launches, ct.Tracer.hit_launches
+    got = compile_wave(sd.scene, sd.camera, st, device=dev)(20241)
+    assert ct.Tracer.launches == fwd and ct.Tracer.hit_launches > hits
     npix = st.num_pixels
     diff_ = (got.cpu().double()[:npix] - torch.from_numpy(
         g["sums"][:npix]).double()) / st.spp_per_chunk

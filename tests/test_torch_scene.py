@@ -135,9 +135,10 @@ def test_bake_records_equal_jax(cornell):
 
 def test_big_scene1_is_refused_with_the_feature_named():
     # big_scene1 itself renders (the kernel bake builds its sphere BVH and
-    # the XLA engine's BVH in the JAX tree is dropped); with a triangle or
-    # an image texture added it is refused with that feature named, and the
-    # record walk still refuses its sphere BVH
+    # the XLA engine's BVH in the JAX tree is dropped), and so it does with
+    # triangles added, which only the record walk refuses; with an image
+    # texture it is refused with that feature named, and the record walk
+    # still refuses its sphere BVH
     jsd = jscenes.get("big_scene1")
     assert jsd.scene._host_np.sphere_bvh is not None
     scene = scene_from_numpy(_tree(jsd.scene._host_np))
@@ -153,7 +154,14 @@ def test_big_scene1_is_refused_with_the_feature_named():
         scene.textures, kind=np.where(scene.textures.kind == tst.TEX_CHECKER,
                                       np.int32(tst.TEX_IMAGE),
                                       scene.textures.kind)))
-    for bad, feature in ((tri, "triangles"), (image, "image texture")):
+    assert ct.unported_feature(tri) is None
+    assert ct.unported_record_feature(tri).startswith(
+        "triangles in record mode (4 triangles")
+    assert compile_renderer(tri, cam, st, device="cpu").engine_name == \
+        "megakernel"
+    with pytest.raises(NotImplementedError, match="triangles in record"):
+        ct.Tracer(tri, "cpu").walk_packed_pixels(cam, 9, 16, 0, 16, 1)
+    for bad, feature in ((image, "image texture"),):
         assert ct.unported_feature(bad) == feature
         with pytest.raises(NotImplementedError, match=f"{feature}: not yet"):
             compile_renderer(bad, cam, st, device="cpu")
@@ -194,6 +202,21 @@ def _many_media(b):
     return ct.Tracer(b.build(), "cpu")
 
 
+def _triangles_record_walk(b, add):
+    # the forward kernel walks their BVH; the record walk has none yet
+    mat = b.lambertian((0.5, 0.5, 0.5))
+    if add == "mesh":
+        b.mesh(np.eye(3), np.array([[0, 1, 2]]), mat)
+    elif add == "triangle":
+        b.triangle((0, 0, 0), (1, 0, 0), (0, 1, 0), mat)
+    else:  # a rotated rect lowers to two triangles
+        b.rect("xy", 0, 1, 0, 1, 0, mat, rotate_y=30.0)
+    cam = tscenes.get("cornell_box").camera
+    tracer = ct.Tracer(b.build(), "cpu")
+    assert tracer.trace_pixels(cam, 4, 4, 0, 16, 1, 2).shape == (16, 3)
+    return tracer.walk_packed_pixels(cam, 4, 4, 0, 16, 1)
+
+
 def _checker_record_walk(b):
     b.rect("xy", 0, 1, 0, 1, 0, b.lambertian(b.checker((0, 0, 0), (1, 1, 1))))
     cam = tscenes.get("cornell_box").camera
@@ -202,12 +225,12 @@ def _checker_record_walk(b):
 
 @pytest.mark.parametrize("call", [
     lambda b: b.image(np.zeros((2, 2, 3), np.float32)),
-    lambda b: b.mesh(np.eye(3), np.array([[0, 1, 2]]), 0),
+    lambda b: _triangles_record_walk(b, "mesh"),
     _many_spheres,
     _many_media,
-    lambda b: b.triangle((0, 0, 0), (1, 0, 0), (0, 1, 0), 0),
+    lambda b: _triangles_record_walk(b, "triangle"),
     _checker_record_walk,
-    lambda b: b.rect("xy", 0, 1, 0, 1, 0, 0, rotate_y=30.0),
+    lambda b: _triangles_record_walk(b, "rotated rect"),
 ])
 def test_builder_refuses_unported_features(call):
     with pytest.raises(NotImplementedError, match="not yet ported"):
@@ -215,8 +238,9 @@ def test_builder_refuses_unported_features(call):
 
 
 def test_registry_lists_only_ported_scenes():
-    assert tscenes.names() == ["basic", "big_scene1", "cornell_box",
-                               "cornell_smoke", "first", "two_perlin_spheres",
-                               "two_spheres"]
+    assert tscenes.names() == ["backpack", "basic", "big_scene1",
+                               "cornell_box", "cornell_smoke", "cup", "door",
+                               "first", "triangle", "triangles",
+                               "two_perlin_spheres", "two_spheres"]
     with pytest.raises(KeyError, match="not ported"):
         tscenes.get("earth")  # an image texture

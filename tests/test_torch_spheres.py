@@ -338,9 +338,13 @@ def test_record_mode_refuses_the_p_plane(name):
 
 
 def test_triangle_and_image_scenes_are_refused():
+    # the triangle scene converts (its XLA BVH dropped) and renders; only
+    # the record walk refuses its triangles
     jsd = jscenes.get("triangle")
-    with pytest.raises(NotImplementedError, match="triangles: not yet"):
-        ct.Tracer(scene_from_numpy(_tree(jsd.scene._host_np)), "cpu")
+    tracer = ct.Tracer(scene_from_numpy(_tree(jsd.scene._host_np)), "cpu")
+    with pytest.raises(NotImplementedError, match="triangles in record"):
+        tracer.walk_packed_pixels(tscenes.get("triangle").camera, 9, 16, 0,
+                                  16, 1)
     # earth's image texture, on a synthetic image
     b = JaxBuilder()
     b.sphere((0, 0, 0), 2, b.lambertian(b.image(np.ones((4, 8, 3)))))

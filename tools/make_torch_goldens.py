@@ -31,7 +31,14 @@ and writes, under `tests/data/torch_port/`:
   ref_normal0`, ...);
 - `big_scene1_regen`: one chunk of `compile_regen_renderer` (sub 8) on
   `big_scene1` at width 48, 16 spp, depth 8, waves of 1,024 rays, with its
-  step and stream counts.
+  step and stream counts;
+- `triangles_32`: the forward chunk of `triangles` (the megakernel route
+  with its triangle BVH), as `<scene>_32.npz`;
+- `mesh_hit` and `mesh_regen`: `big_scene1_hit` and `big_scene1_regen` on
+  the small mesh scene (`mesh_scene`: a 16 x 16 UV sphere of 512 triangles
+  at the backpack stand-in's framing, on the backpack's ground sphere, under
+  its camera), the hit golden with the hit tier's slot outputs (`slot0`,
+  ...) and its slot -> triangle id map (`perm`).
 
 The port's CPU tests hold its plain versions to these files, and
 `chip_smoke.py` holds the CUDA kernels to them, so the card's output is tied
@@ -53,7 +60,7 @@ DATA = os.path.join(ROOT, "tests", "data", "torch_port")
 KEY_SEED = 2024
 GRAD_TARGET = 0.25
 SCENES = ("basic", "first", "two_spheres", "two_perlin_spheres",
-          "cornell_smoke", "big_scene1")
+          "cornell_smoke", "big_scene1", "triangles")
 RECORD_SCENES = ("first", "cornell_smoke")
 RECORD_RAY_BATCH = 512
 HIT_RAYS = 4096
@@ -175,7 +182,29 @@ def scene_golden(name: str) -> None:
           f"{sums.mean(0)}, planes {extra.get('planes', np.zeros(0)).shape}")
 
 
-def hit_golden() -> None:
+MESH_RES = (16, 16)   # the small mesh scene's UV sphere
+
+
+def mesh_scene():
+    """The small mesh scene of the triangle goldens, as a JAX SceneDef: the
+    backpack scene with its 100,352-triangle stand-in replaced by a
+    MESH_RES UV sphere of the same framing (`models/scenes.py:_add_obj`,
+    standin_scale 0.45)."""
+    from raytracing_gpu_tpu.models import scenes
+    from raytracing_gpu_tpu.scene.builder import SKY, SceneBuilder
+
+    b = SceneBuilder(background=SKY)
+    tex = b.solid((0.8, 0.2, 0.2))
+    v, f, uvs, n = scenes._uv_sphere(*MESH_RES)
+    v = v * 0.45
+    v[:, 1] += 0.45
+    b.mesh(v, f, b.lambertian(tex), uvs=uvs, normals=n)
+    b.sphere((0, -100, -1), 100, b.lambertian((0, 1, 0)))
+    bp = scenes.get("backpack")
+    return scenes.SceneDef(b.build(), bp.camera, bp.aspect)
+
+
+def hit_golden(name: str = "big_scene1") -> None:
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -187,8 +216,8 @@ def hit_golden() -> None:
     from raytracing_gpu_tpu.ops import pallas_trace
     from raytracing_gpu_tpu.scene import materials
 
-    out = os.path.join(DATA, "big_scene1_hit.npz")
-    sd = scenes.get("big_scene1")
+    out = os.path.join(DATA, f"{name}_hit.npz")
+    sd = mesh_scene() if name == "mesh" else scenes.get(name)
     tracer = pallas_trace.PallasTracer(sd.scene)
     key = jax.random.PRNGKey(KEY_SEED)
     k_px, k_py, k_cam, k_alive, k_scat = jax.random.split(key, 5)
@@ -204,7 +233,8 @@ def hit_golden() -> None:
         arrays.update({f"{k}{b}": np.asarray(x) for k, x in (
             ("o", o), ("d", d), ("tm", tm), ("alive", alive),
             ("packed", packed), ("p", p), ("u", u), ("v", v),
-            ("normal", normal), ("ref_hit", ref.hit), ("ref_mat", ref.mat_id),
+            ("normal", normal), ("slot", slot), ("ref_hit", ref.hit),
+            ("ref_mat", ref.mat_id),
             ("ref_p", ref.p), ("ref_normal", ref.normal))})
         # one bounce: from the hit points along the scattered directions
         rec = resolve_hit_packed(attr, packed, p, u, v, normal, slot, d)
@@ -213,12 +243,16 @@ def hit_golden() -> None:
         alive = alive & rec.hit & sc.ok
         o = jnp.where(alive[:, None], rec.p, o)
         d = jnp.where(alive[:, None], sc.direction, d)
+    if name == "mesh":
+        arrays["perm"] = np.asarray(tracer.bake.tri_perm)
+    else:  # no triangles: the slot plane is all zeros
+        arrays = {k: a for k, a in arrays.items() if not k.startswith("slot")}
     np.savez_compressed(out, key_seed=np.int32(KEY_SEED), **arrays)
     print(f"wrote {out}: {n} rays x 2 bounces, hits "
           f"{[int(((arrays[f'packed{b}'] >> 16) & 1).sum()) for b in (0, 1)]}")
 
 
-def regen_golden() -> None:
+def regen_golden(name: str = "big_scene1") -> None:
     import jax
     import numpy as np
 
@@ -226,8 +260,8 @@ def regen_golden() -> None:
     from raytracing_gpu_tpu.engine.wavefront import compile_regen_renderer
     from raytracing_gpu_tpu.models import scenes
 
-    out = os.path.join(DATA, "big_scene1_regen.npz")
-    sd = scenes.get("big_scene1")
+    out = os.path.join(DATA, f"{name}_regen.npz")
+    sd = mesh_scene() if name == "mesh" else scenes.get(name)
     st = RenderSettings(aspect_ratio=sd.aspect, **REGEN)
     chunk = compile_regen_renderer(sd.scene, sd.camera, st, debug_stats=True,
                                    hit_sub=8)
@@ -244,7 +278,9 @@ def regen_golden() -> None:
 
 GOLDENS = {"cornell_32": forward_golden, "cornell_grad_32": grad_golden,
            **{f"{n}_32": (lambda n=n: scene_golden(n)) for n in SCENES},
-           "big_scene1_hit": hit_golden, "big_scene1_regen": regen_golden}
+           "big_scene1_hit": hit_golden, "big_scene1_regen": regen_golden,
+           "mesh_hit": lambda: hit_golden("mesh"),
+           "mesh_regen": lambda: regen_golden("mesh")}
 
 
 def main(argv=None) -> int:
