@@ -15,11 +15,18 @@ on the megakernel route (800x450, 8 spp, depth 16: the sphere-BVH walk) and
 BASELINE config 2 (big_scene1, 800x450, 32 spp as 2 chunks of 16, depth
 16) through `render` on the regen route (the hit kernel); BASELINE config
 5 (`backpack`, the 100,352-triangle stand-in, 800x600, 256 spp as 4
-chunks of 64, depth 16) through `render` on the regen route (the hit
-kernel's triangle tier), the same scene on the wavefront route (8 spp a
-chunk), and `triangles` on the megakernel route (its triangle walk); and
-the ceiling probe whose rates every printed bound divides by.  It checks
-every kernel on the way.  Phases, each of which raises on failure:
+chunks of 64, depth 16, waves of 131,072 rays) and config 5-rr through
+`render` on the regen route (the hit kernel's triangle tier), the same
+scene on the wavefront route (8 spp a chunk), and `triangles` on the
+megakernel route (its triangle walk); the training path beyond the
+Cornell box: big_scene1 (800x450, 32 spp as 2 chunks of 16, depth 16)
+forward plus backward through `compile_fused_param_renderer` (the record
+kernel with the hit-point planes and the sphere-BVH walk), `triangles` in
+training (the triangle-BVH record walk), `compile_param_renderer` on
+big_scene1 (the record-walk route: ray planes, kernel 1c) and on backpack
+(`bench_all.py`'s mesh-grad row, the wavefront-record route); and the
+ceiling probe whose rates every printed bound divides by.  It checks every
+kernel on the way.  Phases, each of which raises on failure:
 
 1. environment: a CUDA device is required; prints the card's name and power
    limit (nvidia-smi) and torch's device name;
@@ -132,28 +139,70 @@ every kernel on the way.  Phases, each of which raises on failure:
    4 spp, depth 1 and 8 (phase 5's rules), and both against the pinned JAX
    goldens (`mesh_hit.npz` under `hit_agreement`'s rule with triangle ids
    equal but across shared edges; `triangles_32.npz` under `golden_cmp`);
-23. config 5's four 64-spp regen chunks at the seeds `render()` draws,
-   through `compile_regen_renderer`'s `debug_stats`: their steps, each
-   with one hit launch; then timing at full size with CUDA events: `rt_hit`
-   on the 65,536 rays of a steady-state step of the first chunk
-   (CAPTURE_STEP) and the triangle megakernel's 65,536-ray wave of
+23. config 5's four 64-spp regen chunks (waves of 131,072 rays,
+   `bench_all.py:441`) at the seeds `render()` draws, through
+   `compile_regen_renderer`'s `debug_stats`: their steps, each with one hit
+   launch; then timing at full size with CUDA events: `rt_hit` on the
+   131,072 rays of a steady-state step of the first chunk (CAPTURE_STEP)
+   and the triangle megakernel's 65,536-ray wave of
    backpack at 800x600, depth 16 (the centre wave, data for re-deriving
    the mesh routing); each held against its plain version on the same
    inputs, timed beside the plain version and the bound counted by the
    plain walk of the same rays (the bytes are the parts of the triangle
    tables that walk reads);
 24. BASELINE config 5: `render()` of backpack at 800x600, 256 spp as 4
-   chunks of 64, depth 16, ray_batch 65,536 on the regen route: the hit
+   chunks of 64, depth 16, ray_batch 131,072 on the regen route: the hit
    kernel launched as many times as phase 23 counted regen steps, the
    megakernels never; finite and lit, PNG written; Mrays/s, steps, host
    time per step, peak device memory, and the busy share of a bounded
-   sub-run (one 16-spp chunk, profiled with CUDA activity only);
+   sub-run (one 16-spp chunk, profiled with CUDA activity only); then
+   config 5-rr (`bench_all.py:445-447`: the same with rr_start 2), finite
+   and lit, with its Mrays/s and steps;
 25. the wavefront route: `render()` of backpack at 800x600, 8 spp, one
    chunk, depth 16 (engine "wavefront", one hit launch per bounce that the
    same chunk's `debug_stats` count), then the wavefront and regen routes
    at 160x120 agree statistically;
 26. `triangles` on the megakernel route: `render()` at 400x225, 16 spp,
-   depth 8 (the triangle megakernel 16 x 2 = 32 times, no hit launch).
+   depth 8 (the triangle megakernel 16 x 2 = 32 times, no hit launch);
+27. kernel 1b's hit-point planes and BVH walks against their plain
+   versions on the card: the record planes of two_spheres,
+   two_perlin_spheres, big_scene1 and triangles at 64x64, 4 spp, depth 8,
+   and a reduced wave of backpack (the bit rule with >= 99.9% of the words
+   and of the hit-point values equal); then against the pinned Pallas
+   record planes (`<scene>_rec32.npz`) under the CPU rules of
+   tests/test_torch_record_p.py;
+28. kernel 1c against its plain versions: `walk_packed` and `__call__`
+   (with and without russian roulette) on 65,536 torch-drawn camera rays
+   of cornell_box and big_scene1, then against the pinned Pallas planes
+   and radiance on their stored rays (`<scene>_rays.npz`); a chunk of the
+   Cornell box (512x512, 4 spp, depth 8) through `render.chunk_sums` over
+   `__call__` (16 ray-plane launches), and its wave timed;
+29. the fused chunk with hit points: over the two_spheres golden's own
+   planes against the JAX fused chunk's primal and gradients (rtol 2e-4,
+   atol 1e-7), and over the kernel's walk against the chunk over the plain
+   walk on the card (primal under the depth-8 rule, gradients rtol 2e-4,
+   atol 1e-7);
+30. config 2's scene in training: `bench_torch.train_renders` over
+   `compile_fused_param_renderer` on big_scene1 at 800x450, 2 chunks of
+   16 spp, depth 16, waves of 32,768 rays, L2 loss against zeros (the
+   record kernel 2 x 16 x 11 = 352 times forward and as many backward,
+   planes not saved; no other kernel); finite, nonzero tex_c1 and tex_c2
+   gradients; Mrays/s, peak memory, the busy share of a one-chunk
+   sub-run; the training wave held against its plain version and timed;
+   then `triangles` in training (400x225, 8 spp, depth 8), its wave held
+   and timed;
+31. the record-walk route: `compile_param_renderer` on big_scene1 at
+   800x450, one 16-spp chunk, depth 16 (engine "record-walk", the ray-plane
+   record entry 16 x 11 = 176 times), its primal equal to
+   `compile_fused_param_renderer(gen_rays=False)`'s on the same base; then
+   forward plus backward (176 launches each way, planes not saved), with
+   finite, nonzero tex_c1 and tex_c2 gradients and the peak memory; its
+   first wave held against its plain version and timed;
+32. `bench_all.py`'s mesh-grad row: `compile_param_renderer` on backpack at
+   800x600, 4 spp, depth 8, waves of 65,536 rays (engine
+   "wavefront-record"), forward plus backward: one hit launch per bounce
+   the chunk counts, no megakernel launch, a nonzero tex_c1 gradient;
+   seconds and Mrays/s.
 
 Prints each phase's seconds, a JSON line of kernels, the card's name and
 power limit, and as its last line `{"ok": true, "device": {...}}`.  Exits
@@ -217,15 +266,29 @@ CAPTURE_STEP = 40   # a regen step whose wave is full and still refilling
 HIT_RAYS = 65536
 # BASELINE config 5 (bench_all.py:21, :377: 800x600 with the scene's 16:9
 # camera, as the JAX package renders it), phase 24: (width, spp per chunk,
-# chunks, depth); its bounded profiled sub-run
+# chunks, depth), its wave (bench_all.py:441) and its bounded profiled
+# sub-run; config 5-rr (bench_all.py:445-447) adds russian roulette
 CONFIG5 = (800, 64, 4, 16)
 CONFIG5_ASPECT = 4 / 3
+CONFIG5_RAY_BATCH = 131072
+CONFIG5_RR_START = 2
 CONFIG5_PROFILED_SPP = 16
 WAVEFRONT_ROUTE = (800, 8, 1, 16)  # phase 25, below 16 spp a chunk
 WAVEFRONT_AGREE = (160, 16, 16)    # width, spp, depth of the routes' check
 TRIANGLES_ROUTE = (400, 16, 1, 8)  # phase 26
 REDUCED_RAYS = 8192  # phase 22's waves: the plain walk over 100k triangles
 MESH_WAVE = 3        # the centre 65,536-pixel wave of an 800x600 frame
+# Phases 27-32 (the training path beyond the Cornell box)
+REC_SCENES = ("two_spheres", "two_perlin_spheres", "big_scene1", "triangles")
+# BASELINE config 2's scene in training (bench.py's wave): phases 30, 31;
+# (width, spp per chunk, chunks, depth, ray batch)
+BIG_TRAIN = (800, 16, 2, 16, 32768)
+TRI_TRAIN = (400, 8, 1, 8, 65536)  # `triangles` in training, phase 30
+# bench_all.py's mesh-grad row (:213-254): phase 32
+MESH_GRAD = (800, 4, 1, 8, 65536)
+RAY_WAVE = 65536   # phase 28's waves of torch-drawn camera rays
+RAY_BYTES = 28     # a ray plane's o, d and tm read once
+P_BYTES = 12       # a hit-point entry's x, y, z written once
 # The Cornell forward wave (65,536 rays, depth 8) of the kernel before it
 # took spheres and media, H100 80GB HBM3 at 700 W (PERF.md, section 6)
 CORNELL_WAVE_MS_BEFORE = "0.0293-0.0294"
@@ -467,7 +530,7 @@ def wave_ops(bake, counts: dict, n: int) -> float:
 def table_bytes(tracer) -> int:
     """Bytes of the megakernels' tables other than the triangle BVH's, each
     read once."""
-    return 4 * sum(t.numel() for t in tracer._checked_tables()[:7])
+    return 4 * sum(t.numel() for t in tracer._checked_tables().tensors[:7])
 
 
 def tri_bytes(reads, leaf_k: int, win_bytes: int) -> int:
@@ -825,6 +888,95 @@ def capture_step(sd, st, dev, bases: list) -> tuple:
     return captured["rays"], stats, cuda_trace.Tracer.hit_launches - launches
 
 
+def record_vs_plain(got, want, label: str) -> dict:
+    """A record kernel's planes against its plain version's on the card:
+    `record_cmp` on the packed plane and >= EXACT_FLOOR of the hit-point
+    values bit-exact."""
+    import torch
+
+    res = record_cmp(got[0], want[0])
+    res["planes"] = len(got)
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} planes, plain "
+                             f"{len(want)}")
+    if len(got) > 1:
+        g, w = torch.stack(got[1:]).cpu(), torch.stack(want[1:]).cpu()
+        res["p_exact_frac"] = float((g == w).double().mean())
+        res["p_max_abs_err"] = float((g.double() - w.double()).abs().max())
+        res["ok"] = res["ok"] and res["p_exact_frac"] >= EXACT_FLOOR
+    print(f"[record-vs-plain] {label}: {res}")
+    if not res["ok"]:
+        raise AssertionError(f"{label}: record kernel disagrees with plain")
+    return res
+
+
+def record_wave_ops(bake, counts: dict, n: int, camera: bool) -> float:
+    """float32 operations of a record wave of n rays that does the work in
+    `counts` (`trace_pixels_reference`'s, the same paths): the camera per
+    ray when it makes the rays, per live bounce the closest hit (or the
+    BVH walks' tests) and the media, per hit that is not a light its
+    scatter; no albedo, throughput or radiance."""
+    fwd = wave_ops(bake, counts, n)
+    return (fwd - n * (OPS_CAMERA + OPS_FWD_END)
+            - counts["cont"] * OPS_FWD_CONT + (n * OPS_CAMERA if camera else 0))
+
+
+def record_wave_bytes(tracer, counts: dict, n: int, depth: int,
+                      rays: bool) -> int:
+    """Bytes of a record wave: the planes written once (4 B a packed entry,
+    P_BYTES a hit-point entry), the ray planes read once, the tables other
+    than the triangle BVH's once, and the parts of the triangle BVH that
+    the plain walk of the same rays reads."""
+    from raytracing_gpu_tpu_torch.ops import cuda_trace
+
+    per_entry = 4 + (P_BYTES if tracer.need_p else 0)
+    return (per_entry * depth * n + (RAY_BYTES * n if rays else 0)
+            + table_bytes(tracer) + tri_bytes(counts["tri_read"],
+                                              cuda_trace.TRI_LEAF_K,
+                                              TRI_WIN_BYTES))
+
+
+def time_record(label: str, card: str, kernel, plain, counts_fn, ops_fn,
+                bytes_fn, reps: int = 50) -> dict:
+    """A record kernel's wave timed: device time (device held), loop time,
+    the plain version's time (one call), and the bound from the plain
+    forward version's counts of the same paths (`counts_fn()`)."""
+    ms = event_ms(kernel, reps=reps, hold_device=True)
+    loop_ms = event_ms(kernel, reps=reps)
+    plain_ms = event_ms(plain, reps=1)
+    counts = counts_fn()
+    ops, nbytes = ops_fn(counts), bytes_fn(counts)
+    bound_ms, bound_by = bound(ops, nbytes)
+    print(f"[time] {label}: kernel {ms:.6f} ms on the device ({loop_ms:.6f} "
+          f"ms per call in a Python loop), plain {plain_ms:.6f} ms; bound "
+          f"{bound_ms:.6f} ms by {bound_by} ({ops:.0f} ops from "
+          f"{counts['live']} live, {counts['cont']} continued bounces, "
+          f"{counts['nodes']} node and {counts['rows']} sphere-row tests, "
+          f"{counts['tri_nodes']} triangle-node and {counts['tri_rows']} "
+          f"triangle tests; {nbytes} bytes; "
+          f"{spec_bound_ms(ops, nbytes):.6f} ms over the spec sheet) on "
+          f"{card}")
+    return dict(ms=ms, loop_ms=loop_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, live_bounces=counts["live"])
+
+
+def counted(fn):
+    """Run `fn` with every launch count set to 0 just before and read just
+    after: (its result, {count name: launches})."""
+    import torch
+
+    from raytracing_gpu_tpu_torch.ops import cuda_trace
+
+    torch.cuda.synchronize()
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(launches=cuda_trace.Tracer.launches,
+                     record=cuda_trace.Tracer.record_launches,
+                     ray=cuda_trace.Tracer.ray_launches,
+                     hit=cuda_trace.Tracer.hit_launches)
+
+
 def reset_counts() -> None:
     """Every kernel launch count to 0."""
     from raytracing_gpu_tpu_torch.ops import cuda_trace
@@ -832,6 +984,7 @@ def reset_counts() -> None:
 
     cuda_trace.Tracer.launches = 0
     cuda_trace.Tracer.record_launches = 0
+    cuda_trace.Tracer.ray_launches = 0
     cuda_trace.Tracer.hit_launches = 0
     roofline.launches = 0
 
@@ -1098,7 +1251,7 @@ def triangle_phases(dev, card: str, base: int, png: str) -> list:
         width, spp, chunks, depth = CONFIG5
         c5 = RenderSettings(image_width=width, aspect_ratio=CONFIG5_ASPECT,
                             spp_per_chunk=spp, num_chunks=chunks,
-                            max_depth=depth, ray_batch=65536)
+                            max_depth=depth, ray_batch=CONFIG5_RAY_BATCH)
         # config 5's chunks at the seeds render() draws (phase 24 renders
         # them), for the step count and a steady-state step's rays
         hrays, c5_stats, c5_launches = capture_step(psd, c5, dev,
@@ -1109,8 +1262,9 @@ def triangle_phases(dev, card: str, base: int, png: str) -> list:
         if c5_launches != c5_steps:
             raise AssertionError(f"config 5: {c5_launches} hit launches for "
                                  f"{c5_steps} regen steps")
+        hit_n = len(hrays[3])
         hcmp = hit_vs_plain(ptr, hrays, f"backpack regen step {CAPTURE_STEP} "
-                            f"({int(hrays[3].sum())} of {HIT_RAYS} live)")
+                            f"({int(hrays[3].sum())} of {hit_n} live)")
         hit_launch = ptr.bind_hit()
         hit_ms = event_ms(lambda r: hit_launch(*hrays), reps=50,
                           hold_device=True)
@@ -1118,18 +1272,19 @@ def triangle_phases(dev, card: str, base: int, png: str) -> list:
         hit_plain_ms = event_ms(lambda r: cuda_trace.hit_reference(
             ptr.bake, *hrays), reps=1)
         h_ops, h_counts = hit_ops(ptr.bake, hrays)
-        h_bytes = hit_bytes(ptr, HIT_RAYS, h_counts)
+        h_bytes = hit_bytes(ptr, hit_n, h_counts)
         hit_bound_ms, hit_bound_by = bound(h_ops, h_bytes)
         print(f"[time] rt_hit (triangle tier) on backpack regen step "
               f"{CAPTURE_STEP} of config 5's first {spp}-spp chunk "
-              f"({c5_stats[0]}), {HIT_RAYS} rays: kernel {hit_ms:.6f} ms on "
+              f"({c5_stats[0]}), {hit_n} rays: kernel {hit_ms:.6f} ms on "
               f"the "
               f"device ({hit_loop_ms:.6f} ms per call in a Python loop), "
               f"plain {hit_plain_ms:.6f} ms; bound {hit_bound_ms:.6f} ms by "
               f"{hit_bound_by} ({h_ops:.0f} ops, {h_bytes} bytes, "
               f"{h_counts}; {spec_bound_ms(h_ops, h_bytes):.6f} ms over the "
               f"spec sheet) on {card}")
-        mst = c5.with_(spp_per_chunk=1, num_chunks=1)
+        # the 1d-t wave keeps its 65,536 rays, the wave PERF.md tracks
+        mst = c5.with_(spp_per_chunk=1, num_chunks=1, ray_batch=65536)
         mesh_wave = time_wave(ptr, psd, mst, base, card,
                               "backpack (triangle megakernel)", MESH_WAVE)
         print(f"[backpack megakernel wave] {mesh_wave}")
@@ -1190,6 +1345,25 @@ def triangle_phases(dev, card: str, base: int, png: str) -> list:
               f"it; top kernels (ms, count) {top5[:14]}")
         print(f"[main] config 5 device busy share of the sub-run: "
               f"{busy5:.6f} on {card}")
+        # config 5-rr: the same shape with russian roulette from bounce 2
+        c5rr = c5.with_(rr_start=CONFIG5_RR_START)
+        reset_counts()
+        t0 = time.perf_counter()
+        img_rr = render(psd.scene, psd.camera, c5rr, device=dev)
+        wall_rr = time.perf_counter() - t0
+        steps_rr = cuda_trace.Tracer.hit_launches
+        stray = cuda_trace.Tracer.launches + cuda_trace.Tracer.record_launches
+        mrays_rr = rays5 / wall_rr / 1e6
+        print(f"[main] render backpack (config 5-rr, rr_start "
+              f"{CONFIG5_RR_START}) {width}x{c5.image_height} "
+              f"{c5.rays_per_pixel}spp depth {depth}: {wall_rr:.6f} s, "
+              f"{mrays_rr:.6f} Mrays/s, {steps_rr} steps (hit launches), "
+              f"host time per step {wall_rr * 1e3 / max(steps_rr, 1):.6f} ms, "
+              f"image mean {img_rr.mean():.6f} ({img5.mean():.6f} without), "
+              f"megakernel launches {stray} on {card}")
+        if (steps_rr == 0 or stray != 0 or not np.isfinite(img_rr).all()
+                or not 0.05 < float(img_rr.mean()) < 0.999):
+            raise AssertionError("config 5-rr is off")
 
     # ---- 25. the wavefront route ----
     with Phase("25 wavefront route"):
@@ -1278,7 +1452,486 @@ def triangle_phases(dev, card: str, base: int, png: str) -> list:
         "config5_host_ms_per_step": wall5 * 1e3 / steps5,
         "config5_peak_allocated_mib": peak5,
         "config5_subrun_device_busy_share": busy5,
+        "config5_rr_mrays_per_s": mrays_rr, "config5_rr_steps": steps_rr,
         "wavefront_route_mrays_per_s": wrays / wwall / 1e6}]
+
+
+def training_phases(dev, card: str, base: int) -> tuple:
+    """Phases 27-32 (kernel 1b's hit-point planes and BVH walks and kernel
+    1c's ray planes against their plain versions and the goldens, the fused
+    chunk with hit points, config 2's scene in training, the record-walk
+    route, `bench_all.py`'s mesh-grad row), after phase 4 set `Ceilings`.
+    Returns their rows of the kernels line, and the mesh-grad row's rates
+    for the row of `rt_hit<tri>`, the one kernel that route launches."""
+    import numpy as np
+    import torch
+
+    import bench_torch
+    from raytracing_gpu_tpu_torch import RenderSettings
+    from raytracing_gpu_tpu_torch.engine import diff, fused_diff, render
+    from raytracing_gpu_tpu_torch.models import scenes
+    from raytracing_gpu_tpu_torch.ops import cuda_trace
+
+    tracers = {n: (scenes.get(n), cuda_trace.Tracer(scenes.get(n).scene, dev))
+               for n in REC_SCENES + ("cornell_box", "backpack")}
+
+    # ---- 27. kernel 1b rest against its plain version, then the goldens
+    with Phase("27 record p and BVH walks"):
+        for name in REC_SCENES:
+            sd, tr = tracers[name]
+            got, want = [], []
+            for s in range(4):
+                seed = cuda_trace.wave_seed(base, s, 0)
+                got.append(tr.walk_packed_pixels(sd.camera, 64, 64, 0, 4096,
+                                                 seed, max_depth=8))
+                want.append(cuda_trace.walk_packed_pixels_reference(
+                    tr.bake, sd.camera, 64, 64, 0, 4096, seed, 8,
+                    device=dev))
+            torch.cuda.synchronize()
+            record_vs_plain([torch.stack(x) for x in zip(*got)],
+                            [torch.stack(x) for x in zip(*want)],
+                            f"{name} 64x64 4spp depth 8")
+        psd, ptr = tracers["backpack"]
+        seed = cuda_trace.wave_seed(base, 0, MESH_WAVE)
+        record_vs_plain(
+            ptr.walk_packed_pixels(psd.camera, 600, 800, 3 * 65536,
+                                   REDUCED_RAYS, seed, max_depth=8),
+            cuda_trace.walk_packed_pixels_reference(
+                ptr.bake, psd.camera, 600, 800, 3 * 65536, REDUCED_RAYS,
+                seed, 8, device=dev),
+            f"backpack 800x600 {REDUCED_RAYS} rays depth 8 (reduced wave)")
+        for name in REC_SCENES:
+            sd, tr = tracers[name]
+            g = np.load(os.path.join(DATA, f"{name}_rec32.npz"))
+            gst = golden_settings(g)
+            gh, gw, gb = gst.image_height, gst.image_width, gst.ray_batch
+            waves = [(bid * gb, gb, cuda_trace.wave_seed(int(g["base"]), s,
+                                                          bid))
+                     for s in range(gst.spp_per_chunk)
+                     for bid in range(-(-gh * gw // gb))]
+            planes = [tr.walk_packed_pixels(sd.camera, gh, gw, *wv,
+                                            gst.max_depth, gst.t_min)
+                      for wv in waves]
+            got = torch.stack([x[0] for x in planes])
+            same = None
+            if "lens_cs" in g:  # lanes whose lens angle rounds as XLA's
+                same = np.stack([
+                    (cuda_trace.lens_cos_sin(wseed, n, dev).cpu().numpy()
+                     == g["lens_cs"][i]).all(0)
+                    for i, (_, n, wseed) in enumerate(waves)])
+            jcmp = cuda_trace.record_agreement(got, g["planes"], same)
+            pcmp = (cuda_trace.p_agreement(got, g["planes"], torch.stack(
+                [torch.stack(x[1:]) for x in planes]), g["p"])
+                if tr.need_p else {"hit_rule": True})
+            print(f"[record-vs-jax-golden] {name} {gw}x{gh} 2spp depth "
+                  f"{gst.max_depth}: {jcmp}; hit points {pcmp}; lanes with "
+                  f"XLA's lens rounding "
+                  f"{'all' if same is None else float(same.mean())}")
+            if not (jcmp["first_bounce"] and jcmp["lane_frac"] >= LANE_FLOOR
+                    and pcmp["hit_rule"]):
+                raise AssertionError(f"{name}: record kernel disagrees with "
+                                     "the JAX golden")
+
+    # ---- 28. kernel 1c against its plain version, then the goldens ----
+    with Phase("28 ray planes"):
+        for name in ("cornell_box", "big_scene1"):
+            sd, tr = tracers[name]
+            o, d, tm, _ = camera_rays(sd, RAY_WAVE, 83, dev)
+            record_vs_plain(tr.walk_packed(o, d, tm, 84, max_depth=8),
+                            cuda_trace.walk_packed_reference(
+                                tr.bake, o, d, tm, 84, 8),
+                            f"{name} walk_packed {RAY_WAVE} rays depth 8")
+            for rr in (0, 2):
+                cmp = compare(tr(o, d, tm, 84, max_depth=8, rr_start=rr),
+                              cuda_trace.trace_rays_reference(
+                                  tr.bake, o, d, tm, 84, 8, rr_start=rr), 8)
+                print(f"[kernel-vs-plain] {name} __call__ {RAY_WAVE} rays "
+                      f"depth 8 rr_start {rr}: {cmp}")
+                if not cmp["ok"]:
+                    raise AssertionError(f"{name}: ray-plane forward kernel "
+                                         "disagrees with plain")
+            g = np.load(os.path.join(DATA, f"{name}_rays.npz"))
+            rays = [torch.from_numpy(np.ascontiguousarray(g[k])).to(dev)
+                    for k in ("o", "d", "tm")]
+            gd, gs = int(g["max_depth"]), int(g["seed"])
+            planes = tr.walk_packed(*rays, gs, max_depth=gd)
+            jcmp = cuda_trace.record_agreement(planes[0], g["planes"])
+            pcmp = (cuda_trace.p_agreement(planes[0], g["planes"],
+                                           torch.stack(planes[1:]), g["p"])
+                    if tr.need_p else {"hit_rule": True})
+            rcmp = golden_cmp(tr(*rays, gs, max_depth=gd),
+                              torch.from_numpy(g["radiance"]))
+            print(f"[rays-vs-jax-golden] {name} 512 rays depth {gd}: planes "
+                  f"{jcmp}; hit points {pcmp}; radiance {rcmp}")
+            if not (jcmp["first_bounce"] and jcmp["lane_frac"] >= LANE_FLOOR
+                    and pcmp["hit_rule"] and rcmp["ok"]):
+                raise AssertionError(f"{name}: ray-plane kernels disagree "
+                                     "with the JAX golden")
+        # the forward ray-plane kernel on a main path: a chunk of the
+        # Cornell box at 512x512, 4 spp, depth 8 over torch-drawn rays
+        csd, ctr = tracers["cornell_box"]
+        cst = RenderSettings(image_width=512, aspect_ratio=1.0,
+                             spp_per_chunk=4, num_chunks=1, max_depth=8,
+                             ray_batch=65536)
+        trace_rays = ctr.bind_trace_rays(cst.max_depth, cst.t_min)
+        sums, rcounts = counted(lambda: render.chunk_sums(
+            csd.scene, csd.camera, cst, base,
+            lambda _s, o, d, tm, seed: trace_rays(o, d, tm, seed), dev))
+        fwd_ray_launches = rcounts["ray"]
+        expected = cst.spp_per_chunk * (cst.num_pixels // cst.ray_batch)
+        print(f"[main] chunk_sums over __call__, cornell_box 512x512 4spp "
+              f"depth 8: launches {rcounts} (expected {expected} ray-plane)")
+        mean = float(sums.mean()) / cst.spp_per_chunk
+        if (fwd_ray_launches != expected or rcounts["launches"]
+                or rcounts["record"] or rcounts["hit"]
+                or not bool(torch.isfinite(sums).all()) or not mean > 0.01):
+            raise AssertionError("the ray-plane forward chunk is off")
+        o, d, tm, seed = render.wave_rays(csd.camera.to(dev), cst, 65536,
+                                          65536, 11, dev)
+        counts = {}
+        fwd_cmp = compare(trace_rays(o, d, tm, seed),
+                          cuda_trace.trace_rays_reference(
+                              ctr.bake, o, d, tm, seed, 8, counts=counts), 8)
+        if not fwd_cmp["ok"]:
+            raise AssertionError("ray-plane forward wave disagrees")
+        fwd_ops = wave_ops(ctr.bake, counts, 65536) - 65536 * OPS_CAMERA
+        fwd_time = time_record(
+            "__call__ (kernel 1c, forward) on a cornell_box wave of 65536 "
+            "torch-drawn rays, depth 8", card,
+            lambda r: trace_rays(o, d, tm, seed + r),
+            lambda r: cuda_trace.trace_rays_reference(ctr.bake, o, d, tm,
+                                                      seed + r, 8),
+            lambda: counts, lambda c: fwd_ops,
+            lambda c: (RAY_BYTES + 12) * 65536 + table_bytes(ctr))
+        fwd_time.update(max_abs_err=fwd_cmp["max_abs_err"],
+                        exact_frac=fwd_cmp["exact_frac"])
+
+    # ---- 29. the fused chunk with hit points on the card ----
+    with Phase("29 fused chunk with p"):
+        sd, tr = tracers["two_spheres"]
+        g = np.load(os.path.join(DATA, "two_spheres_rec32.npz"))
+        gst = golden_settings(g)
+        gh, gw, gb = gst.image_height, gst.image_width, gst.ray_batch
+        gbase = int(g["base"])
+        waves = [(bid * gb, gb, cuda_trace.wave_seed(gbase, s, bid))
+                 for s in range(gst.spp_per_chunk)
+                 for bid in range(-(-gh * gw // gb))]
+        golden_planes = {wv: (torch.from_numpy(g["planes"][i]).to(dev),
+                              *torch.from_numpy(g["p"][i]).to(dev).unbind(0))
+                         for i, wv in enumerate(waves)}
+        params = diff.get_params(sd.scene, dev)
+
+        def value_and_grad(chunk):
+            out = chunk(params, gbase)
+            _, grads = diff.value_and_grad(
+                params, lambda p: chunk(p, gbase),
+                torch.full_like(out, float(g["target"])))
+            return out.detach(), grads
+
+        want_grads = {k: g[f"grad_{k}"] for k in diff.PARAM_KEYS}
+        on_golden = value_and_grad(fused_diff.fused_chunk_from_walk(
+            sd.scene, lambda pb, n, seed: golden_planes[(pb, n, seed)], gst,
+            device=dev))
+        kernel = value_and_grad(fused_diff.compile_fused_param_renderer(
+            sd.scene, sd.camera, gst, device=dev))
+        plain = value_and_grad(fused_diff.fused_chunk_from_walk(
+            sd.scene,
+            lambda pb, n, seed: cuda_trace.walk_packed_pixels_reference(
+                tr.bake, sd.camera, gh, gw, pb, n, seed, gst.max_depth,
+                gst.t_min, dev), gst, device=dev))
+        for what, (out, grads), (ref, ref_grads) in (
+                ("golden planes vs jax-golden", on_golden,
+                 (torch.from_numpy(g["primal"]), want_grads)),
+                ("kernel vs plain-on-card", kernel, plain)):
+            pcmp = compare(out, ref, gst.max_depth)
+            if what.startswith("golden"):
+                pcmp["ok"] = bool(torch.allclose(out.cpu(), ref, rtol=2e-4,
+                                                 atol=1e-7))
+            gcmp = grad_cmp(grads, ref_grads)
+            print(f"[fused-with-p] two_spheres {gw}x{gh} 2spp depth "
+                  f"{gst.max_depth}, {what}: primal {pcmp}, gradients "
+                  f"{gcmp}")
+            if not (pcmp["ok"] and gcmp["ok"]):
+                raise AssertionError(f"fused chunk with p: {what} disagree")
+
+    # ---- 30. config 2's scene in training ----
+    with Phase("30 big_scene1 training"):
+        bsd, btr = tracers["big_scene1"]
+        width, spp, chunks, depth, batch = BIG_TRAIN
+        bst = RenderSettings(image_width=width, aspect_ratio=bsd.aspect,
+                             spp_per_chunk=spp, num_chunks=chunks,
+                             max_depth=depth, ray_batch=batch)
+        bchunk = fused_diff.compile_fused_param_renderer(bsd.scene,
+                                                         bsd.camera, bst,
+                                                         device=dev)
+        bparams = diff.get_params(bsd.scene, dev)
+        gen = torch.Generator().manual_seed(bench_torch.SEED)
+        bbases = [cuda_trace.chunk_seed(gen) for _ in range(chunks)]
+        nb = -(-bst.num_pixels // batch)
+        target = torch.zeros((nb * batch, 3), dtype=torch.float32,
+                             device=dev)
+        warm = fused_diff.compile_fused_param_renderer(
+            bsd.scene, bsd.camera, bst.with_(image_width=64, spp_per_chunk=1),
+            device=dev)
+        bench_torch.train_renders(warm, bparams, torch.zeros_like(
+            warm(bparams, 1)), [1])  # warm-up, at a small width
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        (loss, grads), bcounts = counted(lambda: bench_torch.train_renders(
+            bchunk, bparams, target, bbases))
+        bwall = time.perf_counter() - t0
+        bpeak = torch.cuda.max_memory_allocated() / 2**30
+        expected = chunks * spp * nb
+        brays = bst.num_pixels * bst.rays_per_pixel
+        bmrays = brays / bwall / 1e6
+        print(f"[train] fwd+bwd big_scene1 {width}x{bst.image_height} "
+              f"{bst.rays_per_pixel}spp ({chunks} x {spp}) depth {depth}, "
+              f"ray_batch {batch}, save_planes {bchunk.save_planes}: "
+              f"{bwall:.6f} s, {bmrays:.6f} Mrays/s, launches {bcounts} "
+              f"(expected {expected} record launches forward and as many "
+              f"backward), peak allocated {bpeak:.3f} GiB on {card}")
+        if (bcounts["record"] != 2 * expected or bchunk.save_planes
+                or bcounts["launches"] or bcounts["hit"] or bcounts["ray"]):
+            raise AssertionError(f"big_scene1 training: launches {bcounts}, "
+                                 f"expected {2 * expected} record launches")
+        if not (bool(torch.isfinite(loss)) and float(loss) > 0.0
+                and all(bool(torch.isfinite(v).all())
+                        for v in grads.values())
+                and float(grads["tex_c1"].abs().max()) > 0.0
+                and float(grads["tex_c2"].abs().max()) > 0.0):
+            raise AssertionError("big_scene1 training: bad loss or "
+                                 "gradients")
+        # the busy share of a bounded sub-run: one chunk
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bench_torch.train_renders(bchunk, bparams, target, bbases[:1])
+        torch.cuda.synchronize()
+        sub_wall = time.perf_counter() - t0
+        bprof = device_busy(lambda: bench_torch.train_renders(
+            bchunk, bparams, target, bbases[:1]))
+        bbusy = bprof["device_ms"] / (sub_wall * 1e3)
+        top = sorted(bprof["by_kernel"].items(), key=lambda kv: -kv[1][0])
+        print(f"[train] big_scene1 one-chunk sub-run: device "
+              f"{bprof['device_ms']:.3f} ms in {sub_wall * 1e3:.3f} ms "
+              f"unprofiled, busy share {bbusy:.6f}; top kernels (ms, count) "
+              f"{top[:12]}")
+        # the training wave of the sphere-BVH record kernel, with p
+        wave = btr.bind_record(bsd.camera, bst.image_height, width, depth,
+                               bst.t_min)
+        wseed = cuda_trace.wave_seed(bbases[0], 0, 1)
+        bw_cmp = record_vs_plain(
+            wave(batch, batch, wseed),
+            cuda_trace.walk_packed_pixels_reference(
+                btr.bake, bsd.camera, bst.image_height, width, batch, batch,
+                wseed, depth, device=dev),
+            f"big_scene1 training wave of {batch} rays depth {depth}")
+        bw_time = time_record(
+            f"megakernel_record (sphere BVH, p) on big_scene1's training "
+            f"wave, {batch} rays, depth {depth}", card,
+            lambda r: wave(batch, batch, wseed + r),
+            lambda r: cuda_trace.walk_packed_pixels_reference(
+                btr.bake, bsd.camera, bst.image_height, width, batch, batch,
+                wseed + r, depth, device=dev),
+            lambda: trace_counts(btr, bsd.camera, bst.image_height, width,
+                                 batch, batch, wseed, depth),
+            lambda c: record_wave_ops(btr.bake, c, batch, True),
+            lambda c: record_wave_bytes(btr, c, batch, depth, False))
+        bw_time.update(max_abs_err=bw_cmp["max_abs_err"],
+                       exact_frac=bw_cmp["exact_frac"])
+        # `triangles` in training: the triangle-BVH record kernel
+        tsd, ttr = tracers["triangles"]
+        width, spp, chunks, depth, batch = TRI_TRAIN
+        tst = RenderSettings(image_width=width, aspect_ratio=tsd.aspect,
+                             spp_per_chunk=spp, num_chunks=chunks,
+                             max_depth=depth, ray_batch=batch)
+        tchunk = fused_diff.compile_fused_param_renderer(tsd.scene,
+                                                         tsd.camera, tst,
+                                                         device=dev)
+        tparams = diff.get_params(tsd.scene, dev)
+        ttarget = torch.zeros((-(-tst.num_pixels // batch) * batch, 3),
+                              device=dev)
+        t0 = time.perf_counter()
+        (tloss, tgrads), tcounts = counted(lambda: bench_torch.train_renders(
+            tchunk, tparams, ttarget, [base]))
+        twall = time.perf_counter() - t0
+        texpected = spp * -(-tst.num_pixels // batch)
+        texpected *= 1 if tchunk.save_planes else 2
+        print(f"[train] fwd+bwd triangles {width}x{tst.image_height} "
+              f"{spp}spp depth {depth}: {twall:.6f} s, launches {tcounts} "
+              f"(expected {texpected} record launches) on {card}")
+        if (tcounts["record"] != texpected or tcounts["launches"]
+                or not float(tgrads["tex_c1"].abs().max()) > 0.0):
+            raise AssertionError("triangles training is off")
+        tw = ttr.bind_record(tsd.camera, tst.image_height, width, depth,
+                             tst.t_min)
+        tw_cmp = record_vs_plain(
+            tw(0, batch, wseed),
+            cuda_trace.walk_packed_pixels_reference(
+                ttr.bake, tsd.camera, tst.image_height, width, 0, batch,
+                wseed, depth, device=dev),
+            f"triangles wave of {batch} rays depth {depth}")
+        tw_time = time_record(
+            f"megakernel_record (triangle BVH) on triangles' wave, {batch} "
+            f"rays, depth {depth}", card,
+            lambda r: tw(0, batch, wseed + r),
+            lambda r: cuda_trace.walk_packed_pixels_reference(
+                ttr.bake, tsd.camera, tst.image_height, width, 0, batch,
+                wseed + r, depth, device=dev),
+            lambda: trace_counts(ttr, tsd.camera, tst.image_height, width, 0,
+                                 batch, wseed, depth),
+            lambda c: record_wave_ops(ttr.bake, c, batch, True),
+            lambda c: record_wave_bytes(ttr, c, batch, depth, False))
+        tw_time.update(max_abs_err=tw_cmp["max_abs_err"],
+                       exact_frac=tw_cmp["exact_frac"])
+
+    # ---- 31. the record-walk route at full width ----
+    with Phase("31 record-walk route"):
+        width, spp, _, depth, batch = BIG_TRAIN
+        wst = bst.with_(num_chunks=1)
+        walk_chunk = render.compile_param_renderer(bsd.scene, bsd.camera, wst,
+                                                   device=dev)
+        if walk_chunk.engine_name != "record-walk":
+            raise AssertionError(f"big_scene1 took {walk_chunk.engine_name}")
+        t0 = time.perf_counter()
+        wsums, wcounts = counted(lambda: walk_chunk(bparams, bbases[0]))
+        wwall = time.perf_counter() - t0
+        expected = spp * nb
+        fused_rays = fused_diff.compile_fused_param_renderer(
+            bsd.scene, bsd.camera, wst, gen_rays=False, device=dev)
+        same = bool(torch.equal(wsums, fused_rays(bparams, bbases[0])))
+        wrays = wst.num_pixels * wst.rays_per_pixel
+        print(f"[main] compile_param_renderer big_scene1 (engine "
+              f"{walk_chunk.engine_name}) {width}x{wst.image_height} {spp}spp "
+              f"depth {depth}, primal: {wwall:.6f} s, "
+              f"{wrays / wwall / 1e6:.6f} Mrays/s, launches {wcounts} "
+              f"(expected {expected} ray-plane record launches); equal to "
+              f"the fused chunk with gen_rays=False {same} on {card}")
+        if (wcounts["ray"] != expected or wcounts["record"]
+                or wcounts["launches"] or wcounts["hit"] or not same
+                or not bool(torch.isfinite(wsums).all())):
+            raise AssertionError("the record-walk route is off")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        (wloss, wgrads), wgcounts = counted(
+            lambda: bench_torch.train_renders(walk_chunk, bparams, target,
+                                              bbases[:1]))
+        wgwall = time.perf_counter() - t0
+        wpeak = torch.cuda.max_memory_allocated() / 2**30
+        wexpected = expected * (1 if walk_chunk.save_planes else 2)
+        print(f"[main] record-walk route fwd+bwd: {wgwall:.6f} s, "
+              f"{wrays / wgwall / 1e6:.6f} Mrays/s, launches {wgcounts} "
+              f"(expected {wexpected} ray-plane record launches, "
+              f"save_planes {walk_chunk.save_planes}), peak allocated "
+              f"{wpeak:.3f} GiB on {card}")
+        if (wgcounts["ray"] != wexpected or wgcounts["record"]
+                or wgcounts["launches"] or wgcounts["hit"]
+                or not bool(torch.isfinite(wloss))
+                or not all(bool(torch.isfinite(v).all())
+                           for v in wgrads.values())
+                or not float(wgrads["tex_c1"].abs().max()) > 0.0
+                or not float(wgrads["tex_c2"].abs().max()) > 0.0):
+            raise AssertionError("the record-walk route's gradients are off")
+        o, d, tm, rseed = render.wave_rays(bsd.camera.to(dev), wst, 0, batch,
+                                           cuda_trace.wave_seed(bbases[0], 0,
+                                                                0), dev)
+        walk_rays = btr.bind_walk_packed(depth, wst.t_min)
+        rw_cmp = record_vs_plain(
+            walk_rays(o, d, tm, rseed),
+            cuda_trace.walk_packed_reference(btr.bake, o, d, tm, rseed,
+                                             depth),
+            f"big_scene1 first wave of the chunk, {batch} rays")
+        rw_time = time_record(
+            f"walk_packed (kernel 1c, record) on the first wave of "
+            f"big_scene1's {spp}-spp chunk, {batch} rays, depth {depth}",
+            card, lambda r: walk_rays(o, d, tm, rseed + r),
+            lambda r: cuda_trace.walk_packed_reference(btr.bake, o, d, tm,
+                                                       rseed + r, depth),
+            lambda: ray_counts(btr, o, d, tm, rseed, depth),
+            lambda c: record_wave_ops(btr.bake, c, batch, False),
+            lambda c: record_wave_bytes(btr, c, batch, depth, True))
+        rw_time.update(max_abs_err=rw_cmp["max_abs_err"],
+                       exact_frac=rw_cmp["exact_frac"])
+
+    # ---- 32. bench_all.py's mesh-grad row ----
+    with Phase("32 mesh-grad"):
+        width, spp, chunks, depth, batch = MESH_GRAD
+        mst = RenderSettings(image_width=width, aspect_ratio=CONFIG5_ASPECT,
+                             spp_per_chunk=spp, num_chunks=chunks,
+                             max_depth=depth, ray_batch=batch)
+        mchunk = render.compile_param_renderer(psd.scene, psd.camera, mst,
+                                               device=dev, debug_stats=True)
+        if mchunk.engine_name != "wavefront-record":
+            raise AssertionError(f"backpack took {mchunk.engine_name}")
+        mparams = diff.get_params(psd.scene, dev)
+        stats = {}
+
+        def mesh_grad():
+            def chunk(p):
+                sums, st_ = mchunk(p, base)
+                stats.update(st_)
+                return sums
+            return diff.value_and_grad(mparams, chunk, 0.0)
+
+        mesh_grad()  # warm-up
+        t0 = time.perf_counter()
+        (mloss, mgrads), mcounts = counted(mesh_grad)
+        mwall = time.perf_counter() - t0
+        mrays = mst.num_pixels * mst.rays_per_pixel
+        print(f"[main] mesh-grad: compile_param_renderer backpack (engine "
+              f"{mchunk.engine_name}) {width}x{mst.image_height} {spp}spp "
+              f"depth {depth}, fwd+bwd: {mwall:.6f} s, "
+              f"{mrays / mwall / 1e6:.6f} Mrays/s, launches {mcounts} for "
+              f"{stats['iterations']} bounces, tex_c1 gradient "
+              f"{mgrads['tex_c1'].cpu().numpy().tolist()} on {card}")
+        if (mcounts["hit"] != stats["iterations"] or mcounts["hit"] == 0
+                or mcounts["launches"] or mcounts["record"] or mcounts["ray"]
+                or not float(mgrads["tex_c1"].abs().max()) > 0.0
+                or not bool(torch.isfinite(mloss))):
+            raise AssertionError("the mesh-grad row is off")
+
+    return [{
+        "name": "megakernel_record<sphere_bvh,p>", "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": REPLACES,
+        "launches": bcounts["record"], **bw_time, "library_ms": None,
+        "train_mrays_per_s": bmrays, "train_peak_allocated_gib": bpeak,
+        "train_subrun_device_busy_share": bbusy}, {
+        "name": "megakernel_record<tri_bvh>", "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": REPLACES,
+        "launches": tcounts["record"], **tw_time, "library_ms": None}, {
+        "name": "megakernel_record<rays>", "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": REPLACES,
+        "launches": wcounts["ray"], **rw_time, "library_ms": None,
+        "record_walk_mrays_per_s": wrays / wwall / 1e6,
+        "record_walk_train_mrays_per_s": wrays / wgwall / 1e6,
+        "record_walk_train_peak_allocated_gib": wpeak}, {
+        "name": "megakernel_fwd<rays>", "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": REPLACES,
+        "launches": fwd_ray_launches, **fwd_time, "library_ms": None}], {
+        "mesh_grad_mrays_per_s": mrays / mwall / 1e6,
+        "mesh_grad_seconds": mwall}
+
+
+def trace_counts(tracer, camera, h: int, w: int, pix: int, n: int,
+                 seed: int, depth: int) -> dict:
+    """The work counts of a camera-ray wave (the forward plain version's on
+    the same seed: the record walk follows the same paths)."""
+    from raytracing_gpu_tpu_torch.ops import cuda_trace
+
+    counts = {}
+    cuda_trace.trace_pixels_reference(tracer.bake, camera, h, w, pix, n, seed,
+                                      depth, device=tracer.device,
+                                      counts=counts)
+    return counts
+
+
+def ray_counts(tracer, o, d, tm, seed: int, depth: int) -> dict:
+    """`trace_counts` for a wave of given rays."""
+    from raytracing_gpu_tpu_torch.ops import cuda_trace
+
+    counts = {}
+    cuda_trace.trace_rays_reference(tracer.bake, o, d, tm, seed, depth,
+                                    counts=counts)
+    return counts
 
 
 def main() -> int:
@@ -1473,10 +2126,10 @@ def main() -> int:
             for s in range(4):
                 seed = cuda_trace.wave_seed(base, s, 0)
                 got.append(tracer.walk_packed_pixels(
-                    sd.camera, 64, 64, 0, 4096, seed, max_depth=depth))
+                    sd.camera, 64, 64, 0, 4096, seed, max_depth=depth)[0])
                 want.append(cuda_trace.walk_packed_pixels_reference(
                     tracer.bake, sd.camera, 64, 64, 0, 4096, seed,
-                    max_depth=depth, device=dev))
+                    max_depth=depth, device=dev)[0])
             torch.cuda.synchronize()
             rcmp = record_cmp(torch.stack(got), torch.stack(want))
             print(f"[record-vs-plain] cornell 64x64 4spp depth {depth}: "
@@ -1489,12 +2142,12 @@ def main() -> int:
         rec_seed = cuda_trace.wave_seed(base, 0, 1)
         rec_plane = tracer.walk_packed_pixels(sd.camera, 512, 512, rec_base,
                                               rec_n, rec_seed,
-                                              max_depth=main_depth)
+                                              max_depth=main_depth)[0]
         rec_cmp = record_cmp(rec_plane,
                              cuda_trace.walk_packed_pixels_reference(
                                  tracer.bake, sd.camera, 512, 512, rec_base,
                                  rec_n, rec_seed, max_depth=main_depth,
-                                 device=dev))
+                                 device=dev)[0])
         print(f"[record-vs-plain] main shape 512x512 wave of {rec_n} depth "
               f"{main_depth}: {rec_cmp}")
         if not rec_cmp["ok"]:
@@ -1511,7 +2164,7 @@ def main() -> int:
             lambda r: cuda_trace.walk_packed_pixels_reference(
                 tracer.bake, sd.camera, 512, 512, rec_base, rec_n,
                 cuda_trace.wave_seed(base, r, 1), max_depth=main_depth,
-                device=dev), reps=3)
+                device=dev)[0], reps=3)
         print(f"[time] record kernel, one wave of {rec_n} rays, depth "
               f"{main_depth}: {rec_ms:.6f} ms on the device ({rec_loop_ms:.6f}"
               f" ms per call in a Python loop), plain {rec_plain_ms:.6f} ms, "
@@ -1530,7 +2183,7 @@ def main() -> int:
               "over the spec sheet)")
         fwd_plane = tracer.walk_packed_pixels(
             sd.camera, 512, 512, main_n, main_n,
-            cuda_trace.wave_seed(base, 0, 1), max_depth=main_depth)
+            cuda_trace.wave_seed(base, 0, 1), max_depth=main_depth)[0]
         fwd_ops = wave_ops(tracer.bake, plane_counts(sd.scene, fwd_plane),
                            main_n)
         fwd_bound_ms, fwd_bound_by = bound(fwd_ops, 12 * main_n + tbytes)
@@ -1552,7 +2205,7 @@ def main() -> int:
         got = torch.stack([tracer.walk_packed_pixels(
             sd.camera, gh, gw, bid * gb, gb,
             cuda_trace.wave_seed(gbase, s, bid), max_depth=gst.max_depth,
-            t_min=gst.t_min) for s, bid in gwaves])
+            t_min=gst.t_min)[0] for s, bid in gwaves])
         jcmp = cuda_trace.record_agreement(got, gg["planes"])
         print(f"[record-vs-jax-golden] cornell 32x32 2spp depth "
               f"{gst.max_depth}, {len(gwaves)} waves: {jcmp}")
@@ -1675,10 +2328,10 @@ def main() -> int:
             dsd, dtr = tracers[name]
             got = torch.stack([dtr.walk_packed_pixels(
                 dsd.camera, 64, 64, 0, 4096, cuda_trace.wave_seed(base, s, 0),
-                max_depth=8) for s in range(4)])
+                max_depth=8)[0] for s in range(4)])
             want = torch.stack([cuda_trace.walk_packed_pixels_reference(
                 dtr.bake, dsd.camera, 64, 64, 0, 4096,
-                cuda_trace.wave_seed(base, s, 0), 8, device=dev)
+                cuda_trace.wave_seed(base, s, 0), 8, device=dev)[0]
                 for s in range(4)])
             rcmp = record_cmp(got, want)
             print(f"[record-vs-plain] {name} 64x64 4spp depth 8: {rcmp}")
@@ -1692,7 +2345,7 @@ def main() -> int:
             got = torch.stack([dtr.walk_packed_pixels(
                 dsd.camera, gh, gw, bid * gb, gb,
                 cuda_trace.wave_seed(int(g["base"]), s, bid),
-                gst.max_depth, gst.t_min)
+                gst.max_depth, gst.t_min)[0]
                 for s in range(gst.spp_per_chunk)
                 for bid in range(-(-gh * gw // gb))])
             jcmp = cuda_trace.record_agreement(got, g["planes"])
@@ -1756,6 +2409,8 @@ def main() -> int:
 
     big_mega, hit_row = big_scene1_phases(dev, card, base, args.png)
     tri_rows = triangle_phases(dev, card, base, args.png)
+    train_rows, mesh_grad = training_phases(dev, card, base)
+    tri_rows[1].update(mesh_grad)  # the mesh-grad route runs rt_hit<tri>
 
     scene_rates = {name: dict(c) for name, c in configs.items()}
     print(json.dumps({"kernels": [{
@@ -1794,7 +2449,7 @@ def main() -> int:
         "loop_ms": big_mega["loop_ms"],
         "render_mrays_per_s": big_mega["mrays_per_s"],
         "render_device_busy_share": big_mega["busy_share"]}, hit_row,
-        *tri_rows, {
+        *tri_rows, *train_rows, {
         "name": "fma_chain", "route": "cuda", "source": FMA_SOURCE,
         "replaces": FMA_REPLACES, "launches": fma_launches,
         "max_abs_err": fma_err, "ms": fma_ms, "plain_ms": fma_plain_ms,

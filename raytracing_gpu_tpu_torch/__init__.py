@@ -7,19 +7,21 @@ package imports torch and never JAX.  Its kernels are CUDA C++ in
 `ops/csrc/`, built with nvcc for sm_90a at first use; on CPU tensors each
 kernel's plain PyTorch version runs instead.
 
-Ported so far: the forward render (`render`, `compile_renderer`) of the
-dense scenes (rects, boxes, up to 64 spheres, constant media; every
-material; solid, checker and perlin albedo; russian roulette), e.g.
-`first`, `cornell_smoke`, `two_perlin_spheres`; and the differentiable
-chunk that training runs (`compile_fused_param_renderer`: the megakernel's
-record mode, then the shading and its closed-form adjoint in torch) for
-those of them whose textures are all solid, e.g. `cornell_box`.
+Ported so far, for every scene without image textures (rects, boxes,
+spheres in a dense loop or a BVH, triangle meshes, constant media; every
+material; solid, checker and perlin albedo; russian roulette): the
+forward render (`render`, `compile_renderer`) and the differentiable
+chunks that training runs (`compile_fused_param_renderer`: the
+megakernel's record mode, then the shading and its closed-form adjoint in
+torch; `compile_param_renderer`: that chunk on ray planes, or the
+wavefront record walk and the shading under autograd).
 """
 
 from .core.camera import Camera
 from .core.config import RenderSettings
 from .engine.fused_diff import compile_fused_param_renderer
-from .engine.render import compile_renderer, render, render_linear
+from .engine.render import (compile_param_renderer, compile_renderer, render,
+                            render_linear)
 from .scene.builder import BLACK, SKY, SceneBuilder
 
 __all__ = [
@@ -29,6 +31,7 @@ __all__ = [
     "SKY",
     "BLACK",
     "compile_fused_param_renderer",
+    "compile_param_renderer",
     "compile_renderer",
     "render",
     "render_linear",

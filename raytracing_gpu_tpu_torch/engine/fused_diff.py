@@ -1,11 +1,16 @@
 """The differentiable render chunk, with a closed-form backward pass.
 
 Counterpart of `compile_fused_param_renderer` and `_shade_chain_bwd` in
-`raytracing_gpu_tpu/engine/fused_diff.py`, for its in-kernel camera route
-(`gen_rays=True`).  A chunk is `spp_per_chunk` samples of every pixel,
-split into waves of `ray_batch` pixels.  Each (sample, wave) runs the record
-kernel (`ops/cuda_trace.py` `Tracer.bind_record`) and shades its packed
-plane (`integrator.shade_packed`).
+`raytracing_gpu_tpu/engine/fused_diff.py`.  A chunk is `spp_per_chunk`
+samples of every pixel, split into waves of `ray_batch` pixels.  Each
+(sample, wave) runs the record kernel and shades its record planes
+(`integrator.shade_packed`): the packed plane, and the hit-point planes
+when a checker or perlin texture needs them.  With `gen_rays=True` the
+kernel makes the camera rays (`ops/cuda_trace.py` `Tracer.bind_record`);
+with `gen_rays=False` each wave's rays are drawn in torch with
+`render.chunk_sums`'s schedule (`render.wave_rays`) and walked on ray
+planes (`Tracer.walk_packed`, kernel 1c): the record-walk route of
+`render.compile_param_renderer`.
 
 Per lane the shading is the product chain (reference `render.h:55-81`):
 
@@ -24,10 +29,9 @@ a prefix product T, a reverse suffix sum S, and one vector-Jacobian product
 of `materials.shade`: no per-bounce graph is kept.  The chunk is a
 `torch.autograd.Function` whose backward is exactly that.
 
-Not ported yet: the ray-plane route (`gen_rays=False`, it needs the record
-kernel's ray-plane input), the sharded form (`fused_diff.py:273`), and
-scenes whose textures need the hit-point or uv planes (checker, perlin,
-image: `need_p`/`need_uv`), which both entries refuse.
+Not ported yet: the sharded form (`fused_diff.py:273`), and scenes with
+image textures, whose uv planes (`need_uv`) the record walk does not
+write; both entries refuse them.
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ from ..scene import materials as materials_mod
 from ..scene.types import Scene, host_table
 from .diff import PARAM_KEYS
 from .integrator import shade_packed, unpack_walk
-from .render import _grid_geometry
+from .render import _grid_geometry, wave_rays
 
 _SAVE_PLANES_MAX_BYTES = 1 << 30
 
@@ -52,9 +56,9 @@ def _shade_chain_bwd(scene: Scene, params: dict, planes, g: torch.Tensor,
                      need_p: bool, need_uv: bool) -> dict:
     """d<g, L(params)> / d params for one wave, by the closed-form adjoint.
 
-    planes are the wave's record planes; g is the incoming radiance
-    cotangent (N, 3).  A parameter that `shade` does not use gets zeros of
-    its own shape.
+    planes are the wave's record planes (packed[, px, py, pz]); g is the
+    incoming radiance cotangent (N, 3).  A parameter that `shade` does not
+    use gets zeros of its own shape.
     """
     data = unpack_walk(planes, need_p, need_uv)
     d_, n = data.mat_id.shape
@@ -99,14 +103,17 @@ def _shade_chain_bwd(scene: Scene, params: dict, planes, g: torch.Tensor,
 
 
 def fused_chunk_from_walk(scene: Scene,
-                          walk: Callable[[int, int, int], torch.Tensor],
+                          walk: Callable[[int, int, int], tuple],
                           settings: RenderSettings,
                           save_planes: bool | None = None,
-                          device: torch.device | str = "cuda"
+                          device: torch.device | str = "cuda",
+                          need_p: bool | None = None
                           ) -> Callable[[dict, int], torch.Tensor]:
     """The differentiable chunk over a record walk
-    `walk(pix_base, n, seed) -> (max_depth, n)` int32 packed plane: the
-    kernel's (`compile_fused_param_renderer`) or its plain version.
+    `walk(pix_base, n, seed) -> planes`: (packed (max_depth, n) int32, and
+    px, py, pz (max_depth, n) float32 when the scene's textures need the
+    hit point), the kernel's (`compile_fused_param_renderer`) or its plain
+    version.
 
     Returns `chunk(params, base) -> (npix_pad, 3)` float32 radiance sums,
     differentiable with respect to the tensors of `params`
@@ -114,25 +121,26 @@ def fused_chunk_from_walk(scene: Scene,
     `wave_seed(base, s, bid)`, the JAX package's schedule
     (`fused_diff.py:184-193`).
 
-    save_planes: keep every wave's record plane from the forward pass for
+    save_planes: keep every wave's record planes from the forward pass for
     the backward pass, instead of walking the waves again.  Default: on
-    when the planes of a chunk fit in 1 GB.
+    when the planes of a chunk fit in 1 GiB.
+    need_p: whether the walk writes the hit-point planes; default the
+    scene's bake's (`SceneBake.need_p`).
     """
     feature = cuda_trace.unported_record_feature(scene)
     if feature is not None:
-        # the shade below reads no hit point and no uv: such a scene would
-        # be shaded at p = 0 without an error
         raise NotImplementedError(f"{feature}: not yet ported")
     device = torch.device(device)
+    if need_p is None:
+        need_p = cuda_trace.bake_scene(scene).need_p
     _h, _w, _npix, npix_pad, b, nb = _grid_geometry(settings)
     spp, max_depth = settings.spp_per_chunk, settings.max_depth
-    # the accepted scenes need the packed plane only (no hit point, no uv)
-    plane_bytes = spp * nb * max_depth * b * 4
+    plane_bytes = spp * nb * max_depth * b * 4 * (1 + 3 * need_p)
     if save_planes is None:
         save_planes = plane_bytes <= _SAVE_PLANES_MAX_BYTES
     waves = [(s, bid) for s in range(spp) for bid in range(nb)]
 
-    def walk_wave(base: int, s: int, bid: int) -> torch.Tensor:
+    def walk_wave(base: int, s: int, bid: int) -> tuple:
         return walk(bid * b, b, cuda_trace.wave_seed(base, s, bid))
 
     class FusedChunk(torch.autograd.Function):
@@ -143,8 +151,8 @@ def fused_chunk_from_walk(scene: Scene,
             kept = []
             for s, bid in waves:
                 planes = walk_wave(base, s, bid)
-                out[bid] += shade_packed(scene, params, planes,
-                                         need_p=False, need_uv=False)
+                out[bid] += shade_packed(scene, params, *planes,
+                                         need_p=need_p, need_uv=False)
                 if save_planes:
                     kept.append(planes)
             ctx.base = base
@@ -160,8 +168,8 @@ def fused_chunk_from_walk(scene: Scene,
             for i, (s, bid) in enumerate(waves):
                 planes = (ctx.kept[i] if ctx.kept is not None
                           else walk_wave(ctx.base, s, bid))
-                d_p = _shade_chain_bwd(scene, params, (planes,), g_waves[bid],
-                                       False, False)
+                d_p = _shade_chain_bwd(scene, params, planes, g_waves[bid],
+                                       need_p, False)
                 acc = {k: acc[k] + d_p[k] for k in acc}
             return (None, *(acc[k] for k in PARAM_KEYS))
 
@@ -174,19 +182,36 @@ def fused_chunk_from_walk(scene: Scene,
 
 def compile_fused_param_renderer(
     scene: Scene, camera: Camera, settings: RenderSettings,
-    save_planes: bool | None = None, device: torch.device | str = "cuda",
+    save_planes: bool | None = None, gen_rays: bool = True,
+    device: torch.device | str = "cuda",
+    tracer: cuda_trace.Tracer | None = None,
 ) -> Callable[[dict, int], torch.Tensor]:
     """Differentiable chunk renderer `(params, base) -> (npix_pad, 3)` sums
     on `device`, with the closed-form backward pass; `base` is the int32
     chunk seed (`cuda_trace.chunk_seed`).
 
     The walks are the record kernel's on a CUDA device and its plain
-    version on the CPU.  Raises NotImplementedError for a scene outside the
-    ported feature set, and for one whose textures need the hit-point or uv
-    planes.  See `fused_chunk_from_walk` for `save_planes`.
+    version on the CPU: on camera rays made in the kernel (`gen_rays`, the
+    route `bench.py` takes), or on each wave's rays drawn in torch
+    (`render.wave_rays`) and walked as ray planes (kernel 1c), the
+    record-walk route of `render.compile_param_renderer`, which passes its
+    `tracer` of `scene`.  Raises NotImplementedError for a scene outside
+    the ported feature set.  See `fused_chunk_from_walk` for
+    `save_planes`.
     """
-    tracer = cuda_trace.Tracer(scene, device)  # raises for unported scenes
+    device = torch.device(device)
+    if tracer is None:
+        tracer = cuda_trace.Tracer(scene, device)  # raises for unported
     h, w, *_ = _grid_geometry(settings)
-    walk = tracer.bind_record(camera, h, w, settings.max_depth,
-                              settings.t_min)
-    return fused_chunk_from_walk(scene, walk, settings, save_planes, device)
+    depth, t_min = settings.max_depth, settings.t_min
+    if gen_rays:
+        walk = tracer.bind_record(camera, h, w, depth, t_min)
+    else:
+        cam = camera.to(device)
+        walk_rays = tracer.bind_walk_packed(depth, t_min)
+
+        def walk(pix_base: int, n: int, seed: int) -> tuple:
+            return walk_rays(*wave_rays(cam, settings, pix_base, n, seed,
+                                        device))
+    return fused_chunk_from_walk(scene, walk, settings, save_planes, device,
+                                 tracer.need_p)

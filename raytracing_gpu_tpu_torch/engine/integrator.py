@@ -3,9 +3,12 @@
 Counterpart of `BounceData`, `unpack_walk`, `shade_radiance` and
 `shade_packed` in `raytracing_gpu_tpu/engine/integrator.py`.  Phase 1, the
 detached path walk, is the record kernel (`ops/cuda_trace.py`
-`Tracer.walk_packed_pixels`): per bounce it packs the material id and the
-hit/cont/miss masks into one int32 word.  Everything that depends on the
-parameters happens here, in torch ops that autograd can follow.
+`Tracer.walk_packed_pixels`, `Tracer.walk_packed`) or the wavefront record
+walk (`engine/wavefront.py` `make_record_trace_wave`): per bounce it packs
+the material id and the hit/cont/miss masks into one int32 word, with the
+hit point beside it when a texture needs it and, on the wavefront walk
+with russian roulette, the 1/p survival scale.  Everything that depends on
+the parameters happens here, in torch ops that autograd can follow.
 """
 
 from __future__ import annotations
@@ -28,15 +31,18 @@ class BounceData(NamedTuple):
     hit: torch.Tensor     # (D, N) bool: hit this bounce while alive
     cont: torch.Tensor    # (D, N) bool: the path continued after this bounce
     miss: torch.Tensor    # (D, N) bool: escaped to the background
+    scale: torch.Tensor | None = None  # (D, N) detached 1/p of russian
+    #                                    roulette, None: no roulette
 
 
-def unpack_walk(planes, need_p: bool, need_uv: bool) -> BounceData:
+def unpack_walk(planes, need_p: bool, need_uv: bool,
+                need_scale: bool = False) -> BounceData:
     """Raw record planes -> BounceData.
 
-    planes = (packed (D, N) int32, [px, py, pz,] [u, v]): the masks live in
-    bits 16-18 of the packed plane, and absent planes become zeros here.
-    (The JAX package's trailing russian-roulette scale plane comes with the
-    wavefront record walk, which is not ported.)
+    planes = (packed (D, N) int32, [px, py, pz,] [u, v,] [scale]): the
+    masks live in bits 16-18 of the packed plane, absent p and uv planes
+    become zeros here, and the trailing scale plane (the wavefront record
+    walk with russian roulette) is None when absent.
     """
     packed = planes[0]
     max_depth, n = packed.shape
@@ -58,6 +64,7 @@ def unpack_walk(planes, need_p: bool, need_uv: bool) -> BounceData:
         mat_id=packed & 0xFFFF, u=u, v=v, p=p,
         hit=(packed & (1 << 16)) != 0, cont=(packed & (1 << 17)) != 0,
         miss=(packed & (1 << 18)) != 0,
+        scale=planes[i] if need_scale else None,
     )
 
 
@@ -66,9 +73,10 @@ def shade_radiance(scene: Scene, params: dict, data: BounceData
     """Differentiable radiance (N, 3) over recorded bounces.
 
     L = sum_b T_b * E_b with E_b = miss_b * background + hit_b * emit_b and
-    T_{b+1} = T_b * (cont_b * att_b + (1 - cont_b)): the
+    T_{b+1} = T_b * (cont_b * att_b + (1 - cont_b)) * scale_b: the
     mask-multiply form of `integrator.shade_radiance`, in its order of
-    operations.  Shading runs once over the flattened (D * N) hits, as the
+    operations; scale_b, the detached russian-roulette 1/p, is 1 without
+    a scale plane.  Shading runs once over the flattened (D * N) hits, as the
     JAX package does for image scenes: the same values per hit, in one call
     instead of D.
     """
@@ -90,10 +98,13 @@ def shade_radiance(scene: Scene, params: dict, data: BounceData
         h, m, c = h_all[b], m_all[b], c_all[b]
         radiance = radiance + throughput * (m * bg + h * emit_all[b])
         throughput = throughput * (c * att_all[b] + (1.0 - c))
+        if data.scale is not None:
+            throughput = throughput * data.scale[b][..., None]
     return radiance
 
 
 def shade_packed(scene: Scene, params: dict, *planes, need_p: bool,
-                 need_uv: bool) -> torch.Tensor:
+                 need_uv: bool, need_scale: bool = False) -> torch.Tensor:
     """Phase 2 over raw record planes: unpack, then shade."""
-    return shade_radiance(scene, params, unpack_walk(planes, need_p, need_uv))
+    return shade_radiance(scene, params,
+                          unpack_walk(planes, need_p, need_uv, need_scale))

@@ -1,16 +1,21 @@
 """Render loop: sample chunks of kernel waves.
 
-Counterpart of `raytracing_gpu_tpu/engine/render.py` for its megakernel,
-regen and wavefront routes, chosen as `compile_renderer` chooses them
-there.  A chunk is `spp_per_chunk` samples of every pixel.  On the
-megakernel route each sample is split into waves of `ray_batch` pixels, and
-each (sample, wave) is one kernel launch whose seed is scalar arithmetic on
-the chunk's base seed (`ops.cuda_trace.wave_seed`); the regen and wavefront
-routes (`engine/wavefront.py`) seed their generators with the base.  Chunk
-sums accumulate in float32 on the device; `render_linear` draws each
+Counterpart of `raytracing_gpu_tpu/engine/render.py`: `compile_renderer`
+with its megakernel, regen and wavefront routes, chosen as it chooses them
+there, and the differentiable `compile_param_renderer` with its
+record-walk and wavefront-record routes.  A chunk is `spp_per_chunk`
+samples of every pixel.  On the megakernel route each sample is split into
+waves of `ray_batch` pixels, and each (sample, wave) is one kernel launch
+whose seed is scalar arithmetic on the chunk's base seed
+(`ops.cuda_trace.wave_seed`); the regen and wavefront routes
+(`engine/wavefront.py`) seed their generators with the base.
+`chunk_sums` draws each (sample, wave)'s camera rays in torch, from a
+generator seeded with the wave's seed, for the routes that take ray planes.
+Chunk sums accumulate in float32 on the device; `render_linear` draws each
 chunk's base from a `torch.Generator` seeded with `settings.seed`.
 
-Not ported yet: the XLA and record-walk engines, and checkpoint/resume.
+Not ported yet: the XLA engines (`integrator.trace`, `trace_diff`), the
+forward record-walk route of image-textured scenes, and checkpoint/resume.
 """
 
 from __future__ import annotations
@@ -40,6 +45,52 @@ def _grid_geometry(settings: RenderSettings):
 
 def _ceil_to(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
+
+
+def wave_rays(camera: Camera, settings: RenderSettings, pix_base: int,
+              n: int, seed: int, device: torch.device) -> tuple:
+    """The camera rays of one (sample, wave) and the kernel's int32 seed:
+    `render.chunk_sums`'s schedule with a torch generator for the JAX key.
+    A generator on `device` seeded with `seed` (`wave_seed(base, s, bid)`)
+    draws the pixel jitter, then the lens and shutter time
+    (`Camera.get_rays`), then the seed.  Returns (o (n, 3), d (n, 3),
+    tm (n,), seed): rays of pixels [pix_base, pix_base + n), past the image
+    clamped to its last row and column."""
+    h, w = settings.image_height, settings.image_width
+    gen = torch.Generator(device=device).manual_seed(int(seed) & 0xFFFFFFFF)
+    flat = torch.arange(pix_base, pix_base + n, dtype=torch.int64,
+                        device=device)
+    rows = torch.clamp(torch.div(flat, w, rounding_mode="floor"), max=h - 1)
+    cols = torch.clamp(flat % w, max=w - 1)
+    jit2 = torch.rand((n, 2), generator=gen, device=device)
+    su = (cols.to(torch.float32) + jit2[:, 0]) * (1.0 / max(w - 1, 1))
+    sv = ((h - 1 - rows).to(torch.float32) + jit2[:, 1]) * (
+        1.0 / max(h - 1, 1))
+    o, d, tm = camera.get_rays(gen, su, sv)
+    kseed = int(torch.randint(0, 2**31 - 1, (1,), generator=gen,
+                              device=device))
+    return o.contiguous(), d.contiguous(), tm.contiguous(), kseed
+
+
+def chunk_sums(scene: Scene, camera: Camera, settings: RenderSettings,
+               base: int, trace_fn: Callable, device: torch.device | str
+               ) -> torch.Tensor:
+    """One sample chunk over camera rays drawn in torch
+    (`render.chunk_sums`, :50-89): (npix_pad, 3) float32 radiance sums over
+    `spp_per_chunk` samples.  Wave (s, bid) draws its rays by `wave_rays`
+    with seed `wave_seed(base, s, bid)` and traces them with
+    `trace_fn(scene, o, d, tm, seed) -> (b, 3)`."""
+    device = torch.device(device)
+    cam = camera.to(device)
+    _h, _w, _npix, npix_pad, b, nb = _grid_geometry(settings)
+    sums = torch.zeros((npix_pad, 3), dtype=torch.float32, device=device)
+    for s in range(settings.spp_per_chunk):
+        for bid in range(nb):
+            o, d, tm, seed = wave_rays(cam, settings, bid * b, b,
+                                       cuda_trace.wave_seed(base, s, bid),
+                                       device)
+            sums[bid * b:(bid + 1) * b] += trace_fn(scene, o, d, tm, seed)
+    return sums
 
 
 def route(tracer: cuda_trace.Tracer, settings: RenderSettings) -> str:
@@ -100,6 +151,85 @@ def compile_renderer(scene: Scene, camera: Camera, settings: RenderSettings,
         return sums
 
     chunk.engine_name = "megakernel"
+    return chunk
+
+
+def compile_param_renderer(scene: Scene, camera: Camera,
+                           settings: RenderSettings, engine: str = "auto",
+                           device: torch.device | str = "cuda",
+                           debug_stats: bool = False
+                           ) -> Callable[[dict, int], torch.Tensor]:
+    """Differentiable renderer `(params, base) -> (npix_pad, 3)` sums on
+    `device` (`render.compile_param_renderer`, :231-310): the walk is
+    detached, and only the shade of its record planes
+    (`integrator.shade_packed`) depends on `params`
+    (`engine.diff.get_params`).
+
+    Routes, as the JAX package chooses them for `engine="pallas"`
+    (`engine_name`):
+
+    - "wavefront-record" when the JAX bake would stream the triangle table
+      (`SceneBake.jax_tri_stream`: the 100k-triangle meshes) or `engine` is
+      "wavefront", for a scene without media: `chunk_sums` over
+      `wavefront.make_record_trace_wave`, the hit kernel's sorted record
+      walk, with detached russian roulette from `settings.rr_start`;
+      autograd follows the shade;
+    - "record-walk" otherwise: the record kernel on each wave's ray planes
+      (kernel 1c), which is `fused_diff.compile_fused_param_renderer` with
+      `gen_rays=False` and its closed-form backward pass.  It has no
+      russian roulette (ValueError for `rr_start > 0`, as JAX asserts).
+
+    With `debug_stats` a wavefront-record chunk returns (sums,
+    {"iterations": hit launches}); the record-walk route refuses it
+    (`cuda_trace.Tracer.ray_launches` counts its launches).  Raises
+    NotImplementedError for a scene outside the ported feature set and for
+    `engine="xla"` (the XLA engine is not ported)."""
+    if engine not in ("auto", "pallas", "wavefront"):
+        raise NotImplementedError(f"engine {engine!r}: not yet ported")
+    device = torch.device(device)
+    tracer = cuda_trace.Tracer(scene, device)  # raises for unported scenes
+    if not ((tracer.bake.jax_tri_stream or engine == "wavefront")
+            and tracer.supports_hit):
+        from .fused_diff import compile_fused_param_renderer
+
+        if settings.rr_start > 0:
+            raise ValueError("russian roulette is not supported on the "
+                             "record-walk route (its walk carries no "
+                             "throughput)")
+        if debug_stats:
+            raise ValueError("debug_stats: the wavefront-record route only")
+        chunk = compile_fused_param_renderer(scene, camera, settings,
+                                             gen_rays=False, device=device,
+                                             tracer=tracer)
+        chunk.engine_name = "record-walk"
+        return chunk
+
+    from .integrator import shade_packed
+    from .wavefront import make_record_trace_wave
+
+    rr = settings.rr_start
+    walk_wave = make_record_trace_wave(scene, tracer, settings.max_depth,
+                                       settings.t_min, rr, device)
+    bounces = [0]
+
+    def chunk(params: dict, base: int):
+        bounces[0] = 0
+
+        def trace_fn(scene_, o, d, tm, seed):
+            gen = torch.Generator(device=device).manual_seed(seed)
+            planes, n = walk_wave(o, d, tm, gen)
+            bounces[0] += n
+            return shade_packed(scene_, params, *planes,
+                                need_p=tracer.need_p, need_uv=tracer.need_uv,
+                                need_scale=rr > 0)
+
+        sums = chunk_sums(scene, camera, settings, int(base), trace_fn,
+                          device)
+        if debug_stats:
+            return sums, {"iterations": bounces[0]}
+        return sums
+
+    chunk.engine_name = "wavefront-record"
     return chunk
 
 

@@ -28,7 +28,10 @@ lane is refilled with a fresh camera ray from a pixel-major sample stream
 The bounce-synchronous renderer (`make_trace_wave`) traces one wave of
 camera rays to the end: bounce 0 in pixel order, then each bounce sorted by
 the same keys with one packed gather of the lanes' state, and one scatter
-back to pixel order at the end.
+back to pixel order at the end.  Its record twin (`make_record_trace_wave`)
+walks the same way without shading and writes each bounce's record row
+back to pixel order: the detached walk of the differentiable
+"wavefront-record" route (`render.compile_param_renderer`).
 
 The JAX package runs these loops as a `while_loop` and a `scan`; here they
 are Python loops whose condition costs one host read per step or bounce
@@ -38,8 +41,8 @@ position, the drain cursor and the pixel history are host integers.
 roulette draw from a `torch.Generator` seeded with the chunk's base seed,
 so a chunk is deterministic on the CPU for one seed and agrees with the
 JAX package statistically (on a CUDA device the ring's `index_add_` sums in
-no fixed order).  Not ported: the TPU packet rows (`hit_sub`), the sharded
-form (`_local`) and the record walk (`make_record_trace_wave`).
+no fixed order).  Not ported: the TPU packet rows (`hit_sub`) and the
+sharded form (`_local`).
 """
 
 from __future__ import annotations
@@ -222,6 +225,100 @@ def make_trace_wave(scene: Scene, tracer: cuda_trace.Tracer, max_depth: int,
     return trace_wave
 
 
+def make_record_trace_wave(scene: Scene, tracer: cuda_trace.Tracer,
+                           max_depth: int, t_min: float, rr_start: int = 0,
+                           device: torch.device | str = "cuda"
+                           ) -> Callable[..., tuple]:
+    """Detached record walk of one wave of rays on the sorted wavefront
+    (`wavefront.make_record_trace_wave`, :280-398): returns
+    `trace_record(o, d, tm, gen) -> (planes, bounces)`, the record planes of
+    `Tracer.walk_packed`'s contract in the rays' (pixel) order, drawn from
+    `gen`, and the bounces traced (one hit launch each).
+
+    planes = (packed (D, n) int32, [px, py, pz,] [scale]): per bounce the
+    word `mat | hit<<16 | cont<<17 | miss<<18`, the hit point
+    (0 where the bounce did not hit) when `tracer.need_p`, and with
+    `rr_start > 0` the russian-roulette scale 1/p of the lanes that
+    survive it (1 elsewhere, and on a bounce no lane reached).  The walk
+    shades nothing that depends on the parameters: the throughput that sets
+    the roulette's probabilities is the scene's own (baked) one, so the
+    decisions and the scale are constants of the parameters, and
+    `integrator.shade_packed(..., need_scale=rr_start > 0)` replays the
+    throughput differentiably.  Bounce 0 runs in the given order; each
+    later bounce sorts the lanes by `_sort_keys` with one packed gather and
+    writes its record row back to pixel order with one scatter; a bounce
+    with no live lane ends the walk (one host read a bounce)."""
+    device = torch.device(device)
+    hit = tracer.bind_hit(t_min)  # raises without supports_hit
+    params = diff.get_params(scene, device)
+    lo, hi = _world_box(tracer, device)
+    attr_slot = pack_attr_table(scene, tracer.bake.tri_perm, device)
+    need_p = tracer.need_p  # the uv planes come with image textures
+
+    def bounce_record(o, d, tm, thr, alive, gen, depth: int):
+        """One detached bounce: closest hit and scattered direction, and the
+        bounce's record row (n, 5): the word, p, scale."""
+        hr = hit(o, d, tm, alive)
+        rec = resolve_hit_packed(attr_slot, *hr, d)
+        miss = (hr.packed & cuda_trace.MISS_BIT) != 0
+        sc = materials.scatter(scene, params, gen, d, rec.p, rec.normal,
+                               rec.front_face, rec.u, rec.v, rec.mat_id)
+        cont = rec.hit & sc.ok
+        thr = torch.where(cont[:, None], thr * sc.attenuation, thr)
+        scale = torch.ones_like(tm)
+        if rr_start > 0 and depth >= rr_start:
+            p_s = torch.clamp(thr.amax(dim=-1), 0.05, 1.0)
+            survive = rng.uniform(gen, (thr.shape[0],)) < p_s
+            scale = torch.where(cont & survive, 1.0 / p_s, 1.0)
+            thr = thr * scale[:, None]
+            cont = cont & survive
+        word = (rec.mat_id | (rec.hit.to(torch.int32) << 16)
+                | (cont.to(torch.int32) << 17) | (miss.to(torch.int32) << 18))
+        row = torch.cat([word.to(torch.float32)[:, None],
+                         torch.where(rec.hit[:, None], rec.p, 0.0),
+                         scale[:, None]], dim=1)
+        o = vec.where(rec.hit, rec.p, o).contiguous()
+        d = vec.where(rec.hit, sc.direction, d).contiguous()
+        return o, d, thr, cont, row
+
+    def trace_record(o: torch.Tensor, d: torch.Tensor, tm: torch.Tensor,
+                     gen: torch.Generator) -> tuple[tuple, int]:
+        n = o.shape[0]
+        # a bounce no lane reaches records 0 and a scale of 1
+        rows = torch.zeros((max_depth, n, 5), dtype=torch.float32,
+                           device=device)
+        rows[..., 4] = 1.0
+        thr = torch.ones((n, 3), dtype=torch.float32, device=device)
+        perm = torch.arange(n, dtype=torch.float32, device=device)
+        alive = torch.ones(n, dtype=torch.bool, device=device)
+        tm = tm.contiguous()
+        bounces = 0
+        for depth in range(max_depth):
+            if depth > 0:
+                if not bool(alive.any()):  # the bounce's one host read
+                    break
+                order = torch.argsort(_sort_keys(o, d, alive, lo, hi),
+                                      stable=True)
+                pay = torch.cat([o, d, tm[:, None], thr, perm[:, None]],
+                                dim=1)[order]
+                o, d = pay[:, 0:3].contiguous(), pay[:, 3:6].contiguous()
+                tm, thr = pay[:, 6].contiguous(), pay[:, 7:10]
+                perm = pay[:, 10]
+                alive = alive[order]
+            o, d, thr, alive, row = bounce_record(o, d, tm, thr, alive, gen,
+                                                  depth)
+            rows[depth, perm.long()] = row  # back to pixel order
+            bounces += 1
+        planes = [rows[..., 0].to(torch.int32)]
+        if need_p:
+            planes += [rows[..., 1], rows[..., 2], rows[..., 3]]
+        if rr_start > 0:
+            planes.append(rows[..., 4])
+        return tuple(planes), bounces
+
+    return trace_record
+
+
 def compile_wavefront_renderer(scene: Scene, camera: Camera,
                                settings: RenderSettings,
                                tracer: cuda_trace.Tracer | None = None,
@@ -232,42 +329,36 @@ def compile_wavefront_renderer(scene: Scene, camera: Camera,
     :400-450): base seed -> (npix_pad, 3) float32 radiance sums over
     `spp_per_chunk` samples, in waves of `ray_batch` pixels as the
     megakernel route splits them, each wave traced by `make_trace_wave`.
-    Its estimator is the regen route's; the camera jitter, the lens and
-    the shutter time draw from a generator seeded with the base.  With
-    `debug_stats` a chunk returns (sums, {"iterations": bounces traced,
-    each one hit launch and one host read}).  Raises ValueError for a
-    scene with media (`Tracer.supports_hit`)."""
-    from .render import _grid_geometry
+    Its estimator is the regen route's.  The waves follow
+    `render.chunk_sums`'s schedule: wave (s, bid) draws its camera rays
+    (jitter, lens, shutter time) and a seed from a generator seeded with
+    `wave_seed(base, s, bid)`, and its scatter and roulette from a
+    generator seeded with that seed, so `make_record_trace_wave` under the
+    same schedule walks the same paths.  With `debug_stats` a chunk returns
+    (sums, {"iterations": bounces traced, each one hit launch and one host
+    read}).  Raises ValueError for a scene with media
+    (`Tracer.supports_hit`)."""
+    from .render import chunk_sums
 
     device = torch.device(device)
     if tracer is None:
         tracer = cuda_trace.Tracer(scene, device)
-    h, w, _npix, npix_pad, b, nb = _grid_geometry(settings)
     trace_wave = make_trace_wave(scene, tracer, settings.max_depth,
                                  settings.t_min, settings.rr_start, device)
-    cam = camera.to(device)
-    flat = torch.arange(npix_pad, dtype=torch.int64, device=device)
-    rows = torch.clamp(torch.div(flat, w, rounding_mode="floor"), max=h - 1)
-    cols = torch.clamp(flat % w, max=w - 1)
-    inv_w = 1.0 / max(w - 1, 1)
-    inv_h = 1.0 / max(h - 1, 1)
+    bounces = [0]
+
+    def trace_fn(_scene, o, d, tm, seed: int) -> torch.Tensor:
+        rad, traced = trace_wave(
+            o, d, tm, torch.Generator(device=device).manual_seed(seed))
+        bounces[0] += traced
+        return rad
 
     def chunk(base: int) -> torch.Tensor:
-        gen = torch.Generator(device=device).manual_seed(int(base) % 2**63)
-        sums = torch.zeros((npix_pad, 3), dtype=torch.float32, device=device)
-        bounces = 0
-        for _s in range(settings.spp_per_chunk):
-            for bid in range(nb):
-                r, c = rows[bid * b:(bid + 1) * b], cols[bid * b:(bid + 1) * b]
-                jit2 = rng.uniform(gen, (b, 2))
-                su = (c.to(torch.float32) + jit2[:, 0]) * inv_w
-                sv = ((h - 1 - r).to(torch.float32) + jit2[:, 1]) * inv_h
-                o, d, tm = cam.get_rays(gen, su, sv)
-                rad, traced = trace_wave(o, d, tm, gen)
-                sums[bid * b:(bid + 1) * b] += rad
-                bounces += traced
+        bounces[0] = 0
+        sums = chunk_sums(scene, camera, settings, int(base), trace_fn,
+                          device)
         if debug_stats:
-            return sums, {"iterations": bounces}
+            return sums, {"iterations": bounces[0]}
         return sums
 
     chunk.engine_name = "wavefront"

@@ -38,9 +38,11 @@ _lib: Optional[ctypes.CDLL] = None
 
 
 class RtParams(ctypes.Structure):
-    """Launch constants of `rt_trace_pixels` and `rt_walk_packed_pixels`,
-    passed by value; the field order and types follow `struct RtParams` in
-    csrc/megakernel.cuh."""
+    """Launch constants of the megakernel entries (`rt_trace_pixels`,
+    `rt_trace_rays`, `rt_walk_packed_pixels`, `rt_walk_packed`), passed by
+    value; the field order and types follow `struct RtParams` in
+    csrc/megakernel.cuh.  `rays` stays NULL here: the ray-plane entries
+    set it from their argument."""
 
     _fields_ = [
         ("origin", ctypes.c_float * 3), ("llc", ctypes.c_float * 3),
@@ -60,7 +62,19 @@ class RtParams(ctypes.Structure):
         ("n_sphere_media", ctypes.c_int),
         ("n_box_media", ctypes.c_int), ("has_time", ctypes.c_int),
         ("rr_start", ctypes.c_int), ("features", ctypes.c_int),
+        ("rays", ctypes.c_void_p),
     ]
+
+
+class RtTables(ctypes.Structure):
+    """The megakernels' eleven device tables, passed by value: rects, boxes,
+    spheres, media, the sphere BVH's nodes, links and leaf starts, the
+    triangle rows and their BVH's nodes, links and leaf starts (`struct
+    RtTables` in csrc/megakernel.cuh)."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "rects", "boxes", "spheres", "media", "sph_nodes", "sph_links",
+        "sph_start", "tri_rows", "tri_nodes", "tri_links", "tri_start")]
 
 
 class BuildResult(NamedTuple):
@@ -142,14 +156,14 @@ def load() -> ctypes.CDLL:
             build()
             lib = ctypes.CDLL(LIBRARY)
             ptr = ctypes.c_void_p
-            # rects boxes spheres media, the sphere BVH's nodes links start,
-            # the triangle rows and their BVH's nodes links start
-            tables = [ptr] * 11
-            lib.rt_trace_pixels.argtypes = [*tables, RtParams, ptr, ptr, ptr,
-                                            ptr]
-            lib.rt_trace_pixels.restype = ctypes.c_int
-            lib.rt_walk_packed_pixels.argtypes = [*tables, RtParams, ptr, ptr]
-            lib.rt_walk_packed_pixels.restype = ctypes.c_int
+            # (tables, params[, rays], outputs..., stream)
+            for name, n_in, n_out in (("rt_trace_pixels", 0, 3),
+                                      ("rt_trace_rays", 1, 3),
+                                      ("rt_walk_packed_pixels", 0, 4),
+                                      ("rt_walk_packed", 1, 4)):
+                fn = getattr(lib, name)
+                fn.argtypes = [RtTables, RtParams, *[ptr] * (n_in + n_out + 1)]
+                fn.restype = ctypes.c_int
             i32 = ctypes.c_int
             lib.rt_hit.argtypes = [*[ptr] * 6, *[i32] * 7, ctypes.c_float,
                                    *[ptr] * 11]

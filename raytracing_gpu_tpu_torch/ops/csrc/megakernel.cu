@@ -3,13 +3,16 @@
 // textures are all solid and that have no triangles.
 //
 // Entry points (plain C, bound with ctypes): rt_trace_pixels launches the
-// forward kernel, picking the instantiation (and its translation unit) from
-// p.features; rt_walk_packed_pixels the record kernel (no sphere or
-// triangle BVH); rt_pcg_uniform writes uniform(base, salt) per lane so a
-// test can hold the device RNG against the plain version; rt_error_string
-// names a returned CUDA error.  Each entry returns cudaGetLastError() after
-// its launch (cudaErrorInvalidValue for parameters the kernels do not take)
-// and never synchronizes.
+// forward kernel on camera rays, picking the instantiation (and its
+// translation unit) from p.features, and rt_trace_rays the same on ray
+// planes (kernel 1c); rt_walk_packed_pixels and rt_walk_packed the record
+// kernel on camera rays and on ray planes (megakernel_record.cu), with the
+// hit-point planes when they are given; rt_pcg_uniform writes
+// uniform(base, salt) per lane so a test can hold the device RNG against
+// the plain version; rt_error_string names a returned CUDA error.  The
+// tables and the launch constants come by value (RtTables, RtParams).  Each
+// entry returns cudaGetLastError() after its launch (cudaErrorInvalidValue
+// for parameters the kernels do not take) and never synchronizes.
 
 #include "megakernel.cuh"
 
@@ -20,18 +23,6 @@ int launch_fwd_solid(const RtTables& t, const RtParams& p, float* out_r,
 
 namespace {
 
-template <unsigned F>
-int launch_record(const RtTables& t, const RtParams& p, int32_t* out,
-                  cudaStream_t stream) {
-  size_t table_bytes;
-  if (!rt::check_launch(p, &table_bytes))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (p.n + rt::kThreads - 1) / rt::kThreads;
-  rt::megakernel_record<F><<<blocks, rt::kThreads, table_bytes, stream>>>(
-      t, p, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
 __global__ void __launch_bounds__(rt::kThreads)
 pcg_uniform_kernel(uint32_t seed_mix, int lanes, uint32_t salt,
                    float* __restrict__ out) {
@@ -41,19 +32,8 @@ pcg_uniform_kernel(uint32_t seed_mix, int lanes, uint32_t salt,
                          salt);
 }
 
-}  // namespace
-
-extern "C" int rt_trace_pixels(const float* rects, const float* boxes,
-                               const float* spheres, const float* media,
-                               const float* sph_nodes, const int* sph_links,
-                               const int* sph_start, const float* tri_rows,
-                               const float* tri_nodes, const int* tri_links,
-                               const int* tri_start, RtParams p, float* out_r,
-                               float* out_g, float* out_b, void* stream) {
-  const RtTables t{rects,    boxes,     spheres,   media,
-                   sph_nodes, sph_links, sph_start, tri_rows,
-                   tri_nodes, tri_links, tri_start};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+int trace(const RtTables& t, const RtParams& p, float* out_r, float* out_g,
+          float* out_b, cudaStream_t s) {
   const unsigned feat = static_cast<unsigned>(p.features);
   const unsigned tex = feat & (kFeatChecker | kFeatPerlin);
   const bool tri = (feat & kFeatTriBvh) != 0;
@@ -69,28 +49,38 @@ extern "C" int rt_trace_pixels(const float* rects, const float* boxes,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-extern "C" int rt_walk_packed_pixels(const float* rects, const float* boxes,
-                                     const float* spheres, const float* media,
-                                     const float* sph_nodes,
-                                     const int* sph_links,
-                                     const int* sph_start,
-                                     const float* tri_rows,
-                                     const float* tri_nodes,
-                                     const int* tri_links,
-                                     const int* tri_start, RtParams p,
-                                     int32_t* out_packed, void* stream) {
-  const RtTables t{rects,    boxes,     spheres,   media,
-                   sph_nodes, sph_links, sph_start, tri_rows,
-                   tri_nodes, tri_links, tri_start};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (static_cast<unsigned>(p.features)) {
-    case 0: return launch_record<0>(t, p, out_packed, s);
-    case kFeatSpheres: return launch_record<kFeatSpheres>(t, p, out_packed, s);
-    case kFeatMedia: return launch_record<kFeatMedia>(t, p, out_packed, s);
-    case kFeatSpheres | kFeatMedia:
-      return launch_record<kFeatSpheres | kFeatMedia>(t, p, out_packed, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+}  // namespace
+
+extern "C" int rt_trace_pixels(RtTables t, RtParams p, float* out_r,
+                               float* out_g, float* out_b, void* stream) {
+  p.rays = nullptr;
+  return trace(t, p, out_r, out_g, out_b, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int rt_trace_rays(RtTables t, RtParams p, const float* rays,
+                             float* out_r, float* out_g, float* out_b,
+                             void* stream) {
+  if (rays == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  p.rays = rays;
+  return trace(t, p, out_r, out_g, out_b, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int rt_walk_packed_pixels(RtTables t, RtParams p,
+                                     int32_t* out_packed, float* out_px,
+                                     float* out_py, float* out_pz,
+                                     void* stream) {
+  p.rays = nullptr;
+  return launch_walk(t, p, out_packed, out_px, out_py, out_pz,
+                     static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int rt_walk_packed(RtTables t, RtParams p, const float* rays,
+                              int32_t* out_packed, float* out_px,
+                              float* out_py, float* out_pz, void* stream) {
+  if (rays == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  p.rays = rays;
+  return launch_walk(t, p, out_packed, out_px, out_py, out_pz,
+                     static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int rt_pcg_uniform(int seed, int lanes, int salt, float* out,

@@ -1,31 +1,44 @@
-// Path-tracing megakernel for Hopper (sm_90a), camera rays made in the
-// kernel, in its two modes: forward radiance and the record walk.
+// Path-tracing megakernel for Hopper (sm_90a) in its two modes, forward
+// radiance and the record walk, each with its rays made in the kernel from
+// the camera or read from ray planes.
 //
 // Replaces the TPU kernel `_make_kernel` launched by `_run`
 // (raytracing_gpu_tpu/ops/pallas_trace.py:821-1643, pl.pallas_call at :1703)
 // for scenes without image textures: axis-aligned rects, boxes under
 // rotate_y + translate, spheres (static, moving, hollow) in a dense loop up
 // to 64 and through a threaded BVH above, triangles through a threaded BVH
-// of their own (both BVHs forward mode only), up to 16 constant media in a
-// sphere or a box; lambertian, metal, dielectric,
+// of their own, up to 16 constant media in a sphere or a box; lambertian,
+// metal, dielectric,
 // diffuse_light and isotropic materials; solid, checker, noise, turbulence
 // and marble albedo; russian roulette and the shutter time.  Two kernels
 // share one closest hit, one media test, one camera and one scatter, so
 // both modes trace the same paths with the same rounding:
 //
-// - megakernel_fwd, forward mode (shade=True, record=False, cam=...): per
-//   ray radiance over the whole bounce loop (`PallasTracer.trace_pixels`).
-// - megakernel_record, record mode (record=True, shade=False, cam=...): per
-//   bounce one packed int32 word `mat | hit<<16 | cont<<17 | miss<<18`
-//   (pallas_trace.py:1536-1541, `PallasTracer.walk_packed_pixels`).  Only
-//   for scenes whose textures are all solid: no hit-point or uv planes
-//   (need_p = need_uv = False), so the packed plane is the only output.
+// - megakernel_fwd, forward mode (shade=True, record=False): per ray
+//   radiance over the whole bounce loop (`PallasTracer.trace_pixels`, and
+//   `__call__` on ray planes).
+// - megakernel_record, record mode (record=True, shade=False): per bounce
+//   one packed int32 word `mat | hit<<16 | cont<<17 | miss<<18`
+//   (pallas_trace.py:1536-1541) and, for scenes whose checker or perlin
+//   textures need it (need_p), the hit point in three float32 planes
+//   (:1542-1545) (`PallasTracer.walk_packed_pixels`, and `walk_packed` on
+//   ray planes).  The uv planes of image textures (need_uv) are not here.
+//
+// The rays: made in the kernel by the thin-lens camera (cam=..., kernel 1a
+// and 1b), or, when RtParams.rays is set, read from one (7, n) float32 array
+// of ray planes, o xyz, d xyz and the shutter time (cam=None, kernel 1c,
+// :878-880, :1565-1567); a branch uniform across the launch, not a template
+// bit.  Lane i's random numbers are the same function of i and the seed in
+// both cases, as in the Pallas kernel's ray-plane mode (:902-907); the
+// Pallas kernel pads the planes to whole (8, 128) tiles, and its first n
+// lanes are these.
 //
 // This header holds the device code; the C entry points are in
-// megakernel.cu, and the forward instantiations are spread over five
+// megakernel.cu, the forward instantiations are spread over five
 // translation units (megakernel.cu: solid albedo; megakernel_checker.cu;
 // megakernel_perlin.cu; megakernel_tri.cu and megakernel_tri_perlin.cu: the
-// same families with triangles) that nvcc compiles in parallel.  The host side and
+// same families with triangles) and the record ones are in
+// megakernel_record.cu; nvcc compiles them in parallel.  The host side and
 // the plain PyTorch versions of both functions are in ../cuda_trace.py.
 //
 // Design.  One thread traces one ray of the wave and runs its own bounce
@@ -37,7 +50,11 @@
 // writes 0 for its remaining bounces, which takes the place of the TPU
 // kernel's pre-zeroed plane (:1558-1561).  A TPU lane that died inside a
 // tile that is still live stores its frozen ray's `mat` with its mask bits
-// at zero; a thread here writes 0 instead.
+// at zero; a thread here writes 0 instead.  The hit-point planes hold
+// o + t d (the expression `surface` computes) where the bounce hit, and 0
+// on a miss and after the path's end, where the Pallas kernel leaves
+// o + 1e30 d or a frozen ray's point: the shade multiplies those entries by
+// 0 either way.
 //
 // The kernels are templates over what the bake uses (kFeat* bits: dense
 // spheres, media, the sphere BVH, the triangle BVH, checker albedo, perlin
@@ -56,12 +73,15 @@
 // What bounds it on Hopper.  Per-thread ALU work and divergence, not bytes:
 // each ray tests every primitive record at every bounce, draws its random
 // numbers from a counter-based hash, and writes 12 bytes at the end
-// (forward) or 4 bytes per bounce (record).  So the records are staged once
-// per block into shared memory, where every thread of a warp reads the same
-// word at the same time (a broadcast), and the only device-memory traffic is
-// the output stores.  Rays of a warp that die early leave their lanes idle
-// until the warp's longest path ends; regrouping live rays is work for a
-// later change.
+// (forward) or 4 bytes per bounce, 16 with the hit point (record).  So the
+// records are staged once per block into shared memory, where every thread
+// of a warp reads the same word at the same time (a broadcast), and the only
+// device-memory traffic is the output stores and the ray planes' 28 bytes a
+// ray.  Rays of a warp that die early leave their lanes idle until the
+// warp's longest path ends; regrouping live rays is work for a later
+// change.  (On the H100 the record kernels' bounds come out by bytes, yet
+// they run at 1-3% of them: the divergent walks, not the stores, take the
+// time.)
 //
 // The sphere BVH (kFeatSphereBvh, kernel 1d's sphere half: the packet walk
 // of :1055-1103 over the leaf-contiguous table with leaves of 8,
@@ -76,7 +96,9 @@
 // big_scene1) and nodes do not fit the 48 KB of static shared memory with
 // room to spare, and each thread reads only the nodes on its own path, so
 // they stay in device memory behind the L1 cache; rects, boxes and media are
-// staged as before.
+// staged as before.  Both BVH walks serve both modes: the record
+// instantiations are keyed on the geometry bits and kFeatTriBvh only, since
+// the record mode evaluates no albedo.
 //
 // The triangle BVH (kFeatTriBvh, kernel 1d's triangle half: the packet walk
 // of :1187-1289 over the 40-column rows of :128-133, leaves of 4, preorder
@@ -127,9 +149,13 @@ struct RtParams {
   int n_rects, n_boxes, n_spheres, n_sph_nodes, n_tri_rows, n_tri_nodes;
   int n_sphere_media, n_box_media;
   int has_time, rr_start, features;
+  // kernel 1c: (7, n) ray planes o xyz, d xyz, tm; nullptr: camera rays.
+  // The C entries set it (rt_trace_rays, rt_walk_packed).
+  const float* rays;
 };
 
-// The record tables, in device memory; the sphere BVH's nodes (lo xyz,
+// The record tables, in device memory (keep in step with RtTables in
+// ../build.py); the sphere BVH's nodes (lo xyz,
 // hi xyz), preorder (hit, miss) links and leaf start rows (-1: internal) are
 // read only by the kFeatSphereBvh instantiations, the triangle rows and
 // their BVH's arrays (the same layout) only by the kFeatTriBvh ones.
@@ -167,6 +193,11 @@ int launch_fwd_tri_checker(const RtTables& t, const RtParams& p,
                            cudaStream_t s);
 int launch_fwd_tri_perlin(const RtTables& t, const RtParams& p, float* out_r,
                           float* out_g, float* out_b, cudaStream_t s);
+// The record launcher (megakernel_record.cu): `features` holds only the
+// geometry bits and kFeatTriBvh; the hit-point planes are all three set or
+// all three nullptr.
+int launch_walk(const RtTables& t, const RtParams& p, int32_t* out_packed,
+                float* out_px, float* out_py, float* out_pz, cudaStream_t s);
 
 namespace rt {
 
@@ -313,6 +344,31 @@ __device__ __forceinline__ Ray camera_ray(const RtParams& p, int i,
   r.dy = p.llc[1] + su * p.hor[1] + sv * p.ver[1] - r.oy;
   r.dz = p.llc[2] + su * p.hor[2] + sv * p.ver[2] - r.oz;
   return r;
+}
+
+// Lane i's ray from the ray planes (kernel 1c): rays[k * n + i] for o xyz,
+// d xyz, tm.
+__device__ __forceinline__ Ray plane_ray(const RtParams& p, int i,
+                                         float* tm) {
+  const float* q = p.rays + i;
+  const size_t n = static_cast<size_t>(p.n);
+  Ray r;
+  r.ox = q[0];
+  r.oy = q[n];
+  r.oz = q[2 * n];
+  r.dx = q[3 * n];
+  r.dy = q[4 * n];
+  r.dz = q[5 * n];
+  *tm = q[6 * n];
+  return r;
+}
+
+// A lane's first ray: from the ray planes when the launch has them, else
+// from the camera.
+__device__ __forceinline__ Ray first_ray(const RtParams& p, int i,
+                                         uint32_t rng_base, float* tm) {
+  return p.rays != nullptr ? plane_ray(p, i, tm)
+                           : camera_ray(p, i, rng_base, tm);
 }
 
 // World -> object transform of a ray for a box record at q (bmin3 bmax3 cos
@@ -881,7 +937,7 @@ megakernel_fwd(const RtTables tables, const RtParams p,
   if (i >= p.n) return;
   const uint32_t rng_base = lane_base(p, i);
   float tm;
-  Ray r = camera_ray(p, i, rng_base, &tm);
+  Ray r = first_ray(p, i, rng_base, &tm);
 
   float tr = 1.0f, tg = 1.0f, tb = 1.0f;
   float lr = 0.0f, lg = 0.0f, lb = 0.0f;
@@ -933,29 +989,32 @@ megakernel_fwd(const RtTables tables, const RtParams p,
 template <unsigned F>
 __global__ void __launch_bounds__(kThreads)
 megakernel_record(const RtTables tables, const RtParams p,
-                  int32_t* __restrict__ out_packed) {
+                  int32_t* __restrict__ out_packed, float* __restrict__ out_px,
+                  float* __restrict__ out_py, float* __restrict__ out_pz) {
   extern __shared__ float smem[];
   const Tables s = stage_tables(tables, p, smem);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.n) return;
   const uint32_t rng_base = lane_base(p, i);
   float tm;
-  Ray r = camera_ray(p, i, rng_base, &tm);
+  Ray r = first_ray(p, i, rng_base, &tm);
 
-  int32_t* out = out_packed + i;
   const size_t stride = static_cast<size_t>(p.n);
+  const bool need_p = out_px != nullptr;  // uniform across the launch
+  float tri_sh[12];  // a triangle winner's shading block (kFeatTriBvh)
   bool alive = true;
   for (int b = 0; b < p.max_depth; ++b) {
     int32_t word = 0;  // a bounce after the path's end records nothing
+    float px = 0.0f, py = 0.0f, pz = 0.0f;  // the hit point, 0 but on a hit
     if (alive) {
       // hit, cont and miss as at pallas_trace.py:1397-1398 and :1512-1513
       const uint32_t draw = draw_window(rng_base, b);
-      const Hit h = scene_hit<F>(s, p, r, tm, draw, nullptr);  // no triangles
+      const Hit h = scene_hit<F>(s, p, r, tm, draw, tri_sh);
       if (!(h.t < kBig * 0.5f)) {
         word = kMissBit;
         alive = false;
       } else {
-        float nx, ny, nz, px, py, pz;
+        float nx, ny, nz;
         const bool front = surface(h, r, nx, ny, nz, px, py, pz);
         const int kind = static_cast<int>(h.sh[kShKind]);
         alive = kind != kDiffuseLight &&
@@ -967,7 +1026,13 @@ megakernel_record(const RtTables tables, const RtParams p,
         r.oz = pz;
       }
     }
-    out[b * stride] = word;
+    const size_t at = b * stride + i;
+    out_packed[at] = word;
+    if (need_p) {
+      out_px[at] = px;
+      out_py[at] = py;
+      out_pz[at] = pz;
+    }
   }
 }
 

@@ -3,21 +3,24 @@
 Counterpart of `raytracing_gpu_tpu/ops/pallas_trace.py` for scenes without
 image textures, in three functions:
 
-- forward radiance with the camera rays made inside the kernel
-  (`PallasTracer.trace_pixels`): axis-aligned rects, boxes under
-  rotate_y + translate, spheres (static, moving, hollow) in a dense loop up
-  to 64 and through a threaded sphere BVH above, triangles through a
-  threaded triangle BVH, up to 16 constant media in a sphere or a box;
-  lambertian, metal, dielectric, diffuse_light and isotropic materials;
-  solid, checker, noise, turbulence and marble albedo; russian roulette and
-  the shutter time;
-- the record walk (`PallasTracer.walk_packed_pixels`), over the same
-  features without triangles, with at most 64 spheres and solid textures;
+- forward radiance (`PallasTracer.trace_pixels` with the camera rays made
+  inside the kernel, `PallasTracer.__call__` on ray planes): axis-aligned
+  rects, boxes under rotate_y + translate, spheres (static, moving, hollow)
+  in a dense loop up to 64 and through a threaded sphere BVH above,
+  triangles through a threaded triangle BVH, up to 16 constant media in a
+  sphere or a box; lambertian, metal, dielectric, diffuse_light and
+  isotropic materials; solid, checker, noise, turbulence and marble albedo;
+  russian roulette and the shutter time;
+- the record walk (`PallasTracer.walk_packed_pixels` on camera rays,
+  `walk_packed` and `walk` on ray planes), over the same features: the
+  packed plane, and the hit-point planes when a checker or perlin texture
+  needs them (`need_p`);
 - the pure closest hit of the wavefront drivers (`PallasTracer.hit`), for
   scenes without media, with the triangle tier over the packed geometry.
 
 The kernels are `csrc/megakernel.cuh` and `csrc/hit.cu`;
-`trace_pixels_reference`, `walk_packed_pixels_reference` and
+`trace_pixels_reference`, `trace_rays_reference`,
+`walk_packed_pixels_reference`, `walk_packed_reference` and
 `hit_reference` are the same functions in plain PyTorch, written op for op
 in the kernels' order so that the two round alike.  The plain versions test
 every sphere row densely, where the kernels walk the BVH; a pad row of the
@@ -25,9 +28,9 @@ BVH's leaf-contiguous table has radius 0 and never hits.  Triangles they
 walk lane by lane as the kernels do (`tri_walk_reference`), so that rays
 through a shared edge keep the same one of its two triangles.
 
-Not ported (`unported_feature` names them): image textures; in record mode
-also triangles, the sphere BVH and the hit-point and uv planes that
-checker, perlin and image textures need (`need_p`/`need_uv`).
+Not ported (`unported_feature` names them): image textures, with the uv
+planes of the record walk that they need (`need_uv`), and more than 16
+media.
 
 The random numbers are the JAX kernel's, bit for bit: a PCG hash of the
 lane index within the call mixed with an int32 seed, then one more hash per
@@ -36,10 +39,11 @@ arithmetic in int64 and mask after every multiply and add, because torch's
 uint32 dtype lacks those operations on the CPU.
 
 `Tracer` holds a baked scene on one device.  On a CUDA device its
-`trace_pixels`, `walk_packed_pixels` and `hit` launch the kernels (a failed
-build or launch raises); on the CPU they run the plain versions.
-`Tracer.launches`, `Tracer.record_launches` and `Tracer.hit_launches` count
-the launches of each kernel, so a caller can show that a render went
+`trace_pixels`, `__call__`, `walk_packed_pixels`, `walk_packed` and `hit`
+launch the kernels (a failed build or launch raises); on the CPU they run
+the plain versions.  `Tracer.launches`, `Tracer.record_launches`,
+`Tracer.ray_launches` (both ray-plane entries) and `Tracer.hit_launches`
+count the launches of each entry, so a caller can show that a render went
 through it.
 """
 
@@ -55,7 +59,6 @@ import torch
 from ..accel import bvh as bvh_mod
 from ..scene import perlin
 from ..scene import types as st
-from ..scene.textures import TEXTURE_NAMES
 from . import build
 
 _M32 = 0xFFFFFFFF
@@ -246,6 +249,19 @@ class SceneBake(NamedTuple):
     def texture_kinds(self) -> set:
         """The texture kinds the kernel evaluates (`tex_kinds`, :860-866)."""
         return self._kinds("texk", SH_TEXK)
+
+    @property
+    def need_p(self) -> bool:
+        """Whether the record walk writes the hit-point planes: a checker or
+        perlin texture is bound (`PallasTracer.need_p`,
+        pallas_trace.py:2411-2413)."""
+        return bool(self.texture_kinds() & _POSITION_KINDS)
+
+    @property
+    def need_uv(self) -> bool:
+        """Whether the record walk needs the uv planes: an image texture is
+        bound (`PallasTracer.need_uv`; not ported, `unported_feature`)."""
+        return st.TEX_IMAGE in self.texture_kinds()
 
     def material_kinds(self) -> set:
         return self._kinds("kind", SH_KIND)
@@ -550,25 +566,13 @@ def unported_feature(scene: st.Scene) -> Optional[str]:
 
 
 def unported_record_feature(scene: st.Scene) -> Optional[str]:
-    """As `unported_feature`, for the record walk: it also lacks the
-    triangle and sphere BVHs and the hit-point (`need_p`) and uv
-    (`need_uv`) planes, which a scene needs when it uses a checker, perlin
-    or image texture."""
+    """As `unported_feature`, for the record walk: more than MAX_MEDIA
+    media, or an image texture, whose uv planes (`need_uv`) the walk does
+    not write."""
     feature = unported_feature(scene)
-    if feature is not None:
-        return feature
-    n_tris = int(scene.triangles.active.sum())
-    if n_tris:
-        return f"triangles in record mode ({n_tris} triangles)"
-    sp = scene.spheres
-    n_spheres = int((sp.active & ~sp.medium).sum())
-    if n_spheres > MAX_SPHERES:
-        return (f"sphere BVH in record mode ({n_spheres} spheres, more than "
-                f"{MAX_SPHERES})")
-    kinds = sorted(used_texture_kinds(scene) & _POSITION_KINDS)
-    if kinds:
-        return f"need_p plane ({TEXTURE_NAMES[kinds[0]]} texture)"
-    return None
+    if feature == "image texture":
+        return "uv plane (image texture)"
+    return feature
 
 
 def supports_forward(scene: st.Scene) -> bool:
@@ -1450,9 +1454,30 @@ def trace_pixels_reference(bake: SceneBake, camera, img_h: int, img_w: int,
     triangles).
     """
     dev = torch.device(device)
-    t_min = _f32(t_min)
     base = rng_base(n, seed, dev)
     o3, d3, tm = _camera_rays(camera, img_h, img_w, pix_base, n, base, dev)
+    return _trace(bake, o3, d3, tm, base, max_depth, t_min, rr_start, counts)
+
+
+def trace_rays_reference(bake: SceneBake, o: torch.Tensor, d: torch.Tensor,
+                         tm: torch.Tensor, seed: int, max_depth: int = 50,
+                         t_min: float = 0.001, rr_start: int = 0,
+                         counts: Optional[dict] = None) -> torch.Tensor:
+    """`trace_pixels_reference` on given rays (kernel 1c,
+    `PallasTracer.__call__`): o, d (N, 3) and tm (N,) float32; lane i's
+    random numbers are those of lane i of a camera-ray call with the same
+    int32 seed.  Returns (N, 3) float32 radiance on the rays' device."""
+    base = rng_base(o.shape[0], seed, o.device)
+    return _trace(bake, tuple(o.unbind(1)), tuple(d.unbind(1)), tm, base,
+                  max_depth, t_min, rr_start, counts)
+
+
+def _trace(bake: SceneBake, o3: tuple, d3: tuple, tm: torch.Tensor,
+           base: torch.Tensor, max_depth: int, t_min: float, rr_start: int,
+           counts: Optional[dict]) -> torch.Tensor:
+    """The forward bounce loop of both plain forward versions."""
+    n, dev = tm.shape[0], tm.device
+    t_min = _f32(t_min)
     shading = torch.as_tensor(bake.shading_table(), device=dev)
     tex_kinds = bake.texture_kinds()
 
@@ -1511,24 +1536,49 @@ def walk_packed_pixels_reference(bake: SceneBake, camera, img_h: int,
                                  seed: int, max_depth: int = 50,
                                  t_min: float = 0.001,
                                  device: torch.device | str = "cpu"
-                                 ) -> torch.Tensor:
-    """Record planes (max_depth, n) int32 for pixels [pix_base, pix_base + n):
-    per bounce the packed word `mat | hit<<16 | cont<<17 | miss<<18`
-    (pallas_trace.py:1536-1541), the same paths as `trace_pixels_reference`
-    without russian roulette (the record mode has none).
+                                 ) -> tuple:
+    """Record planes for pixels [pix_base, pix_base + n): per bounce the
+    packed word `mat | hit<<16 | cont<<17 | miss<<18` (pallas_trace.py:
+    1536-1541), (max_depth, n) int32, and, when the scene needs them
+    (`SceneBake.need_p`), the hit point's x, y and z, (max_depth, n)
+    float32 each (:1542-1545); the same paths as `trace_pixels_reference`
+    without russian roulette (the record mode has none).  Returns the
+    tuple (packed[, px, py, pz]).
 
     The plain PyTorch version of `megakernel_record`.  A lane whose path
     has ended records 0, as a kernel thread does; the Pallas kernel stores
     the stale `mat` of a dead lane's frozen ray there (with every mask bit
     0), so compare against it bits 16-18 everywhere and bits 0-15 only where
-    bit 16 is set.
+    bit 16 is set.  The hit point is o + t d where bit 16 is set and 0
+    elsewhere, where the Pallas kernel leaves o + 1e30 d or a frozen ray's
+    point; compare it only where bit 16 is set.
     """
     dev = torch.device(device)
-    t_min = _f32(t_min)
     base = rng_base(n, seed, dev)
     o3, d3, tm = _camera_rays(camera, img_h, img_w, pix_base, n, base, dev)
+    return _walk(bake, o3, d3, tm, base, max_depth, t_min)
+
+
+def walk_packed_reference(bake: SceneBake, o: torch.Tensor, d: torch.Tensor,
+                          tm: torch.Tensor, seed: int, max_depth: int = 50,
+                          t_min: float = 0.001) -> tuple:
+    """`walk_packed_pixels_reference` on given rays (kernel 1c,
+    `PallasTracer.walk_packed`): o, d (N, 3) and tm (N,) float32, lane i
+    seeded as lane i of a camera-ray call with the same int32 seed."""
+    base = rng_base(o.shape[0], seed, o.device)
+    return _walk(bake, tuple(o.unbind(1)), tuple(d.unbind(1)), tm, base,
+                 max_depth, t_min)
+
+
+def _walk(bake: SceneBake, o3: tuple, d3: tuple, tm: torch.Tensor,
+          base: torch.Tensor, max_depth: int, t_min: float) -> tuple:
+    """The record bounce loop of both plain record versions."""
+    n, dev = tm.shape[0], tm.device
+    t_min = _f32(t_min)
     shading = torch.as_tensor(bake.shading_table(), device=dev)
     out = torch.zeros((max_depth, n), dtype=torch.int32, device=dev)
+    p_out = (torch.zeros((3, max_depth, n), dtype=torch.float32, device=dev)
+             if bake.need_p else None)
     alive = torch.ones(n, dtype=torch.bool, device=dev)
 
     for b in range(max_depth):
@@ -1542,13 +1592,16 @@ def walk_packed_pixels_reference(bake: SceneBake, camera, img_h: int,
                   | (bn.cont.to(torch.int32) << 17)
                   | (bn.miss.to(torch.int32) << 18))
         out[b] = torch.where(alive, packed, 0)
+        if p_out is not None:
+            for k in range(3):
+                p_out[k, b] = torch.where(bn.hit, bn.p3[k], 0.0)
         o3, d3 = _advance(bn, o3, d3)
         alive = bn.cont
 
-    return out
+    return (out,) if p_out is None else (out, *p_out.unbind(0))
 
 
-def record_agreement(got, want) -> dict:
+def record_agreement(got, want, same_rays=None) -> dict:
     """How two stacks of record planes (..., max_depth, n) agree under the
     bit rule: bits 16-18 compared everywhere, bits 0-15 only where `want`
     has bit 16 set (a dead lane's mat bits carry nothing).
@@ -1557,29 +1610,100 @@ def record_agreement(got, want) -> dict:
     hit entries whose mat agrees (`hit_mat_frac`), of lanes whose whole
     record agrees (`lane_frac`), of words equal bit for bit (`exact_frac`),
     and whether every lane agrees at bounce 0 (`first_bounce`) and
-    everywhere (`bit_rule`).
+    everywhere (`bit_rule`).  `same_rays`, a (..., n) bool mask, limits
+    `first_bounce` to the lanes whose first rays are known to be equal
+    (`lens_cos_sin`).
     """
-    def as_i64(x) -> torch.Tensor:
-        if isinstance(x, torch.Tensor):
-            return x.detach().cpu().to(torch.int64)
-        return torch.from_numpy(np.array(x, dtype=np.int64))
-
-    got, want = as_i64(got), as_i64(want)
+    got, want = _as_i64(got), _as_i64(want)
     if got.shape != want.shape:
         raise ValueError(f"shapes differ: {tuple(got.shape)} and "
                          f"{tuple(want.shape)}")
+    agree = _lanes_agree(got, want)
+    first = agree[..., 0, :]
+    if same_rays is not None:
+        first = first | ~torch.as_tensor(np.asarray(same_rays, bool))
     mask = HIT_BIT | CONT_BIT | MISS_BIT
-    masks = (got & mask) == (want & mask)
     hit = (want & HIT_BIT) != 0
     mats = (got & 0xFFFF) == (want & 0xFFFF)
-    agree = masks & (mats | ~hit)
-    return dict(mask_frac=float(masks.double().mean()),
+    return dict(mask_frac=float(((got & mask) == (want & mask)).double()
+                                .mean()),
                 hit_mat_frac=float(mats[hit].double().mean()) if hit.any()
                 else 1.0,
                 lane_frac=float(agree.all(-2).double().mean()),
                 exact_frac=float((got == want).double().mean()),
-                first_bounce=bool(agree[..., 0, :].all()),
+                first_bounce=bool(first.all()),
                 bit_rule=bool(agree.all()))
+
+
+def _as_i64(x) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().to(torch.int64)
+    return torch.from_numpy(np.array(x, dtype=np.int64))
+
+
+def _as_f64(x) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().to(torch.float64)
+    return torch.from_numpy(np.array(x, dtype=np.float64))
+
+
+def _lanes_agree(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """Per entry, the bit rule: the mask bits equal, and the mat bits too
+    where `want` hit."""
+    mask = HIT_BIT | CONT_BIT | MISS_BIT
+    hit = (want & HIT_BIT) != 0
+    return (((got & mask) == (want & mask))
+            & (((got & 0xFFFF) == (want & 0xFFFF)) | ~hit))
+
+
+def p_agreement(got, want, got_p, want_p) -> dict:
+    """How the hit-point planes of two record walks agree: got/want the
+    packed planes (..., max_depth, n), got_p/want_p the hit points
+    (..., 3, max_depth, n).  Over the entries where `want` hit (bit 16), on
+    the lanes whose whole record agrees under the bit rule, with the error
+    of an entry its largest component's: at bounce 0 the largest error
+    (`max_err0`) and the fraction within HIT_CLOSE (`frac_close0`); over
+    all bounces the largest error (`max_err`), the fraction within
+    HIT_LIMITS["p"] (`frac_limit`) and the fraction of entries equal bit
+    for bit (`exact_frac`).
+
+    `hit_rule`: `hit_agreement`'s float rule at bounce 0, where it was set
+    on camera rays (within HIT_LIMITS["p"], >= 99% within HIT_CLOSE), and
+    >= 99% of all entries within HIT_LIMITS["p"].  After a bounce XLA's
+    contracted sphere quadratic (up to ~1e-3 of p) turns a small sphere's
+    normal, and the error grows along the path, so its largest value is
+    not bounded there."""
+    got, want = _as_i64(got), _as_i64(want)
+    gp, wp = _as_f64(got_p), _as_f64(want_p)
+    lanes = _lanes_agree(got, want).all(-2, keepdim=True)
+    sel = ((want & HIT_BIT) != 0) & lanes                 # (..., D, n)
+    err = (gp - wp).abs().amax(-3)                        # (..., D, n)
+    e_all, e0 = err[sel], err[..., 0, :][sel[..., 0, :]]
+
+    def frac(e, limit):
+        return float((e <= limit).double().mean()) if len(e) else 1.0
+
+    res = dict(entries=int(sel.sum()),
+               max_err0=float(e0.max()) if len(e0) else 0.0,
+               frac_close0=frac(e0, HIT_CLOSE),
+               max_err=float(e_all.max()) if len(e_all) else 0.0,
+               frac_limit=frac(e_all, HIT_LIMITS["p"]),
+               exact_frac=frac(e_all, 0.0))
+    res["hit_rule"] = (res["max_err0"] <= HIT_LIMITS["p"]
+                       and res["frac_close0"] >= 0.99
+                       and res["frac_limit"] >= 0.99)
+    return res
+
+
+def lens_cos_sin(seed: int, n: int,
+                 device: torch.device | str = "cpu") -> torch.Tensor:
+    """(2, n) float32: cos and sin of the lens angle of lanes 0..n-1 of an
+    in-kernel camera call with int32 seed `seed` (`_camera_rays`), as
+    torch computes them on `device`.  Where they differ from another
+    implementation's by an ulp, the lane's camera ray differs."""
+    cdraw = (rng_base(n, seed, torch.device(device)) + _CAM_DRAW) & _M32
+    theta = _TWO_PI * uniform(cdraw, 2)
+    return torch.stack((torch.cos(theta), torch.sin(theta)))
 
 
 class HitResult(NamedTuple):
@@ -1855,15 +1979,17 @@ def _check_table(t: torch.Tensor, cols: int, device: torch.device,
 
 
 def _check_rays(o: torch.Tensor, d: torch.Tensor, tm: torch.Tensor,
-                alive: torch.Tensor, device: torch.device) -> int:
-    """The ray count N of a hit query, after checking the planes: o, d
-    contiguous float32 (N, 3), tm float32 (N,), alive bool (N,), all on
-    `device`."""
+                alive: Optional[torch.Tensor], device: torch.device) -> int:
+    """The ray count N of a hit query or a ray-plane launch, after checking
+    the planes: o, d contiguous float32 (N, 3), tm float32 (N,), alive bool
+    (N,) when given, all on `device`."""
     n = o.shape[0] if o.dim() == 2 else -1
     for name, t, shape, dtype in (("o", o, (n, 3), torch.float32),
                                   ("d", d, (n, 3), torch.float32),
                                   ("tm", tm, (n,), torch.float32),
                                   ("alive", alive, (n,), torch.bool)):
+        if t is None:
+            continue
         if (t.device != device or t.dtype != dtype or not t.is_contiguous()
                 or tuple(t.shape) != shape):
             raise ValueError(f"{name} must be a contiguous {dtype} {shape} "
@@ -1875,34 +2001,52 @@ def _check_rays(o: torch.Tensor, d: torch.Tensor, tm: torch.Tensor,
     return n
 
 
+def _ray_planes(o: torch.Tensor, d: torch.Tensor,
+                tm: torch.Tensor) -> torch.Tensor:
+    """The (7, N) float32 ray planes o xyz, d xyz, tm that the ray-plane
+    entries read (`RtParams.rays`)."""
+    rays = torch.empty((7, o.shape[0]), dtype=torch.float32, device=o.device)
+    rays[0:3] = o.T
+    rays[3:6] = d.T
+    rays[6] = tm
+    return rays
+
+
 class Tracer:
     """Scene-specialized tracer on one device: forward radiance, the record
     walk and the pure closest hit.  `jax_tri_stream` (of `bake`) is the JAX
-    package's mesh routing predicate (`engine.render.route`).
+    package's mesh routing predicate (`engine.render.route`); `need_p` and
+    `need_uv` say which planes the record walk writes beside the packed
+    one (`PallasTracer.need_p`, `need_uv`).
 
-    On a CUDA device `trace_pixels`, `walk_packed_pixels` and `hit` launch
-    the kernels (`csrc/megakernel.cuh`, `csrc/hit.cu`); on the CPU they run
-    `trace_pixels_reference`, `walk_packed_pixels_reference` and
-    `hit_reference`.  Nothing falls back from one to the other.  The
-    constructor raises NotImplementedError for a scene the forward kernel
-    does not cover, the record mode for one with triangles, a sphere BVH or
-    a texture that needs the hit-point or uv planes, and `hit` ValueError
-    for one with media (`supports_hit`).
+    On a CUDA device `trace_pixels`, `__call__`, `walk_packed_pixels`,
+    `walk_packed` and `hit` launch the kernels (`csrc/megakernel.cuh`,
+    `csrc/hit.cu`); on the CPU they run `trace_pixels_reference`,
+    `trace_rays_reference`, `walk_packed_pixels_reference`,
+    `walk_packed_reference` and `hit_reference`.  Nothing falls back from
+    one to the other.  The constructor raises NotImplementedError for a
+    scene the forward kernel does not cover (`unported_feature`), and `hit`
+    ValueError for one with media (`supports_hit`).
     """
 
-    launches = 0         # megakernel_fwd launches in this process, all tracers
-    record_launches = 0  # megakernel_record launches, likewise
-    hit_launches = 0     # rt_hit launches, likewise
+    launches = 0         # megakernel_fwd launches on camera rays, all tracers
+    record_launches = 0  # megakernel_record launches on camera rays
+    ray_launches = 0     # launches of both modes on ray planes (kernel 1c)
+    hit_launches = 0     # rt_hit launches
 
     def __init__(self, scene: st.Scene, device: torch.device | str):
         feature = unported_feature(scene)
         if feature is not None:
             raise NotImplementedError(f"{feature}: not yet ported")
-        self.record_feature = unported_record_feature(scene)
         self.device = torch.device(device)
         if self.device.type != "cpu":
             _require_cuda(self.device)
+            if self.device.index is None:
+                # tensors report cuda:N, and the wrappers compare devices
+                self.device = torch.device("cuda",
+                                           torch.cuda.current_device())
         self.bake = bake = bake_scene(scene)
+        self.need_p, self.need_uv = bake.need_p, bake.need_uv
         (self.rect_table, self.box_table, self.sphere_table, self.media_table,
          self.sph_nodes, self.sph_links, self.sph_start,
          self.sph_hit_nodes, self.tri_table, self.tri_nodes, self.tri_links,
@@ -1930,17 +2074,47 @@ class Tracer:
         return self.bind(camera, img_h, img_w, max_depth, t_min,
                          rr_start)(pix_base, n, seed)
 
+    def __call__(self, o: torch.Tensor, d: torch.Tensor, tm: torch.Tensor,
+                 seed: int, max_depth: int = 50, t_min: float = 0.001,
+                 rr_start: int = 0) -> torch.Tensor:
+        """Forward radiance (N, 3) float32 of given rays (contract of
+        `PallasTracer.__call__`, kernel 1c): o, d (N, 3) and tm (N,)
+        float32, contiguous on the tracer's device.  `seed` is the int32
+        that the JAX package draws from its key (`_tile_args`)."""
+        return self.bind_trace_rays(max_depth, t_min, rr_start)(o, d, tm,
+                                                                seed)
+
     def walk_packed_pixels(self, camera, img_h: int, img_w: int,
                            pix_base: int, n: int, seed: int,
                            max_depth: int = 50,
-                           t_min: float = 0.001) -> torch.Tensor:
-        """Record planes (max_depth, n) int32 on the tracer's device for
-        pixels [pix_base, pix_base + n): per bounce the packed word
-        `mat | hit<<16 | cont<<17 | miss<<18` (contract of
-        `PallasTracer.walk_packed_pixels` for a scene whose textures are all
-        solid, cropped to n lanes).  A bounce after the path's end is 0."""
+                           t_min: float = 0.001) -> tuple:
+        """Record planes on the tracer's device for pixels
+        [pix_base, pix_base + n) (contract of
+        `PallasTracer.walk_packed_pixels`, cropped to n lanes): the packed
+        word `mat | hit<<16 | cont<<17 | miss<<18` per bounce, (max_depth,
+        n) int32, then, when `need_p`, px, py and pz, (max_depth, n)
+        float32 each.  A bounce after the path's end is 0 in every plane,
+        and so is a miss's hit point."""
         return self.bind_record(camera, img_h, img_w, max_depth, t_min)(
             pix_base, n, seed)
+
+    def walk_packed(self, o: torch.Tensor, d: torch.Tensor, tm: torch.Tensor,
+                    seed: int, max_depth: int = 50,
+                    t_min: float = 0.001) -> tuple:
+        """The record planes of `walk_packed_pixels` for given rays
+        (contract of `PallasTracer.walk_packed`, kernel 1c): o, d (N, 3)
+        and tm (N,) float32, contiguous on the tracer's device; `seed` as
+        in `__call__`."""
+        return self.bind_walk_packed(max_depth, t_min)(o, d, tm, seed)
+
+    def walk(self, o: torch.Tensor, d: torch.Tensor, tm: torch.Tensor,
+             seed: int, max_depth: int = 50, t_min: float = 0.001):
+        """`walk_packed` as `engine.integrator.BounceData`
+        (`PallasTracer.walk`)."""
+        from ..engine.integrator import unpack_walk
+
+        return unpack_walk(self.walk_packed(o, d, tm, seed, max_depth, t_min),
+                           self.need_p, self.need_uv)
 
     def bind(self, camera, img_h: int, img_w: int, max_depth: int = 50,
              t_min: float = 0.001, rr_start: int = 0
@@ -1959,7 +2133,6 @@ class Tracer:
             return plain
 
         tables, device = self._checked_tables(), self.device
-        ptrs = tuple(t.data_ptr() for t in tables)
         p, check_range = self._launch_params(
             camera, img_h, img_w, max_depth, t_min, rr_start,
             self.bake.features())
@@ -1971,53 +2144,130 @@ class Tracer:
             p.pix_base, p.n, p.seed = int(pix_base), int(n), _int32(seed)
             r = out.data_ptr()
             with torch.cuda.device(device):
-                rc = lib.rt_trace_pixels(*ptrs, p, r, r + 4 * n, r + 8 * n,
+                rc = lib.rt_trace_pixels(tables, p, r, r + 4 * n, r + 8 * n,
                                          _stream(device))
             _check(lib, rc, "rt_trace_pixels")
             Tracer.launches += 1
             return out.T
 
-        launch.tables = tables  # the kernel reads them through ptrs
+        launch.tables = tables  # the kernel reads them through pointers
+        return launch
+
+    def bind_trace_rays(self, max_depth: int = 50, t_min: float = 0.001,
+                        rr_start: int = 0
+                        ) -> Callable[..., torch.Tensor]:
+        """`__call__` with the depth, t_min and rr_start fixed: returns
+        `launch(o, d, tm, seed) -> (N, 3)`."""
+        if self.device.type == "cpu":
+            def plain(o, d, tm, seed: int) -> torch.Tensor:
+                _check_rays(o, d, tm, None, self.device)
+                return trace_rays_reference(self.bake, o, d, tm, seed,
+                                            max_depth, t_min, rr_start)
+            return plain
+
+        tables, device = self._checked_tables(), self.device
+        p, _ = self._launch_params(None, 1, 1, max_depth, t_min, rr_start,
+                                   self.bake.features())
+        lib = build.load()
+
+        def launch(o, d, tm, seed: int) -> torch.Tensor:
+            n = _check_rays(o, d, tm, None, device)
+            rays = _ray_planes(o, d, tm)
+            out = torch.empty((3, n), dtype=torch.float32, device=device)
+            p.n, p.seed = n, _int32(seed)
+            r = out.data_ptr()
+            with torch.cuda.device(device):
+                rc = lib.rt_trace_rays(tables, p, rays.data_ptr(), r,
+                                       r + 4 * n, r + 8 * n, _stream(device))
+            _check(lib, rc, "rt_trace_rays")
+            Tracer.ray_launches += 1
+            return out.T
+
+        launch.tables = tables
         return launch
 
     def bind_record(self, camera, img_h: int, img_w: int,
                     max_depth: int = 50, t_min: float = 0.001
-                    ) -> Callable[[int, int, int], torch.Tensor]:
+                    ) -> Callable[[int, int, int], tuple]:
         """`walk_packed_pixels` with the camera, image size, depth and t_min
-        fixed: returns `launch(pix_base, n, seed) -> (max_depth, n)` int32,
-        with the launch constants computed once, as `bind` does.  Raises
-        NotImplementedError for a scene that needs the hit-point or uv
-        planes."""
-        if self.record_feature is not None:
-            raise NotImplementedError(f"{self.record_feature}: not yet ported")
+        fixed: returns `launch(pix_base, n, seed) -> planes`, with the
+        launch constants computed once, as `bind` does."""
         if self.device.type == "cpu":
-            def plain(pix_base: int, n: int, seed: int) -> torch.Tensor:
+            def plain(pix_base: int, n: int, seed: int) -> tuple:
                 _check_count(n)
                 return walk_packed_pixels_reference(
                     self.bake, camera, img_h, img_w, pix_base, n, seed,
                     max_depth, t_min, self.device)
             return plain
 
-        tables, device = self._checked_tables(), self.device
-        ptrs = tuple(t.data_ptr() for t in tables)
         p, check_range = self._launch_params(
-            camera, img_h, img_w, max_depth, t_min, 0,
-            self.bake.features() & (FEAT_SPHERES | FEAT_MEDIA))
-        lib = build.load()
+            camera, img_h, img_w, max_depth, t_min, 0, self._record_features())
+        walk = self._bind_walk(p, "rt_walk_packed_pixels")
 
-        def launch(pix_base: int, n: int, seed: int) -> torch.Tensor:
+        def launch(pix_base: int, n: int, seed: int) -> tuple:
             check_range(pix_base, n)
-            out = torch.empty((max_depth, n), dtype=torch.int32, device=device)
-            p.pix_base, p.n, p.seed = int(pix_base), int(n), _int32(seed)
-            with torch.cuda.device(device):
-                rc = lib.rt_walk_packed_pixels(*ptrs, p, out.data_ptr(),
-                                               _stream(device))
-            _check(lib, rc, "rt_walk_packed_pixels")
+            p.pix_base = int(pix_base)
+            planes = walk(n, seed)
             Tracer.record_launches += 1
-            return out
+            return planes
 
-        launch.tables = tables  # the kernel reads them through ptrs
+        launch.tables = walk.tables
         return launch
+
+    def bind_walk_packed(self, max_depth: int = 50, t_min: float = 0.001
+                         ) -> Callable[..., tuple]:
+        """`walk_packed` with the depth and t_min fixed: returns
+        `launch(o, d, tm, seed) -> planes`."""
+        if self.device.type == "cpu":
+            def plain(o, d, tm, seed: int) -> tuple:
+                _check_rays(o, d, tm, None, self.device)
+                return walk_packed_reference(self.bake, o, d, tm, seed,
+                                             max_depth, t_min)
+            return plain
+
+        p, _ = self._launch_params(None, 1, 1, max_depth, t_min, 0,
+                                   self._record_features())
+        walk = self._bind_walk(p, "rt_walk_packed")
+
+        def launch(o, d, tm, seed: int) -> tuple:
+            n = _check_rays(o, d, tm, None, self.device)
+            planes = walk(n, seed, _ray_planes(o, d, tm))
+            Tracer.ray_launches += 1
+            return planes
+
+        launch.tables = walk.tables
+        return launch
+
+    def _record_features(self) -> int:
+        """The record instantiation's bits: geometry and triangles only
+        (the record mode evaluates no albedo)."""
+        return self.bake.features() & (FEAT_SPHERES | FEAT_MEDIA
+                                       | FEAT_SPHERE_BVH | FEAT_TRI_BVH)
+
+    def _bind_walk(self, p, entry: str) -> Callable[..., tuple]:
+        """One record launch through C entry `entry` with the parameter
+        block `p`: `walk(n, seed[, rays]) -> planes`, the packed plane and,
+        when `need_p`, the hit-point planes."""
+        tables, device = self._checked_tables(), self.device
+        need_p = self.need_p
+        lib = build.load()
+        fn, depth = getattr(lib, entry), p.max_depth
+
+        def walk(n: int, seed: int, *rays: torch.Tensor) -> tuple:
+            p.n, p.seed = int(n), _int32(seed)
+            out = torch.empty((depth, n), dtype=torch.int32, device=device)
+            pf = (torch.empty((3, depth, n), dtype=torch.float32,
+                              device=device) if need_p else None)
+            ptrs = ([pf[k].data_ptr() for k in range(3)] if need_p
+                    else [None] * 3)
+            with torch.cuda.device(device):
+                rc = fn(tables, p, *(r.data_ptr() for r in rays),
+                        out.data_ptr(), *ptrs, _stream(device))
+            _check(lib, rc, entry)
+            return (out, *pf.unbind(0)) if need_p else (out,)
+
+        walk.tables = tables
+        return walk
 
     def bind_hit(self, t_min: float = 0.001
                  ) -> Callable[..., HitResult]:
@@ -2071,28 +2321,37 @@ class Tracer:
         (N,) bool, contiguous on the tracer's device."""
         return self.bind_hit(t_min)(o, d, tm, alive)
 
-    def _checked_tables(self) -> tuple:
-        """The megakernels' eleven tables, checked.  A bound launch keeps
-        them alive: it may outlive the tracer (`compile_renderer`)."""
-        tables = (self.rect_table, self.box_table, self.sphere_table,
-                  self.media_table, self.sph_nodes, self.sph_links,
-                  self.sph_start, self.tri_table, self.tri_nodes,
-                  self.tri_links, self.tri_start)
+    def _checked_tables(self) -> "build.RtTables":
+        """The megakernels' eleven tables, checked, as the struct the C
+        entries take.  It keeps the tensors alive (`.tensors`): a bound
+        launch may outlive the tracer (`compile_renderer`)."""
+        tensors = (self.rect_table, self.box_table, self.sphere_table,
+                   self.media_table, self.sph_nodes, self.sph_links,
+                   self.sph_start, self.tri_table, self.tri_nodes,
+                   self.tri_links, self.tri_start)
         f32, i32 = torch.float32, torch.int32
         for t, cols, dtype in zip(
-                tables, (RECT_COLS, BOX_COLS, SPHERE_COLS, MEDIUM_COLS, 6, 2,
-                         1, TRI_COLS, 6, 2, 1),
+                tensors, (RECT_COLS, BOX_COLS, SPHERE_COLS, MEDIUM_COLS, 6, 2,
+                          1, TRI_COLS, 6, 2, 1),
                 (f32,) * 5 + (i32,) * 2 + (f32,) * 2 + (i32,) * 2):
             _check_table(t, cols, self.device, dtype)
+        tables = build.RtTables(*(t.data_ptr() for t in tensors))
+        tables.tensors = tensors
         return tables
 
     def _launch_params(self, camera, img_h: int, img_w: int, max_depth: int,
                        t_min: float, rr_start: int, features: int):
-        """The kernels' parameter block for a bound camera and image, with
+        """The kernels' parameter block for a bound camera and image (or,
+        with `camera` None, for ray planes: no camera, a 1 x 1 image), with
         the per-launch fields left to fill, and the check of a launch's
         pixel range."""
-        (corg, cllc, chor, cver, cuv, cvv, clr, ct0, ct1,
-         img_h, img_w) = _cam_tuple(camera, img_h, img_w)
+        if camera is None:
+            zero3 = (0.0, 0.0, 0.0)
+            (corg, cllc, chor, cver, cuv, cvv, clr, ct0, ct1) = (
+                (zero3,) * 6 + (0.0, 0.0, 0.0))
+        else:
+            (corg, cllc, chor, cver, cuv, cvv, clr, ct0, ct1,
+             img_h, img_w) = _cam_tuple(camera, img_h, img_w)
         if img_h <= 0 or img_w <= 0 or max_depth < 0 or rr_start < 0:
             raise ValueError(f"bad image {img_h}x{img_w}, depth {max_depth} "
                              f"or rr_start {rr_start}")

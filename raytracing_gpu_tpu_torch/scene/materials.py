@@ -22,9 +22,9 @@ import numpy as np
 import torch
 
 from ..core import rng, vec
-from .textures import PORTED, eval_texture
+from .textures import eval_texture
 from .types import (DIELECTRIC, DIFFUSE_LIGHT, ISOTROPIC, METAL, TEX_CHECKER,
-                    Scene, host_table)
+                    TEX_SOLID, Scene, host_table)
 
 _UNROLL_MAX = 32  # materials up to which the per-material select is unrolled
 
@@ -45,7 +45,7 @@ def _fast_shade(scene: Scene, params: dict, mat_id: torch.Tensor,
     mkind = np.asarray(mats.kind)
     mtex = np.asarray(mats.tex_id)
     tkind = np.asarray(tx.kind)[mtex]
-    if not np.all(np.isin(tkind, PORTED)):
+    if not np.all(np.isin(tkind, (TEX_SOLID, TEX_CHECKER))):
         return None
     c1_all, c2_all = params["tex_c1"], params["tex_c2"]
 

@@ -1,8 +1,10 @@
 """Texture evaluation: tagged parameter table, compute-all-and-select.
 
 Counterpart of `raytracing_gpu_tpu/scene/textures.py` for the texture kinds
-the port covers: solid and checker.  Every present kind is evaluated for the
-whole hit batch and the per-hit kind tag selects the result.  The kind and
+the port covers: solid, checker, noise, turbulence and marble (the perlin
+family on `scene/perlin.py`, the same function as the kernels').  Every
+present kind is evaluated for the whole hit batch and the per-hit kind tag
+selects the result.  The kind and
 binding tables are the scene's host numpy arrays; the colors are torch
 parameter tensors (`engine.diff.get_params`), so the result is
 differentiable with respect to them.
@@ -13,13 +15,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import perlin
 from .types import (TEX_CHECKER, TEX_IMAGE, TEX_MARBLE, TEX_NOISE, TEX_SOLID,
                     TEX_TURB, Scene, host_table)
 
 TEXTURE_NAMES = {TEX_SOLID: "solid", TEX_CHECKER: "checker",
                  TEX_NOISE: "noise", TEX_TURB: "turbulence",
                  TEX_MARBLE: "marble", TEX_IMAGE: "image"}
-PORTED = (TEX_SOLID, TEX_CHECKER)
+PORTED = (TEX_SOLID, TEX_CHECKER, TEX_NOISE, TEX_TURB, TEX_MARBLE)
 
 
 def eval_texture(scene: Scene, params: dict, tex_id: torch.Tensor,
@@ -30,7 +33,7 @@ def eval_texture(scene: Scene, params: dict, tex_id: torch.Tensor,
     tex_id: (N,) int64 or int32 indices into the scene's texture table;
     u, v: (N,); p: (N, 3); params: {"tex_c1", "tex_c2", ...} float32
     tensors.  Raises NotImplementedError when the table holds a kind that
-    is not ported (noise, turbulence, marble, image), naming it.
+    is not ported (image), naming it.
     """
     tx = scene.textures
     present = {int(k) for k in np.unique(tx.kind)}
@@ -55,4 +58,16 @@ def eval_texture(scene: Scene, params: dict, tex_id: torch.Tensor,
                  * torch.sin(scale * p[..., 2]))
         checker = torch.where((sines < 0.0)[..., None], c2, c1)
         out = torch.where((kind == TEX_CHECKER)[..., None], checker, out)
+    if present & {TEX_NOISE, TEX_TURB, TEX_MARBLE}:
+        # the perlin family at scale * p (reference texture.h:49-91)
+        sx, sy, sz = (scale * p[..., k] for k in range(3))
+        grays = {}
+        if TEX_NOISE in present:
+            grays[TEX_NOISE] = 0.5 * (1.0 + perlin.noise3(sx, sy, sz))
+        if present & {TEX_TURB, TEX_MARBLE}:
+            turb = perlin.turb3(sx, sy, sz, depth=7)
+            grays[TEX_TURB] = turb
+            grays[TEX_MARBLE] = 0.5 * (1.0 + torch.sin(sz + 10.0 * turb))
+        for k, gray in grays.items():
+            out = torch.where((kind == k)[..., None], gray[..., None], out)
     return out

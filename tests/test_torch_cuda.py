@@ -32,6 +32,13 @@ Triangles: the hit kernel's tier and the megakernel's triangle walk under
 the same rules against their plain versions; against the Pallas hit golden
 the packed words equal on every lane and a triangle winner's id equal
 except across a shared edge (`tests/test_torch_tri_hit.py`).
+
+The record kernel's hit-point planes and BVH walks, and both ray-plane
+entries: the bit rule and >= 99.9% of the words and of the hit-point
+values bit-exact against their plain versions; against the Pallas goldens
+the rules of tests/test_torch_record_p.py and tests/test_torch_rayplane.py
+(bounce 0 on the lanes whose lens angle rounds as XLA's, hit points under
+`cuda_trace.p_agreement`, radiance channel means within 3e-3).
 """
 
 import gc
@@ -139,11 +146,11 @@ def test_record_kernel_matches_plain(dev, depth):
     seed = int(np.random.default_rng(53).integers(-2**31, 2**31 - 1))
     before = ct.Tracer.record_launches
     got = tracer.walk_packed_pixels(sd.camera, 64, 64, 0, 4096, seed,
-                                    max_depth=depth)
+                                    max_depth=depth)[0]
     assert ct.Tracer.record_launches == before + 1
     want = ct.walk_packed_pixels_reference(tracer.bake, sd.camera, 64, 64, 0,
                                            4096, seed, max_depth=depth,
-                                           device=dev)
+                                           device=dev)[0]
     torch.cuda.synchronize()
     assert got.device.type == "cuda" and got.dtype == torch.int32
     res = ct.record_agreement(got, want)
@@ -167,7 +174,7 @@ def test_record_kernel_matches_jax_golden(dev):
     got = torch.stack([
         tracer.walk_packed_pixels(sd.camera, h, w, bid * b, b,
                                   ct.wave_seed(int(g["base"]), s, bid),
-                                  st.max_depth, st.t_min)
+                                  st.max_depth, st.t_min)[0]
         for s in range(st.spp_per_chunk) for bid in range(h * w // b)])
     res = ct.record_agreement(got, g["planes"])
     assert res["first_bounce"] and res["lane_frac"] >= 0.99, res
@@ -223,9 +230,10 @@ def test_dense_record_kernel_matches_plain_and_golden(dev, name):
     sd = scenes.get(name)
     tracer = ct.Tracer(sd.scene, dev)
     got = tracer.walk_packed_pixels(sd.camera, 64, 64, 0, 4096, 77,
-                                    max_depth=8)
+                                    max_depth=8)[0]
     want = ct.walk_packed_pixels_reference(tracer.bake, sd.camera, 64, 64, 0,
-                                           4096, 77, max_depth=8, device=dev)
+                                           4096, 77, max_depth=8,
+                                           device=dev)[0]
     res = ct.record_agreement(got, want)
     assert res["bit_rule"] and res["exact_frac"] >= EXACT_FLOOR, res
     g = np.load(os.path.join(DATA, f"{name}_32.npz"))
@@ -234,7 +242,7 @@ def test_dense_record_kernel_matches_plain_and_golden(dev, name):
     got = torch.stack([
         tracer.walk_packed_pixels(sd.camera, h, w, bid * b, b,
                                   ct.wave_seed(int(g["base"]), s, bid),
-                                  st.max_depth, st.t_min)
+                                  st.max_depth, st.t_min)[0]
         for s in range(st.spp_per_chunk) for bid in range(-(-h * w // b))])
     res = ct.record_agreement(got, g["planes"])
     assert res["first_bounce"] and res["lane_frac"] >= 0.99, res
@@ -510,3 +518,171 @@ def test_mesh_wavefronts_on_the_card_match_jax_golden(dev, engine):
         g["sums"][:npix]).double()) / st.spp_per_chunk
     z = diff_.mean(0) / (diff_.std(0) / npix ** 0.5)
     assert bool((z.abs() < 4.0).all()), z
+
+
+# ---------------------------------------------------------------------------
+# kernel 1b's hit-point planes and BVH walks, kernel 1c's ray planes
+# ---------------------------------------------------------------------------
+
+REC_SCENES = ("two_spheres", "two_perlin_spheres", "big_scene1", "triangles",
+              "mesh")
+
+
+def assert_record_matches(got, want):
+    """Record planes of the kernel against its plain version's: the bit
+    rule with >= 99.9% of the words equal, and the hit points bit-exact on
+    >= 99.9% of the values."""
+    assert len(got) == len(want)
+    res = ct.record_agreement(got[0], want[0])
+    assert res["bit_rule"] and res["exact_frac"] >= EXACT_FLOOR, res
+    for a, b in zip(got[1:], want[1:]):
+        exact = float((a.cpu() == b.cpu()).double().mean())
+        assert exact >= EXACT_FLOOR, exact
+
+
+@pytest.mark.parametrize("name", REC_SCENES)
+def test_record_p_kernel_matches_plain(dev, name):
+    sd = _mesh(name)
+    tracer = ct.Tracer(sd.scene, dev)
+    before = ct.Tracer.record_launches
+    got = tracer.walk_packed_pixels(sd.camera, 64, 64, 0, 4096, 97,
+                                    max_depth=8)
+    assert ct.Tracer.record_launches == before + 1
+    want = ct.walk_packed_pixels_reference(tracer.bake, sd.camera, 64, 64, 0,
+                                           4096, 97, max_depth=8, device=dev)
+    torch.cuda.synchronize()
+    assert len(got) == (4 if tracer.need_p else 1)
+    assert_record_matches(got, want)
+
+
+@pytest.mark.parametrize("name", REC_SCENES[:4])
+def test_record_p_kernel_matches_pallas_golden(dev, name):
+    g = np.load(os.path.join(DATA, f"{name}_rec32.npz"))
+    st = _golden_settings(g).with_(aspect_ratio=float(g["aspect_ratio"]))
+    sd = scenes.get(name)
+    tracer = ct.Tracer(sd.scene, dev)
+    h, w, b = st.image_height, st.image_width, st.ray_batch
+    waves = [(bid * b, b, ct.wave_seed(int(g["base"]), s, bid))
+             for s in range(st.spp_per_chunk) for bid in range(-(-h * w // b))]
+    planes = [tracer.walk_packed_pixels(sd.camera, h, w, *wv, st.max_depth,
+                                        st.t_min) for wv in waves]
+    got = torch.stack([p[0] for p in planes])
+    same = None
+    if "lens_cs" in g:
+        same = np.stack([(ct.lens_cos_sin(seed, n, dev).cpu().numpy()
+                          == g["lens_cs"][i]).all(0)
+                         for i, (_, n, seed) in enumerate(waves)])
+    agree = ct.record_agreement(got, g["planes"], same)
+    assert agree["first_bounce"] and agree["lane_frac"] >= 0.99, agree
+    if tracer.need_p:
+        res = ct.p_agreement(got, g["planes"], torch.stack(
+            [torch.stack(p[1:]) for p in planes]), g["p"])
+        assert res["hit_rule"], res
+
+
+@pytest.mark.parametrize("name", ["cornell_box", "big_scene1", "mesh"])
+def test_ray_plane_kernels_match_plain(dev, name):
+    sd = _mesh(name)
+    tracer = ct.Tracer(sd.scene, dev)
+    o, d, tm, _ = (x.to(dev) for x in _camera_rays(sd, 4096, 98))
+    before = ct.Tracer.ray_launches
+    got = tracer.walk_packed(o, d, tm, 99, max_depth=8)
+    want = ct.walk_packed_reference(tracer.bake, o, d, tm, 99, 8)
+    assert_record_matches(got, want)
+    for rr in (0, 2):
+        got = tracer(o, d, tm, 99, max_depth=8, rr_start=rr)
+        want = ct.trace_rays_reference(tracer.bake, o, d, tm, 99, 8,
+                                       rr_start=rr)
+        torch.cuda.synchronize()
+        assert_matches(got, want, 8)
+    assert ct.Tracer.ray_launches == before + 3
+
+
+@pytest.mark.parametrize("name", ["cornell_box", "big_scene1"])
+def test_ray_plane_kernels_match_pallas_golden(dev, name):
+    g = np.load(os.path.join(DATA, f"{name}_rays.npz"))
+    tracer = ct.Tracer(scenes.get(name).scene, dev)
+    rays = [torch.from_numpy(np.ascontiguousarray(g[k])).to(dev)
+            for k in ("o", "d", "tm")]
+    depth, seed = int(g["max_depth"]), int(g["seed"])
+    planes = tracer.walk_packed(*rays, seed, max_depth=depth)
+    agree = ct.record_agreement(planes[0], g["planes"])
+    assert agree["first_bounce"] and agree["lane_frac"] >= 0.99, agree
+    if tracer.need_p:
+        res = ct.p_agreement(planes[0], g["planes"],
+                             torch.stack(planes[1:]), g["p"])
+        assert res["hit_rule"], res
+    got = tracer(*rays, seed, max_depth=depth)
+    assert_matches(got, torch.from_numpy(g["radiance"]), depth,
+                   exact_floor=0.0, mean_rtol=3e-3)
+
+
+def test_fused_chunk_with_p_matches_plain_walk(dev):
+    sd = scenes.get("two_spheres")
+    st = RenderSettings(image_width=64, aspect_ratio=sd.aspect,
+                        spp_per_chunk=2, num_chunks=1, max_depth=8,
+                        ray_batch=1024)
+    tracer = ct.Tracer(sd.scene, dev)
+    h, w = st.image_height, st.image_width
+    params = diff.get_params(sd.scene, dev)
+
+    def run(chunk):
+        out = chunk(params, 555)
+        _, grads = diff.value_and_grad(params, lambda p: chunk(p, 555),
+                                       torch.full_like(out, 0.25))
+        return out.detach(), grads
+
+    out, grads = run(fused_diff.compile_fused_param_renderer(
+        sd.scene, sd.camera, st, device=dev))
+    ref, ref_grads = run(fused_diff.fused_chunk_from_walk(
+        sd.scene, lambda pb, n, seed: ct.walk_packed_pixels_reference(
+            tracer.bake, sd.camera, h, w, pb, n, seed, st.max_depth,
+            st.t_min, dev), st, device=dev))
+    assert_matches(out, ref, st.max_depth)
+    for k in diff.PARAM_KEYS:
+        torch.testing.assert_close(grads[k], ref_grads[k], rtol=2e-4,
+                                   atol=1e-7)
+
+
+def test_param_renderer_routes_launch_their_kernels(dev):
+    from raytracing_gpu_tpu_torch.engine import render
+
+    sd = scenes.get("big_scene1")
+    st = RenderSettings(image_width=64, aspect_ratio=sd.aspect,
+                        spp_per_chunk=2, num_chunks=1, max_depth=4,
+                        ray_batch=1024)
+    params = diff.get_params(sd.scene, dev)
+    walk = render.compile_param_renderer(sd.scene, sd.camera, st, device=dev)
+    fused = fused_diff.compile_fused_param_renderer(
+        sd.scene, sd.camera, st, gen_rays=False, device=dev)
+    assert walk.engine_name == "record-walk"
+    counts = (ct.Tracer.launches, ct.Tracer.record_launches,
+              ct.Tracer.hit_launches)
+    before = ct.Tracer.ray_launches
+    assert torch.equal(walk(params, 9), fused(params, 9))
+    waves = st.spp_per_chunk * render._grid_geometry(st)[5]
+    assert ct.Tracer.ray_launches == before + 2 * waves
+    assert (ct.Tracer.launches, ct.Tracer.record_launches,
+            ct.Tracer.hit_launches) == counts
+    msd = _mesh("mesh")
+    wave = render.compile_param_renderer(msd.scene, msd.camera,
+                                         st.with_(aspect_ratio=msd.aspect),
+                                         engine="wavefront", device=dev,
+                                         debug_stats=True)
+    hits = ct.Tracer.hit_launches
+    out, stats = wave(diff.get_params(msd.scene, dev), 9)
+    assert ct.Tracer.hit_launches - hits == stats["iterations"] > 0
+    assert bool(torch.isfinite(out).all())
+
+
+def test_tracer_takes_the_bare_cuda_device(dev):
+    # "cuda" (the entry points' default) names the current card; the
+    # wrappers compare it with the tensors' cuda:N
+    sd = scenes.get("big_scene1")
+    tracer = ct.Tracer(sd.scene, "cuda")
+    assert tracer.device == dev
+    assert tracer.trace_pixels(sd.camera, 16, 16, 0, 256, 3, 2).shape == \
+        (256, 3)
+    o, d, tm, alive = (x.to(dev) for x in _camera_rays(sd, 256, 4))
+    assert tracer.hit(o, d, tm, alive).packed.shape == (256,)
+    assert len(tracer.walk_packed(o, d, tm, 5, max_depth=2)) == 4

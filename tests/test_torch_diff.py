@@ -296,19 +296,19 @@ def test_eval_texture_matches_jax_and_names_unported_kinds():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
                                atol=0)
     kinds = tsc.textures.kind.copy()
-    kinds[0] = st.TEX_MARBLE
-    marble = dataclasses.replace(
+    kinds[0] = st.TEX_IMAGE
+    image = dataclasses.replace(
         tsc, textures=dataclasses.replace(tsc.textures, kind=kinds))
-    with pytest.raises(NotImplementedError, match="marble texture"):
-        textures.eval_texture(marble, diff.get_params(marble, "cpu"),
+    with pytest.raises(NotImplementedError, match="image texture"):
+        textures.eval_texture(image, diff.get_params(image, "cpu"),
                               torch.from_numpy(tex_id), torch.from_numpy(u),
                               torch.from_numpy(v), torch.from_numpy(p))
     # a material bound to it takes shade's general route, which names it
-    assert materials._fast_shade(marble, diff.get_params(marble, "cpu"),
+    assert materials._fast_shade(image, diff.get_params(image, "cpu"),
                                  torch.from_numpy(tex_id),
                                  torch.from_numpy(p)) is None
-    with pytest.raises(NotImplementedError, match="marble texture"):
-        materials.shade(marble, diff.get_params(marble, "cpu"),
+    with pytest.raises(NotImplementedError, match="image texture"):
+        materials.shade(image, diff.get_params(image, "cpu"),
                         torch.from_numpy(tex_id), torch.from_numpy(u),
                         torch.from_numpy(v), torch.from_numpy(p))
 

@@ -62,7 +62,7 @@ def test_record_plane_matches_jax_walk(setup, pix_base, n, i):
                                     max_depth=DEPTH)
     want = np.asarray(planes[0]).reshape(DEPTH, -1)[:, :n]
     got = ct.Tracer(tsd.scene, "cpu").walk_packed_pixels(
-        cam, H, W, pix_base, n, seed, max_depth=DEPTH)
+        cam, H, W, pix_base, n, seed, max_depth=DEPTH)[0]
     assert got.dtype == torch.int32 and tuple(got.shape) == (DEPTH, n)
     agree = ct.record_agreement(got, want)
     assert agree["first_bounce"], agree
@@ -77,7 +77,7 @@ def test_record_and_forward_trace_the_same_paths(setup, depth):
     tracer = ct.Tracer(tsd.scene, "cpu")
     seed = _seed(2)
     plane = tracer.walk_packed_pixels(cam, H, W, 0, H * W, seed,
-                                      max_depth=depth)
+                                      max_depth=depth)[0]
     fwd = tracer.trace_pixels(cam, H, W, 0, H * W, seed, max_depth=depth)
     params = get_params(tsd.scene, "cpu")
     rad = shade_packed(tsd.scene, params, plane, need_p=False, need_uv=False)
@@ -88,7 +88,7 @@ def test_record_and_forward_trace_the_same_paths(setup, depth):
 def test_record_words_are_well_formed(setup):
     _, _, tsd, cam = setup
     plane = ct.Tracer(tsd.scene, "cpu").walk_packed_pixels(
-        cam, H, W, 0, H * W, _seed(3), max_depth=6).to(torch.int64)
+        cam, H, W, 0, H * W, _seed(3), max_depth=6)[0].to(torch.int64)
     hit = (plane & ct.HIT_BIT) != 0
     cont = (plane & ct.CONT_BIT) != 0
     miss = (plane & ct.MISS_BIT) != 0
@@ -124,10 +124,10 @@ def test_cpu_record_never_touches_the_library(setup, monkeypatch):
     monkeypatch.setattr(build, "load", refuse)
     before = ct.Tracer.record_launches
     tracer = ct.Tracer(tsd.scene, "cpu")
-    got = tracer.bind_record(cam, H, W, max_depth=2)(0, 256, 5)
+    got = tracer.bind_record(cam, H, W, max_depth=2)(0, 256, 5)[0]
     np.testing.assert_array_equal(
         got.numpy(), ct.walk_packed_pixels_reference(
-            tracer.bake, cam, H, W, 0, 256, 5, max_depth=2).numpy())
+            tracer.bake, cam, H, W, 0, 256, 5, max_depth=2)[0].numpy())
     assert ct.Tracer.record_launches == before
     with pytest.raises(ValueError, match="positive"):
         tracer.walk_packed_pixels(cam, H, W, 0, 0, 5)

@@ -15,6 +15,7 @@ from raytracing_gpu_tpu.ops import pallas_trace as pt
 from raytracing_gpu_tpu_torch import SceneBuilder, compile_renderer
 from raytracing_gpu_tpu_torch.convert import camera_from_numpy, scene_from_numpy
 from raytracing_gpu_tpu_torch.core.config import RenderSettings
+from raytracing_gpu_tpu_torch.engine import fused_diff
 from raytracing_gpu_tpu_torch.models import scenes as tscenes
 from raytracing_gpu_tpu_torch.ops import cuda_trace as ct
 from raytracing_gpu_tpu_torch.scene import types as tst
@@ -136,15 +137,13 @@ def test_bake_records_equal_jax(cornell):
 def test_big_scene1_is_refused_with_the_feature_named():
     # big_scene1 itself renders (the kernel bake builds its sphere BVH and
     # the XLA engine's BVH in the JAX tree is dropped), and so it does with
-    # triangles added, which only the record walk refuses; with an image
-    # texture it is refused with that feature named, and the record walk
-    # still refuses its sphere BVH
+    # triangles added, in both modes; with an image texture it is refused
+    # with that feature named, and the record walk names the uv plane
     jsd = jscenes.get("big_scene1")
     assert jsd.scene._host_np.sphere_bvh is not None
     scene = scene_from_numpy(_tree(jsd.scene._host_np))
     assert ct.supports_forward(scene) and ct.Tracer(scene, "cpu").supports_hit
-    assert ct.unported_record_feature(scene).startswith(
-        "sphere BVH in record mode (484 spheres")
+    assert ct.unported_record_feature(scene) is None
     cam = camera_from_numpy(_tree(jsd.camera))
     st = RenderSettings(image_width=16, aspect_ratio=jsd.aspect,
                         spp_per_chunk=1, num_chunks=1, max_depth=2)
@@ -155,14 +154,14 @@ def test_big_scene1_is_refused_with_the_feature_named():
                                       np.int32(tst.TEX_IMAGE),
                                       scene.textures.kind)))
     assert ct.unported_feature(tri) is None
-    assert ct.unported_record_feature(tri).startswith(
-        "triangles in record mode (4 triangles")
+    assert ct.unported_record_feature(tri) is None
     assert compile_renderer(tri, cam, st, device="cpu").engine_name == \
         "megakernel"
-    with pytest.raises(NotImplementedError, match="triangles in record"):
-        ct.Tracer(tri, "cpu").walk_packed_pixels(cam, 9, 16, 0, 16, 1)
+    planes = ct.Tracer(tri, "cpu").walk_packed_pixels(cam, 9, 16, 0, 16, 1)
+    assert len(planes) == 4  # the checker ground needs the hit point
     for bad, feature in ((image, "image texture"),):
         assert ct.unported_feature(bad) == feature
+        assert ct.unported_record_feature(bad) == "uv plane (image texture)"
         with pytest.raises(NotImplementedError, match=f"{feature}: not yet"):
             compile_renderer(bad, cam, st, device="cpu")
         with pytest.raises(NotImplementedError, match=feature):
@@ -176,11 +175,14 @@ def test_unported_material_and_texture_are_named(cornell):
         s.textures.kind, tst.TEX_IMAGE))
     assert ct.unported_feature(dataclasses.replace(s, textures=image)) \
         == "image texture"
-    # the forward kernel takes a checker; the record walk needs its p plane
+    assert ct.unported_record_feature(dataclasses.replace(
+        s, textures=image)) == "uv plane (image texture)"
+    # both modes take a checker: the record walk writes its p plane
     checker = dataclasses.replace(s, textures=dataclasses.replace(
         s.textures, kind=np.ones_like(s.textures.kind)))
     assert ct.unported_feature(checker) is None
-    assert ct.unported_record_feature(checker) == "need_p plane (checker texture)"
+    assert ct.unported_record_feature(checker) is None
+    assert ct.bake_scene(checker).need_p and not ct.bake_scene(s).need_p
     metal = dataclasses.replace(s.materials, kind=np.where(
         s.materials.kind == 0, np.int32(1), s.materials.kind))
     assert ct.unported_feature(dataclasses.replace(s, materials=metal)) is None
@@ -188,12 +190,28 @@ def test_unported_material_and_texture_are_named(cornell):
     assert ct.unported_record_feature(s) is None
 
 
+def _image_kind(scene):
+    """`scene` with its first texture read as an image: what is left
+    unported (the atlas, and the record walk's uv plane)."""
+    kinds = scene.textures.kind.copy()
+    kinds[0] = tst.TEX_IMAGE
+    return dataclasses.replace(scene, textures=dataclasses.replace(
+        scene.textures, kind=kinds))
+
+
 def _many_spheres(b):
-    # the forward kernel walks their BVH; the record walk has none yet
+    # the sphere BVH in both modes; an image texture is refused
     for i in range(65):
         b.sphere((i, 0, 0), 0.4, b.lambertian((0.5, 0.5, 0.5)))
-    cam = tscenes.get("cornell_box").camera
-    return ct.Tracer(b.build(), "cpu").walk_packed_pixels(cam, 4, 4, 0, 16, 1)
+    tsd = tscenes.get("cornell_box")
+    scene = b.build()
+    planes = ct.Tracer(scene, "cpu").walk_packed_pixels(tsd.camera, 4, 4, 0,
+                                                        16, 1)
+    assert planes[0].shape == (50, 16)
+    st = RenderSettings(image_width=4, aspect_ratio=1.0, spp_per_chunk=1,
+                        num_chunks=1, max_depth=2, ray_batch=16)
+    fused_diff.compile_fused_param_renderer(_image_kind(scene), tsd.camera,
+                                            st, device="cpu")
 
 
 def _many_media(b):
@@ -203,7 +221,8 @@ def _many_media(b):
 
 
 def _triangles_record_walk(b, add):
-    # the forward kernel walks their BVH; the record walk has none yet
+    # the triangle BVH in both modes; the record walk of an image-textured
+    # scene is refused (its uv plane)
     mat = b.lambertian((0.5, 0.5, 0.5))
     if add == "mesh":
         b.mesh(np.eye(3), np.array([[0, 1, 2]]), mat)
@@ -212,15 +231,23 @@ def _triangles_record_walk(b, add):
     else:  # a rotated rect lowers to two triangles
         b.rect("xy", 0, 1, 0, 1, 0, mat, rotate_y=30.0)
     cam = tscenes.get("cornell_box").camera
-    tracer = ct.Tracer(b.build(), "cpu")
+    scene = b.build()
+    tracer = ct.Tracer(scene, "cpu")
     assert tracer.trace_pixels(cam, 4, 4, 0, 16, 1, 2).shape == (16, 3)
-    return tracer.walk_packed_pixels(cam, 4, 4, 0, 16, 1)
+    assert len(tracer.walk_packed_pixels(cam, 4, 4, 0, 16, 1)) == 1
+    st = RenderSettings(image_width=4, aspect_ratio=1.0, spp_per_chunk=1,
+                        num_chunks=1, max_depth=2, ray_batch=16)
+    fused_diff.fused_chunk_from_walk(_image_kind(scene), None, st,
+                                     device="cpu")
 
 
 def _checker_record_walk(b):
+    # the checker's p plane in record mode; 17 media are refused
     b.rect("xy", 0, 1, 0, 1, 0, b.lambertian(b.checker((0, 0, 0), (1, 1, 1))))
     cam = tscenes.get("cornell_box").camera
-    return ct.Tracer(b.build(), "cpu").walk_packed_pixels(cam, 4, 4, 0, 16, 1)
+    assert len(ct.Tracer(b.build(), "cpu").walk_packed_pixels(
+        cam, 4, 4, 0, 16, 1)) == 4
+    _many_media(b)
 
 
 @pytest.mark.parametrize("call", [

@@ -258,7 +258,7 @@ def test_record_plane_matches_jax(pairs, name):
                                          jnp.int32(seed), max_depth=3)
     want = np.asarray(planes[0]).reshape(3, -1)[:, :N]
     got = ct.Tracer(pair.tsd.scene, "cpu").walk_packed_pixels(
-        pair.cam, H, W, 0, N, seed, max_depth=3)
+        pair.cam, H, W, 0, N, seed, max_depth=3)[0]
     agree = ct.record_agreement(got, want)
     assert agree["first_bounce"] and agree["lane_frac"] >= 0.99, agree
 
@@ -268,7 +268,8 @@ def test_record_and_forward_trace_the_same_paths(pairs, name):
     pair = pairs[name]
     tracer = ct.Tracer(pair.tsd.scene, "cpu")
     seed = _seed(12)
-    plane = tracer.walk_packed_pixels(pair.cam, H, W, 0, N, seed, max_depth=5)
+    plane = tracer.walk_packed_pixels(pair.cam, H, W, 0, N, seed,
+                                      max_depth=5)[0]
     fwd = tracer.trace_pixels(pair.cam, H, W, 0, N, seed, max_depth=5)
     rad = shade_packed(pair.tsd.scene, get_params(pair.tsd.scene, "cpu"),
                        plane, need_p=False, need_uv=False)
@@ -311,7 +312,7 @@ def test_record_walk_matches_pinned_golden(name):
     got = torch.stack([
         tracer.walk_packed_pixels(tsd.camera, h, w, bid * b, b,
                                   ct.wave_seed(int(g["base"]), s, bid),
-                                  st.max_depth, st.t_min)
+                                  st.max_depth, st.t_min)[0]
         for s in range(st.spp_per_chunk) for bid in range(-(-h * w // b))])
     agree = ct.record_agreement(got, g["planes"])
     assert agree["first_bounce"] and agree["lane_frac"] >= 0.99, agree
@@ -324,32 +325,39 @@ def test_record_walk_matches_pinned_golden(name):
 
 @pytest.mark.parametrize("name", ["two_spheres", "two_perlin_spheres"])
 def test_record_mode_refuses_the_p_plane(name):
+    # the record walk writes the hit-point planes these textures need; what
+    # it refuses is the uv plane of an image texture
     tsd = tscenes.get(name)
-    tracer = ct.Tracer(tsd.scene, "cpu")  # the forward kernel takes it
+    tracer = ct.Tracer(tsd.scene, "cpu")
     st = RenderSettings(image_width=16, aspect_ratio=tsd.aspect,
                         spp_per_chunk=1, num_chunks=1, max_depth=2)
-    with pytest.raises(NotImplementedError, match="need_p plane"):
-        tracer.walk_packed_pixels(tsd.camera, 9, 16, 0, 16, 1)
-    with pytest.raises(NotImplementedError, match="need_p plane"):
-        fused_diff.compile_fused_param_renderer(tsd.scene, tsd.camera, st,
+    assert tracer.need_p and not tracer.need_uv
+    planes = tracer.walk_packed_pixels(tsd.camera, 9, 16, 0, 16, 1, 2)
+    assert [p.dtype for p in planes] == [torch.int32] + [torch.float32] * 3
+    image = dataclasses.replace(tsd.scene, textures=dataclasses.replace(
+        tsd.scene.textures,
+        kind=np.full_like(tsd.scene.textures.kind, tst.TEX_IMAGE)))
+    with pytest.raises(NotImplementedError, match="image texture"):
+        fused_diff.compile_fused_param_renderer(image, tsd.camera, st,
                                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="need_p plane"):
-        fused_diff.fused_chunk_from_walk(tsd.scene, None, st, device="cpu")
+    with pytest.raises(NotImplementedError, match="uv plane"):
+        fused_diff.fused_chunk_from_walk(image, None, st, device="cpu")
 
 
 def test_triangle_and_image_scenes_are_refused():
-    # the triangle scene converts (its XLA BVH dropped) and renders; only
-    # the record walk refuses its triangles
+    # the triangle scene converts (its XLA BVH dropped) and renders, and
+    # its record walk runs through the triangle BVH
     jsd = jscenes.get("triangle")
     tracer = ct.Tracer(scene_from_numpy(_tree(jsd.scene._host_np)), "cpu")
-    with pytest.raises(NotImplementedError, match="triangles in record"):
-        tracer.walk_packed_pixels(tscenes.get("triangle").camera, 9, 16, 0,
-                                  16, 1)
+    planes = tracer.walk_packed_pixels(tscenes.get("triangle").camera, 9, 16,
+                                       0, 16, 1, 2)
+    assert len(planes) == 1 and planes[0].shape == (2, 16)
     # earth's image texture, on a synthetic image
     b = JaxBuilder()
     b.sphere((0, 0, 0), 2, b.lambertian(b.image(np.ones((4, 8, 3)))))
     scene = scene_from_numpy(_tree(b.build()._host_np))
     assert ct.unported_feature(scene) == "image texture"
+    assert ct.unported_record_feature(scene) == "uv plane (image texture)"
     with pytest.raises(NotImplementedError, match="image texture"):
         ct.Tracer(scene, "cpu")
 

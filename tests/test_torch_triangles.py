@@ -35,7 +35,7 @@ from raytracing_gpu_tpu.models import scenes as jscenes
 from raytracing_gpu_tpu.ops import pallas_trace as pt
 from raytracing_gpu_tpu.scene.builder import SceneBuilder as JaxBuilder
 from raytracing_gpu_tpu_torch import RenderSettings, SceneBuilder
-from raytracing_gpu_tpu_torch.engine import fused_diff
+from raytracing_gpu_tpu_torch.engine import diff, fused_diff
 from raytracing_gpu_tpu_torch.engine import wavefront as twf
 from raytracing_gpu_tpu_torch.engine.render import compile_renderer
 from raytracing_gpu_tpu_torch.models import scenes as tscenes
@@ -263,19 +263,28 @@ def test_routing_tags_equal_jax(which, triangles, backpack):
 
 
 def test_record_walk_and_training_refuse_triangles(triangles):
+    # the record walk and training take triangles now; an image texture on
+    # them is what they refuse (the uv plane)
     tsd, ttr = triangles[1], triangles[3]
     st = RenderSettings(image_width=16, aspect_ratio=tsd.aspect,
-                        spp_per_chunk=1, num_chunks=1, max_depth=2)
+                        spp_per_chunk=1, num_chunks=1, max_depth=2,
+                        ray_batch=144)
     assert ct.unported_feature(tsd.scene) is None
-    assert ct.unported_record_feature(tsd.scene) == \
-        "triangles in record mode (4 triangles)"
-    with pytest.raises(NotImplementedError, match="triangles in record"):
-        ttr.walk_packed_pixels(tsd.camera, 9, 16, 0, 16, 1)
-    with pytest.raises(NotImplementedError, match="triangles in record"):
-        fused_diff.compile_fused_param_renderer(tsd.scene, tsd.camera, st,
+    assert ct.unported_record_feature(tsd.scene) is None
+    assert len(ttr.walk_packed_pixels(tsd.camera, 9, 16, 0, 16, 1, 2)) == 1
+    chunk = fused_diff.compile_fused_param_renderer(tsd.scene, tsd.camera, st,
+                                                    device="cpu")
+    assert tuple(chunk(diff.get_params(tsd.scene, "cpu"), 3).shape) == \
+        (144, 3)
+    image = dataclasses.replace(tsd.scene, textures=dataclasses.replace(
+        tsd.scene.textures,
+        kind=np.full_like(tsd.scene.textures.kind, tst.TEX_IMAGE)))
+    assert ct.unported_record_feature(image) == "uv plane (image texture)"
+    with pytest.raises(NotImplementedError, match="image texture"):
+        fused_diff.compile_fused_param_renderer(image, tsd.camera, st,
                                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="triangles in record"):
-        fused_diff.fused_chunk_from_walk(tsd.scene, None, st, device="cpu")
+    with pytest.raises(NotImplementedError, match="uv plane"):
+        fused_diff.fused_chunk_from_walk(image, None, st, device="cpu")
 
 
 def test_mesh_scene_with_reference_assets_is_refused(monkeypatch, tmp_path):

@@ -38,7 +38,27 @@ and writes, under `tests/data/torch_port/`:
   the small mesh scene (`mesh_scene`: a 16 x 16 UV sphere of 512 triangles
   at the backpack stand-in's framing, on the backpack's ground sphere, under
   its camera), the hit golden with the hit tier's slot outputs (`slot0`,
-  ...) and its slot -> triangle id map (`perm`).
+  ...) and its slot -> triangle id map (`perm`);
+- `<scene>_rec32` for the scenes of `REC32_SCENES` (kernel 1b beyond the
+  packed plane: the hit-point planes and the BVH walks in record mode):
+  every wave's planes from `PallasTracer.walk_packed_pixels` at width 32,
+  2 spp, depth 3, in waves of 512 rays (`planes`, (spp * waves, depth,
+  512) int32; `p`, (spp * waves, 3, depth, 512) float32 when the scene
+  needs hit points); for a camera with a lens, XLA's cosine and sine of
+  each lane's lens angle (`lens_cs`, (spp * waves, 2, 512) float32: where
+  torch's or CUDA's differ by an ulp, the lane's camera ray differs, and a
+  grazing ray may hit another primitive at bounce 0); for `two_spheres`
+  also the fused chunk's primal and L2-loss gradients
+  (`compile_fused_param_renderer(gen_rays=True)`, whose walks are these
+  planes), as `cornell_grad_32`;
+- `<scene>_rays` for cornell_box and big_scene1 (kernel 1c, the ray-plane
+  input): 512 camera rays drawn by JAX (`o d tm`), the key (`key`, its raw
+  data) and the int32 seed `PallasTracer._tile_args` draws from it
+  (`seed`), `PallasTracer.walk_packed` (`planes`, `p`) and `__call__`
+  (`radiance`) on them at depth 8;
+- `perlin_regen`: `big_scene1_regen` on `perlin_field`, 70 small spheres on
+  a noise-textured ground sphere (a sphere BVH whose albedo needs the
+  perlin branches of `eval_texture` on the regen route).
 
 The port's CPU tests hold its plain versions to these files, and
 `chip_smoke.py` holds the CUDA kernels to them, so the card's output is tied
@@ -67,6 +87,11 @@ HIT_RAYS = 4096
 HIT_DEAD = 0.1   # share of dead lanes in the hit golden
 REGEN = dict(image_width=48, spp_per_chunk=16, num_chunks=1, max_depth=8,
              ray_batch=1024)
+REC32_SCENES = ("two_spheres", "two_perlin_spheres", "big_scene1",
+                "triangles")
+RAY_SCENES = ("cornell_box", "big_scene1")
+RAYS = 512
+RAYS_DEPTH = 8
 
 
 def forward_golden() -> None:
@@ -276,11 +301,169 @@ def regen_golden(name: str = "big_scene1") -> None:
           f"{sums[:st.num_pixels].mean(0) / st.spp_per_chunk}, {stats}")
 
 
+def record_golden(name: str) -> None:
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from raytracing_gpu_tpu.core.config import RenderSettings
+    from raytracing_gpu_tpu.engine import diff
+    from raytracing_gpu_tpu.engine.fused_diff import (
+        compile_fused_param_renderer)
+    from raytracing_gpu_tpu.models import scenes
+    from raytracing_gpu_tpu.ops import pallas_trace
+
+    out = os.path.join(DATA, f"{name}_rec32.npz")
+    sd = scenes.get(name)
+    st = RenderSettings(image_width=32, aspect_ratio=sd.aspect,
+                        spp_per_chunk=2, num_chunks=1, max_depth=3,
+                        ray_batch=RECORD_RAY_BATCH)
+    key = jax.random.PRNGKey(KEY_SEED)
+    base = int(pallas_trace.chunk_seed(key))
+    h, w, b = st.image_height, st.image_width, st.ray_batch
+    tracer = pallas_trace.PallasTracer(sd.scene)
+    waves = [[np.asarray(x).reshape(st.max_depth, -1)[:, :b]
+              for x in tracer.walk_packed_pixels(
+                  sd.camera, h, w, bid * b, b,
+                  pallas_trace.wave_seed(base, s, bid),
+                  max_depth=st.max_depth, t_min=st.t_min)]
+             for s in range(st.spp_per_chunk)
+             for bid in range(-(-h * w // b))]
+    extra = dict(planes=np.stack([x[0] for x in waves]).astype(np.int32))
+    if float(sd.camera.lens_radius) != 0.0:
+        extra["lens_cs"] = np.stack([
+            lens_cos_sin(pallas_trace.wave_seed(base, s, bid), b)
+            for s in range(st.spp_per_chunk)
+            for bid in range(-(-h * w // b))]).astype(np.float32)
+    if tracer.need_p:
+        extra["p"] = np.stack([np.stack(x[1:4]) for x in waves]).astype(
+            np.float32)
+    if name == "two_spheres":
+        chunk = compile_fused_param_renderer(sd.scene, sd.camera, st,
+                                             gen_rays=True)
+        params = diff.get_params(sd.scene)
+        grads = jax.grad(
+            lambda p: jnp.mean((chunk(p, key) - GRAD_TARGET) ** 2))(params)
+        extra.update(primal=np.asarray(chunk(params, key), np.float32),
+                     target=np.float32(GRAD_TARGET),
+                     **{f"grad_{k}": np.asarray(v, np.float32)
+                        for k, v in grads.items()})
+    np.savez_compressed(
+        out, base=np.int32(base), key_seed=np.int32(KEY_SEED),
+        need_p=bool(tracer.need_p), image_width=st.image_width,
+        image_height=st.image_height, aspect_ratio=np.float64(sd.aspect),
+        spp_per_chunk=st.spp_per_chunk, max_depth=st.max_depth,
+        ray_batch=st.ray_batch, t_min=np.float32(st.t_min), **extra)
+    print(f"wrote {out}: base {base}, need_p {tracer.need_p}, "
+          f"{({k: v.shape for k, v in extra.items()})}")
+
+
+def lens_cos_sin(seed: int, n: int):
+    """(2, n): XLA's cos and sin of the lens angle of lanes 0..n-1 of an
+    in-kernel camera call with int32 seed `seed` (pallas_trace.py:902-907,
+    :1585-1594)."""
+    import math
+
+    import jax.numpy as jnp
+    import numpy as np
+
+    from raytracing_gpu_tpu.ops import pallas_trace
+
+    lane = jnp.arange(n, dtype=jnp.uint32)
+    base = pallas_trace._pcg_hash(
+        lane ^ (jnp.asarray(seed, jnp.int32).astype(jnp.uint32)
+                * jnp.uint32(0x85EBCA6B)))
+    cdraw = base + jnp.uint32(0x7F4A7C15) * jnp.uint32(0x68E31DA4)
+    theta = (2.0 * math.pi) * pallas_trace._uniform(cdraw, 2)
+    return np.stack([np.asarray(jnp.cos(theta)), np.asarray(jnp.sin(theta))])
+
+
+def rays_golden(name: str) -> None:
+    import jax
+    import numpy as np
+
+    from raytracing_gpu_tpu.models import scenes
+    from raytracing_gpu_tpu.ops import pallas_trace
+
+    out = os.path.join(DATA, f"{name}_rays.npz")
+    sd = scenes.get(name)
+    tracer = pallas_trace.PallasTracer(sd.scene)
+    k_px, k_py, k_cam, k_trace = jax.random.split(
+        jax.random.PRNGKey(KEY_SEED), 4)
+    n = RAYS
+    o, d, tm = sd.camera.get_rays(k_cam, jax.random.uniform(k_px, (n,)),
+                                  jax.random.uniform(k_py, (n,)))
+    # the seed both calls draw from k_trace (`_tile_args`)
+    _, seed, _ = tracer._tile_args(o, d, tm, k_trace)
+    planes = [np.asarray(x) for x in tracer.walk_packed(
+        o, d, tm, k_trace, max_depth=RAYS_DEPTH)]
+    radiance = np.asarray(tracer(sd.scene, o, d, tm, k_trace,
+                                 max_depth=RAYS_DEPTH))
+    extra = {"p": np.stack(planes[1:4])} if tracer.need_p else {}
+    np.savez_compressed(
+        out, key_seed=np.int32(KEY_SEED),
+        key=np.asarray(jax.random.key_data(k_trace)),
+        seed=np.int32(np.asarray(seed)[0]), o=np.asarray(o), d=np.asarray(d),
+        tm=np.asarray(tm), planes=planes[0].astype(np.int32),
+        radiance=radiance.astype(np.float32), max_depth=RAYS_DEPTH,
+        t_min=np.float32(0.001), need_p=bool(tracer.need_p), **extra)
+    print(f"wrote {out}: {n} rays, seed {int(np.asarray(seed)[0])}, planes "
+          f"{planes[0].shape}, need_p {tracer.need_p}, mean radiance "
+          f"{radiance.mean(0)}")
+
+
+def perlin_field(builder_cls, camera_cls):
+    """70 spheres of radius 0.2 on a noise(4.0) ground sphere, under a
+    16:9 camera: a sphere BVH (more than 64 spheres) whose ground needs the
+    perlin branches of `eval_texture`.  Returns (scene, camera, aspect);
+    tests/test_torch_param.py builds the same scene."""
+    b = builder_cls()
+    b.sphere((0, -1000, 0), 1000, b.lambertian(b.noise(4.0)))
+    for i in range(70):
+        x, z = i % 10 - 4.5, i // 10 - 3.0
+        b.sphere((0.8 * x, 0.2, 0.8 * z), 0.2,
+                 b.lambertian((0.1 + 0.012 * i, 0.5, 0.9 - 0.01 * i)))
+    cam = camera_cls.make((0, 3, 7), (0, 0, 0), (0, 1, 0), 40.0, 16 / 9,
+                          0.0, 10.0, 0.0, 1.0)
+    return b.build(), cam, 16 / 9
+
+
+def perlin_regen_golden() -> None:
+    import jax
+    import numpy as np
+
+    from raytracing_gpu_tpu.core.camera import Camera
+    from raytracing_gpu_tpu.core.config import RenderSettings
+    from raytracing_gpu_tpu.engine.render import compile_renderer
+    from raytracing_gpu_tpu.engine.wavefront import compile_regen_renderer
+    from raytracing_gpu_tpu.scene.builder import SceneBuilder
+
+    out = os.path.join(DATA, "perlin_regen.npz")
+    scene, cam, aspect = perlin_field(SceneBuilder, Camera)
+    st = RenderSettings(aspect_ratio=aspect, **REGEN)
+    engine = compile_renderer(scene, cam, st, engine="pallas").engine_name
+    chunk = compile_regen_renderer(scene, cam, st, debug_stats=True,
+                                   hit_sub=8)
+    sums, stats = chunk(jax.random.PRNGKey(KEY_SEED))
+    sums = np.asarray(sums, np.float32)
+    np.savez_compressed(
+        out, key_seed=np.int32(KEY_SEED), sums=sums,
+        iterations=np.int32(stats["iterations"]),
+        stream=np.int32(stats["stream"]), aspect_ratio=np.float64(aspect),
+        t_min=np.float32(st.t_min), engine=engine, **REGEN)
+    print(f"wrote {out}: engine {engine}, sums {sums.shape}, mean "
+          f"{sums[:st.num_pixels].mean(0) / st.spp_per_chunk}, {stats}")
+
+
 GOLDENS = {"cornell_32": forward_golden, "cornell_grad_32": grad_golden,
            **{f"{n}_32": (lambda n=n: scene_golden(n)) for n in SCENES},
            "big_scene1_hit": hit_golden, "big_scene1_regen": regen_golden,
            "mesh_hit": lambda: hit_golden("mesh"),
-           "mesh_regen": lambda: regen_golden("mesh")}
+           "mesh_regen": lambda: regen_golden("mesh"),
+           **{f"{n}_rec32": (lambda n=n: record_golden(n))
+              for n in REC32_SCENES},
+           **{f"{n}_rays": (lambda n=n: rays_golden(n)) for n in RAY_SCENES},
+           "perlin_regen": perlin_regen_golden}
 
 
 def main(argv=None) -> int:
