@@ -24,7 +24,13 @@ forward plus backward through `compile_fused_param_renderer` (the record
 kernel with the hit-point planes and the sphere-BVH walk), `triangles` in
 training (the triangle-BVH record walk), `compile_param_renderer` on
 big_scene1 (the record-walk route: ray planes, kernel 1c) and on backpack
-(`bench_all.py`'s mesh-grad row, the wavefront-record route); and the
+(`bench_all.py`'s mesh-grad row, the wavefront-record route); image
+textures, on synthetic maps (the reference assets are not in the
+repository): `earth` (800x450, 32 spp as 2 chunks of 16, depth 8) through
+`render` on the record-walk route (the record kernel's uv planes on ray
+planes, the torch shade), `bench_all.py`'s earth-grad row through
+`compile_param_renderer`, and BASELINE config 5 with its diffuse map
+(800x600, 256 spp, depth 16, regen) and its mesh-grad row; and the
 ceiling probe whose rates every printed bound divides by.  It checks every
 kernel on the way.  Phases, each of which raises on failure:
 
@@ -202,7 +208,37 @@ kernel on the way.  Phases, each of which raises on failure:
    800x600, 4 spp, depth 8, waves of 65,536 rays (engine
    "wavefront-record"), forward plus backward: one hit launch per bounce
    the chunk counts, no megakernel launch, a nonzero tex_c1 gradient;
-   seconds and Mrays/s.
+   seconds and Mrays/s;
+33. kernel 1b's uv planes against their plain versions on the card (the
+   bit rule and >= 99.9% of the words and of the u, v values bit-exact),
+   each wave timed with its bound (4 + 8 bytes an entry): the image probe
+   of `models/probes.py` (two images on rects, an image box, a box
+   medium, a rotated image sphere, a 1,024-triangle image mesh; 512x512,
+   65,536 rays, depth 8), `earth` with a 1024x512 map on camera rays and
+   on ray planes (kernel 1c; 65,536 rays, depth 8), 70 image spheres under
+   the sphere BVH (800x450, 65,536 rays, depth 16) and the backpack
+   stand-in with a 1024x1024 map (a reduced wave of 8,192 rays, depth 16);
+   then the probe's and earth's planes against the pinned Pallas planes
+   (`image_probe_uv32.npz`, `earth_fused32.npz`) under the CPU rules of
+   tests/test_torch_record_uv.py;
+34. `earth` through `render()` at 800x450, 2 chunks of 16 spp, depth 8
+   (engine "record-walk": the ray-plane record entry 32 x 6 = 192 times,
+   no other kernel), a finite image, Mrays/s and the busy share of a
+   profiled repeat; the routes of depth 50 (regen) and of russian
+   roulette on the image probe (record-walk, with the warning), without
+   rendering;
+35. `bench_all.py`'s earth-grad row: `compile_param_renderer` on earth at
+   256x256, 8 spp, depth 8, waves of 65,536 (record-walk), forward plus
+   backward: nonzero atlas_data gradients, Mrays/s, the peak memory, and
+   the gradients of the same chunk over the plain record walk on the card
+   (rtol 2e-4, atol 1e-7); the image probe's atlas gradients nonzero in
+   both of its images;
+36. BASELINE config 5 with its map: `render()` of the backpack stand-in
+   with a 1024x1024 diffuse map at 800x600, 4 chunks of 64 spp, depth 16,
+   waves of 131,072 (regen: hit launches only, uv from `rt_hit`, the
+   image shade in torch), Mrays/s, steps beside phase 24's, the busy
+   share of a one-chunk sub-run; then its mesh-grad row (800x600, 4 spp,
+   depth 8, wavefront-record) with nonzero atlas_data gradients.
 
 Prints each phase's seconds, a JSON line of kernels, the card's name and
 power limit, and as its last line `{"ok": true, "device": {...}}`.  Exits
@@ -289,6 +325,19 @@ MESH_GRAD = (800, 4, 1, 8, 65536)
 RAY_WAVE = 65536   # phase 28's waves of torch-drawn camera rays
 RAY_BYTES = 28     # a ray plane's o, d and tm read once
 P_BYTES = 12       # a hit-point entry's x, y, z written once
+UV_BYTES = 8       # a uv entry's u and v written once
+# Phases 33-36 (image textures: kernel 1b's uv planes), on synthetic maps
+UV_WAVE = 65536                  # the uv waves' rays (backpack: REDUCED_RAYS)
+PROBE_WAVE = (512, 8)            # the image probe: width (square), depth
+SPHERES_WAVE = (800, 16)         # the image spheres (16:9): width, depth
+EARTH_MAP = (512, 1024, 7)       # earth's map: height, width, seed
+BACKPACK_MAP = (1024, 1024, 9)   # config 5's diffuse map
+# earth through render() (phase 34): width, spp per chunk, chunks, depth
+EARTH_RENDER = (800, 16, 2, 8)
+# bench_all.py's earth-grad row (:168-210), phase 35: (width, spp per
+# chunk, chunks, depth, ray batch)
+EARTH_GRAD = (256, 8, 1, 8, 65536)
+PROBE_GRAD = (128, 4, 1, 8, 16384)  # the image probe's atlas gradients
 # The Cornell forward wave (65,536 rays, depth 8) of the kernel before it
 # took spheres and media, H100 80GB HBM3 at 700 W (PERF.md, section 6)
 CORNELL_WAVE_MS_BEFORE = "0.0293-0.0294"
@@ -890,8 +939,8 @@ def capture_step(sd, st, dev, bases: list) -> tuple:
 
 def record_vs_plain(got, want, label: str) -> dict:
     """A record kernel's planes against its plain version's on the card:
-    `record_cmp` on the packed plane and >= EXACT_FLOOR of the hit-point
-    values bit-exact."""
+    `record_cmp` on the packed plane and >= EXACT_FLOOR of the float
+    values (hit points, uv) bit-exact."""
     import torch
 
     res = record_cmp(got[0], want[0])
@@ -901,9 +950,10 @@ def record_vs_plain(got, want, label: str) -> dict:
                              f"{len(want)}")
     if len(got) > 1:
         g, w = torch.stack(got[1:]).cpu(), torch.stack(want[1:]).cpu()
-        res["p_exact_frac"] = float((g == w).double().mean())
-        res["p_max_abs_err"] = float((g.double() - w.double()).abs().max())
-        res["ok"] = res["ok"] and res["p_exact_frac"] >= EXACT_FLOOR
+        res["float_exact_frac"] = float((g == w).double().mean())
+        res["float_max_abs_err"] = float((g.double() - w.double()).abs()
+                                         .max())
+        res["ok"] = res["ok"] and res["float_exact_frac"] >= EXACT_FLOOR
     print(f"[record-vs-plain] {label}: {res}")
     if not res["ok"]:
         raise AssertionError(f"{label}: record kernel disagrees with plain")
@@ -924,12 +974,13 @@ def record_wave_ops(bake, counts: dict, n: int, camera: bool) -> float:
 def record_wave_bytes(tracer, counts: dict, n: int, depth: int,
                       rays: bool) -> int:
     """Bytes of a record wave: the planes written once (4 B a packed entry,
-    P_BYTES a hit-point entry), the ray planes read once, the tables other
-    than the triangle BVH's once, and the parts of the triangle BVH that
-    the plain walk of the same rays reads."""
+    P_BYTES a hit-point entry, UV_BYTES a uv entry), the ray planes read
+    once, the tables other than the triangle BVH's once, and the parts of
+    the triangle BVH that the plain walk of the same rays reads."""
     from raytracing_gpu_tpu_torch.ops import cuda_trace
 
-    per_entry = 4 + (P_BYTES if tracer.need_p else 0)
+    per_entry = (4 + (P_BYTES if tracer.need_p else 0)
+                 + (UV_BYTES if tracer.need_uv else 0))
     return (per_entry * depth * n + (RAY_BYTES * n if rays else 0)
             + table_bytes(tracer) + tri_bytes(counts["tri_read"],
                                               cuda_trace.TRI_LEAF_K,
@@ -1911,6 +1962,439 @@ def training_phases(dev, card: str, base: int) -> tuple:
         "mesh_grad_seconds": mwall}
 
 
+def sphere_uv_ops(scene, plane) -> float:
+    """float32 operations of the sphere winners' uv in a record plane: its
+    hits whose material only spheres carry, OPS_SPHERE_UV each (the other
+    winners' uv carry is left out, so the bound stays a lower bound)."""
+    import numpy as np
+
+    sp, others = scene.spheres, set()
+    for tbl in (scene.rects, scene.boxes, scene.triangles):
+        others |= set(np.asarray(tbl.mat_id)[np.asarray(tbl.active)].tolist())
+    only = sorted(set(np.asarray(sp.mat_id)[np.asarray(sp.active)].tolist())
+                  - others)
+    words = plane.detach().cpu().numpy()
+    hit_mats = (words & 0xFFFF)[((words >> 16) & 1) == 1]
+    return float(np.isin(hit_mats, only).sum()) * OPS_SPHERE_UV
+
+
+def image_phases(dev, card: str, base: int, c5_steps: int) -> tuple:
+    """Phases 33-36 (kernel 1b's uv planes against their plain versions and
+    the goldens, `earth` through `render()` on the record-walk route,
+    `bench_all.py`'s earth-grad row, BASELINE config 5 with its diffuse map
+    and its mesh-grad row), after phase 4 set `Ceilings`; `c5_steps` is
+    phase 24's step count with the solid texture.  The maps are synthetic
+    (`models.probes.synthetic_image`).  Returns the uv row of the kernels
+    line and config 5's numbers with its map for the row of `rt_hit<tri>`,
+    the one kernel that route launches."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    import bench_torch
+    from raytracing_gpu_tpu_torch import (Camera, RenderSettings,
+                                         SceneBuilder, compile_renderer,
+                                         render)
+    from raytracing_gpu_tpu_torch.engine import diff, film, fused_diff
+    from raytracing_gpu_tpu_torch.engine import render as render_mod
+    from raytracing_gpu_tpu_torch.models import probes, scenes
+    from raytracing_gpu_tpu_torch.ops import cuda_trace
+
+    def scene_def(fn):
+        scene, cam, aspect = fn(SceneBuilder, Camera)
+        return scenes.SceneDef(scene, cam, aspect)
+
+    sds = {"probe": scene_def(probes.image_probe),
+           "earth": scenes.earth(probes.synthetic_image(*EARTH_MAP)),
+           "spheres": scene_def(probes.image_spheres),
+           "backpack": scenes.backpack_standin(
+               texture=probes.synthetic_image(*BACKPACK_MAP))}
+    tracers = {k: cuda_trace.Tracer(sd.scene, dev) for k, sd in sds.items()}
+    for k, tr in tracers.items():
+        if not tr.need_uv or tr.supports_forward:
+            raise AssertionError(f"{k}: not an image scene of the record "
+                                 "walk")
+
+    # ---- 33. kernel 1b's uv planes against their plain versions ----
+    with Phase("33 uv record waves"):
+        ew, _, _, edepth = EARTH_RENDER
+        est0 = RenderSettings(image_width=ew, aspect_ratio=sds["earth"].aspect,
+                              spp_per_chunk=1, num_chunks=1, max_depth=edepth,
+                              ray_batch=UV_WAVE)
+        eo, ed, etm, eseed = render_mod.wave_rays(
+            sds["earth"].camera.to(dev), est0, UV_WAVE, UV_WAVE,
+            cuda_trace.wave_seed(base, 0, 1), dev)
+        pw, pdepth = PROBE_WAVE
+        sw, sdepth = SPHERES_WAVE
+        cw, _, _, cdepth = CONFIG5
+        # (key, label, scene, h, w, pixel base, rays, depth, ray planes)
+        specs = [
+            ("probe", f"image probe {pw}x{pw}, {UV_WAVE} rays, depth "
+             f"{pdepth}", "probe", pw, pw, UV_WAVE, UV_WAVE, pdepth, None),
+            ("earth", f"earth {ew}x{est0.image_height}, {UV_WAVE} rays, "
+             f"depth {edepth}", "earth", est0.image_height, ew, UV_WAVE,
+             UV_WAVE, edepth, None),
+            ("earth_rays", f"earth on ray planes (kernel 1c), {UV_WAVE} "
+             f"torch-drawn rays, depth {edepth}", "earth", 1, 1, 0, UV_WAVE,
+             edepth, (eo, ed, etm, eseed)),
+            ("spheres", f"image spheres (sphere BVH) {sw}x{sw * 9 // 16}, "
+             f"{UV_WAVE} rays, depth {sdepth}", "spheres", sw * 9 // 16, sw,
+             UV_WAVE, UV_WAVE, sdepth, None),
+            ("backpack", f"backpack with its map (triangle BVH) {cw}x"
+             f"{int(cw / CONFIG5_ASPECT)}, {REDUCED_RAYS} rays (reduced "
+             f"wave), depth {cdepth}", "backpack", int(cw / CONFIG5_ASPECT),
+             cw, MESH_WAVE * UV_WAVE, REDUCED_RAYS, cdepth, None)]
+        waves = {}
+        for key, label, name, h, w, pix, n, depth, rays in specs:
+            sd, tr = sds[name], tracers[name]
+            seed = cuda_trace.wave_seed(base, 0, 1)
+            if rays is None:
+                bound_walk = tr.bind_record(sd.camera, h, w, depth)
+
+                def kernel(r, bound_walk=bound_walk, pix=pix, n=n,
+                           seed=seed):
+                    return bound_walk(pix, n, seed + r)
+
+                def plain(r, tr=tr, sd=sd, h=h, w=w, pix=pix, n=n,
+                          depth=depth, seed=seed):
+                    return cuda_trace.walk_packed_pixels_reference(
+                        tr.bake, sd.camera, h, w, pix, n, seed + r, depth,
+                        device=dev)
+
+                def counts(tr=tr, sd=sd, h=h, w=w, pix=pix, n=n,
+                           depth=depth, seed=seed):
+                    return trace_counts(tr, sd.camera, h, w, pix, n, seed,
+                                        depth)
+            else:
+                o, d, tm, rseed = rays
+                walk_rays = tr.bind_walk_packed(depth)
+
+                def kernel(r, walk_rays=walk_rays, rseed=rseed):
+                    return walk_rays(o, d, tm, rseed + r)
+
+                def plain(r, tr=tr, depth=depth, rseed=rseed):
+                    return cuda_trace.walk_packed_reference(
+                        tr.bake, o, d, tm, rseed + r, depth)
+
+                def counts(tr=tr, depth=depth, rseed=rseed):
+                    return ray_counts(tr, o, d, tm, rseed, depth)
+            got = kernel(0)
+            cmp = record_vs_plain(got, plain(0), label)
+            if len(got) != 3:
+                raise AssertionError(f"{label}: {len(got)} planes, expected "
+                                     "packed, u and v")
+            uv_ops = sphere_uv_ops(sd.scene, got[0])
+            waves[key] = time_record(
+                f"megakernel_record (uv) on {label}", card, kernel, plain,
+                counts,
+                lambda c, tr=tr, n=n, uv_ops=uv_ops, cam=rays is None:
+                record_wave_ops(tr.bake, c, n, cam) + uv_ops,
+                lambda c, tr=tr, n=n, depth=depth, rp=rays is not None:
+                record_wave_bytes(tr, c, n, depth, rp),
+                reps=10 if name == "backpack" else 50)
+            waves[key].update(max_abs_err=max(cmp["max_abs_err"],
+                                              cmp["float_max_abs_err"]),
+                              exact_frac=cmp["float_exact_frac"])
+        # against the pinned Pallas planes (tests/test_torch_record_uv.py)
+        for name, gname in (("probe", "image_probe_uv32"),
+                            ("earth", "earth_fused32")):
+            g = np.load(os.path.join(DATA, f"{gname}.npz"))
+            gst = golden_settings(g)
+            gsd = (sds["probe"] if name == "probe"
+                   else scenes.earth(probes.synthetic_image(
+                       *(int(x) for x in g["earth_map"]))))
+            gtr = cuda_trace.Tracer(gsd.scene, dev)
+            gh, gw_, gb = gst.image_height, gst.image_width, gst.ray_batch
+            gwaves = [(bid * gb, gb, cuda_trace.wave_seed(int(g["base"]), s,
+                                                          bid))
+                      for s in range(gst.spp_per_chunk)
+                      for bid in range(-(-gh * gw_ // gb))]
+            planes = [gtr.walk_packed_pixels(gsd.camera, gh, gw_, *wv,
+                                             gst.max_depth, gst.t_min)
+                      for wv in gwaves]
+            packed = torch.stack([x[0] for x in planes])
+            same = None
+            if "lens_cs" in g:
+                same = np.stack([
+                    (cuda_trace.lens_cos_sin(wseed, n, dev).cpu().numpy()
+                     == g["lens_cs"][i]).all(0)
+                    for i, (_, n, wseed) in enumerate(gwaves)])
+            jcmp = cuda_trace.record_agreement(packed, g["planes"], same)
+            ucmp = cuda_trace.uv_agreement(packed, g["planes"], torch.stack(
+                [torch.stack(x[1:]) for x in planes]), g["uv"],
+                cuda_trace.UV_LIMIT0[gname])
+            print(f"[record-vs-jax-golden] {gname}: {jcmp}; uv {ucmp}")
+            if not (jcmp["first_bounce"] and jcmp["lane_frac"] >= LANE_FLOOR
+                    and ucmp["rule"]):
+                raise AssertionError(f"{gname}: the uv planes disagree with "
+                                     "the JAX golden")
+
+    # ---- 34. earth through render() on the record-walk route ----
+    with Phase("34 earth record-walk render"):
+        esd, etr = sds["earth"], tracers["earth"]
+        width, spp, chunks, depth = EARTH_RENDER
+        est = RenderSettings(image_width=width, aspect_ratio=esd.aspect,
+                             spp_per_chunk=spp, num_chunks=chunks,
+                             max_depth=depth, ray_batch=UV_WAVE)
+        engine = compile_renderer(esd.scene, esd.camera, est,
+                                  dev).engine_name
+        deep = render_mod.route(etr, est.with_(max_depth=50))
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            rr_engine = compile_renderer(
+                sds["probe"].scene, sds["probe"].camera,
+                est.with_(rr_start=2), dev).engine_name
+        rr_warned = any("rr_start ignored" in str(x.message) for x in caught)
+        print(f"[route] earth {width}x{est.image_height} {spp} spp a chunk: "
+              f"depth {depth} -> {engine}, depth 50 -> {deep}; the image "
+              f"probe (media) with rr_start 2 -> {rr_engine}, warned "
+              f"{rr_warned}")
+        if (engine != "record-walk" or deep != "regen"
+                or rr_engine != "record-walk" or not rr_warned):
+            raise AssertionError("image scenes take the wrong routes")
+        render(esd.scene, esd.camera, est.with_(image_width=160,
+                                                num_chunks=1), device=dev)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        eimg = render(esd.scene, esd.camera, est, device=dev)
+        ewall = time.perf_counter() - t0
+        ecounts = dict(launches=cuda_trace.Tracer.launches,
+                       record=cuda_trace.Tracer.record_launches,
+                       ray=cuda_trace.Tracer.ray_launches,
+                       hit=cuda_trace.Tracer.hit_launches)
+        enb = -(-est.num_pixels // est.ray_batch)
+        expected = spp * chunks * enb
+        erays = est.num_pixels * est.rays_per_pixel
+        emrays = erays / ewall / 1e6
+        print(f"[main] render earth (engine {engine}) {width}x"
+              f"{est.image_height} {est.rays_per_pixel}spp ({chunks} x "
+              f"{spp}) depth {depth}: {ewall:.6f} s, {emrays:.6f} Mrays/s, "
+              f"launches {ecounts} (expected {expected} ray-plane record "
+              f"launches: kernel 1c with the uv planes) on {card}")
+        if (ecounts["ray"] != expected or ecounts["launches"]
+                or ecounts["record"] or ecounts["hit"]):
+            raise AssertionError(f"earth: launches {ecounts}")
+        if (eimg.shape != (est.image_height, width, 3)
+                or not np.isfinite(eimg).all()
+                or not 0.01 < float(eimg.mean()) < 0.999):
+            raise AssertionError(f"earth: bad image {eimg.shape}, mean "
+                                 f"{eimg.mean()}")
+        epng = os.path.join(ROOT, "build", f"chip_smoke_earth_{width}.png")
+        film.write_png(epng, eimg)
+        eprof = device_busy(lambda: render(esd.scene, esd.camera, est,
+                                           device=dev))
+        ebusy = eprof["device_ms"] / (ewall * 1e3)
+        etop = sorted(eprof["by_kernel"].items(), key=lambda kv: -kv[1][0])
+        print(f"[main] earth image mean {eimg.mean():.6f} -> {epng}; device "
+              f"busy share of the counted render {ebusy:.6f} "
+              f"({eprof['device_ms']:.3f} ms of device time in "
+              f"{ewall * 1e3:.3f} ms); top kernels (ms, count) {etop[:10]} "
+              f"on {card}")
+
+    # ---- 35. bench_all.py's earth-grad row, and the probe's two images ----
+    with Phase("35 earth-grad"):
+        width, spp, chunks, depth, batch = EARTH_GRAD
+        gst = RenderSettings(image_width=width, aspect_ratio=1.0,
+                             spp_per_chunk=spp, num_chunks=chunks,
+                             max_depth=depth, ray_batch=batch)
+        gchunk = render_mod.compile_param_renderer(esd.scene, esd.camera, gst,
+                                                   device=dev)
+        if gchunk.engine_name != "record-walk":
+            raise AssertionError(f"earth-grad took {gchunk.engine_name}")
+        gparams = diff.get_params(esd.scene, dev)
+        gnb = -(-gst.num_pixels // batch)
+        gtarget = torch.zeros((gnb * batch, 3), dtype=torch.float32,
+                              device=dev)
+        bench_torch.train_renders(gchunk, gparams, gtarget, [base])  # warm
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        (gloss, ggrads), gcounts = counted(lambda: bench_torch.train_renders(
+            gchunk, gparams, gtarget, [base]))
+        gwall = time.perf_counter() - t0
+        gpeak = torch.cuda.max_memory_allocated() / 2**30
+        gexpected = spp * gnb * (1 if gchunk.save_planes else 2)
+        grays = gst.num_pixels * gst.rays_per_pixel
+        gmrays = grays / gwall / 1e6
+        gnz = int((ggrads["atlas_data"] != 0).sum())
+        print(f"[train] earth-grad: compile_param_renderer earth (engine "
+              f"{gchunk.engine_name}) {width}x{gst.image_height} {spp}spp "
+              f"depth {depth}, fwd+bwd: {gwall:.6f} s, {gmrays:.6f} "
+              f"Mrays/s, launches {gcounts} (expected {gexpected} ray-plane "
+              f"record launches, save_planes {gchunk.save_planes}), peak "
+              f"allocated {gpeak:.3f} GiB, {gnz} nonzero atlas_data "
+              f"gradients on {card}")
+        gprof = device_busy(lambda: bench_torch.train_renders(
+            gchunk, gparams, gtarget, [base]))
+        gbusy = gprof["device_ms"] / (gwall * 1e3)
+        gtop = sorted(gprof["by_kernel"].items(), key=lambda kv: -kv[1][0])
+        print(f"[train] earth-grad device busy share {gbusy:.6f} "
+              f"({gprof['device_ms']:.3f} ms of device time in "
+              f"{gwall * 1e3:.3f} ms); top kernels (ms, count) {gtop[:8]}")
+        if (gcounts["ray"] != gexpected or gcounts["launches"]
+                or gcounts["record"] or gcounts["hit"] or gnz == 0
+                or not bool(torch.isfinite(gloss))
+                or not all(bool(torch.isfinite(v).all())
+                           for v in ggrads.values())):
+            raise AssertionError("the earth-grad row is off")
+        # the same chunk over the plain record walk on the card
+        cam = esd.camera.to(dev)
+
+        def plain_walk(pb, n, seed):
+            o, d, tm, kseed = render_mod.wave_rays(cam, gst, pb, n, seed,
+                                                   dev)
+            return cuda_trace.walk_packed_reference(etr.bake, o, d, tm,
+                                                    kseed, depth, gst.t_min)
+
+        pchunk = fused_diff.fused_chunk_from_walk(esd.scene, plain_walk, gst,
+                                                  device=dev)
+        ploss, pgrads = bench_torch.train_renders(pchunk, gparams, gtarget,
+                                                  [base])
+        gcmp = grad_cmp(ggrads, pgrads)
+        gcmp["loss_equal"] = bool(torch.equal(gloss, ploss))
+        print(f"[fused-vs-plain] earth-grad chunk over the kernel's walk "
+              f"against the plain walk on the card: gradients {gcmp}")
+        if not gcmp["ok"]:
+            raise AssertionError("earth-grad: kernel and plain walks give "
+                                 "other gradients")
+        # the probe's two images each get atlas gradients
+        psd = sds["probe"]
+        width, spp, chunks, depth, batch = PROBE_GRAD
+        pst = RenderSettings(image_width=width, aspect_ratio=1.0,
+                             spp_per_chunk=spp, num_chunks=chunks,
+                             max_depth=depth, ray_batch=batch)
+        prchunk = render_mod.compile_param_renderer(psd.scene, psd.camera,
+                                                    pst, device=dev)
+        pparams = diff.get_params(psd.scene, dev)
+        (_, prgrads), prcounts = counted(lambda: bench_torch.train_renders(
+            prchunk, pparams, torch.zeros((pst.num_pixels, 3), device=dev),
+            [base]))
+        split = int(psd.scene.atlas.offset[1]) * 3
+        ga = prgrads["atlas_data"]
+        spans = (int((ga[:split] != 0).sum()), int((ga[split:] != 0).sum()))
+        print(f"[train] image probe {width}x{width} {spp}spp depth {depth} "
+              f"(engine {prchunk.engine_name}): nonzero atlas_data "
+              f"gradients in its two images {spans}, launches {prcounts}")
+        if min(spans) == 0 or prcounts["ray"] == 0:
+            raise AssertionError("the probe's images do not both get "
+                                 "gradients")
+
+    # ---- 36. BASELINE config 5 with its map, and its mesh-grad row ----
+    with Phase("36 config 5 with its map"):
+        bsd = sds["backpack"]
+        width, spp, chunks, depth = CONFIG5
+        c5 = RenderSettings(image_width=width, aspect_ratio=CONFIG5_ASPECT,
+                            spp_per_chunk=spp, num_chunks=chunks,
+                            max_depth=depth, ray_batch=CONFIG5_RAY_BATCH)
+        engine = compile_renderer(bsd.scene, bsd.camera, c5, dev).engine_name
+        if engine != "regen":
+            raise AssertionError(f"config 5 with its map took {engine}")
+        render(bsd.scene, bsd.camera, c5.with_(image_width=160, num_chunks=1,
+                                               spp_per_chunk=16), device=dev)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        img = render(bsd.scene, bsd.camera, c5, device=dev)
+        wall = time.perf_counter() - t0
+        steps = cuda_trace.Tracer.hit_launches
+        stray = (cuda_trace.Tracer.launches + cuda_trace.Tracer.record_launches
+                 + cuda_trace.Tracer.ray_launches)
+        rays5 = c5.num_pixels * c5.rays_per_pixel
+        mrays5 = rays5 / wall / 1e6
+        print(f"[main] render backpack with its map (config 5, engine "
+              f"{engine}) {width}x{c5.image_height} {c5.rays_per_pixel}spp "
+              f"depth {depth}: {wall:.6f} s, {mrays5:.6f} Mrays/s, hit "
+              f"launches {steps} ({c5_steps} with the solid texture, phase "
+              f"24), host time per step {wall * 1e3 / max(steps, 1):.6f} ms, "
+              f"other launches {stray} on {card}")
+        if (steps == 0 or stray != 0 or not np.isfinite(img).all()
+                or not 0.05 < float(img.mean()) < 0.999):
+            raise AssertionError(f"config 5 with its map: {steps} steps, "
+                                 f"{stray} other launches, mean {img.mean()}")
+        film.write_png(os.path.join(ROOT, "build",
+                                    f"chip_smoke_backpack_map_{width}.png"),
+                       img)
+        sub = c5.with_(spp_per_chunk=CONFIG5_PROFILED_SPP, num_chunks=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render(bsd.scene, bsd.camera, sub, device=dev)
+        sub_wall = time.perf_counter() - t0
+        prof = device_busy(lambda: render(bsd.scene, bsd.camera, sub,
+                                          device=dev))
+        busy5 = prof["device_ms"] / (sub_wall * 1e3)
+        top = sorted(prof["by_kernel"].items(), key=lambda kv: -kv[1][0])
+        print(f"[main] config 5 with its map, bounded sub-run (one "
+              f"{CONFIG5_PROFILED_SPP}-spp chunk): device "
+              f"{prof['device_ms']:.3f} ms in {sub_wall * 1e3:.3f} ms "
+              f"unprofiled, busy share {busy5:.6f}; top kernels (ms, count) "
+              f"{top[:12]} on {card}")
+        # bench_all.py's mesh-grad row with the map
+        width, spp, chunks, depth, batch = MESH_GRAD
+        mst = RenderSettings(image_width=width, aspect_ratio=CONFIG5_ASPECT,
+                             spp_per_chunk=spp, num_chunks=chunks,
+                             max_depth=depth, ray_batch=batch)
+        mchunk = render_mod.compile_param_renderer(bsd.scene, bsd.camera, mst,
+                                                   device=dev,
+                                                   debug_stats=True)
+        if mchunk.engine_name != "wavefront-record":
+            raise AssertionError(f"mesh-grad took {mchunk.engine_name}")
+        mparams = diff.get_params(bsd.scene, dev)
+        stats = {}
+
+        def mesh_grad():
+            def chunk(p):
+                sums, st_ = mchunk(p, base)
+                stats.update(st_)
+                return sums
+            return diff.value_and_grad(mparams, chunk, 0.0)
+
+        mesh_grad()  # warm-up
+        t0 = time.perf_counter()
+        (mloss, mgrads), mcounts = counted(mesh_grad)
+        mwall = time.perf_counter() - t0
+        mrays = mst.num_pixels * mst.rays_per_pixel
+        mnz = int((mgrads["atlas_data"] != 0).sum())
+        print(f"[main] mesh-grad with the map: compile_param_renderer "
+              f"backpack (engine {mchunk.engine_name}) {width}x"
+              f"{mst.image_height} {spp}spp depth {depth}, fwd+bwd: "
+              f"{mwall:.6f} s, {mrays / mwall / 1e6:.6f} Mrays/s, launches "
+              f"{mcounts} for {stats['iterations']} bounces, {mnz} nonzero "
+              f"atlas_data gradients on {card}")
+        if (mcounts["hit"] != stats["iterations"] or mcounts["hit"] == 0
+                or mcounts["launches"] or mcounts["record"] or mcounts["ray"]
+                or mnz == 0 or not bool(torch.isfinite(mloss))):
+            raise AssertionError("the mesh-grad row with the map is off")
+        mprof = device_busy(mesh_grad)
+        mbusy = mprof["device_ms"] / (mwall * 1e3)
+        mtop = sorted(mprof["by_kernel"].items(), key=lambda kv: -kv[1][0])
+        print(f"[main] mesh-grad with the map device busy share "
+              f"{mbusy:.6f} ({mprof['device_ms']:.3f} ms of device time in "
+              f"{mwall * 1e3:.3f} ms); top kernels (ms, count) {mtop[:8]}")
+
+    main_wave = waves["earth_rays"]
+    return {
+        "name": "megakernel_record<uv,rays>", "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": REPLACES,
+        "launches": ecounts["ray"],
+        **{k: main_wave[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "max_abs_err",
+                                     "exact_frac", "loop_ms")},
+        "library_ms": None,
+        "waves": waves,
+        "earth_render_mrays_per_s": emrays,
+        "earth_render_device_busy_share": ebusy,
+        "earth_grad_mrays_per_s": gmrays,
+        "earth_grad_peak_allocated_gib": gpeak,
+        "earth_grad_device_busy_share": gbusy,
+        "earth_grad_launches": gcounts["ray"]}, {
+        "config5_map_mrays_per_s": mrays5, "config5_map_steps": steps,
+        "config5_map_host_ms_per_step": wall * 1e3 / steps,
+        "config5_map_subrun_device_busy_share": busy5,
+        "mesh_grad_map_mrays_per_s": mrays / mwall / 1e6,
+        "mesh_grad_map_device_busy_share": mbusy}
+
+
 def trace_counts(tracer, camera, h: int, w: int, pix: int, n: int,
                  seed: int, depth: int) -> dict:
     """The work counts of a camera-ray wave (the forward plain version's on
@@ -2411,6 +2895,9 @@ def main() -> int:
     tri_rows = triangle_phases(dev, card, base, args.png)
     train_rows, mesh_grad = training_phases(dev, card, base)
     tri_rows[1].update(mesh_grad)  # the mesh-grad route runs rt_hit<tri>
+    uv_row, map_rates = image_phases(dev, card, base,
+                                     tri_rows[1]["config5_steps"])
+    tri_rows[1].update(map_rates)  # config 5 with its map runs rt_hit<tri>
 
     scene_rates = {name: dict(c) for name, c in configs.items()}
     print(json.dumps({"kernels": [{
@@ -2449,7 +2936,7 @@ def main() -> int:
         "loop_ms": big_mega["loop_ms"],
         "render_mrays_per_s": big_mega["mrays_per_s"],
         "render_device_busy_share": big_mega["busy_share"]}, hit_row,
-        *tri_rows, *train_rows, {
+        *tri_rows, *train_rows, uv_row, {
         "name": "fma_chain", "route": "cuda", "source": FMA_SOURCE,
         "replaces": FMA_REPLACES, "launches": fma_launches,
         "max_abs_err": fma_err, "ms": fma_ms, "plain_ms": fma_plain_ms,

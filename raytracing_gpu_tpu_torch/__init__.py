@@ -7,14 +7,16 @@ package imports torch and never JAX.  Its kernels are CUDA C++ in
 `ops/csrc/`, built with nvcc for sm_90a at first use; on CPU tensors each
 kernel's plain PyTorch version runs instead.
 
-Ported so far, for every scene without image textures (rects, boxes,
-spheres in a dense loop or a BVH, triangle meshes, constant media; every
-material; solid, checker and perlin albedo; russian roulette): the
-forward render (`render`, `compile_renderer`) and the differentiable
+Ported, for every scene of the JAX package (rects, boxes, spheres in a
+dense loop or a BVH, triangle meshes, up to 16 constant media; every
+material; solid, checker, perlin and image textures; russian roulette):
+the forward render (`render`, `compile_renderer`) and the differentiable
 chunks that training runs (`compile_fused_param_renderer`: the
 megakernel's record mode, then the shading and its closed-form adjoint in
 torch; `compile_param_renderer`: that chunk on ray planes, or the
-wavefront record walk and the shading under autograd).
+wavefront record walk and the shading under autograd).  Image textures
+are read by the torch shade from the flat atlas, whose texels are a
+differentiable parameter (`atlas_data`).
 """
 
 from .core.camera import Camera

@@ -7,9 +7,10 @@
 
 `--device` defaults to `cuda`.  Without a CUDA device the CLI exits with an
 error unless `--device cpu` is given, which runs the kernels' plain PyTorch
-versions on the CPU.  `list` prints the registered scenes, meshes included
-(`triangle`, `triangles`, `door`, `backpack`, `cup`).  `render` logs the
-engine it takes ("megakernel", "regen" or "wavefront", as
+versions on the CPU.  `list` prints the 13 registered scenes, meshes and
+image scenes included (`triangle`, `triangles`, `earth`, `door`,
+`backpack`, `cup`).  `render` logs the engine it takes ("megakernel",
+"regen", "wavefront" or, for an image-textured scene, "record-walk", as
 `engine.render.route` picks it) unless `--quiet`.
 """
 

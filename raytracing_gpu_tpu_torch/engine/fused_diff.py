@@ -4,8 +4,9 @@ Counterpart of `compile_fused_param_renderer` and `_shade_chain_bwd` in
 `raytracing_gpu_tpu/engine/fused_diff.py`.  A chunk is `spp_per_chunk`
 samples of every pixel, split into waves of `ray_batch` pixels.  Each
 (sample, wave) runs the record kernel and shades its record planes
-(`integrator.shade_packed`): the packed plane, and the hit-point planes
-when a checker or perlin texture needs them.  With `gen_rays=True` the
+(`integrator.shade_packed`): the packed plane, the hit-point planes when a
+checker or perlin texture needs them, and the uv planes when an image
+texture does.  With `gen_rays=True` the
 kernel makes the camera rays (`ops/cuda_trace.py` `Tracer.bind_record`);
 with `gen_rays=False` each wave's rays are drawn in torch with
 `render.chunk_sums`'s schedule (`render.wave_rays`) and walked on ray
@@ -29,9 +30,7 @@ a prefix product T, a reverse suffix sum S, and one vector-Jacobian product
 of `materials.shade`: no per-bounce graph is kept.  The chunk is a
 `torch.autograd.Function` whose backward is exactly that.
 
-Not ported yet: the sharded form (`fused_diff.py:273`), and scenes with
-image textures, whose uv planes (`need_uv`) the record walk does not
-write; both entries refuse them.
+Not ported yet: the sharded form (`fused_diff.py:273`).
 """
 
 from __future__ import annotations
@@ -56,9 +55,10 @@ def _shade_chain_bwd(scene: Scene, params: dict, planes, g: torch.Tensor,
                      need_p: bool, need_uv: bool) -> dict:
     """d<g, L(params)> / d params for one wave, by the closed-form adjoint.
 
-    planes are the wave's record planes (packed[, px, py, pz]); g is the
-    incoming radiance cotangent (N, 3).  A parameter that `shade` does not
-    use gets zeros of its own shape.
+    planes are the wave's record planes (packed[, px, py, pz][, u, v]); g
+    is the incoming radiance cotangent (N, 3).  A parameter that `shade`
+    does not use gets zeros of its own shape; the uv planes carry the
+    atlas's gradient through the one VJP of `materials.shade`.
     """
     data = unpack_walk(planes, need_p, need_uv)
     d_, n = data.mat_id.shape
@@ -107,13 +107,14 @@ def fused_chunk_from_walk(scene: Scene,
                           settings: RenderSettings,
                           save_planes: bool | None = None,
                           device: torch.device | str = "cuda",
-                          need_p: bool | None = None
+                          need_p: bool | None = None,
+                          need_uv: bool | None = None
                           ) -> Callable[[dict, int], torch.Tensor]:
     """The differentiable chunk over a record walk
-    `walk(pix_base, n, seed) -> planes`: (packed (max_depth, n) int32, and
+    `walk(pix_base, n, seed) -> planes`: (packed (max_depth, n) int32, then
     px, py, pz (max_depth, n) float32 when the scene's textures need the
-    hit point), the kernel's (`compile_fused_param_renderer`) or its plain
-    version.
+    hit point, then u, v when an image texture needs them), the kernel's
+    (`compile_fused_param_renderer`) or its plain version.
 
     Returns `chunk(params, base) -> (npix_pad, 3)` float32 radiance sums,
     differentiable with respect to the tensors of `params`
@@ -124,18 +125,21 @@ def fused_chunk_from_walk(scene: Scene,
     save_planes: keep every wave's record planes from the forward pass for
     the backward pass, instead of walking the waves again.  Default: on
     when the planes of a chunk fit in 1 GiB.
-    need_p: whether the walk writes the hit-point planes; default the
-    scene's bake's (`SceneBake.need_p`).
+    need_p, need_uv: whether the walk writes the hit-point and the uv
+    planes; default the scene's bake's (`SceneBake.need_p`, `need_uv`).
     """
     feature = cuda_trace.unported_record_feature(scene)
     if feature is not None:
         raise NotImplementedError(f"{feature}: not yet ported")
     device = torch.device(device)
-    if need_p is None:
-        need_p = cuda_trace.bake_scene(scene).need_p
+    if need_p is None or need_uv is None:
+        bake = cuda_trace.bake_scene(scene)
+        need_p = bake.need_p if need_p is None else need_p
+        need_uv = bake.need_uv if need_uv is None else need_uv
     _h, _w, _npix, npix_pad, b, nb = _grid_geometry(settings)
     spp, max_depth = settings.spp_per_chunk, settings.max_depth
-    plane_bytes = spp * nb * max_depth * b * 4 * (1 + 3 * need_p)
+    n_planes = 1 + 3 * need_p + 2 * need_uv  # fused_diff.py:179
+    plane_bytes = spp * nb * max_depth * b * 4 * n_planes
     if save_planes is None:
         save_planes = plane_bytes <= _SAVE_PLANES_MAX_BYTES
     waves = [(s, bid) for s in range(spp) for bid in range(nb)]
@@ -152,7 +156,7 @@ def fused_chunk_from_walk(scene: Scene,
             for s, bid in waves:
                 planes = walk_wave(base, s, bid)
                 out[bid] += shade_packed(scene, params, *planes,
-                                         need_p=need_p, need_uv=False)
+                                         need_p=need_p, need_uv=need_uv)
                 if save_planes:
                     kept.append(planes)
             ctx.base = base
@@ -169,7 +173,7 @@ def fused_chunk_from_walk(scene: Scene,
                 planes = (ctx.kept[i] if ctx.kept is not None
                           else walk_wave(ctx.base, s, bid))
                 d_p = _shade_chain_bwd(scene, params, planes, g_waves[bid],
-                                       need_p, False)
+                                       need_p, need_uv)
                 acc = {k: acc[k] + d_p[k] for k in acc}
             return (None, *(acc[k] for k in PARAM_KEYS))
 
@@ -214,4 +218,4 @@ def compile_fused_param_renderer(
             return walk_rays(*wave_rays(cam, settings, pix_base, n, seed,
                                         device))
     return fused_chunk_from_walk(scene, walk, settings, save_planes, device,
-                                 tracer.need_p)
+                                 tracer.need_p, tracer.need_uv)

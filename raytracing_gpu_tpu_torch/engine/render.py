@@ -1,9 +1,9 @@
 """Render loop: sample chunks of kernel waves.
 
 Counterpart of `raytracing_gpu_tpu/engine/render.py`: `compile_renderer`
-with its megakernel, regen and wavefront routes, chosen as it chooses them
-there, and the differentiable `compile_param_renderer` with its
-record-walk and wavefront-record routes.  A chunk is `spp_per_chunk`
+with its megakernel, regen, wavefront and record-walk routes, chosen as it
+chooses them there, and the differentiable `compile_param_renderer` with
+its record-walk and wavefront-record routes.  A chunk is `spp_per_chunk`
 samples of every pixel.  On the megakernel route each sample is split into
 waves of `ray_batch` pixels, and each (sample, wave) is one kernel launch
 whose seed is scalar arithmetic on the chunk's base seed
@@ -14,13 +14,14 @@ generator seeded with the wave's seed, for the routes that take ray planes.
 Chunk sums accumulate in float32 on the device; `render_linear` draws each
 chunk's base from a `torch.Generator` seeded with `settings.seed`.
 
-Not ported yet: the XLA engines (`integrator.trace`, `trace_diff`), the
-forward record-walk route of image-textured scenes, and checkpoint/resume.
+Not ported yet: the XLA engines (`integrator.trace`, `trace_diff`) and
+checkpoint/resume.
 """
 
 from __future__ import annotations
 
 import time
+import warnings
 from contextlib import nullcontext
 from typing import Callable, Optional
 
@@ -95,23 +96,30 @@ def chunk_sums(scene: Scene, camera: Camera, settings: RenderSettings,
 
 def route(tracer: cuda_trace.Tracer, settings: RenderSettings) -> str:
     """The engine `compile_renderer` takes, as the JAX package routes
-    `engine="pallas"` (`engine/render.py:117-199`) among the ported ones.
-    A scene without media goes to a wavefront when the JAX bake would
-    stream its triangle table (`SceneBake.jax_tri_stream`: the 100k-triangle
-    meshes) or when it has a sphere BVH and depth >= 8 (the megakernel's
-    unsorted waves straggle at depth on the deep BVH): to "regen" at >= 16
-    spp per chunk, else to the bounce-synchronous "wavefront" for the
-    meshes.  Everything else goes to "megakernel".  The JAX package's clause
-    for image-textured scenes waits for image textures."""
-    mesh = tracer.bake.jax_tri_stream
+    `engine="pallas"` (`engine/render.py:117-228`).  A scene without media
+    goes to a wavefront when the JAX bake would stream its triangle table
+    (`SceneBake.jax_tri_stream`: the 100k-triangle meshes), when it has
+    image textures and russian roulette (the record walk carries no
+    throughput to roulette), when it has a sphere BVH and depth >= 8, or
+    when it has image textures and depth >= 24 (the unsorted waves of the
+    megakernel and of the record walk straggle at depth): to "regen" at
+    >= 16 spp per chunk, else to the bounce-synchronous "wavefront" but for
+    the sphere BVH alone.  Otherwise a scene the forward kernel takes goes
+    to "megakernel", and an image-textured one to "record-walk": the record
+    kernel on ray planes and the torch shade."""
+    image = not tracer.supports_forward
+    want_wavefront = tracer.bake.jax_tri_stream or (
+        settings.rr_start > 0 and image)
     deep_sphere_bvh = (len(tracer.bake.sph_hit_nodes) > 0
                        and settings.max_depth >= 8)
-    if (mesh or deep_sphere_bvh) and tracer.supports_hit:
+    deep_record = image and settings.max_depth >= 24
+    if (want_wavefront or deep_sphere_bvh or deep_record) \
+            and tracer.supports_hit:
         if settings.spp_per_chunk >= 16:
             return "regen"
-        if mesh:
+        if want_wavefront or deep_record:
             return "wavefront"
-    return "megakernel"
+    return "record-walk" if image else "megakernel"
 
 
 def compile_renderer(scene: Scene, camera: Camera, settings: RenderSettings,
@@ -125,12 +133,18 @@ def compile_renderer(scene: Scene, camera: Camera, settings: RenderSettings,
     (sample, wave), with russian roulette from bounce `settings.rr_start`
     when it is > 0; the regen and wavefront routes are
     `wavefront.compile_regen_renderer` and
-    `wavefront.compile_wavefront_renderer`.
+    `wavefront.compile_wavefront_renderer`; the record-walk route
+    (`:200-228`) is `chunk_sums` over `Tracer.walk` (kernel 1c with the
+    record kernel's uv planes) and `integrator.shade_radiance`, one launch
+    per (sample, wave), and ignores `rr_start` with a warning, as the JAX
+    package does.
     Raises NotImplementedError for a scene outside the ported feature set.
     """
     device = torch.device(device)
     tracer = cuda_trace.Tracer(scene, device)  # raises for unported scenes
     engine = route(tracer, settings)
+    if engine == "record-walk":
+        return _record_walk_renderer(scene, camera, settings, tracer, device)
     if engine != "megakernel":
         from . import wavefront
 
@@ -151,6 +165,38 @@ def compile_renderer(scene: Scene, camera: Camera, settings: RenderSettings,
         return sums
 
     chunk.engine_name = "megakernel"
+    return chunk
+
+
+def _record_walk_renderer(scene: Scene, camera: Camera,
+                          settings: RenderSettings,
+                          tracer: cuda_trace.Tracer, device: torch.device
+                          ) -> Callable[[int], torch.Tensor]:
+    """The forward record-walk chunk of an image-textured scene
+    (`engine/render.py:200-228`): each wave's torch-drawn rays walked by the
+    record kernel on ray planes, then shaded in torch with the scene's own
+    parameters."""
+    from .diff import get_params
+    from .integrator import shade_radiance, unpack_walk
+
+    if settings.rr_start > 0:
+        warnings.warn("rr_start ignored: image-textured scenes use the "
+                      "record-mode walk (no in-kernel throughput)",
+                      stacklevel=3)
+    params = get_params(scene, device)
+    walk = tracer.bind_walk_packed(settings.max_depth, settings.t_min)
+
+    def trace_fn(scene_, o, d, tm, seed):
+        data = unpack_walk(walk(o, d, tm, seed), tracer.need_p,
+                           tracer.need_uv)
+        return shade_radiance(scene_, params, data)
+
+    def chunk(base: int) -> torch.Tensor:
+        with torch.no_grad():
+            return chunk_sums(scene, camera, settings, int(base), trace_fn,
+                              device)
+
+    chunk.engine_name = "record-walk"
     return chunk
 
 

@@ -235,9 +235,10 @@ def make_record_trace_wave(scene: Scene, tracer: cuda_trace.Tracer,
     `Tracer.walk_packed`'s contract in the rays' (pixel) order, drawn from
     `gen`, and the bounces traced (one hit launch each).
 
-    planes = (packed (D, n) int32, [px, py, pz,] [scale]): per bounce the
-    word `mat | hit<<16 | cont<<17 | miss<<18`, the hit point
-    (0 where the bounce did not hit) when `tracer.need_p`, and with
+    planes = (packed (D, n) int32, [px, py, pz,] [u, v,] [scale]): per
+    bounce the word `mat | hit<<16 | cont<<17 | miss<<18`, the hit point
+    (0 where the bounce did not hit) when `tracer.need_p`, the resolved uv
+    (the hit kernel's, 0 on a miss) when `tracer.need_uv`, and with
     `rr_start > 0` the russian-roulette scale 1/p of the lanes that
     survive it (1 elsewhere, and on a bounce no lane reached).  The walk
     shades nothing that depends on the parameters: the throughput that sets
@@ -253,11 +254,11 @@ def make_record_trace_wave(scene: Scene, tracer: cuda_trace.Tracer,
     params = diff.get_params(scene, device)
     lo, hi = _world_box(tracer, device)
     attr_slot = pack_attr_table(scene, tracer.bake.tri_perm, device)
-    need_p = tracer.need_p  # the uv planes come with image textures
+    need_p, need_uv = tracer.need_p, tracer.need_uv
 
     def bounce_record(o, d, tm, thr, alive, gen, depth: int):
         """One detached bounce: closest hit and scattered direction, and the
-        bounce's record row (n, 5): the word, p, scale."""
+        bounce's record row (n, 7): the word, p, u, v, scale."""
         hr = hit(o, d, tm, alive)
         rec = resolve_hit_packed(attr_slot, *hr, d)
         miss = (hr.packed & cuda_trace.MISS_BIT) != 0
@@ -276,7 +277,8 @@ def make_record_trace_wave(scene: Scene, tracer: cuda_trace.Tracer,
                 | (cont.to(torch.int32) << 17) | (miss.to(torch.int32) << 18))
         row = torch.cat([word.to(torch.float32)[:, None],
                          torch.where(rec.hit[:, None], rec.p, 0.0),
-                         scale[:, None]], dim=1)
+                         rec.u[:, None], rec.v[:, None], scale[:, None]],
+                        dim=1)
         o = vec.where(rec.hit, rec.p, o).contiguous()
         d = vec.where(rec.hit, sc.direction, d).contiguous()
         return o, d, thr, cont, row
@@ -285,9 +287,9 @@ def make_record_trace_wave(scene: Scene, tracer: cuda_trace.Tracer,
                      gen: torch.Generator) -> tuple[tuple, int]:
         n = o.shape[0]
         # a bounce no lane reaches records 0 and a scale of 1
-        rows = torch.zeros((max_depth, n, 5), dtype=torch.float32,
+        rows = torch.zeros((max_depth, n, 7), dtype=torch.float32,
                            device=device)
-        rows[..., 4] = 1.0
+        rows[..., 6] = 1.0
         thr = torch.ones((n, 3), dtype=torch.float32, device=device)
         perm = torch.arange(n, dtype=torch.float32, device=device)
         alive = torch.ones(n, dtype=torch.bool, device=device)
@@ -312,8 +314,10 @@ def make_record_trace_wave(scene: Scene, tracer: cuda_trace.Tracer,
         planes = [rows[..., 0].to(torch.int32)]
         if need_p:
             planes += [rows[..., 1], rows[..., 2], rows[..., 3]]
+        if need_uv:
+            planes += [rows[..., 4], rows[..., 5]]
         if rr_start > 0:
-            planes.append(rows[..., 4])
+            planes.append(rows[..., 6])
         return tuple(planes), bounces
 
     return trace_record

@@ -1,19 +1,21 @@
 """Scene registry (counterpart of `raytracing_gpu_tpu/models/scenes.py`).
 
-Only the scenes whose features the port covers are registered: `names()`
-lists what renders here (no image textures).  Camera parameters, materials
-and geometry are transcribed from the same reference lines as the JAX
-package (`raytracing_gpu_tpu/models/scenes.py:60-316`); `big_scene1` draws
-its layout from the same numpy generator and seed, so its tables equal the
-JAX package's.
+All 13 scenes of the JAX registry.  Camera parameters, materials and
+geometry are transcribed from the same reference lines as the JAX package
+(`raytracing_gpu_tpu/models/scenes.py:60-316`); `big_scene1` draws its
+layout from the same numpy generator and seed, so its tables equal the JAX
+package's.
 
-The mesh scenes (`door`, `backpack`, `cup`) read their OBJ and diffuse map
-from the reference assets under `$RT_REFERENCE_ASSETS` only.  Without them
-each takes the JAX package's procedural stand-in: a 224 x 224 UV sphere of
-100,352 triangles with a solid (0.8, 0.2, 0.2) texture, sized to the
-scene's framing.  With either file present the scene needs the OBJ loader
-and image textures, which are not ported yet, and raises
-NotImplementedError.
+The image assets are read from the reference assets under
+`$RT_REFERENCE_ASSETS` only, and each scene keeps the JAX package's
+fallback when they are absent: `earth` takes `textures/earthmap.jpg`, or
+the solid (0, 1, 1); the mesh scenes (`door`, `backpack`, `cup`) take
+their OBJ through `io.obj` with one lambertian image texture per submesh,
+or, without the OBJ, the procedural stand-in (a 224 x 224 UV sphere of
+100,352 triangles sized to the scene's framing) with the asset's diffuse
+map subsampled to at most 1024 texels a side, or the solid (0.8, 0.2, 0.2)
+without it.  `earth(image)` and `backpack_standin(res, texture)` take an
+image array instead, for a machine without the assets.
 """
 
 from __future__ import annotations
@@ -151,6 +153,29 @@ def two_perlin_spheres() -> SceneDef:
     return SceneDef(b.build(), cam, 16 / 9)
 
 
+@register("earth")
+def earth(image: Optional[np.ndarray] = None) -> SceneDef:
+    """reference `create_earth_world` (`scenes.h:278-320`): an image-
+    textured sphere and an emissive rect on black.  The texture is `image`
+    ((H, W, 3) in [0, 1]) when given, else `textures/earthmap.jpg` under
+    the reference assets when it exists, else the solid (0, 1, 1), as the
+    JAX package falls back."""
+    b = SceneBuilder(background=BLACK)
+    root = _reference_root()
+    path = (None if root is None
+            else os.path.join(root, "textures", "earthmap.jpg"))
+    if image is not None:
+        tex = b.image(image)
+    elif path is not None and os.path.exists(path):
+        tex = b.image(path)
+    else:
+        tex = b.solid((0, 1, 1))
+    b.sphere((0, 0, 0), 2, b.lambertian(tex))
+    b.rect("xy", -5, 5, -3, 3, 6, b.diffuse_light((4.0, 4.0, 4.0)))
+    cam = _cam((13, 0, 3), (0, 0, 0), 20, 16 / 9, aperture=0.1)
+    return SceneDef(b.build(), cam, 16 / 9)
+
+
 def _cornell_walls(b: SceneBuilder, light_rect) -> int:
     """Walls + light shared by the Cornell scenes (`scenes.h:323-345`)."""
     red = b.lambertian((0.65, 0.05, 0.05))
@@ -221,26 +246,48 @@ def triangles_scene() -> SceneDef:
 
 def _add_obj(b: SceneBuilder, asset: tuple, diffuse: tuple,
              standin_scale: float = 1.0) -> None:
-    """A mesh asset, as the JAX package's `_add_obj` adds it: the OBJ at
-    `asset` (path parts under the reference assets) with its diffuse map
-    `diffuse`, or, when the OBJ is missing, the procedural stand-in
-    (`_standin_mesh`) with a solid texture, since the diffuse map is
-    missing too.  Either file present needs the OBJ loader and image
-    textures, which are not ported."""
+    """A mesh asset, as the JAX package's `_add_obj` adds it
+    (`models/scenes.py:218-252`): the OBJ at `asset` (path parts under the
+    reference assets) through `io.obj`, one lambertian per submesh with its
+    `map_Kd` image or its `Kd` color (`triangle_mesh.h:147-204`); without
+    the OBJ, the procedural stand-in (`_standin_mesh`) with the diffuse map
+    `diffuse`, subsampled to at most 1024 texels a side (every step-th
+    texel of each axis), or with a solid texture when the map is missing
+    too."""
     root = _reference_root()
-    for parts, what in ((asset, "OBJ asset"), (diffuse, "diffuse map")):
-        if root is not None and os.path.exists(os.path.join(root, *parts)):
-            raise NotImplementedError(
-                f"OBJ assets / image textures ({what} "
-                f"{os.path.join(*parts)}): not yet ported")
-    _standin_mesh(b, (224, 224), standin_scale)
+    path = None if root is None else os.path.join(root, *asset)
+    if path is not None and os.path.exists(path):
+        from ..io.obj import load_obj
+
+        for sub in load_obj(path).submeshes:
+            if sub.diffuse_texture is not None:
+                mat = b.lambertian(b.image(sub.diffuse_texture))
+            else:
+                mat = b.lambertian(sub.diffuse_color)
+            b.mesh(sub.vertices, sub.faces, mat, uvs=sub.uvs,
+                   normals=sub.normals)
+        return
+    fallback = None if root is None else os.path.join(root, *diffuse)
+    texture = None
+    if fallback is not None and os.path.exists(fallback):
+        from ..io.images import load_image
+
+        texture = load_image(fallback)
+    _standin_mesh(b, (224, 224), standin_scale, texture)
 
 
-def _standin_mesh(b: SceneBuilder, res: tuple, scale: float) -> None:
+def _standin_mesh(b: SceneBuilder, res: tuple, scale: float,
+                  texture: Optional[np.ndarray] = None) -> None:
     """A UV sphere of `res` (224 x 224 gives 100,352 triangles, the scale
     of the real backpack and cup) sized to the scene's framing and resting
-    on y = 0, lambertian with the solid texture (0.8, 0.2, 0.2)."""
-    tex = b.solid((0.8, 0.2, 0.2))
+    on y = 0, lambertian with the image `texture` ((H, W, 3) in [0, 1]),
+    subsampled by `img[::step, ::step]` to at most 1024 texels a side, or
+    with the solid texture (0.8, 0.2, 0.2) when it is None."""
+    if texture is None:
+        tex = b.solid((0.8, 0.2, 0.2))
+    else:
+        step = max(1, (max(texture.shape[:2]) + 1023) // 1024)
+        tex = b.image(texture[::step, ::step])
     v, f, uvs, n = _uv_sphere(*res)
     v = v * scale
     v[:, 1] += scale
@@ -292,14 +339,17 @@ def backpack_scene() -> SceneDef:
                     16 / 9)
 
 
-def backpack_standin(res: tuple = (224, 224)) -> SceneDef:
+def backpack_standin(res: tuple = (224, 224),
+                     texture: Optional[np.ndarray] = None) -> SceneDef:
     """The backpack scene with its procedural stand-in at `res` (`backpack`
-    itself when the assets are absent and `res` is (224, 224)): smaller
+    itself when the assets are absent and `res` is (224, 224)), with the
+    diffuse map `texture` as `_add_obj` adds one from a file: smaller
     meshes of the same framing for tests and the pinned goldens
     (`tools/make_torch_goldens.py` builds the same one in the JAX
-    package)."""
+    package), and BASELINE config 5 with a map on a machine without the
+    assets."""
     b = SceneBuilder(background=SKY)
-    _standin_mesh(b, res, 0.45)
+    _standin_mesh(b, res, 0.45, texture)
     b.sphere((0, -100, -1), 100, b.lambertian((0, 1, 0)))
     return SceneDef(b.build(), _cam((0, 0, -3), (0, 0, 0), 20, 16 / 9),
                     16 / 9)

@@ -159,8 +159,8 @@ def load() -> ctypes.CDLL:
             # (tables, params[, rays], outputs..., stream)
             for name, n_in, n_out in (("rt_trace_pixels", 0, 3),
                                       ("rt_trace_rays", 1, 3),
-                                      ("rt_walk_packed_pixels", 0, 4),
-                                      ("rt_walk_packed", 1, 4)):
+                                      ("rt_walk_packed_pixels", 0, 6),
+                                      ("rt_walk_packed", 1, 6)):
                 fn = getattr(lib, name)
                 fn.argtypes = [RtTables, RtParams, *[ptr] * (n_in + n_out + 1)]
                 fn.restype = ctypes.c_int

@@ -72,12 +72,6 @@ namespace {
 constexpr int kHitNodeCols = 23;  // bounds | leaf start | 8 (hit, miss)
 constexpr int kHitTriLeafK = 28;  // packed triangle slots per leaf
 constexpr int kTriGeom = 9;       // v0 e1 e2 per slot
-constexpr int kShUvPhase = 12;    // a sphere row's uv phase, past its shading
-constexpr float kPi = static_cast<float>(3.14159265358979323846);
-constexpr float kHalfPi = static_cast<float>(3.14159265358979323846 / 2.0);
-constexpr float kInvTwoPi =
-    static_cast<float>(1.0 / (2.0 * 3.14159265358979323846));
-constexpr float kInvPi = static_cast<float>(1.0 / 3.14159265358979323846);
 
 struct HitParams {
   const float* rects;
@@ -130,30 +124,6 @@ __device__ __forceinline__ void take(Best& b, float t, float nx, float ny,
   b.sph = sph;
 }
 
-// float32(max(hi - lo, 1e-12)): the uv divisor the JAX kernel computes in
-// Python doubles from float32 bounds, rounded once.
-__device__ __forceinline__ float extent(float hi, float lo) {
-  return fmaxf(hi - lo, rt::kEps);
-}
-
-// Full-quadrant atan2 from the Abramowitz & Stegun 4.4.49 polynomial on
-// [0, 1] (_atan2_poly, _atan_unit, :698-719).
-__device__ __forceinline__ float atan2_poly(float y, float x) {
-  const float ax = fabsf(x), ay = fabsf(y);
-  const float z = fminf(ax, ay) / fmaxf(fmaxf(ax, ay), 1e-30f);
-  const float z2 = z * z;
-  float r = z * (0.9998660f +
-                 z2 * (-0.3302995f +
-                       z2 * (0.1801410f + z2 * (-0.0851330f + z2 * 0.0208351f))));
-  if (ay > ax) r = kHalfPi - r;
-  if (x < 0.0f) r = kPi - r;
-  return y < 0.0f ? -r : r;
-}
-
-__device__ __forceinline__ float acos_poly(float x) {
-  return atan2_poly(sqrtf(fmaxf(1.0f - x * x, 0.0f)), x);
-}
-
 // The ray's own direction octant: bit 2 x negative, bit 1 y, bit 0 z.
 __device__ __forceinline__ int octant(const rt::Ray& r) {
   return (r.dx < 0.0f ? 4 : 0) | (r.dy < 0.0f ? 2 : 0) |
@@ -194,21 +164,14 @@ hit_kernel(const HitParams hp, const float* __restrict__ o,
 
   for (int k = 0; k < hp.n_rects; ++k) {
     const float* q = hp.rects + k * rt::kRectCols;
-    const int ax = static_cast<int>(q[0]);
-    const float o_k = ax == 0 ? r.ox : (ax == 1 ? r.oy : r.oz);
-    const float d_k = ax == 0 ? r.dx : (ax == 1 ? r.dy : r.dz);
-    const float t = (q[5] - o_k) / rt::guard(d_k);
-    const float oa = ax == 0 ? r.oy : r.ox, da = ax == 0 ? r.dy : r.dx;
-    const float ob = ax == 2 ? r.oy : r.oz, db = ax == 2 ? r.dy : r.dz;
-    const float pa = oa + t * da;
-    const float pb = ob + t * db;
-    const bool ok = t >= t_min && pa >= q[1] && pa <= q[2] && pb >= q[3] &&
-                    pb <= q[4];
-    if (ok && t < b.t) {
-      take(b, t, ax == 0 ? 1.0f : 0.0f, ax == 1 ? 1.0f : 0.0f,
-           ax == 2 ? 1.0f : 0.0f, q[rt::kRectSh + rt::kShMat],
-           (pa - q[1]) / extent(q[2], q[1]), (pb - q[3]) / extent(q[4], q[3]),
-           false);
+    const rt::RectCross c = rt::rect_cross(q, r);
+    const bool ok = c.t >= t_min && c.pa >= q[1] && c.pa <= q[2] &&
+                    c.pb >= q[3] && c.pb <= q[4];
+    if (ok && c.t < b.t) {
+      take(b, c.t, c.ax == 0 ? 1.0f : 0.0f, c.ax == 1 ? 1.0f : 0.0f,
+           c.ax == 2 ? 1.0f : 0.0f, q[rt::kRectSh + rt::kShMat],
+           (c.pa - q[1]) / rt::extent(q[2], q[1]),
+           (c.pb - q[3]) / rt::extent(q[4], q[3]), false);
     }
   }
   for (int k = 0; k < hp.n_boxes; ++k) {
@@ -232,9 +195,10 @@ hit_kernel(const HitParams hp, const float* __restrict__ o,
       // the hit point in object space, for the face's uv (box.h:14-27)
       const float ox2 = c * (r.ox - q[8]) - sn * (r.oz - q[10]);
       const float oz2 = sn * (r.ox - q[8]) + c * (r.oz - q[10]);
-      const float ua = (ox2 + t * s.dx2 - q[0]) / extent(q[3], q[0]);
-      const float ub = ((r.oy - q[9]) + t * r.dy - q[1]) / extent(q[4], q[1]);
-      const float uc = (oz2 + t * s.dz2 - q[2]) / extent(q[5], q[2]);
+      const float ua = (ox2 + t * s.dx2 - q[0]) / rt::extent(q[3], q[0]);
+      const float ub =
+          ((r.oy - q[9]) + t * r.dy - q[1]) / rt::extent(q[4], q[1]);
+      const float uc = (oz2 + t * s.dz2 - q[2]) / rt::extent(q[5], q[2]);
       take(b, t, c * nobj_x + sn * nobj_z, nobj_y, (-sn) * nobj_x + c * nobj_z,
            q[rt::kBoxSh + rt::kShMat], is_x ? ub : ua,
            (is_x || is_y) ? uc : ub, false);
@@ -267,7 +231,7 @@ hit_kernel(const HitParams hp, const float* __restrict__ o,
     }
     if (hs.sh != nullptr)  // a sphere row is the closest: its mat, uv phase
       take(b, hs.t, hs.nx, hs.ny, hs.nz, hs.sh[rt::kShMat],
-           hs.sh[kShUvPhase], 0.0f, true);
+           hs.sh[rt::kSphUvPhase - rt::kSphSh], 0.0f, true);
   }
 
   // ---- the triangle tier, from the closest non-triangle hit t2 = b.t ----
@@ -297,14 +261,7 @@ hit_kernel(const HitParams hp, const float* __restrict__ o,
   if (tri) b.sph = false;
   const bool hit = t_best < rt::kBig * 0.5f;
   float u = b.u, v = b.v;
-  if (b.sph) {  // sphere uv from the pre-flip outward normal (sphere.h:19-32)
-    const float theta = acos_poly(fminf(fmaxf(-b.ny, -1.0f), 1.0f));
-    const float phi = atan2_poly(-b.nz, b.nx) + kPi;
-    float su = fmodf(phi * kInvTwoPi + u, 1.0f);  // jnp.remainder(x, 1)
-    if (su < 0.0f) su = su + 1.0f;
-    u = su;
-    v = theta * kInvPi;
-  }
+  if (b.sph) rt::sphere_uv(b.nx, b.ny, b.nz, b.u, &u, &v);
   const bool front = (r.dx * b.nx + r.dy * b.ny + r.dz * b.nz) < 0.0f;
   const float flip = front ? 1.0f : -1.0f;
   const float nlen =

@@ -7,7 +7,7 @@
 // translation unit) from p.features, and rt_trace_rays the same on ray
 // planes (kernel 1c); rt_walk_packed_pixels and rt_walk_packed the record
 // kernel on camera rays and on ray planes (megakernel_record.cu), with the
-// hit-point planes when they are given; rt_pcg_uniform writes
+// hit-point planes and the uv planes when they are given; rt_pcg_uniform writes
 // uniform(base, salt) per lane so a test can hold the device RNG against
 // the plain version; rt_error_string names a returned CUDA error.  The
 // tables and the launch constants come by value (RtTables, RtParams).  Each
@@ -68,18 +68,20 @@ extern "C" int rt_trace_rays(RtTables t, RtParams p, const float* rays,
 extern "C" int rt_walk_packed_pixels(RtTables t, RtParams p,
                                      int32_t* out_packed, float* out_px,
                                      float* out_py, float* out_pz,
+                                     float* out_u, float* out_v,
                                      void* stream) {
   p.rays = nullptr;
-  return launch_walk(t, p, out_packed, out_px, out_py, out_pz,
+  return launch_walk(t, p, out_packed, out_px, out_py, out_pz, out_u, out_v,
                      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int rt_walk_packed(RtTables t, RtParams p, const float* rays,
                               int32_t* out_packed, float* out_px,
-                              float* out_py, float* out_pz, void* stream) {
+                              float* out_py, float* out_pz, float* out_u,
+                              float* out_v, void* stream) {
   if (rays == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   p.rays = rays;
-  return launch_walk(t, p, out_packed, out_px, out_py, out_pz,
+  return launch_walk(t, p, out_packed, out_px, out_py, out_pz, out_u, out_v,
                      static_cast<cudaStream_t>(stream));
 }
 

@@ -3,8 +3,8 @@
 // the camera or read from ray planes.
 //
 // Replaces the TPU kernel `_make_kernel` launched by `_run`
-// (raytracing_gpu_tpu/ops/pallas_trace.py:821-1643, pl.pallas_call at :1703)
-// for scenes without image textures: axis-aligned rects, boxes under
+// (raytracing_gpu_tpu/ops/pallas_trace.py:821-1643, pl.pallas_call at :1703):
+// axis-aligned rects, boxes under
 // rotate_y + translate, spheres (static, moving, hollow) in a dense loop up
 // to 64 and through a threaded BVH above, triangles through a threaded BVH
 // of their own, up to 16 constant media in a sphere or a box; lambertian,
@@ -16,13 +16,16 @@
 //
 // - megakernel_fwd, forward mode (shade=True, record=False): per ray
 //   radiance over the whole bounce loop (`PallasTracer.trace_pixels`, and
-//   `__call__` on ray planes).
+//   `__call__` on ray planes), for scenes without image textures, whose
+//   atlas the torch shade reads (as the JAX kernel refuses them,
+//   `supports_forward`, :229-234).
 // - megakernel_record, record mode (record=True, shade=False): per bounce
 //   one packed int32 word `mat | hit<<16 | cont<<17 | miss<<18`
 //   (pallas_trace.py:1536-1541) and, for scenes whose checker or perlin
 //   textures need it (need_p), the hit point in three float32 planes
-//   (:1542-1545) (`PallasTracer.walk_packed_pixels`, and `walk_packed` on
-//   ray planes).  The uv planes of image textures (need_uv) are not here.
+//   (:1542-1545), and for scenes with image textures (need_uv) the
+//   winner's u and v in two more (:1546-1548)
+//   (`PallasTracer.walk_packed_pixels`, and `walk_packed` on ray planes).
 //
 // The rays: made in the kernel by the thin-lens camera (cam=..., kernel 1a
 // and 1b), or, when RtParams.rays is set, read from one (7, n) float32 array
@@ -54,7 +57,23 @@
 // o + t d (the expression `surface` computes) where the bounce hit, and 0
 // on a miss and after the path's end, where the Pallas kernel leaves
 // o + 1e30 d or a frozen ray's point: the shade multiplies those entries by
-// 0 either way.
+// 0 either way; so do the uv planes.
+//
+// The uv planes hold what the Pallas kernel carries through the closest
+// hit's candidate order (:930-958): a rect winner's uv from its hit
+// coordinates (:970-974), a sphere winner's rotate_y phase in u and a
+// sphere flag (:1164-1169), a triangle winner's interpolated uv
+// (:1235-1239), 0 for a medium winner (:1392-1395); after the media, a
+// sphere winner's uv from its pre-flip outward normal through the
+// polynomial acos and atan2 (`sphere_uv`, shared with the hit kernel,
+// :1400-1410).  A box winner passes no uv in the Pallas kernel (:1041-1044),
+// so it keeps the carried uv of the closest rect hit, or 0: a reference
+// quirk kept here (the hit kernel computes the box face's uv instead, as
+// the XLA engine does).  The closest hit carries only where the uv comes
+// from (Hit.uv: the closest rect so far, or the winner's kind), and
+// `hit_uv` computes the same values after the media, so a wave without uv
+// planes does no uv arithmetic.  The planes are a runtime branch of the
+// launch, as the hit-point planes are, not more instantiations.
 //
 // The kernels are templates over what the bake uses (kFeat* bits: dense
 // spheres, media, the sphere BVH, the triangle BVH, checker albedo, perlin
@@ -73,9 +92,10 @@
 // What bounds it on Hopper.  Per-thread ALU work and divergence, not bytes:
 // each ray tests every primitive record at every bounce, draws its random
 // numbers from a counter-based hash, and writes 12 bytes at the end
-// (forward) or 4 bytes per bounce, 16 with the hit point (record).  So the
-// records are staged once per block into shared memory, where every thread
-// of a warp reads the same word at the same time (a broadcast), and the only
+// (forward) or 4 bytes per bounce, 16 with the hit point, 8 more with uv
+// (record).  So the records are staged once per block into shared memory,
+// where every thread of a warp reads the same word at the same time (a
+// broadcast), and the only
 // device-memory traffic is the output stores and the ray planes' 28 bytes a
 // ray.  Rays of a warp that die early leave their lanes idle until the
 // warp's longest path ends; regrouping live rays is work for a later
@@ -195,9 +215,10 @@ int launch_fwd_tri_perlin(const RtTables& t, const RtParams& p, float* out_r,
                           float* out_g, float* out_b, cudaStream_t s);
 // The record launcher (megakernel_record.cu): `features` holds only the
 // geometry bits and kFeatTriBvh; the hit-point planes are all three set or
-// all three nullptr.
+// all three nullptr, and the uv planes both or neither.
 int launch_walk(const RtTables& t, const RtParams& p, int32_t* out_packed,
-                float* out_px, float* out_py, float* out_pz, cudaStream_t s);
+                float* out_px, float* out_py, float* out_pz, float* out_u,
+                float* out_v, cudaStream_t s);
 
 namespace rt {
 
@@ -221,10 +242,12 @@ constexpr int kShIr = 9, kShTexk = 10, kShMat = 11;
 constexpr int kRectCols = 18, kRectSh = 6;
 constexpr int kBoxCols = 24, kBoxSh = 12;
 constexpr int kSphCols = 24, kSphSh = 9;
+constexpr int kSphUvPhase = 21;  // a sphere row's uv phase, past its shading
 constexpr int kMedCols = 24, kMedSh = 12;
 // triangle rows (`_TRI_*`, pallas_trace.py:128-133): v0 e1 e2 | n0 n1 n2 |
 // uv0 uv1 uv2 | kind fuzz ir mat | c1 c2 scale texk | pad
-constexpr int kTriCols = 40, kTriN0 = 9, kTriKind = 24, kTriFuzz = 25;
+constexpr int kTriCols = 40, kTriN0 = 9, kTriUv0 = 18, kTriKind = 24;
+constexpr int kTriFuzz = 25;
 constexpr int kTriIr = 26, kTriMat = 27, kTriC1 = 28, kTriC2 = 31;
 constexpr int kTriScale = 34, kTriTexk = 35;
 
@@ -257,15 +280,69 @@ __device__ __forceinline__ float guard(float v) {
   return fabsf(v) < kEps ? (v >= 0.0f ? kEps : -kEps) : v;
 }
 
+// float32(max(hi - lo, 1e-12)): the uv divisor the JAX kernel computes in
+// Python doubles from float32 bounds, rounded once.
+__device__ __forceinline__ float extent(float hi, float lo) {
+  return fmaxf(hi - lo, kEps);
+}
+
+constexpr float kPi = static_cast<float>(3.14159265358979323846);
+constexpr float kHalfPi = static_cast<float>(3.14159265358979323846 / 2.0);
+constexpr float kInvTwoPi =
+    static_cast<float>(1.0 / (2.0 * 3.14159265358979323846));
+constexpr float kInvPi = static_cast<float>(1.0 / 3.14159265358979323846);
+
+// Full-quadrant atan2 from the Abramowitz & Stegun 4.4.49 polynomial on
+// [0, 1] (_atan2_poly, _atan_unit, :698-719).
+__device__ __forceinline__ float atan2_poly(float y, float x) {
+  const float ax = fabsf(x), ay = fabsf(y);
+  const float z = fminf(ax, ay) / fmaxf(fmaxf(ax, ay), 1e-30f);
+  const float z2 = z * z;
+  float r = z * (0.9998660f +
+                 z2 * (-0.3302995f +
+                       z2 * (0.1801410f + z2 * (-0.0851330f + z2 * 0.0208351f))));
+  if (ay > ax) r = kHalfPi - r;
+  if (x < 0.0f) r = kPi - r;
+  return y < 0.0f ? -r : r;
+}
+
+__device__ __forceinline__ float acos_poly(float x) {
+  return atan2_poly(sqrtf(fmaxf(1.0f - x * x, 0.0f)), x);
+}
+
+// A sphere's uv (get_sphere_uv, sphere.h:19-32) from its pre-flip outward
+// normal, with its rotate_y `phase` added to u and the sum wrapped to
+// [0, 1) as jnp.remainder(x, 1) does (the exact fmod, plus 1 below 0);
+// both kernels' (:1400-1410, :2197-2201).
+__device__ __forceinline__ void sphere_uv(float nx, float ny, float nz,
+                                          float phase, float* u, float* v) {
+  const float theta = acos_poly(fminf(fmaxf(-ny, -1.0f), 1.0f));
+  const float phi = atan2_poly(-nz, nx) + kPi;
+  float su = fmodf(phi * kInvTwoPi + phase, 1.0f);
+  if (su < 0.0f) su = su + 1.0f;
+  *u = su;
+  *v = theta * kInvPi;
+}
+
 struct Ray {
   float ox, oy, oz, dx, dy, dz;
 };
 
+// Where the winner's uv comes from (Hit.uv, `hit_uv`): a rect's index (>= 0),
+// or one of these.
+constexpr int kUvNone = -1, kUvSphere = -2, kUvTri = -3;
+
 // The winner of the closest-hit test: t (kBig on a miss), outward normal,
-// and its shading block in shared memory (nullptr on a miss).
+// its shading block (nullptr on a miss), and the source of its uv: the
+// closest rect so far, which a box winner keeps (see the header), or the
+// winner's kind; a triangle winner's row and the barycentric weights of its
+// vertices 1 and 2.  A kernel that writes no uv leaves these unread, and
+// the compiler drops them.
 struct Hit {
   float t, nx, ny, nz;
   const float* sh;
+  int uv, tri;
+  float bu, bv;
 };
 
 // Views of the tables: rects, boxes and media staged in shared memory; the
@@ -434,6 +511,7 @@ __device__ __forceinline__ void sphere_candidate(const float* q, const Ray& r,
     h.ny = (r.oy + t * r.dy - cy) * inv_r;
     h.nz = (r.oz + t * r.dz - cz) * inv_r;
     h.sh = q + kSphSh;
+    h.uv = kUvSphere;
   }
 }
 
@@ -560,6 +638,10 @@ __device__ __forceinline__ void tri_bvh_walk(const Tables& s, const Ray& r,
   h.ny = wb * q[1] + bu * q[4] + bv * q[7];
   h.nz = wb * q[2] + bu * q[5] + bv * q[8];
   q = s.tri_rows + best * kTriCols;
+  h.uv = kUvTri;
+  h.tri = best;
+  h.bu = bu;
+  h.bv = bv;
   tri_sh[kShKind] = q[kTriKind];
   for (int c = 0; c < 3; ++c) {
     tri_sh[kShC1 + c] = q[kTriC1 + c];
@@ -573,6 +655,26 @@ __device__ __forceinline__ void tri_bvh_walk(const Tables& s, const Ray& r,
   h.sh = tri_sh;
 }
 
+// Where the ray crosses rect row q's plane: t and the two varying
+// coordinates, in ascending axis order (yz, xz, xy).
+struct RectCross {
+  float t, pa, pb;
+  int ax;
+};
+
+__device__ __forceinline__ RectCross rect_cross(const float* q, const Ray& r) {
+  RectCross c;
+  c.ax = static_cast<int>(q[0]);
+  const float o_k = c.ax == 0 ? r.ox : (c.ax == 1 ? r.oy : r.oz);
+  const float d_k = c.ax == 0 ? r.dx : (c.ax == 1 ? r.dy : r.dz);
+  c.t = (q[5] - o_k) / guard(d_k);
+  const float oa = c.ax == 0 ? r.oy : r.ox, da = c.ax == 0 ? r.dy : r.dx;
+  const float ob = c.ax == 2 ? r.oy : r.oz, db = c.ax == 2 ? r.dy : r.dz;
+  c.pa = oa + c.t * da;
+  c.pb = ob + c.t * db;
+  return c;
+}
+
 // ---- closest hit: rects, boxes, spheres, then triangles, strict <
 // (:961-1289); a triangle winner's shading block goes into `tri_sh` ----
 template <unsigned F>
@@ -583,25 +685,19 @@ __device__ __forceinline__ Hit closest_hit(const Tables& s, const RtParams& p,
   h.t = kBig;
   h.nx = h.ny = h.nz = 0.0f;
   h.sh = nullptr;
+  h.uv = kUvNone;
   for (int k = 0; k < p.n_rects; ++k) {
     const float* q = s.rects + k * kRectCols;
-    const int ax = static_cast<int>(q[0]);
-    const float o_k = ax == 0 ? r.ox : (ax == 1 ? r.oy : r.oz);
-    const float d_k = ax == 0 ? r.dx : (ax == 1 ? r.dy : r.dz);
-    const float t = (q[5] - o_k) / guard(d_k);
-    // varying coordinates in ascending axis order: yz, xz, xy
-    const float oa = ax == 0 ? r.oy : r.ox, da = ax == 0 ? r.dy : r.dx;
-    const float ob = ax == 2 ? r.oy : r.oz, db = ax == 2 ? r.dy : r.dz;
-    const float pa = oa + t * da;
-    const float pb = ob + t * db;
-    const bool ok = t >= p.t_min && pa >= q[1] && pa <= q[2] && pb >= q[3] &&
-                    pb <= q[4];
-    if (ok && t < h.t) {
-      h.t = t;
-      h.nx = ax == 0 ? 1.0f : 0.0f;
-      h.ny = ax == 1 ? 1.0f : 0.0f;
-      h.nz = ax == 2 ? 1.0f : 0.0f;
+    const RectCross c = rect_cross(q, r);
+    const bool ok = c.t >= p.t_min && c.pa >= q[1] && c.pa <= q[2] &&
+                    c.pb >= q[3] && c.pb <= q[4];
+    if (ok && c.t < h.t) {
+      h.t = c.t;
+      h.nx = c.ax == 0 ? 1.0f : 0.0f;
+      h.ny = c.ax == 1 ? 1.0f : 0.0f;
+      h.nz = c.ax == 2 ? 1.0f : 0.0f;
       h.sh = q + kRectSh;
+      h.uv = k;
     }
   }
   for (int k = 0; k < p.n_boxes; ++k) {
@@ -628,7 +724,7 @@ __device__ __forceinline__ Hit closest_hit(const Tables& s, const RtParams& p,
       h.nx = c * nobj_x + sn * nobj_z;  // object -> world rotation
       h.ny = nobj_y;
       h.nz = (-sn) * nobj_x + c * nobj_z;
-      h.sh = q + kBoxSh;
+      h.sh = q + kBoxSh;  // no uv: the closest rect's stays (see the header)
     }
   }
   if (F & (kFeatSpheres | kFeatSphereBvh)) {
@@ -644,6 +740,31 @@ __device__ __forceinline__ Hit closest_hit(const Tables& s, const RtParams& p,
   }
   if (F & kFeatTriBvh) tri_bvh_walk(s, r, p.t_min, tri_sh, h);
   return h;
+}
+
+// The uv planes' value for the winner h of ray r (see the header): a rect's
+// coordinates over its extents (:970-974), recomputed as the test computed
+// them; a sphere's from its pre-flip outward normal and phase; a
+// triangle's vertex uvs weighted as its normal (:1235-1239); 0 for a medium
+// or a box with no rect before it.
+template <unsigned F>
+__device__ __forceinline__ void hit_uv(const Tables& s, const Ray& r,
+                                       const Hit& h, float* u, float* v) {
+  *u = 0.0f;
+  *v = 0.0f;
+  if (h.uv >= 0) {
+    const float* q = s.rects + h.uv * kRectCols;
+    const RectCross c = rect_cross(q, r);
+    *u = (c.pa - q[1]) / extent(q[2], q[1]);
+    *v = (c.pb - q[3]) / extent(q[4], q[3]);
+  } else if ((F & (kFeatSpheres | kFeatSphereBvh)) && h.uv == kUvSphere) {
+    sphere_uv(h.nx, h.ny, h.nz, h.sh[kSphUvPhase - kSphSh], u, v);
+  } else if ((F & kFeatTriBvh) && h.uv == kUvTri) {
+    const float* q = s.tri_rows + h.tri * kTriCols + kTriUv0;
+    const float wb = 1.0f - h.bu - h.bv;
+    *u = wb * q[0] + h.bu * q[2] + h.bv * q[4];
+    *v = wb * q[1] + h.bu * q[3] + h.bv * q[5];
+  }
 }
 
 // ---- constant media (constant_medium.h:34-70, :1297-1395) ----
@@ -701,6 +822,7 @@ __device__ __forceinline__ void media_hit(const Tables& s, const RtParams& p,
     h.ny = 0.0f;
     h.nz = 0.0f;
     h.sh = m_sh;
+    h.uv = kUvNone;
   }
 }
 
@@ -990,7 +1112,8 @@ template <unsigned F>
 __global__ void __launch_bounds__(kThreads)
 megakernel_record(const RtTables tables, const RtParams p,
                   int32_t* __restrict__ out_packed, float* __restrict__ out_px,
-                  float* __restrict__ out_py, float* __restrict__ out_pz) {
+                  float* __restrict__ out_py, float* __restrict__ out_pz,
+                  float* __restrict__ out_u, float* __restrict__ out_v) {
   extern __shared__ float smem[];
   const Tables s = stage_tables(tables, p, smem);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -1001,11 +1124,13 @@ megakernel_record(const RtTables tables, const RtParams p,
 
   const size_t stride = static_cast<size_t>(p.n);
   const bool need_p = out_px != nullptr;  // uniform across the launch
+  const bool need_uv = out_u != nullptr;  // uniform across the launch
   float tri_sh[12];  // a triangle winner's shading block (kFeatTriBvh)
   bool alive = true;
   for (int b = 0; b < p.max_depth; ++b) {
     int32_t word = 0;  // a bounce after the path's end records nothing
     float px = 0.0f, py = 0.0f, pz = 0.0f;  // the hit point, 0 but on a hit
+    float u = 0.0f, v = 0.0f;               // the winner's uv, likewise
     if (alive) {
       // hit, cont and miss as at pallas_trace.py:1397-1398 and :1512-1513
       const uint32_t draw = draw_window(rng_base, b);
@@ -1016,6 +1141,7 @@ megakernel_record(const RtTables tables, const RtParams p,
       } else {
         float nx, ny, nz;
         const bool front = surface(h, r, nx, ny, nz, px, py, pz);
+        if (need_uv) hit_uv<F>(s, r, h, &u, &v);
         const int kind = static_cast<int>(h.sh[kShKind]);
         alive = kind != kDiffuseLight &&
                 scatter(kind, h.sh, front, nx, ny, nz, draw, r);
@@ -1032,6 +1158,10 @@ megakernel_record(const RtTables tables, const RtParams p,
       out_px[at] = px;
       out_py[at] = py;
       out_pz[at] = pz;
+    }
+    if (need_uv) {
+      out_u[at] = u;
+      out_v[at] = v;
     }
   }
 }

@@ -1,7 +1,7 @@
 """Host side of the path-tracing kernels, and their plain PyTorch versions.
 
-Counterpart of `raytracing_gpu_tpu/ops/pallas_trace.py` for scenes without
-image textures, in three functions:
+Counterpart of `raytracing_gpu_tpu/ops/pallas_trace.py`, in three
+functions:
 
 - forward radiance (`PallasTracer.trace_pixels` with the camera rays made
   inside the kernel, `PallasTracer.__call__` on ray planes): axis-aligned
@@ -10,11 +10,13 @@ image textures, in three functions:
   triangles through a threaded triangle BVH, up to 16 constant media in a
   sphere or a box; lambertian, metal, dielectric, diffuse_light and
   isotropic materials; solid, checker, noise, turbulence and marble albedo;
-  russian roulette and the shutter time;
+  russian roulette and the shutter time; not image textures, whose atlas
+  the shading reads (`supports_forward`, as the JAX kernel refuses them);
 - the record walk (`PallasTracer.walk_packed_pixels` on camera rays,
-  `walk_packed` and `walk` on ray planes), over the same features: the
-  packed plane, and the hit-point planes when a checker or perlin texture
-  needs them (`need_p`);
+  `walk_packed` and `walk` on ray planes), over the same features and
+  image textures: the packed plane, the hit-point planes when a checker
+  or perlin texture needs them (`need_p`), and the uv planes when an image
+  texture does (`need_uv`);
 - the pure closest hit of the wavefront drivers (`PallasTracer.hit`), for
   scenes without media, with the triangle tier over the packed geometry.
 
@@ -28,9 +30,7 @@ BVH's leaf-contiguous table has radius 0 and never hits.  Triangles they
 walk lane by lane as the kernels do (`tri_walk_reference`), so that rays
 through a shared edge keep the same one of its two triangles.
 
-Not ported (`unported_feature` names them): image textures, with the uv
-planes of the record walk that they need (`need_uv`), and more than 16
-media.
+Not ported (`unported_feature` names it): more than 16 media.
 
 The random numbers are the JAX kernel's, bit for bit: a PCG hash of the
 lane index within the call mixed with an int32 seed, then one more hash per
@@ -259,8 +259,8 @@ class SceneBake(NamedTuple):
 
     @property
     def need_uv(self) -> bool:
-        """Whether the record walk needs the uv planes: an image texture is
-        bound (`PallasTracer.need_uv`; not ported, `unported_feature`)."""
+        """Whether the record walk writes the uv planes: an image texture
+        is bound (`PallasTracer.need_uv`, pallas_trace.py:2413)."""
         return st.TEX_IMAGE in self.texture_kinds()
 
     def material_kinds(self) -> set:
@@ -553,32 +553,30 @@ def used_texture_kinds(scene: st.Scene) -> set:
 
 
 def unported_feature(scene: st.Scene) -> Optional[str]:
-    """The first feature of `scene` that the forward kernel does not cover,
-    or None when it renders here."""
+    """The feature of `scene` that no kernel covers, or None: more than
+    MAX_MEDIA constant media (`supports_scene`, pallas_trace.py:208-224)."""
     sp = scene.spheres
     n_media = int((sp.active & sp.medium).sum()
                   + (scene.boxes.active & scene.boxes.medium).sum())
     if n_media > MAX_MEDIA:
         return f"{n_media} constant media (more than {MAX_MEDIA})"
-    if st.TEX_IMAGE in used_texture_kinds(scene):
-        return "image texture"
     return None
 
 
 def unported_record_feature(scene: st.Scene) -> Optional[str]:
-    """As `unported_feature`, for the record walk: more than MAX_MEDIA
-    media, or an image texture, whose uv planes (`need_uv`) the walk does
-    not write."""
-    feature = unported_feature(scene)
-    if feature == "image texture":
-        return "uv plane (image texture)"
-    return feature
+    """The feature of `scene` that the record walk does not cover, or
+    None: what `unported_feature` names (the walk writes the uv planes of
+    image textures)."""
+    return unported_feature(scene)
 
 
 def supports_forward(scene: st.Scene) -> bool:
-    """True when the forward kernel renders `scene`; otherwise
-    `unported_feature` names what is missing."""
-    return unported_feature(scene) is None
+    """True when the forward kernel renders `scene`
+    (`pallas_trace.supports_forward`, :229-234): every feature but image
+    textures, whose atlas the shading reads; an image scene takes the
+    record walk and the torch shade."""
+    return (unported_feature(scene) is None
+            and st.TEX_IMAGE not in used_texture_kinds(scene))
 
 
 # --------------------------------------------------------------------------
@@ -735,27 +733,52 @@ class _Hit(NamedTuple):
     t: torch.Tensor       # (n,) BIG where nothing was hit
     normal: tuple         # outward normal, three (n,) tensors
     idx: torch.Tensor     # (n,) int64 row of SceneBake.shading_table()
+    # with uv: the carried (u, v, is_sphere); a sphere winner's u holds its
+    # rotate_y phase until `_resolve_uv`
+    uv: Optional[tuple] = None
 
 
 def _closest_hit(bake: SceneBake, o3: tuple, d3: tuple, tm: torch.Tensor,
                  t_min: float, n: int, dev: torch.device,
-                 alive: torch.Tensor, walk: Optional[dict] = None) -> _Hit:
+                 alive: torch.Tensor, walk: Optional[dict] = None,
+                 uv: bool = False) -> _Hit:
     """Closest hit over the baked rects, then boxes, then spheres, then
     triangles, strict `<` (pallas_trace.py:961-1043, 1105-1289).  With
     `walk` (a dict of counts), the node and row tests that the kernel's
     sphere-BVH walk makes on the `alive` lanes, and its triangle walk's
     node and candidate tests, are added to it.  Only the `alive` lanes walk
-    the triangles."""
+    the triangles.
+
+    With `uv`, the uv carry of the record kernel's `need_uv` mode
+    (pallas_trace.py:930-958): a rect winner's uv from its hit coordinates
+    (:970-974), a triangle's interpolated uv (:1235-1239), a sphere's
+    rotate_y phase in u with the sphere flag (:1164-1169); a box winner
+    passes no uv, so it keeps the carried uv of the closest rect hit, or 0
+    (a reference quirk the port keeps)."""
     zeros = torch.zeros(n, dtype=torch.float32, device=dev)
     t_best = torch.full((n,), BIG, dtype=torch.float32, device=dev)
     nx, ny, nz = zeros, zeros, zeros
     idx = torch.zeros(n, dtype=torch.int64, device=dev)
+    uu, vv = zeros, zeros
+    sphf = torch.zeros(n, dtype=torch.bool, device=dev)
 
     def upd(ok, t, nxx, nyy, nzz, row):
+        """Keep (t, normal, row) where strictly closer; the lanes that
+        took it."""
+        nonlocal t_best, nx, ny, nz, idx
         better = ok & (t < t_best)
-        return (torch.where(better, t, t_best),
-                torch.where(better, nxx, nx), torch.where(better, nyy, ny),
-                torch.where(better, nzz, nz), torch.where(better, row, idx))
+        t_best = torch.where(better, t, t_best)
+        nx = torch.where(better, nxx, nx)
+        ny = torch.where(better, nyy, ny)
+        nz = torch.where(better, nzz, nz)
+        idx = torch.where(better, row, idx)
+        return better
+
+    def upd_uv(better, u_, v_, is_sph: bool):
+        nonlocal uu, vv, sphf
+        uu = torch.where(better, u_, uu)
+        vv = torch.where(better, v_, vv)
+        sphf = (sphf | better) if is_sph else (sphf & ~better)
 
     ox, oy, oz = o3
     dx, dy, dz = d3
@@ -771,7 +794,12 @@ def _closest_hit(bake: SceneBake, o3: tuple, d3: tuple, tm: torch.Tensor,
               & (pb >= prim["b0"]) & (pb <= prim["b1"]))
         n3 = [zeros, zeros, zeros]
         n3[ax] = torch.ones_like(zeros)
-        t_best, nx, ny, nz, idx = upd(ok, t, *n3, row)
+        better = upd(ok, t, *n3, row)
+        if uv:
+            upd_uv(better,
+                   _div(pa - prim["a0"], _extent(prim["a1"], prim["a0"])),
+                   _div(pb - prim["b0"], _extent(prim["b1"], prim["b0"])),
+                   False)
         row += 1
 
     for prim in bake.boxes:
@@ -797,7 +825,7 @@ def _closest_hit(bake: SceneBake, o3: tuple, d3: tuple, tm: torch.Tensor,
         c, s = prim["cos"], prim["sin"]
         nwx = c * nobj_x + s * nobj_z
         nwz = (-s) * nobj_x + c * nobj_z
-        t_best, nx, ny, nz, idx = upd(ok, t, nwx, nobj_y, nwz, row)
+        upd(ok, t, nwx, nobj_y, nwz, row)  # no uv: the carried one stays
         row += 1
 
     if walk is not None and len(bake.sph_nodes):
@@ -806,21 +834,25 @@ def _closest_hit(bake: SceneBake, o3: tuple, d3: tuple, tm: torch.Tensor,
         walk["rows"] += int(w.rows.sum())
     if len(bake.sphere_table):
         sph = _closest_sphere(bake.sphere_table, o3, d3, tm, t_min, t_best)
-        t_best, nx, ny, nz, idx = upd(sph.better, sph.t, *sph.normal,
-                                      row + sph.row)
+        better = upd(sph.better, sph.t, *sph.normal, row + sph.row)
+        if uv:
+            phase = torch.as_tensor(bake.sphere_table[:, SPHERE_SH + SH_COLS],
+                                    device=dev)[sph.row]
+            upd_uv(better, phase, zeros, True)
     if len(bake.tri_nodes):
         tw = tri_walk_reference(bake, o3, d3, t_min, t_best, alive)
         first = (row + len(bake.sphere_table) + len(bake.sphere_media)
                  + len(bake.box_media))
-        t_best, nx, ny, nz, idx = upd(tw.better, tw.t,
-                                      *tri_normal(bake.tri_table, tw, dev),
-                                      first + tw.row)
+        better = upd(tw.better, tw.t, *tri_normal(bake.tri_table, tw, dev),
+                     first + tw.row)
+        if uv:
+            upd_uv(better, *tri_uv(bake.tri_table, tw, dev), False)
         if walk is not None:
             walk["tri_nodes"] += int(tw.nodes.sum())
             walk["tri_rows"] += int(tw.rows.sum())
             walk["tri_wins"] += int(tw.better.sum())
             walk["tri_read"] = tri_reads(tw, len(bake.tri_table))
-    return _Hit(t_best, (nx, ny, nz), idx)
+    return _Hit(t_best, (nx, ny, nz), idx, (uu, vv, sphf) if uv else None)
 
 
 class _SphereHit(NamedTuple):
@@ -1147,10 +1179,21 @@ def tri_normal(table: np.ndarray, tw: TriWalk, dev: torch.device) -> tuple:
     """A triangle winner's outward normal, its vertex normals (or its face
     normal thrice) weighted by (1 - ub - vb, ub, vb), with the kernels'
     order of operations (pallas_trace.py:1227-1234)."""
+    return _tri_lerp(table, tw, dev, TRI_N0, 3)
+
+
+def tri_uv(table: np.ndarray, tw: TriWalk, dev: torch.device) -> tuple:
+    """A triangle winner's uv, its vertices' uv weighted as `tri_normal`
+    weights the normals (pallas_trace.py:1235-1239)."""
+    return _tri_lerp(table, tw, dev, TRI_UV0, 2)
+
+
+def _tri_lerp(table: np.ndarray, tw: TriWalk, dev: torch.device, col: int,
+              width: int) -> tuple:
     q = torch.as_tensor(table, device=dev)[tw.row.clamp(min=0)]
     wb = 1.0 - tw.ub - tw.vb
-    return tuple(wb * q[:, TRI_N0 + k] + tw.ub * q[:, TRI_N0 + 3 + k]
-                 + tw.vb * q[:, TRI_N0 + 6 + k] for k in range(3))
+    return tuple(wb * q[:, col + k] + tw.ub * q[:, col + width + k]
+                 + tw.vb * q[:, col + 2 * width + k] for k in range(width))
 
 
 def _box_interval(prim, o3: tuple, d3: tuple):
@@ -1238,20 +1281,33 @@ def _media_hit(bake: SceneBake, h: _Hit, o3: tuple, d3: tuple,
         m_idx = torch.where(better, first_row + im, m_idx)
     win = m_t < h.t
     nx, ny, nz = h.normal
+    uv = h.uv
+    if uv is not None:  # a medium winner's uv is 0 (:1392-1395)
+        uv = (torch.where(win, 0.0, uv[0]), torch.where(win, 0.0, uv[1]),
+              uv[2] & ~win)
     return _Hit(torch.where(win, m_t, h.t),
                 (torch.where(win, 1.0, nx), torch.where(win, 0.0, ny),
                  torch.where(win, 0.0, nz)),
-                torch.where(win, m_idx, h.idx))
+                torch.where(win, m_idx, h.idx), uv)
 
 
 def _scene_hit(bake: SceneBake, o3: tuple, d3: tuple, tm: torch.Tensor,
                t_min: float, draw: torch.Tensor, n: int,
                dev: torch.device, alive: torch.Tensor,
-               walk: Optional[dict] = None) -> _Hit:
-    h = _closest_hit(bake, o3, d3, tm, t_min, n, dev, alive, walk)
+               walk: Optional[dict] = None, uv: bool = False) -> _Hit:
+    h = _closest_hit(bake, o3, d3, tm, t_min, n, dev, alive, walk, uv)
     if bake.sphere_media or bake.box_media:
         h = _media_hit(bake, h, o3, d3, tm, t_min, draw)
     return h
+
+
+def _resolve_uv(h: _Hit) -> tuple:
+    """The final (u, v) of a hit carried with uv: a sphere winner's from
+    its pre-flip outward normal and its phase (pallas_trace.py:1400-1410),
+    every other winner's as carried."""
+    u, v, sph = h.uv
+    su, sv = _sphere_uv(h.normal, u)
+    return torch.where(sph, su, u), torch.where(sph, sv, v)
 
 
 def _draw_window(base: torch.Tensor, b: int) -> torch.Tensor:
@@ -1390,20 +1446,23 @@ class _Bounce(NamedTuple):
     sh: torch.Tensor     # (n, 12) the winner's shading block
     p3: tuple            # hit point
     d3: tuple            # next direction (where hit)
+    uv: Optional[tuple] = None  # final (u, v) of the winner, when asked
 
 
 def _bounce(bake: SceneBake, shading: torch.Tensor, base: torch.Tensor,
             b: int, alive: torch.Tensor, o3: tuple, d3: tuple,
             tm: torch.Tensor, t_min: float, n: int,
-            dev: torch.device, counts: Optional[dict] = None) -> tuple:
+            dev: torch.device, counts: Optional[dict] = None,
+            uv: bool = False) -> tuple:
     """One bounce of every lane, shared by both modes: closest hit, media,
     face normal and scatter; returns (the bounce's _Bounce, its draw).
-    With `counts` (see `trace_pixels_reference`), adds the bounce's work."""
+    With `counts` (see `trace_pixels_reference`), adds the bounce's work;
+    with `uv`, the winner's uv."""
     draw = _draw_window(base, b)
     walk = None if counts is None else dict(nodes=0, rows=0, tri_nodes=0,
                                             tri_rows=0, tri_wins=0,
                                             tri_read=None)
-    h = _scene_hit(bake, o3, d3, tm, t_min, draw, n, dev, alive, walk)
+    h = _scene_hit(bake, o3, d3, tm, t_min, draw, n, dev, alive, walk, uv)
     hit = alive & (h.t < BIG * 0.5)
     miss = alive & ~(h.t < BIG * 0.5)
     sh = shading[h.idx]
@@ -1420,7 +1479,8 @@ def _bounce(bake: SceneBake, shading: torch.Tensor, base: torch.Tensor,
         for k in torch.unique(kind[hit & ~lit]).tolist():
             counts["scatter"][k] = (counts["scatter"].get(k, 0)
                                     + int((hit & ~lit & (kind == k)).sum()))
-    return _Bounce(hit, miss, cont, kind, sh, p3, new_d), draw
+    return _Bounce(hit, miss, cont, kind, sh, p3, new_d,
+                   _resolve_uv(h) if uv else None), draw
 
 
 def _advance(bn: _Bounce, o3: tuple, d3: tuple) -> tuple:
@@ -1541,9 +1601,10 @@ def walk_packed_pixels_reference(bake: SceneBake, camera, img_h: int,
     packed word `mat | hit<<16 | cont<<17 | miss<<18` (pallas_trace.py:
     1536-1541), (max_depth, n) int32, and, when the scene needs them
     (`SceneBake.need_p`), the hit point's x, y and z, (max_depth, n)
-    float32 each (:1542-1545); the same paths as `trace_pixels_reference`
-    without russian roulette (the record mode has none).  Returns the
-    tuple (packed[, px, py, pz]).
+    float32 each (:1542-1545), and (`SceneBake.need_uv`) the winner's u and
+    v (:1546-1548); the same paths as `trace_pixels_reference` without
+    russian roulette (the record mode has none).  Returns the tuple
+    (packed[, px, py, pz][, u, v]), the JAX plane order (:1677).
 
     The plain PyTorch version of `megakernel_record`.  A lane whose path
     has ended records 0, as a kernel thread does; the Pallas kernel stores
@@ -1551,7 +1612,8 @@ def walk_packed_pixels_reference(bake: SceneBake, camera, img_h: int,
     0), so compare against it bits 16-18 everywhere and bits 0-15 only where
     bit 16 is set.  The hit point is o + t d where bit 16 is set and 0
     elsewhere, where the Pallas kernel leaves o + 1e30 d or a frozen ray's
-    point; compare it only where bit 16 is set.
+    point; compare it only where bit 16 is set.  So is uv, which is 0
+    elsewhere (`uv_agreement`).
     """
     dev = torch.device(device)
     base = rng_base(n, seed, dev)
@@ -1579,13 +1641,15 @@ def _walk(bake: SceneBake, o3: tuple, d3: tuple, tm: torch.Tensor,
     out = torch.zeros((max_depth, n), dtype=torch.int32, device=dev)
     p_out = (torch.zeros((3, max_depth, n), dtype=torch.float32, device=dev)
              if bake.need_p else None)
+    uv_out = (torch.zeros((2, max_depth, n), dtype=torch.float32, device=dev)
+              if bake.need_uv else None)
     alive = torch.ones(n, dtype=torch.bool, device=dev)
 
     for b in range(max_depth):
         if not bool(alive.any()):
             break
         bn, _ = _bounce(bake, shading, base, b, alive, o3, d3, tm, t_min, n,
-                        dev)
+                        dev, uv=uv_out is not None)
         # hit, cont and miss as at pallas_trace.py:1397-1398, :1512-1513
         packed = (bn.sh[:, SH_MAT].to(torch.int32)
                   | (bn.hit.to(torch.int32) << 16)
@@ -1595,10 +1659,14 @@ def _walk(bake: SceneBake, o3: tuple, d3: tuple, tm: torch.Tensor,
         if p_out is not None:
             for k in range(3):
                 p_out[k, b] = torch.where(bn.hit, bn.p3[k], 0.0)
+        if uv_out is not None:
+            for k in range(2):
+                uv_out[k, b] = torch.where(bn.hit, bn.uv[k], 0.0)
         o3, d3 = _advance(bn, o3, d3)
         alive = bn.cont
 
-    return (out,) if p_out is None else (out, *p_out.unbind(0))
+    return ((out,) + (() if p_out is None else tuple(p_out.unbind(0)))
+            + (() if uv_out is None else tuple(uv_out.unbind(0))))
 
 
 def record_agreement(got, want, same_rays=None) -> dict:
@@ -1695,6 +1763,50 @@ def p_agreement(got, want, got_p, want_p) -> dict:
     return res
 
 
+def uv_agreement(got, want, got_uv, want_uv, limit0: float) -> dict:
+    """How the uv planes of two record walks agree: got/want the packed
+    planes (..., max_depth, n), got_uv/want_uv the uv planes (..., 2,
+    max_depth, n).  Over the entries where `want` hit (bit 16), on the
+    lanes whose whole record agrees under the bit rule, with an entry's
+    error the larger of its u error, taken modulo 1 (a sphere's u wraps at
+    its seam: an ulp of phase moves u from near 1 to near 0), and its v
+    error: at bounce 0 the largest error (`max_err0`), the fraction within
+    UV_CLOSE (`frac_close0`) and the fraction equal bit for bit
+    (`exact0`); over all bounces the largest error (`max_err`), the
+    fraction within HIT_CLOSE (`frac_limit`) and the fraction equal bit
+    for bit (`exact_frac`).
+
+    `rule`: at bounce 0 every entry within `limit0` (a golden's own, from
+    UV_LIMIT0) and >= 99% within UV_CLOSE, and >= 99% of all entries
+    within HIT_CLOSE.  XLA on the CPU contracts multiply-adds, so against
+    the Pallas kernel uv is not bit-exact even at bounce 0 (a rect's hit
+    coordinate, a sphere's normal); on the card the kernel equals its
+    plain version bit for bit.  A uv plane rounded to bfloat16 (up to
+    ~2e-3 on [0.5, 1)) fails the bounce-0 limits."""
+    got, want = _as_i64(got), _as_i64(want)
+    gu, wu = _as_f64(got_uv), _as_f64(want_uv)
+    lanes = _lanes_agree(got, want).all(-2, keepdim=True)
+    sel = ((want & HIT_BIT) != 0) & lanes                 # (..., D, n)
+    du = (gu[..., 0, :, :] - wu[..., 0, :, :]).abs()
+    du = torch.minimum(du, 1.0 - du)
+    err = torch.maximum(du, (gu[..., 1, :, :] - wu[..., 1, :, :]).abs())
+    e_all, e0 = err[sel], err[..., 0, :][sel[..., 0, :]]
+
+    def frac(e, limit):
+        return float((e <= limit).double().mean()) if len(e) else 1.0
+
+    res = dict(entries=int(sel.sum()),
+               max_err0=float(e0.max()) if len(e0) else 0.0,
+               frac_close0=frac(e0, UV_CLOSE), exact0=frac(e0, 0.0),
+               max_err=float(e_all.max()) if len(e_all) else 0.0,
+               frac_limit=frac(e_all, HIT_CLOSE),
+               exact_frac=frac(e_all, 0.0))
+    res["rule"] = (res["max_err0"] <= limit0
+                   and res["frac_close0"] >= 0.99
+                   and res["frac_limit"] >= 0.99)
+    return res
+
+
 def lens_cos_sin(seed: int, n: int,
                  device: torch.device | str = "cpu") -> torch.Tensor:
     """(2, n) float32: cos and sin of the lens angle of lanes 0..n-1 of an
@@ -1720,6 +1832,17 @@ class HitResult(NamedTuple):
 
 HIT_LIMITS = {"p": 5e-3, "u": 1e-2, "v": 1e-2, "normal": 3e-2}
 HIT_CLOSE = 2e-3  # the error that >= 99% of hit lanes stay within
+# `uv_agreement`'s bounce-0 limit for each Pallas golden of
+# tests/data/torch_port, over its largest bounce-0 error against the plain
+# walk (the same on the CPU and on the card): the probe 2.9e-5, the image
+# mesh 1.7e-6, earth's camera chunk 4.6e-6 and its ray planes 1.1e-5; the
+# 70 small image spheres 2.7e-4 (XLA's contracted sphere quadratic turns a
+# small sphere's normal).  UV_CLOSE is what >= 99% of bounce-0 entries
+# stay within.
+UV_LIMIT0 = {"image_probe_uv32": 1e-4, "image_mesh_uv32": 1e-4,
+             "earth_fused32": 1e-4, "earth_rays": 1e-4,
+             "image_spheres_uv32": 1e-3}
+UV_CLOSE = 1e-4
 
 
 def hit_agreement(got, want) -> dict:
@@ -1790,10 +1913,27 @@ def _mod1(x: torch.Tensor) -> torch.Tensor:
     return torch.where(r < 0.0, r + 1.0, r)
 
 
+def _sphere_uv(n3: tuple, phase: torch.Tensor) -> tuple:
+    """A sphere's (u, v) from its pre-flip outward normal (get_sphere_uv,
+    sphere.h:19-32) through the polynomial acos and atan2, with the
+    rotate_y `phase` added to u and the sum wrapped to [0, 1)
+    (pallas_trace.py:1400-1410, :2197-2201)."""
+    nx, ny, nz = n3
+    theta = _acos_poly(torch.clamp(-ny, -1.0, 1.0))
+    phi = _atan2_poly(-nz, nx) + _PI
+    return _mod1(phi * _INV_TWO_PI + phase), theta * _INV_PI
+
+
 def _extent(hi: float, lo: float) -> float:
     """float32(max(hi - lo, 1e-12)): a uv divisor, a Python double in the
-    JAX kernel (pallas_trace.py:1807, :1866), so rounded once."""
+    JAX kernel (pallas_trace.py:1807, :1866, :970-974), so rounded once."""
     return _f32(max(hi - lo, 1e-12))
+
+
+def _div(num: torch.Tensor, den: float) -> torch.Tensor:
+    """num / den with den as a tensor: a CUDA kernel of torch multiplies
+    by the reciprocal of a host scalar divisor, and the kernels divide."""
+    return num / torch.full_like(num, den)
 
 
 def hit_reference(bake: SceneBake, o: torch.Tensor, d: torch.Tensor,
@@ -1845,11 +1985,6 @@ def hit_reference(bake: SceneBake, o: torch.Tensor, d: torch.Tensor,
         vv = torch.where(better, v_, vv)
         sph = sph & ~better
 
-    def div(num, den: float):
-        # a divisor tensor: a CUDA kernel multiplies by the reciprocal of a
-        # host scalar divisor
-        return num / torch.full_like(num, den)
-
     for prim in bake.rects:
         ax = prim["axis"]
         t = (prim["k"] - o3[ax]) / _guard(d3[ax])
@@ -1862,8 +1997,8 @@ def hit_reference(bake: SceneBake, o: torch.Tensor, d: torch.Tensor,
         n3 = [zeros, zeros, zeros]
         n3[ax] = torch.ones_like(zeros)
         take(ok & (t < t2), t, n3, prim["mat"],
-             div(pa - prim["a0"], _extent(prim["a1"], prim["a0"])),
-             div(pb - prim["b0"], _extent(prim["b1"], prim["b0"])))
+             _div(pa - prim["a0"], _extent(prim["a1"], prim["a0"])),
+             _div(pb - prim["b0"], _extent(prim["b1"], prim["b0"])))
 
     for prim in bake.boxes:
         (ox2, oy_t, oz2), (dx2, dz2) = _box_interval(prim, o3, d3)
@@ -1885,9 +2020,9 @@ def hit_reference(bake: SceneBake, o: torch.Tensor, d: torch.Tensor,
         c, s = prim["cos"], prim["sin"]
         lo, hi = prim["bmin"], prim["bmax"]
         # per-face uv, as the reference's six rects (box.h:14-27)
-        ua = div(ox2 + t * dx2 - lo[0], _extent(hi[0], lo[0]))
-        ub = div(oy_t + t * dy - lo[1], _extent(hi[1], lo[1]))
-        uc = div(oz2 + t * dz2 - lo[2], _extent(hi[2], lo[2]))
+        ua = _div(ox2 + t * dx2 - lo[0], _extent(hi[0], lo[0]))
+        ub = _div(oy_t + t * dy - lo[1], _extent(hi[1], lo[1]))
+        uc = _div(oz2 + t * dz2 - lo[2], _extent(hi[2], lo[2]))
         take(ok & (t < t2), t,
              (c * nobj_x + s * nobj_z, nobj_y, (-s) * nobj_x + c * nobj_z),
              prim["mat"], torch.where(is_x, ub, ua),
@@ -1912,11 +2047,9 @@ def hit_reference(bake: SceneBake, o: torch.Tensor, d: torch.Tensor,
     hit = alive & (t2 < BIG * 0.5)
     miss = alive & ~(t2 < BIG * 0.5)
     if len(table):
-        # sphere uv from the pre-flip outward normal (sphere.h:19-32)
-        theta = _acos_poly(torch.clamp(-ny, -1.0, 1.0))
-        phi = _atan2_poly(-nz, nx) + _PI
-        uu = torch.where(sph, _mod1(phi * _INV_TWO_PI + uu), uu)
-        vv = torch.where(sph, theta * _INV_PI, vv)
+        su, sv = _sphere_uv((nx, ny, nz), uu)
+        uu = torch.where(sph, su, uu)
+        vv = torch.where(sph, sv, vv)
     slot = zeros
     if len(bake.tri_hit_nodes):
         uu = torch.where(tri, tw.ub, uu)
@@ -2025,8 +2158,10 @@ class Tracer:
     `trace_rays_reference`, `walk_packed_pixels_reference`,
     `walk_packed_reference` and `hit_reference`.  Nothing falls back from
     one to the other.  The constructor raises NotImplementedError for a
-    scene the forward kernel does not cover (`unported_feature`), and `hit`
-    ValueError for one with media (`supports_hit`).
+    scene no kernel covers (`unported_feature`), the forward entries
+    (`trace_pixels`, `__call__`) ValueError for an image-textured scene
+    (`supports_forward`: it takes the record walk), and `hit` ValueError
+    for one with media (`supports_hit`).
     """
 
     launches = 0         # megakernel_fwd launches on camera rays, all tracers
@@ -2047,6 +2182,7 @@ class Tracer:
                                            torch.cuda.current_device())
         self.bake = bake = bake_scene(scene)
         self.need_p, self.need_uv = bake.need_p, bake.need_uv
+        self.supports_forward = supports_forward(scene)
         (self.rect_table, self.box_table, self.sphere_table, self.media_table,
          self.sph_nodes, self.sph_links, self.sph_start,
          self.sph_hit_nodes, self.tri_table, self.tri_nodes, self.tri_links,
@@ -2092,9 +2228,9 @@ class Tracer:
         [pix_base, pix_base + n) (contract of
         `PallasTracer.walk_packed_pixels`, cropped to n lanes): the packed
         word `mat | hit<<16 | cont<<17 | miss<<18` per bounce, (max_depth,
-        n) int32, then, when `need_p`, px, py and pz, (max_depth, n)
-        float32 each.  A bounce after the path's end is 0 in every plane,
-        and so is a miss's hit point."""
+        n) int32, then, when `need_p`, px, py and pz, and when `need_uv`,
+        u and v, (max_depth, n) float32 each.  A bounce after the path's
+        end is 0 in every plane, and so are a miss's hit point and uv."""
         return self.bind_record(camera, img_h, img_w, max_depth, t_min)(
             pix_base, n, seed)
 
@@ -2124,6 +2260,7 @@ class Tracer:
         tables are checked and the launch constants computed here, once, so
         a render's host work per wave is the output allocation and the
         launch."""
+        self._require_forward()
         if self.device.type == "cpu":
             def plain(pix_base: int, n: int, seed: int) -> torch.Tensor:
                 _check_count(n)
@@ -2158,6 +2295,7 @@ class Tracer:
                         ) -> Callable[..., torch.Tensor]:
         """`__call__` with the depth, t_min and rr_start fixed: returns
         `launch(o, d, tm, seed) -> (N, 3)`."""
+        self._require_forward()
         if self.device.type == "cpu":
             def plain(o, d, tm, seed: int) -> torch.Tensor:
                 _check_rays(o, d, tm, None, self.device)
@@ -2238,6 +2376,12 @@ class Tracer:
         launch.tables = walk.tables
         return launch
 
+    def _require_forward(self) -> None:
+        if not self.supports_forward:
+            raise ValueError("image texture: the forward kernel shades no "
+                             "image texture (its atlas is read by the torch "
+                             "shade); the scene takes the record walk")
+
     def _record_features(self) -> int:
         """The record instantiation's bits: geometry and triangles only
         (the record mode evaluates no albedo)."""
@@ -2247,24 +2391,28 @@ class Tracer:
     def _bind_walk(self, p, entry: str) -> Callable[..., tuple]:
         """One record launch through C entry `entry` with the parameter
         block `p`: `walk(n, seed[, rays]) -> planes`, the packed plane and,
-        when `need_p`, the hit-point planes."""
+        when `need_p`, the hit-point planes, and when `need_uv`, the uv
+        planes."""
         tables, device = self._checked_tables(), self.device
-        need_p = self.need_p
+        need_p, need_uv = self.need_p, self.need_uv
         lib = build.load()
         fn, depth = getattr(lib, entry), p.max_depth
 
         def walk(n: int, seed: int, *rays: torch.Tensor) -> tuple:
             p.n, p.seed = int(n), _int32(seed)
             out = torch.empty((depth, n), dtype=torch.int32, device=device)
-            pf = (torch.empty((3, depth, n), dtype=torch.float32,
-                              device=device) if need_p else None)
-            ptrs = ([pf[k].data_ptr() for k in range(3)] if need_p
+            pf = torch.empty((3 * need_p + 2 * need_uv, depth, n),
+                             dtype=torch.float32, device=device)
+            planes = pf.unbind(0)
+            ptrs = ([x.data_ptr() for x in planes[:3]] if need_p
                     else [None] * 3)
+            ptrs += ([x.data_ptr() for x in planes[-2:]] if need_uv
+                     else [None] * 2)
             with torch.cuda.device(device):
                 rc = fn(tables, p, *(r.data_ptr() for r in rays),
                         out.data_ptr(), *ptrs, _stream(device))
             _check(lib, rc, entry)
-            return (out, *pf.unbind(0)) if need_p else (out,)
+            return (out, *planes)
 
         walk.tables = tables
         return walk

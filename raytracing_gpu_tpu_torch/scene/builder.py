@@ -1,14 +1,14 @@
 """Host-side scene construction.
 
 Counterpart of `raytracing_gpu_tpu/scene/builder.py`: solid, checker,
-noise, turbulence and marble textures; lambertian, metal, dielectric,
+noise, turbulence, marble and image textures (an array, or a file decoded
+by `io.images`, packed into one flat atlas); lambertian, metal, dielectric,
 diffuse_light and isotropic materials; spheres and moving spheres
 (rotate_y + translate baked, a negative radius for a hollow sphere),
 axis-aligned rects (a pure translation offsets them, a rotation lowers them
 to two triangles), boxes under rotate_y + translate, constant media in a box
 or a sphere, triangles and triangle meshes (rotate_y, translate and scale
-baked into the vertices).  Still refused, with the feature named
-(`NotImplementedError`): image textures.  `build()` packs the same numpy
+baked into the vertices).  `build()` packs the same numpy
 tables, with the same padding, as the host snapshot that the JAX
 `SceneBuilder.build` keeps (`_host_np`); the kernel bake builds its own
 sphere and triangle BVHs from them (`ops/cuda_trace.py`), so the scene
@@ -33,6 +33,7 @@ from .types import (
     RECT_XZ,
     RECT_YZ,
     TEX_CHECKER,
+    TEX_IMAGE,
     TEX_MARBLE,
     TEX_NOISE,
     TEX_SOLID,
@@ -69,14 +70,6 @@ def _v3(x) -> np.ndarray:
     return np.asarray(x, np.float32).reshape(3)
 
 
-def _not_ported(feature: str):
-    def method(self, *args, **kwargs):
-        raise NotImplementedError(f"{feature}: not yet ported")
-
-    method.__doc__ = f"{feature}: not yet ported (raises NotImplementedError)."
-    return method
-
-
 @dataclass
 class SceneBuilder:
     background: tuple = SKY
@@ -91,6 +84,7 @@ class SceneBuilder:
     # columnar triangle blocks appended by mesh(): a 100k-triangle mesh
     # must not pay a dict per face
     _tri_blocks: list = field(default_factory=list)
+    _images: list = field(default_factory=list)
 
     # -- textures (reference texture.h) ------------------------------------
 
@@ -112,13 +106,27 @@ class SceneBuilder:
     def marble(self, scale: float = 1.0) -> int:
         return self._add_tex(TEX_MARBLE, scale=scale)
 
-    image = _not_ported("image texture")
+    def image(self, img: Union[str, np.ndarray]) -> int:
+        """Image texture from a path (decoded by `io.images.load_image`)
+        or an (H, W, >=3) array in [0, 1]; the first three channels are
+        kept."""
+        if isinstance(img, str):
+            from ..io import images as _images
 
-    def _add_tex(self, kind, c1=None, c2=None, scale=1.0) -> int:
+            img = _images.load_image(img)
+        img = np.asarray(img, np.float32)
+        if img.ndim != 3 or img.shape[2] < 3:
+            raise ValueError(
+                f"image texture must be (H, W, >=3), got {img.shape}")
+        self._images.append(np.ascontiguousarray(img[..., :3]))
+        return self._add_tex(TEX_IMAGE, image_id=len(self._images) - 1)
+
+    def _add_tex(self, kind, c1=None, c2=None, scale=1.0,
+                 image_id=-1) -> int:
         self._tex.append(dict(
             kind=kind, c1=_v3(c1 if c1 is not None else (0, 0, 0)),
             c2=_v3(c2 if c2 is not None else (0, 0, 0)), scale=float(scale),
-            image_id=-1))
+            image_id=int(image_id)))
         return len(self._tex) - 1
 
     def _as_tex(self, t: Union[int, ColorLike]) -> int:
@@ -343,10 +351,7 @@ class SceneBuilder:
             boxes=self._pack_boxes(),
             triangles=_pack_tris(self._tri_columns()),
             materials=materials, textures=textures,
-            atlas=ImageAtlas(data=np.zeros(3, np.float32),
-                             offset=np.zeros(1, np.int32),
-                             width=np.ones(1, np.int32),
-                             height=np.ones(1, np.int32)),
+            atlas=self._pack_atlas(),
             background=np.asarray(self.background, np.float32),
             has_sphere_media=any(s["medium"] for s in self._spheres),
             has_box_media=any(b["medium"] for b in self._boxes),
@@ -409,6 +414,28 @@ class SceneBuilder:
             med[i], nid[i] = b["medium"], b["nid"]
         return Boxes(bmin=bmin, bmax=bmax, cos_t=cos, sin_t=sin, offset=off,
                      mat_id=mat, active=act, medium=med, neg_inv_density=nid)
+
+
+    def _pack_atlas(self) -> ImageAtlas:
+        """Every image in one flat float32 rgb array, with each image's
+        first texel, width and height (`_pack_atlas`, the reference's
+        `make_image`, `texture.h:166-203`); one black texel of a 1 x 1
+        image when none is bound."""
+        if not self._images:
+            return ImageAtlas(data=np.zeros(3, np.float32),
+                              offset=np.zeros(1, np.int32),
+                              width=np.ones(1, np.int32),
+                              height=np.ones(1, np.int32))
+        sizes = [img.shape[0] * img.shape[1] for img in self._images]
+        return ImageAtlas(
+            data=np.concatenate([img.reshape(-1) for img in self._images]
+                                ).astype(np.float32),
+            offset=np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(
+                np.int32),
+            width=np.asarray([img.shape[1] for img in self._images],
+                             np.int32),
+            height=np.asarray([img.shape[0] for img in self._images],
+                              np.int32))
 
 
 def _pack_tris(cols: dict) -> Triangles:

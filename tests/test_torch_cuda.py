@@ -39,6 +39,11 @@ values bit-exact against their plain versions; against the Pallas goldens
 the rules of tests/test_torch_record_p.py and tests/test_torch_rayplane.py
 (bounce 0 on the lanes whose lens angle rounds as XLA's, hit points under
 `cuda_trace.p_agreement`, radiance channel means within 3e-3).
+
+The record kernel's uv planes (image textures): the same bit rule and
+>= 99.9% of the u and v values bit-exact against the plain version, on
+camera rays and on ray planes; against the Pallas goldens the rules of
+tests/test_torch_record_uv.py (`cuda_trace.uv_agreement`).
 """
 
 import gc
@@ -686,3 +691,120 @@ def test_tracer_takes_the_bare_cuda_device(dev):
     o, d, tm, alive = (x.to(dev) for x in _camera_rays(sd, 256, 4))
     assert tracer.hit(o, d, tm, alive).packed.shape == (256,)
     assert len(tracer.walk_packed(o, d, tm, 5, max_depth=2)) == 4
+
+
+# ---------------------------------------------------------------------------
+# kernel 1b's uv planes (image textures)
+# ---------------------------------------------------------------------------
+
+UV_SCENES = ("image_probe", "image_spheres", "image_mesh", "earth",
+             "backpack_map")
+
+
+def _image_scene(name):
+    """(scene, camera) of an image-textured scene on a synthetic map."""
+    from raytracing_gpu_tpu_torch.models import probes
+
+    if name == "earth":
+        sd = scenes.earth(probes.synthetic_image(512, 1024, 7))
+    elif name == "backpack_map":
+        sd = scenes.backpack_standin(texture=probes.synthetic_image(1024,
+                                                                    1024, 9))
+    else:
+        scene, cam, _ = getattr(probes, name)(SceneBuilder, Camera)
+        return scene, cam
+    return sd.scene, sd.camera
+
+
+@pytest.mark.parametrize("name", UV_SCENES)
+def test_uv_record_kernel_matches_plain(dev, name):
+    scene, cam = _image_scene(name)
+    tracer = ct.Tracer(scene, dev)
+    assert tracer.need_uv and not tracer.supports_forward
+    n, pix = (8192, 3 * 65536) if name == "backpack_map" else (4096, 0)
+    h, w = (600, 800) if name == "backpack_map" else (64, 64)
+    got = tracer.walk_packed_pixels(cam, h, w, pix, n, 101, max_depth=8)
+    want = ct.walk_packed_pixels_reference(tracer.bake, cam, h, w, pix, n,
+                                           101, max_depth=8, device=dev)
+    torch.cuda.synchronize()
+    assert len(got) == 3
+    assert_record_matches(got, want)
+    assert int(((got[0] >> 16) & 1).sum()) > n // 4
+    if name in ("earth", "image_probe"):  # kernel 1c with the uv planes
+        o, d, tm, _ = (x.to(dev) for x in _camera_rays(
+            scenes.SceneDef(scene, cam, 1.0), n, 102))
+        assert_record_matches(tracer.walk_packed(o, d, tm, 103, max_depth=8),
+                              ct.walk_packed_reference(tracer.bake, o, d, tm,
+                                                       103, 8))
+
+
+@pytest.mark.parametrize("name", ["image_probe_uv32", "image_spheres_uv32",
+                                  "image_mesh_uv32", "earth_fused32"])
+def test_uv_record_kernel_matches_pallas_golden(dev, name):
+    from raytracing_gpu_tpu_torch.models import probes
+
+    g = np.load(os.path.join(DATA, f"{name}.npz"))
+    st = _golden_settings(g).with_(aspect_ratio=float(g["aspect_ratio"]))
+    if name == "earth_fused32":
+        sd = scenes.earth(probes.synthetic_image(*(int(x) for x in
+                                                   g["earth_map"])))
+        scene, cam = sd.scene, sd.camera
+    else:
+        scene, cam, _ = getattr(probes, name[:-5])(SceneBuilder, Camera)
+    tracer = ct.Tracer(scene, dev)
+    h, w, b = st.image_height, st.image_width, st.ray_batch
+    waves = [(bid * b, b, ct.wave_seed(int(g["base"]), s, bid))
+             for s in range(st.spp_per_chunk) for bid in range(-(-h * w // b))]
+    planes = [tracer.walk_packed_pixels(cam, h, w, *wv, st.max_depth,
+                                        st.t_min) for wv in waves]
+    got = torch.stack([p[0] for p in planes])
+    same = None
+    if "lens_cs" in g:
+        same = np.stack([(ct.lens_cos_sin(seed, n, dev).cpu().numpy()
+                          == g["lens_cs"][i]).all(0)
+                         for i, (_, n, seed) in enumerate(waves)])
+    agree = ct.record_agreement(got, g["planes"], same)
+    assert agree["first_bounce"] and agree["lane_frac"] >= 0.99, agree
+    res = ct.uv_agreement(got, g["planes"], torch.stack(
+        [torch.stack(p[1:]) for p in planes]), g["uv"], ct.UV_LIMIT0[name])
+    assert res["rule"], res
+
+
+def test_image_fused_chunk_matches_plain_walk(dev):
+    scene, cam = _image_scene("image_probe")
+    st = RenderSettings(image_width=64, aspect_ratio=1.0, spp_per_chunk=2,
+                        num_chunks=1, max_depth=4, ray_batch=2048)
+    tracer = ct.Tracer(scene, dev)
+    params = diff.get_params(scene, dev)
+
+    def value_and_grad(chunk):
+        out = chunk(params, 5)
+        _, grads = diff.value_and_grad(params, lambda p: chunk(p, 5),
+                                       torch.zeros_like(out))
+        return out.detach(), grads
+
+    out, grads = value_and_grad(fused_diff.compile_fused_param_renderer(
+        scene, cam, st, device=dev))
+    ref, ref_grads = value_and_grad(fused_diff.fused_chunk_from_walk(
+        scene, lambda pb, n, seed: ct.walk_packed_pixels_reference(
+            tracer.bake, cam, 64, 64, pb, n, seed, 4, device=dev), st,
+        device=dev))
+    assert_matches(out, ref, 4)
+    for k in diff.PARAM_KEYS:
+        torch.testing.assert_close(grads[k], ref_grads[k], rtol=2e-4,
+                                   atol=1e-7)
+    split = int(scene.atlas.offset[1]) * 3
+    g = grads["atlas_data"]
+    assert bool((g[:split] != 0).any()) and bool((g[split:] != 0).any())
+
+
+@pytest.mark.parametrize("name", ["earth", "image_spheres"])
+def test_hit_kernel_on_image_scenes_matches_plain(dev, name):
+    # the hit kernel shares sphere_uv with the record kernel
+    scene, cam = _image_scene(name)
+    tracer = ct.Tracer(scene, dev)
+    rays = [x.to(dev) for x in _camera_rays(scenes.SceneDef(scene, cam, 1.0),
+                                             65536, 104)]
+    res = ct.hit_agreement(tracer.hit(*rays),
+                           ct.hit_reference(tracer.bake, *rays))
+    assert res["packed_equal"] and res["exact_frac"] >= EXACT_FLOOR, res

@@ -295,22 +295,29 @@ def test_eval_texture_matches_jax_and_names_unported_kinds():
                                   jnp.asarray(v), jnp.asarray(p))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
                                atol=0)
+    # an image slot with no image bound is cyan, in both packages
     kinds = tsc.textures.kind.copy()
     kinds[0] = st.TEX_IMAGE
     image = dataclasses.replace(
         tsc, textures=dataclasses.replace(tsc.textures, kind=kinds))
-    with pytest.raises(NotImplementedError, match="image texture"):
-        textures.eval_texture(image, diff.get_params(image, "cpu"),
-                              torch.from_numpy(tex_id), torch.from_numpy(u),
-                              torch.from_numpy(v), torch.from_numpy(p))
-    # a material bound to it takes shade's general route, which names it
+    jimage = jsc.replace(textures=jsc.textures.replace(kind=jnp.asarray(
+        kinds)))
+    got = textures.eval_texture(image, diff.get_params(image, "cpu"),
+                                torch.from_numpy(tex_id), torch.from_numpy(u),
+                                torch.from_numpy(v), torch.from_numpy(p))
+    want = jtextures.eval_texture(jimage, jnp.asarray(tex_id), jnp.asarray(u),
+                                  jnp.asarray(v), jnp.asarray(p))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=0)
+    assert (got.numpy()[tex_id == 0] == (0.0, 1.0, 1.0)).all()
+    # a material bound to it takes shade's general route
     assert materials._fast_shade(image, diff.get_params(image, "cpu"),
                                  torch.from_numpy(tex_id),
                                  torch.from_numpy(p)) is None
-    with pytest.raises(NotImplementedError, match="image texture"):
-        materials.shade(image, diff.get_params(image, "cpu"),
-                        torch.from_numpy(tex_id), torch.from_numpy(u),
-                        torch.from_numpy(v), torch.from_numpy(p))
+    att, _ = materials.shade(image, diff.get_params(image, "cpu"),
+                             torch.from_numpy(tex_id), torch.from_numpy(u),
+                             torch.from_numpy(v), torch.from_numpy(p))
+    assert bool(torch.isfinite(att).all())
 
 
 def test_params_round_trip():

@@ -15,7 +15,7 @@ from raytracing_gpu_tpu.ops import pallas_trace as pt
 from raytracing_gpu_tpu_torch import SceneBuilder, compile_renderer
 from raytracing_gpu_tpu_torch.convert import camera_from_numpy, scene_from_numpy
 from raytracing_gpu_tpu_torch.core.config import RenderSettings
-from raytracing_gpu_tpu_torch.engine import fused_diff
+from raytracing_gpu_tpu_torch.engine import diff, fused_diff
 from raytracing_gpu_tpu_torch.models import scenes as tscenes
 from raytracing_gpu_tpu_torch.ops import cuda_trace as ct
 from raytracing_gpu_tpu_torch.scene import types as tst
@@ -137,8 +137,9 @@ def test_bake_records_equal_jax(cornell):
 def test_big_scene1_is_refused_with_the_feature_named():
     # big_scene1 itself renders (the kernel bake builds its sphere BVH and
     # the XLA engine's BVH in the JAX tree is dropped), and so it does with
-    # triangles added, in both modes; with an image texture it is refused
-    # with that feature named, and the record walk names the uv plane
+    # triangles added, in both modes; with an image texture the forward
+    # kernel refuses it with that feature named, and it renders on the
+    # record walk, whose planes carry the uv
     jsd = jscenes.get("big_scene1")
     assert jsd.scene._host_np.sphere_bvh is not None
     scene = scene_from_numpy(_tree(jsd.scene._host_np))
@@ -159,24 +160,39 @@ def test_big_scene1_is_refused_with_the_feature_named():
         "megakernel"
     planes = ct.Tracer(tri, "cpu").walk_packed_pixels(cam, 9, 16, 0, 16, 1)
     assert len(planes) == 4  # the checker ground needs the hit point
-    for bad, feature in ((image, "image texture"),):
-        assert ct.unported_feature(bad) == feature
-        assert ct.unported_record_feature(bad) == "uv plane (image texture)"
-        with pytest.raises(NotImplementedError, match=f"{feature}: not yet"):
-            compile_renderer(bad, cam, st, device="cpu")
-        with pytest.raises(NotImplementedError, match=feature):
-            ct.Tracer(bad, "cpu")
+    assert ct.unported_feature(image) is None
+    assert ct.unported_record_feature(image) is None
+    assert not ct.supports_forward(image)
+    tracer = ct.Tracer(image, "cpu")
+    assert tracer.need_uv and not tracer.need_p
+    with pytest.raises(ValueError, match="image texture"):
+        tracer.trace_pixels(cam, 9, 16, 0, 16, 1)
+    with pytest.raises(ValueError, match="image texture"):
+        tracer.bind_trace_rays()
+    chunk = compile_renderer(image, cam, st, device="cpu")
+    assert chunk.engine_name == "record-walk"
+    assert bool(torch.isfinite(chunk(3)).all())
+    planes = tracer.walk_packed_pixels(cam, 9, 16, 0, 16, 1)
+    assert len(planes) == 3  # packed, u, v: the ground's image needs uv
 
 
 def test_unported_material_and_texture_are_named(cornell):
     _, tsd = cornell
     s = tsd.scene
-    image = dataclasses.replace(s.textures, kind=np.full_like(
-        s.textures.kind, tst.TEX_IMAGE))
-    assert ct.unported_feature(dataclasses.replace(s, textures=image)) \
-        == "image texture"
-    assert ct.unported_record_feature(dataclasses.replace(
-        s, textures=image)) == "uv plane (image texture)"
+    image = dataclasses.replace(s, textures=dataclasses.replace(
+        s.textures, kind=np.full_like(s.textures.kind, tst.TEX_IMAGE)))
+    # image textures are ported: only the forward kernel refuses them,
+    # naming them, and the record walk writes their uv planes
+    assert ct.unported_feature(image) is None
+    assert ct.unported_record_feature(image) is None
+    assert not ct.supports_forward(image) and ct.bake_scene(image).need_uv
+    with pytest.raises(ValueError, match="image texture"):
+        ct.Tracer(image, "cpu").bind(tsd.camera, 4, 4)
+    media = SceneBuilder()
+    for i in range(17):
+        media.box_medium((i, 0, 0), (i + 1, 1, 1), 0.01, (1, 1, 1))
+    assert ct.unported_feature(media.build()) == \
+        "17 constant media (more than 16)"
     # both modes take a checker: the record walk writes its p plane
     checker = dataclasses.replace(s, textures=dataclasses.replace(
         s.textures, kind=np.ones_like(s.textures.kind)))
@@ -191,16 +207,30 @@ def test_unported_material_and_texture_are_named(cornell):
 
 
 def _image_kind(scene):
-    """`scene` with its first texture read as an image: what is left
-    unported (the atlas, and the record walk's uv plane)."""
+    """`scene` with its first texture read as an image (with no image
+    bound: cyan)."""
     kinds = scene.textures.kind.copy()
     kinds[0] = tst.TEX_IMAGE
     return dataclasses.replace(scene, textures=dataclasses.replace(
         scene.textures, kind=kinds))
 
 
+def _image_texture(b):
+    # an image texture from an array: the atlas, and the record walk's uv
+    # planes; 17 media are refused
+    tex = b.image(np.full((2, 2, 4), 0.5, np.float32))
+    b.rect("xy", 0, 1, 0, 1, 0, b.lambertian(tex))
+    scene = b.build()
+    assert scene.atlas.data.shape == (12,) and scene.atlas.width[0] == 2
+    cam = tscenes.get("cornell_box").camera
+    assert len(ct.Tracer(scene, "cpu").walk_packed_pixels(
+        cam, 4, 4, 0, 16, 1)) == 3
+    _many_media(b)
+
+
 def _many_spheres(b):
-    # the sphere BVH in both modes; an image texture is refused
+    # the sphere BVH in both modes, and with an image texture in training;
+    # 17 media are refused
     for i in range(65):
         b.sphere((i, 0, 0), 0.4, b.lambertian((0.5, 0.5, 0.5)))
     tsd = tscenes.get("cornell_box")
@@ -210,8 +240,10 @@ def _many_spheres(b):
     assert planes[0].shape == (50, 16)
     st = RenderSettings(image_width=4, aspect_ratio=1.0, spp_per_chunk=1,
                         num_chunks=1, max_depth=2, ray_batch=16)
-    fused_diff.compile_fused_param_renderer(_image_kind(scene), tsd.camera,
-                                            st, device="cpu")
+    chunk = fused_diff.compile_fused_param_renderer(
+        _image_kind(scene), tsd.camera, st, device="cpu")
+    assert tuple(chunk(diff.get_params(scene, "cpu"), 1).shape) == (16, 3)
+    _many_media(b)
 
 
 def _many_media(b):
@@ -221,8 +253,8 @@ def _many_media(b):
 
 
 def _triangles_record_walk(b, add):
-    # the triangle BVH in both modes; the record walk of an image-textured
-    # scene is refused (its uv plane)
+    # the triangle BVH in both modes, and the record walk of an
+    # image-textured scene in training; 17 media are refused
     mat = b.lambertian((0.5, 0.5, 0.5))
     if add == "mesh":
         b.mesh(np.eye(3), np.array([[0, 1, 2]]), mat)
@@ -237,8 +269,11 @@ def _triangles_record_walk(b, add):
     assert len(tracer.walk_packed_pixels(cam, 4, 4, 0, 16, 1)) == 1
     st = RenderSettings(image_width=4, aspect_ratio=1.0, spp_per_chunk=1,
                         num_chunks=1, max_depth=2, ray_batch=16)
-    fused_diff.fused_chunk_from_walk(_image_kind(scene), None, st,
-                                     device="cpu")
+    image = _image_kind(scene)
+    walk = ct.Tracer(image, "cpu").bind_record(cam, 4, 4, 2)
+    chunk = fused_diff.fused_chunk_from_walk(image, walk, st, device="cpu")
+    assert tuple(chunk(diff.get_params(image, "cpu"), 1).shape) == (16, 3)
+    _many_media(b)
 
 
 def _checker_record_walk(b):
@@ -251,7 +286,7 @@ def _checker_record_walk(b):
 
 
 @pytest.mark.parametrize("call", [
-    lambda b: b.image(np.zeros((2, 2, 3), np.float32)),
+    _image_texture,
     lambda b: _triangles_record_walk(b, "mesh"),
     _many_spheres,
     _many_media,
@@ -265,9 +300,9 @@ def test_builder_refuses_unported_features(call):
 
 
 def test_registry_lists_only_ported_scenes():
-    assert tscenes.names() == ["backpack", "basic", "big_scene1",
-                               "cornell_box", "cornell_smoke", "cup", "door",
-                               "first", "triangle", "triangles",
-                               "two_perlin_spheres", "two_spheres"]
+    assert tscenes.names() == sorted(jscenes.names()) == [
+        "backpack", "basic", "big_scene1", "cornell_box", "cornell_smoke",
+        "cup", "door", "earth", "first", "triangle", "triangles",
+        "two_perlin_spheres", "two_spheres"]
     with pytest.raises(KeyError, match="not ported"):
-        tscenes.get("earth")  # an image texture
+        tscenes.get("moon")

@@ -325,8 +325,8 @@ def test_record_walk_matches_pinned_golden(name):
 
 @pytest.mark.parametrize("name", ["two_spheres", "two_perlin_spheres"])
 def test_record_mode_refuses_the_p_plane(name):
-    # the record walk writes the hit-point planes these textures need; what
-    # it refuses is the uv plane of an image texture
+    # the record walk writes the hit-point planes these textures need, and
+    # the uv planes of an image texture: training takes both
     tsd = tscenes.get(name)
     tracer = ct.Tracer(tsd.scene, "cpu")
     st = RenderSettings(image_width=16, aspect_ratio=tsd.aspect,
@@ -337,11 +337,15 @@ def test_record_mode_refuses_the_p_plane(name):
     image = dataclasses.replace(tsd.scene, textures=dataclasses.replace(
         tsd.scene.textures,
         kind=np.full_like(tsd.scene.textures.kind, tst.TEX_IMAGE)))
-    with pytest.raises(NotImplementedError, match="image texture"):
-        fused_diff.compile_fused_param_renderer(image, tsd.camera, st,
-                                                device="cpu")
-    with pytest.raises(NotImplementedError, match="uv plane"):
-        fused_diff.fused_chunk_from_walk(image, None, st, device="cpu")
+    itracer = ct.Tracer(image, "cpu")
+    assert itracer.need_uv and not itracer.need_p
+    iplanes = itracer.walk_packed_pixels(tsd.camera, 9, 16, 0, 16, 1, 2)
+    assert [p.dtype for p in iplanes] == [torch.int32] + [torch.float32] * 2
+    assert torch.equal(iplanes[0], planes[0])  # the same paths
+    chunk = fused_diff.compile_fused_param_renderer(
+        image, tsd.camera, st.with_(image_width=4, ray_batch=16),
+        device="cpu")
+    assert bool(torch.isfinite(chunk(get_params(image, "cpu"), 1)).all())
 
 
 def test_triangle_and_image_scenes_are_refused():
@@ -352,14 +356,19 @@ def test_triangle_and_image_scenes_are_refused():
     planes = tracer.walk_packed_pixels(tscenes.get("triangle").camera, 9, 16,
                                        0, 16, 1, 2)
     assert len(planes) == 1 and planes[0].shape == (2, 16)
-    # earth's image texture, on a synthetic image
+    # earth's image texture, on a synthetic image, carried across with its
+    # atlas: the forward kernel refuses it by name, the record walk takes it
     b = JaxBuilder()
     b.sphere((0, 0, 0), 2, b.lambertian(b.image(np.ones((4, 8, 3)))))
     scene = scene_from_numpy(_tree(b.build()._host_np))
-    assert ct.unported_feature(scene) == "image texture"
-    assert ct.unported_record_feature(scene) == "uv plane (image texture)"
-    with pytest.raises(NotImplementedError, match="image texture"):
-        ct.Tracer(scene, "cpu")
+    assert ct.unported_feature(scene) is None
+    assert ct.unported_record_feature(scene) is None
+    np.testing.assert_array_equal(scene.atlas.data, np.ones(96, np.float32))
+    tracer = ct.Tracer(scene, "cpu")
+    with pytest.raises(ValueError, match="image texture"):
+        tracer.trace_pixels(tscenes.get("basic").camera, 9, 16, 0, 16, 1, 2)
+    assert len(tracer.walk_packed_pixels(tscenes.get("basic").camera, 9, 16,
+                                         0, 16, 1, 2)) == 3
 
 
 def test_cli_renders_with_russian_roulette(tmp_path):

@@ -263,8 +263,8 @@ def test_routing_tags_equal_jax(which, triangles, backpack):
 
 
 def test_record_walk_and_training_refuse_triangles(triangles):
-    # the record walk and training take triangles now; an image texture on
-    # them is what they refuse (the uv plane)
+    # the record walk and training take triangles now, and an image texture
+    # on them too (the uv planes)
     tsd, ttr = triangles[1], triangles[3]
     st = RenderSettings(image_width=16, aspect_ratio=tsd.aspect,
                         spp_per_chunk=1, num_chunks=1, max_depth=2,
@@ -279,23 +279,29 @@ def test_record_walk_and_training_refuse_triangles(triangles):
     image = dataclasses.replace(tsd.scene, textures=dataclasses.replace(
         tsd.scene.textures,
         kind=np.full_like(tsd.scene.textures.kind, tst.TEX_IMAGE)))
-    assert ct.unported_record_feature(image) == "uv plane (image texture)"
-    with pytest.raises(NotImplementedError, match="image texture"):
-        fused_diff.compile_fused_param_renderer(image, tsd.camera, st,
-                                                device="cpu")
-    with pytest.raises(NotImplementedError, match="uv plane"):
-        fused_diff.fused_chunk_from_walk(image, None, st, device="cpu")
+    assert ct.unported_record_feature(image) is None
+    ichunk = fused_diff.compile_fused_param_renderer(image, tsd.camera, st,
+                                                     device="cpu")
+    assert bool(torch.isfinite(ichunk(diff.get_params(image, "cpu"),
+                                      3)).all())
+    planes = ct.Tracer(image, "cpu").walk_packed_pixels(tsd.camera, 9, 16, 0,
+                                                        16, 1, 2)
+    assert len(planes) == 3  # packed, u, v
 
 
 def test_mesh_scene_with_reference_assets_is_refused(monkeypatch, tmp_path):
+    # the OBJ asset loads (io.obj), with its Kd color where it has no map
     obj = tmp_path / "assets" / "cup" / "cup.obj"
     obj.parent.mkdir(parents=True)
-    obj.write_text("v 0 0 0\n")
+    obj.write_text("mtllib cup.mtl\nv 0 0 0\nv 1 0 0\nv 0 1 0\n"
+                   "usemtl tin\nf 1 2 3\n")
+    (obj.parent / "cup.mtl").write_text("newmtl tin\nKd 0.5 0.25 0.125\n")
     monkeypatch.setenv("RT_REFERENCE_ASSETS", str(tmp_path))
-    with pytest.raises(NotImplementedError,
-                       match="OBJ assets / image textures"):
-        tscenes.get("cup")
-    tscenes.get("door")  # its own assets are absent: the stand-in
+    cup = tscenes.get("cup").scene
+    assert cup.triangles.active.sum() == 1
+    np.testing.assert_array_equal(cup.textures.c1[0],
+                                  np.float32([0.5, 0.25, 0.125]))
+    assert tscenes.get("door").scene.triangles.active.sum() == 100352
     monkeypatch.setenv("RT_REFERENCE_ASSETS",
                        str(tmp_path / "nothing-here"))
     assert tscenes.get("cup").scene.triangles.active.sum() == 100352

@@ -58,7 +58,24 @@ and writes, under `tests/data/torch_port/`:
   (`radiance`) on them at depth 8;
 - `perlin_regen`: `big_scene1_regen` on `perlin_field`, 70 small spheres on
   a noise-textured ground sphere (a sphere BVH whose albedo needs the
-  perlin branches of `eval_texture` on the regen route).
+  perlin branches of `eval_texture` on the regen route);
+- `<probe>_uv32` for the image probes of `raytracing_gpu_tpu_torch.models.
+  probes` (`UV_PROBES`: kernel 1b's uv planes, `need_uv`): every wave's
+  planes from `PallasTracer.walk_packed_pixels` at width 32, 2 spp, depth
+  3, in waves of 512 rays (`planes`, and `uv`, (spp * waves, 2, depth,
+  512) float32); the synthetic images are made again from their seeds;
+- `earth_rays`: `<scene>_rays` on `earth` with the synthetic map
+  `EARTH_MAP` (kernel 1c with the uv planes: `planes`, `uv`, `radiance`
+  absent, since the forward kernel refuses image scenes);
+- `earth_fused32`: `earth` with `EARTH_MAP` at 32x32, 2 spp, depth 4,
+  waves of 512 rays: every wave's planes and uv, XLA's lens cos/sin, and
+  the fused chunk's (`compile_fused_param_renderer(gen_rays=True)`)
+  primal and L2-loss gradients, `grad_atlas_data` among them.
+
+The JAX `earth` takes its map from `<REFERENCE_ROOT>/textures/
+earthmap.jpg`, so the synthetic map is written there, as a PNG under that
+name (PIL reads the content, and PNG keeps the k/255 values), in a
+temporary directory.
 
 The port's CPU tests hold its plain versions to these files, and
 `chip_smoke.py` holds the CUDA kernels to them, so the card's output is tied
@@ -92,6 +109,9 @@ REC32_SCENES = ("two_spheres", "two_perlin_spheres", "big_scene1",
 RAY_SCENES = ("cornell_box", "big_scene1")
 RAYS = 512
 RAYS_DEPTH = 8
+UV_PROBES = ("image_probe", "image_spheres", "image_mesh")
+EARTH_MAP = (64, 128, 7)  # height, width, seed of the synthetic earth map
+EARTH_FUSED_DEPTH = 4
 
 
 def forward_golden() -> None:
@@ -455,6 +475,159 @@ def perlin_regen_golden() -> None:
           f"{sums[:st.num_pixels].mean(0) / st.spp_per_chunk}, {stats}")
 
 
+def jax_earth(image):
+    """The JAX package's `earth` with `image` as its map: written as
+    `textures/earthmap.jpg` (PNG content) under a temporary REFERENCE_ROOT,
+    which `models/scenes.py` reads at import."""
+    import tempfile
+
+    from PIL import Image
+
+    from raytracing_gpu_tpu.models import scenes
+
+    with tempfile.TemporaryDirectory() as root:
+        os.makedirs(os.path.join(root, "textures"))
+        k = (image * 255.0).round().astype("uint8")
+        Image.fromarray(k).save(os.path.join(root, "textures",
+                                              "earthmap.jpg"), format="PNG")
+        old, scenes.REFERENCE_ROOT = scenes.REFERENCE_ROOT, root
+        try:
+            return scenes.get("earth")
+        finally:
+            scenes.REFERENCE_ROOT = old
+
+
+def earth_map():
+    from raytracing_gpu_tpu_torch.models import probes
+
+    return probes.synthetic_image(*EARTH_MAP)
+
+
+def uv_walk(tracer, camera, st, base: int) -> dict:
+    """Every wave's record planes of a chunk from
+    `PallasTracer.walk_packed_pixels`: `planes` (spp * waves, depth, b)
+    int32, `uv` (spp * waves, 2, depth, b) float32, and for a camera with a
+    lens XLA's cos and sin of each lane's lens angle (`lens_cs`)."""
+    import numpy as np
+
+    from raytracing_gpu_tpu.ops import pallas_trace
+
+    h, w, b = st.image_height, st.image_width, st.ray_batch
+    waves = [(bid, pallas_trace.wave_seed(base, s, bid))
+             for s in range(st.spp_per_chunk)
+             for bid in range(-(-h * w // b))]
+    walks = [[np.asarray(x).reshape(st.max_depth, -1)[:, :b]
+              for x in tracer.walk_packed_pixels(
+                  camera, h, w, bid * b, b, seed, max_depth=st.max_depth,
+                  t_min=st.t_min)]
+             for bid, seed in waves]
+    out = dict(planes=np.stack([x[0] for x in walks]).astype(np.int32),
+               uv=np.stack([np.stack(x[-2:]) for x in walks]).astype(
+                   np.float32))
+    if float(camera.lens_radius) != 0.0:
+        out["lens_cs"] = np.stack([lens_cos_sin(seed, b)
+                                   for _, seed in waves]).astype(np.float32)
+    return out
+
+
+def uv_golden(name: str) -> None:
+    import jax
+    import numpy as np
+
+    from raytracing_gpu_tpu.core.camera import Camera
+    from raytracing_gpu_tpu.core.config import RenderSettings
+    from raytracing_gpu_tpu.ops import pallas_trace
+    from raytracing_gpu_tpu.scene.builder import SceneBuilder
+    from raytracing_gpu_tpu_torch.models import probes
+
+    out = os.path.join(DATA, f"{name}_uv32.npz")
+    scene, cam, aspect = getattr(probes, name)(SceneBuilder, Camera)
+    st = RenderSettings(image_width=32, aspect_ratio=aspect,
+                        spp_per_chunk=2, num_chunks=1, max_depth=3,
+                        ray_batch=RECORD_RAY_BATCH)
+    base = int(pallas_trace.chunk_seed(jax.random.PRNGKey(KEY_SEED)))
+    tracer = pallas_trace.PallasTracer(scene)
+    assert tracer.need_uv
+    extra = uv_walk(tracer, cam, st, base)
+    np.savez_compressed(
+        out, base=np.int32(base), key_seed=np.int32(KEY_SEED),
+        need_p=bool(tracer.need_p), image_width=st.image_width,
+        image_height=st.image_height, aspect_ratio=np.float64(aspect),
+        spp_per_chunk=st.spp_per_chunk, max_depth=st.max_depth,
+        ray_batch=st.ray_batch, t_min=np.float32(st.t_min), **extra)
+    print(f"wrote {out}: base {base}, "
+          f"{({k: v.shape for k, v in extra.items()})}")
+
+
+def earth_rays_golden() -> None:
+    import jax
+    import numpy as np
+
+    from raytracing_gpu_tpu.ops import pallas_trace
+
+    out = os.path.join(DATA, "earth_rays.npz")
+    sd = jax_earth(earth_map())
+    tracer = pallas_trace.PallasTracer(sd.scene)
+    assert tracer.need_uv and not pallas_trace.supports_forward(sd.scene)
+    k_px, k_py, k_cam, k_trace = jax.random.split(
+        jax.random.PRNGKey(KEY_SEED), 4)
+    n = RAYS
+    o, d, tm = sd.camera.get_rays(k_cam, jax.random.uniform(k_px, (n,)),
+                                  jax.random.uniform(k_py, (n,)))
+    _, seed, _ = tracer._tile_args(o, d, tm, k_trace)
+    planes = [np.asarray(x) for x in tracer.walk_packed(
+        o, d, tm, k_trace, max_depth=RAYS_DEPTH)]
+    np.savez_compressed(
+        out, key_seed=np.int32(KEY_SEED),
+        key=np.asarray(jax.random.key_data(k_trace)),
+        seed=np.int32(np.asarray(seed)[0]), o=np.asarray(o), d=np.asarray(d),
+        tm=np.asarray(tm), planes=planes[0].astype(np.int32),
+        uv=np.stack(planes[-2:]).astype(np.float32), max_depth=RAYS_DEPTH,
+        t_min=np.float32(0.001), earth_map=np.asarray(EARTH_MAP))
+    print(f"wrote {out}: {n} rays, seed {int(np.asarray(seed)[0])}, planes "
+          f"{planes[0].shape}, hits {int(((planes[0] >> 16) & 1).sum())}")
+
+
+def earth_fused_golden() -> None:
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from raytracing_gpu_tpu.core.config import RenderSettings
+    from raytracing_gpu_tpu.engine import diff
+    from raytracing_gpu_tpu.engine.fused_diff import (
+        compile_fused_param_renderer)
+    from raytracing_gpu_tpu.ops import pallas_trace
+
+    out = os.path.join(DATA, "earth_fused32.npz")
+    sd = jax_earth(earth_map())
+    st = RenderSettings(image_width=32, aspect_ratio=1.0, spp_per_chunk=2,
+                        num_chunks=1, max_depth=EARTH_FUSED_DEPTH,
+                        ray_batch=RECORD_RAY_BATCH)
+    key = jax.random.PRNGKey(KEY_SEED)
+    base = int(pallas_trace.chunk_seed(key))
+    tracer = pallas_trace.PallasTracer(sd.scene)
+    extra = uv_walk(tracer, sd.camera, st, base)
+    chunk = compile_fused_param_renderer(sd.scene, sd.camera, st,
+                                         gen_rays=True)
+    params = diff.get_params(sd.scene)
+    grads = jax.grad(
+        lambda p: jnp.mean((chunk(p, key) - GRAD_TARGET) ** 2))(params)
+    np.savez_compressed(
+        out, base=np.int32(base), key_seed=np.int32(KEY_SEED),
+        image_width=st.image_width, image_height=st.image_height,
+        aspect_ratio=np.float64(1.0), spp_per_chunk=st.spp_per_chunk,
+        max_depth=st.max_depth, ray_batch=st.ray_batch,
+        t_min=np.float32(st.t_min), earth_map=np.asarray(EARTH_MAP),
+        primal=np.asarray(chunk(params, key), np.float32),
+        target=np.float32(GRAD_TARGET),
+        **{f"grad_{k}": np.asarray(v, np.float32) for k, v in grads.items()},
+        **extra)
+    print(f"wrote {out}: base {base}, nonzero atlas gradients "
+          f"{int((np.asarray(grads['atlas_data']) != 0).sum())}, "
+          f"{({k: v.shape for k, v in extra.items()})}")
+
+
 GOLDENS = {"cornell_32": forward_golden, "cornell_grad_32": grad_golden,
            **{f"{n}_32": (lambda n=n: scene_golden(n)) for n in SCENES},
            "big_scene1_hit": hit_golden, "big_scene1_regen": regen_golden,
@@ -463,7 +636,10 @@ GOLDENS = {"cornell_32": forward_golden, "cornell_grad_32": grad_golden,
            **{f"{n}_rec32": (lambda n=n: record_golden(n))
               for n in REC32_SCENES},
            **{f"{n}_rays": (lambda n=n: rays_golden(n)) for n in RAY_SCENES},
-           "perlin_regen": perlin_regen_golden}
+           "perlin_regen": perlin_regen_golden,
+           **{f"{n}_uv32": (lambda n=n: uv_golden(n)) for n in UV_PROBES},
+           "earth_rays": earth_rays_golden,
+           "earth_fused32": earth_fused_golden}
 
 
 def main(argv=None) -> int:
