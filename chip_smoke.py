@@ -118,7 +118,10 @@ kernel on the way.  Phases, each of which raises on failure:
    on every lane, the float outputs under `cuda_trace.hit_agreement`'s
    rule) and against its plain version on 65,536 camera rays and one
    bounce of them on big_scene1, first and cornell_box (packed words equal
-   on every lane, >= 99.9% of the float values bit-exact);
+   on every lane, >= 99.9% of the float values bit-exact), then on
+   PARTIAL_HIT (65,536 + 37) big_scene1 rays and one bounce of them under
+   three lane masks (half dead at random, every other warp dead, one live
+   lane in a warp): every output equal on every lane (`hit_every_lane`);
 19. big_scene1 on the megakernel route: `render()` at 800x450, 8 spp,
    depth 16 (must launch the forward kernel 8 x 6 = 48 times and the hit
    kernel never), its main wave against the plain version and timed beside
@@ -145,6 +148,12 @@ kernel on the way.  Phases, each of which raises on failure:
    4 spp, depth 1 and 8 (phase 5's rules), and both against the pinned JAX
    goldens (`mesh_hit.npz` under `hit_agreement`'s rule with triangle ids
    equal but across shared edges; `triangles_32.npz` under `golden_cmp`);
+   then `hit_every_lane` on PARTIAL_HIT backpack rays and one bounce of
+   them, and on the tie scene (`models.probes.tie_mesh`: one triangle in
+   two slots of a leaf, another in leaves of its own), whose triangle
+   megakernel's record, ray-plane and forward waves of PARTIAL_WAVE
+   (32,768 + 37) lanes equal their plain versions on every lane
+   (`waves_every_lane`);
 23. config 5's four 64-spp regen chunks (waves of 131,072 rays,
    `bench_all.py:441`) at the seeds `render()` draws, through
    `compile_regen_renderer`'s `debug_stats`: their steps, each with one hit
@@ -176,7 +185,9 @@ kernel on the way.  Phases, each of which raises on failure:
    and a reduced wave of backpack (the bit rule with >= 99.9% of the words
    and of the hit-point values equal); then against the pinned Pallas
    record planes (`<scene>_rec32.npz`) under the CPU rules of
-   tests/test_torch_record_p.py;
+   tests/test_torch_record_p.py; then big_scene1's sphere-BVH record,
+   ray-plane and forward waves of PARTIAL_WAVE lanes at its training shape
+   (800x450, depth 16), every plane equal on every lane;
 28. kernel 1c against its plain versions: `walk_packed` and `__call__`
    (with and without russian roulette) on 65,536 torch-drawn camera rays
    of cornell_box and big_scene1, then against the pinned Pallas planes
@@ -254,6 +265,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CSRC = "raytracing_gpu_tpu_torch/ops/csrc"
@@ -300,6 +312,9 @@ ROUTES_AGREE = (400, 16, 16)  # width, spp, depth of phase 19's comparison
 Z_LIMIT = 4.0       # standard errors of a statistical agreement
 CAPTURE_STEP = 40   # a regen step whose wave is full and still refilling
 HIT_RAYS = 65536
+# the every-lane checks of the warp-cooperative walks: a partial last warp
+PARTIAL_HIT = HIT_RAYS + 37   # rt_hit's waves (phases 18, 22)
+PARTIAL_WAVE = 32768 + 37     # the sphere-BVH and tie-scene waves (22, 27)
 # BASELINE config 5 (bench_all.py:21, :377: 800x600 with the scene's 16:9
 # camera, as the JAX package renders it), phase 24: (width, spp per chunk,
 # chunks, depth), its wave (bench_all.py:441) and its bounded profiled
@@ -374,11 +389,12 @@ OPS_TRI_WALK = 6       # the triangle walk's guarded 1/d
 OPS_TRI_WIN = 17       # a triangle winner's interpolated normal
 HIT_IN_BYTES = 29      # o, d, tm float32 and alive uint8 per ray
 HIT_OUT_BYTES = 40     # packed int32, p, u, v, normal, slot float32
-# Bytes a triangle walk reads (csrc/megakernel.cuh tri_bvh_walk, csrc/hit.cu
-# OctantNodes): per node tested its box and leaf start, per link column
-# followed 4, per candidate its 9 geometry floats; per winning megakernel row
-# its vertex normals and shading columns (9 + 12 floats), read once after
-# the walk.  The uv and pad columns of the 40-column row are never read.
+# Bytes a triangle walk reads (csrc/megakernel.cuh visit_node, tri_bvh_walk,
+# warp_bvh_walk): per node tested its box and leaf start, per link column
+# followed 4, per real slot of a leaf tested its 9 geometry floats (a pad
+# slot is no work); per winning megakernel row its vertex normals and
+# shading columns (9 + 12 floats), read once after the walk.  The uv and
+# pad columns of the 40-column row are never read.
 TRI_NODE_BYTES = 28
 TRI_LINK_BYTES = 4
 TRI_GEOM_BYTES = 36
@@ -576,22 +592,39 @@ def wave_ops(bake, counts: dict, n: int) -> float:
             + scatter + counts["cont"] * OPS_FWD_CONT)
 
 
+def real_sphere_bytes(tracer) -> int:
+    """Bytes of the sphere rows that are not pads (radius != 0): a pad row
+    of a BVH leaf is no work, and the kernels skip it."""
+    return 4 * int((tracer.sphere_table[:, 8] != 0).sum()) * \
+        tracer.sphere_table.shape[1]
+
+
 def table_bytes(tracer) -> int:
     """Bytes of the megakernels' tables other than the triangle BVH's, each
-    read once."""
-    return 4 * sum(t.numel() for t in tracer._checked_tables().tensors[:7])
+    read once, the sphere table's real rows only."""
+    rest = tracer._checked_tables().tensors[:6]
+    return (4 * sum(t.numel() for t in rest) - 4 * tracer.sphere_table.numel()
+            + real_sphere_bytes(tracer))
 
 
-def tri_bytes(reads, leaf_k: int, win_bytes: int) -> int:
+def leaf_real(ids, leaf_k: int):
+    """Real slots of each leaf of a leaf-contiguous triangle table whose
+    slot ids are `ids` (-1 on a pad): `tri_bytes`'s counts."""
+    import torch
+
+    return torch.from_numpy((ids.reshape(-1, leaf_k) >= 0).sum(1))
+
+
+def tri_bytes(reads, real, win_bytes: int) -> int:
     """Bytes of a triangle BVH's tables that the walks in `reads`
     (`cuda_trace.tri_reads`, None without triangles) touch, each once: the
-    nodes tested, the link columns followed, the leaves tested and the
-    winners' `win_bytes`."""
+    nodes tested, the link columns followed, the real slots of the leaves
+    tested (`real`, from `leaf_real`) and the winners' `win_bytes`."""
     if reads is None:
         return 0
     return (TRI_NODE_BYTES * int(reads["nodes"].sum())
             + TRI_LINK_BYTES * int(reads["links"].sum())
-            + TRI_GEOM_BYTES * leaf_k * int(reads["leaves"].sum())
+            + TRI_GEOM_BYTES * int(real[reads["leaves"].cpu()].sum())
             + win_bytes * int(reads["won"].sum()))
 
 
@@ -699,7 +732,8 @@ def time_wave(tracer, sd, st, base: int, card: str, label: str,
         depth, st.t_min, tracer.device, st.rr_start), reps=3)
     ops = wave_ops(tracer.bake, counts, n)
     nbytes = 12 * n + table_bytes(tracer) + tri_bytes(
-        counts["tri_read"], cuda_trace.TRI_LEAF_K, TRI_WIN_BYTES)
+        counts["tri_read"], leaf_real(tracer.bake.tri_ids,
+                                      cuda_trace.TRI_LEAF_K), TRI_WIN_BYTES)
     bound_ms, bound_by = bound(ops, nbytes)
     live, cont = counts["live"], counts["cont"]
     print(f"[time] {label} wave of {n} rays, depth {depth}: kernel {ms:.6f} "
@@ -835,6 +869,86 @@ def hit_vs_plain(tracer, rays, label: str) -> dict:
     return res
 
 
+def lane_masks(n: int, seed: int, dev) -> dict:
+    """The lane masks of the every-lane checks: half the lanes dead at
+    random, every other warp dead, and every lane live but warp 1's, which
+    keeps one."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lane = torch.arange(n, device=dev)
+    one = torch.ones(n, dtype=torch.bool, device=dev)
+    one[32:64] = False
+    one[49] = True
+    return {"half dead at random":
+            torch.rand(n, generator=gen, device=dev) >= 0.5,
+            "every other warp dead": (lane // 32) % 2 == 0,
+            "one live lane in warp 1": one}
+
+
+def hit_every_lane(tracer, rays, label: str) -> None:
+    """`rt_hit` against `hit_reference` on the same rays, every output equal
+    on every lane, under each of `lane_masks` (and the rays' own dead
+    lanes): the warp-cooperative walk with threads past n and dead lanes
+    in its warps."""
+    import torch
+
+    from raytracing_gpu_tpu_torch.ops import cuda_trace
+
+    o, d, tm, alive = rays
+    for what, mask in lane_masks(len(tm), 91, tm.device).items():
+        live = (alive & mask).contiguous()
+        got = tracer.hit(o, d, tm, live)
+        want = cuda_trace.hit_reference(tracer.bake, o, d, tm, live)
+        torch.cuda.synchronize()
+        equal = {k: bool(torch.equal(g, w))
+                 for k, g, w in zip(got._fields, got, want)}
+        print(f"[hit-every-lane] {label}, {what} ({int(live.sum())} of "
+              f"{len(tm)} live, {int(((want.packed >> 20) & 1).sum())} "
+              f"triangle winners): {equal}")
+        if not all(equal.values()):
+            raise AssertionError(f"{label}, {what}: hit kernel differs from "
+                                 "plain on some lane")
+
+
+def waves_every_lane(sd, tracer, h: int, w: int, depth: int, seed: int,
+                     label: str, forward: bool = True) -> None:
+    """The record wave (camera rays and, kernel 1c, ray planes) and the
+    forward wave of PARTIAL_WAVE lanes against their plain versions, every
+    plane equal on every lane."""
+    import torch
+
+    from raytracing_gpu_tpu_torch.ops import cuda_trace
+
+    n, dev = PARTIAL_WAVE, tracer.device
+    runs = [("record", tracer.walk_packed_pixels(sd.camera, h, w, 0, n, seed,
+                                                 max_depth=depth),
+             cuda_trace.walk_packed_pixels_reference(
+                 tracer.bake, sd.camera, h, w, 0, n, seed, depth,
+                 device=dev))]
+    o, d, tm, _ = camera_rays(sd, n, seed, dev)
+    runs.append(("record on ray planes",
+                 tracer.walk_packed(o, d, tm, seed, max_depth=depth),
+                 cuda_trace.walk_packed_reference(tracer.bake, o, d, tm,
+                                                  seed, depth)))
+    if forward:
+        runs.append(("forward", (tracer.trace_pixels(
+            sd.camera, h, w, 0, n, seed, max_depth=depth).T,),
+            (cuda_trace.trace_pixels_reference(
+                tracer.bake, sd.camera, h, w, 0, n, seed, depth,
+                device=dev).T,)))
+    torch.cuda.synchronize()
+    for what, got, want in runs:  # planes (depth or channel, n)
+        equal = (len(got) == len(want)
+                 and all(bool(torch.equal(g, v)) for g, v in zip(got, want)))
+        live = int((got[0] != 0).any(0).sum())
+        print(f"[wave-every-lane] {label} {what}, {n} lanes depth {depth}: "
+              f"equal {equal} ({len(got)} planes, {live} lanes with output)")
+        if not equal:
+            raise AssertionError(f"{label} {what}: kernel differs from plain "
+                                 "on some lane")
+
+
 def z_scores(a, b):
     """Per channel, the mean over pixels of the per-pixel difference of two
     (npix, 3) estimates in standard errors (pixels are independent)."""
@@ -878,8 +992,8 @@ def hit_ops(bake, rays) -> tuple[float, dict]:
         counts.update(tri_nodes=int(tw.nodes.sum()),
                       tri_rows=int(tw.rows.sum()),
                       tri_bytes=tri_bytes(cuda_trace.tri_reads(
-                          tw, len(bake.tri_geom)), cuda_trace.HIT_TRI_LEAF_K,
-                          0))
+                          tw, len(bake.tri_geom)), leaf_real(
+                              bake.tri_perm, cuda_trace.HIT_TRI_LEAF_K), 0))
         ops += live * OPS_TRI_WALK
     ops += ((counts["nodes"] + counts["tri_nodes"]) * OPS_NODE
             + counts["rows"] * OPS_SPHERE + counts["tri_rows"] * OPS_TRI
@@ -889,12 +1003,15 @@ def hit_ops(bake, rays) -> tuple[float, dict]:
 
 def hit_bytes(tracer, n: int, counts: dict) -> int:
     """Bytes of one hit launch on n rays: the rays in, the outputs out, the
-    tables other than the triangle tier's, each once, and the parts of the
-    triangle tier that the plain walk of the same rays reads (`hit_ops`'s
-    counts; the tier reads geometry only, no winner's columns)."""
-    return n * (HIT_IN_BYTES + HIT_OUT_BYTES) + counts["tri_bytes"] + 4 * sum(
-        t.numel() for t in (tracer.rect_table, tracer.box_table,
-                            tracer.sphere_table, tracer.sph_hit_nodes))
+    tables other than the triangle tier's, each once (the sphere table's
+    real rows only), and the parts of the triangle tier that the plain walk
+    of the same rays reads (`hit_ops`'s counts; the tier reads geometry
+    only, no winner's columns)."""
+    return (n * (HIT_IN_BYTES + HIT_OUT_BYTES) + counts["tri_bytes"]
+            + real_sphere_bytes(tracer) + 4 * sum(
+                t.numel() for t in (tracer.rect_table, tracer.box_table,
+                                    tracer.sph_nodes,
+                                    tracer.sph_octant_links)))
 
 
 def render_bases(st) -> list:
@@ -982,9 +1099,10 @@ def record_wave_bytes(tracer, counts: dict, n: int, depth: int,
     per_entry = (4 + (P_BYTES if tracer.need_p else 0)
                  + (UV_BYTES if tracer.need_uv else 0))
     return (per_entry * depth * n + (RAY_BYTES * n if rays else 0)
-            + table_bytes(tracer) + tri_bytes(counts["tri_read"],
-                                              cuda_trace.TRI_LEAF_K,
-                                              TRI_WIN_BYTES))
+            + table_bytes(tracer) + tri_bytes(
+                counts["tri_read"], leaf_real(tracer.bake.tri_ids,
+                                              cuda_trace.TRI_LEAF_K),
+                TRI_WIN_BYTES))
 
 
 def time_record(label: str, card: str, kernel, plain, counts_fn, ops_fn,
@@ -1090,6 +1208,10 @@ def big_scene1_phases(dev, card: str, base: int, png: str) -> tuple:
             hit_vs_plain(htr, rays, f"{name} {HIT_RAYS} camera rays")
             rays = scattered_rays(hsd, htr, rays, 72)
             hit_vs_plain(htr, rays, f"{name} {HIT_RAYS} rays, one bounce on")
+        rays = camera_rays(bsd, PARTIAL_HIT, 73, dev)
+        hit_every_lane(btr, rays, f"{BIG} {PARTIAL_HIT} camera rays")
+        hit_every_lane(btr, scattered_rays(bsd, btr, rays, 74),
+                       f"{BIG} {PARTIAL_HIT} rays, one bounce on")
 
     # ---- 19. big_scene1 on the megakernel route; the routes agree ----
     with Phase("19 big_scene1 megakernel route"):
@@ -1238,10 +1360,11 @@ def triangle_phases(dev, card: str, base: int, png: str) -> list:
     import numpy as np
     import torch
 
-    from raytracing_gpu_tpu_torch import (RenderSettings, compile_renderer,
+    from raytracing_gpu_tpu_torch import (Camera, RenderSettings,
+                                         SceneBuilder, compile_renderer,
                                          render, render_linear)
     from raytracing_gpu_tpu_torch.engine import film, wavefront
-    from raytracing_gpu_tpu_torch.models import scenes
+    from raytracing_gpu_tpu_torch.models import probes, scenes
     from raytracing_gpu_tpu_torch.ops import cuda_trace
 
     png_dir = os.path.dirname(os.path.abspath(png))
@@ -1296,6 +1419,20 @@ def triangle_phases(dev, card: str, base: int, png: str) -> list:
                     and hres["frac_close"] >= 0.99 and other.mean() <= 0.01):
                 raise AssertionError("hit kernel's triangle tier disagrees "
                                      "with the Pallas hit golden")
+        # the warp-cooperative leaves: a partial last warp, sparse lanes,
+        # and exact ties (one triangle in two slots of a leaf, another in
+        # leaves of its own: the first in the ray's visit order wins)
+        rays = camera_rays(psd, PARTIAL_HIT, 85, dev)
+        hit_every_lane(ptr, rays, f"backpack {PARTIAL_HIT} camera rays")
+        hit_every_lane(ptr, scattered_rays(psd, ptr, rays, 86),
+                       f"backpack {PARTIAL_HIT} rays, one bounce on")
+        tie_scene, tie_cam, _ = probes.tie_mesh(SceneBuilder, Camera)
+        tie = types.SimpleNamespace(scene=tie_scene, camera=tie_cam)
+        tie_tr = cuda_trace.Tracer(tie_scene, dev)
+        hit_every_lane(tie_tr, camera_rays(tie, PARTIAL_HIT, 87, dev),
+                       f"tie scene {PARTIAL_HIT} camera rays")
+        waves_every_lane(tie, tie_tr, 450, 800, 8,
+                         cuda_trace.wave_seed(base, 0, 5), "tie scene")
 
     # ---- 23. timing at full size ----
     with Phase("23 triangle kernels timed"):
@@ -1582,6 +1719,12 @@ def training_phases(dev, card: str, base: int) -> tuple:
                     and pcmp["hit_rule"]):
                 raise AssertionError(f"{name}: record kernel disagrees with "
                                      "the JAX golden")
+        # the warp-cooperative sphere leaves on every lane: big_scene1's
+        # training shape with a partial last warp, all three entries
+        bsd, btr = tracers["big_scene1"]
+        width, _, _, depth, _ = BIG_TRAIN
+        waves_every_lane(bsd, btr, width * 9 // 16, width, depth,
+                         cuda_trace.wave_seed(base, 0, 6), "big_scene1")
 
     # ---- 28. kernel 1c against its plain version, then the goldens ----
     with Phase("28 ray planes"):

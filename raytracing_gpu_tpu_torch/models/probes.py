@@ -116,3 +116,29 @@ def image_mesh(builder_cls, camera_cls, image: Optional[np.ndarray] = None,
     b.sphere((0, -100, -1), 100, b.lambertian((0, 1, 0)))
     return b.build(), _make_cam(camera_cls, (0, 0, -3), (0, 0, 0), 20,
                                 16 / 9), 16 / 9
+
+
+def tie_mesh(builder_cls, camera_cls, copies: int = 40) -> tuple:
+    """Exact ties for the triangle walks: triangle A twice (two slots of
+    one leaf) and triangle B `copies` times (more than a hit-tier leaf of
+    28 holds, so its copies fill several leaves of both tiers), side by
+    side in front of a wall of two triangles.  A ray that hits A or B
+    meets all its copies at one distance, and the walk keeps the first it
+    tests: the lowest slot of the first leaf it visits."""
+    b = builder_cls(background=(0.7, 0.8, 1.0))
+    red = b.lambertian((0.65, 0.05, 0.05))
+    green = b.lambertian((0.12, 0.45, 0.15))
+    white = b.lambertian((0.73, 0.73, 0.73))
+    wall = np.array([[-4, -3, -2], [4, -3, -2], [4, 3, -2], [-4, 3, -2]],
+                    np.float32)
+    b.mesh(wall, np.array([[0, 1, 2], [0, 2, 3]]), white)
+    tri_a = np.array([[-2.0, -1.0, 0.0], [-0.2, -1.0, 0.0], [-1.1, 1.2, 0.0]],
+                     np.float32)
+    b.mesh(np.concatenate([tri_a, tri_a]), np.array([[0, 1, 2], [3, 4, 5]]),
+           red)
+    tri_b = np.array([[0.2, -1.0, 0.5], [2.0, -1.0, 0.5], [1.1, 1.2, 0.5]],
+                     np.float32)
+    b.mesh(np.tile(tri_b, (copies, 1)),
+           np.arange(3 * copies).reshape(copies, 3), green)
+    cam = _make_cam(camera_cls, (0, 0, 6), (0, 0, 0), 40, 16 / 9)
+    return b.build(), cam, 16 / 9

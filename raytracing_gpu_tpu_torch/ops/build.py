@@ -67,14 +67,14 @@ class RtParams(ctypes.Structure):
 
 
 class RtTables(ctypes.Structure):
-    """The megakernels' eleven device tables, passed by value: rects, boxes,
-    spheres, media, the sphere BVH's nodes, links and leaf starts, the
-    triangle rows and their BVH's nodes, links and leaf starts (`struct
-    RtTables` in csrc/megakernel.cuh)."""
+    """The megakernels' nine device tables, passed by value: rects, boxes,
+    spheres, media, the sphere BVH's node records and links, the triangle
+    rows and their BVH's node records and links (`struct RtTables` in
+    csrc/megakernel.cuh)."""
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "rects", "boxes", "spheres", "media", "sph_nodes", "sph_links",
-        "sph_start", "tri_rows", "tri_nodes", "tri_links", "tri_start")]
+        "tri_rows", "tri_nodes", "tri_links")]
 
 
 class BuildResult(NamedTuple):
@@ -165,7 +165,7 @@ def load() -> ctypes.CDLL:
                 fn.argtypes = [RtTables, RtParams, *[ptr] * (n_in + n_out + 1)]
                 fn.restype = ctypes.c_int
             i32 = ctypes.c_int
-            lib.rt_hit.argtypes = [*[ptr] * 6, *[i32] * 7, ctypes.c_float,
+            lib.rt_hit.argtypes = [*[ptr] * 8, *[i32] * 7, ctypes.c_float,
                                    *[ptr] * 11]
             lib.rt_hit.restype = ctypes.c_int
             lib.rt_pcg_uniform.argtypes = [ctypes.c_int, ctypes.c_int,

@@ -37,28 +37,52 @@
 // lane tests the same leaves in either walk, in another order; the closest
 // hit is the same except where two rows tie exactly.
 //
-// The triangle tier.  Geometry only: 9 floats (v0 e1 e2) a slot, leaves of
-// 28 contiguous slots (the TPU kernel's two 128-lane rows of 14 triangles),
-// pad slots all zero; nodes as the sphere tier's (bounds, a leaf's first
-// slot, 8 octant link pairs).  Each candidate is the megakernel's
-// `tri_candidate` (Moller-Trumbore, 1e-7 determinant cut); the walk keeps
-// the winner's t, slot and barycentrics.  It starts from the closest
-// non-triangle hit t2 and keeps a candidate only when strictly closer, which
-// prunes and picks the same winner as the TPU kernel's own best t1 starting
-// at 1e30 and pruned by min(t1, t2).  A ray through an edge that two
-// triangles share hits both at one t: the first in the ray's own visit
-// order wins, so the slot may differ from the TPU kernel's (which follows
-// the packet's majority octant) while t agrees.  The kernel is a template
-// on the tier, so a triangle-free scene carries none of its code or
-// registers.
+// The triangle tier.  Geometry only, leaves of 28 contiguous slots (the TPU
+// kernel's two 128-lane rows of 14 triangles), pad slots all zero and at
+// each leaf's tail; nodes as the sphere tier's.  Each candidate is the
+// megakernel's `tri_candidate` (Moller-Trumbore, 1e-7 determinant cut); the
+// walk keeps the winner's t, slot and barycentrics.  It starts from the
+// closest non-triangle hit t2 and keeps a candidate only when strictly
+// closer, which prunes and picks the same winner as the TPU kernel's own
+// best t1 starting at 1e30 and pruned by min(t1, t2).  A ray through an
+// edge that two triangles share hits both at one t: the first in the ray's
+// own visit order wins, so the slot may differ from the TPU kernel's (which
+// follows the packet's majority octant) while t agrees.  The kernel is a
+// template on the tier, so a triangle-free scene carries none of its code
+// or registers.
 //
-// What bounds it on Hopper.  Operations and their latency, not bytes: a
-// ray reads 28 bytes and writes 36, and tests ~20 nodes (a 6-slab test, ~20
-// operations) and ~30 sphere rows (~44 operations each) on big_scene1.  The
-// nodes (167 x 23 floats) and the leaf-contiguous table (672 x 24 floats)
-// stay in device memory: each thread reads only the nodes and leaves on its
-// own path, which L1 and L2 hold, and rects and boxes are a broadcast read.
-// Divergent walks within a warp are the cost; the wavefront's sort by
+// What bounds it on Hopper.  Neither the card's bytes nor its operations:
+// a ray reads 29 bytes and writes 40, and a config-5 step's ray tests ~23
+// nodes (~25 operations each) and ~16 real triangle slots (~57 each), so
+// the step's bound is ~3 us.  What takes the time is the latency of
+// gathers that diverge once the lanes of a warp walk different nodes (a
+// warp load then touches up to 32 cache lines, an L1 wavefront each), and
+// leaf tests that one lane would run alone while the rest of its warp,
+// mostly between leaves, waits: a leaf holds 28 slots, 30% of them pads.
+// The design:
+//
+// - 16-byte records (`cuda_trace.device_tables`): a node is 32 bytes, two
+//   float4s (lo xyz and the leaf's first slot as int bits; hi xyz and its
+//   count of real slots), its 8 octant (hit, miss) pairs an int2 array
+//   indexed node * 8 + octant, a triangle slot 48 bytes (v0 e1 e2 and 3
+//   zeros); a sphere row's geometry is the first 48 of its 96 bytes.  A
+//   node visit is 3 loads, a candidate 3.
+// - A leaf tests its real slots only: pads sit at its tail and never hit.
+// - The warp tests a leaf together (`rt::warp_bvh_walk`): each lane walks
+//   its own ray, and in each step the lanes that reached a hit leaf are
+//   served one at a time: lane j tests slot start + j against the owner's
+//   broadcast ray, and a reduction picks the first least distance, the
+//   strict-`<` loop's winner bit for bit.  A 28-slot leaf costs the warp
+//   one candidate's latency, not 28.
+// - Every thread enters the walks: a dead lane and a thread past n take
+//   part with no node and write their zeros after it, so the warp-wide
+//   intrinsics always see 32 lanes.
+//
+// The sphere BVH (big_scene1: 167 nodes, 672 rows in leaves of 8, 484
+// real) walks the same way, its leaves served four at a time, a group of 8
+// lanes each (one 28-slot triangle leaf a pass takes the whole warp).
+// Rects and boxes are a broadcast read.
+// Divergent walks within a warp stay the cost; the wavefront's sort by
 // octant and origin keeps warps coherent.
 //
 // Rounding: as megakernel.cuh (-fmad=false, no fast math), and the normal's
@@ -69,37 +93,22 @@
 
 namespace {
 
-constexpr int kHitNodeCols = 23;  // bounds | leaf start | 8 (hit, miss)
 constexpr int kHitTriLeafK = 28;  // packed triangle slots per leaf
-constexpr int kTriGeom = 9;       // v0 e1 e2 per slot
+constexpr int kTriSlotCols = 12;  // v0 e1 e2 and 3 zeros per slot
+constexpr int kOctants = 8;       // (hit, miss) link pairs per node
+static_assert(kHitTriLeafK <= 32, "the warp tests a leaf's slots one a lane");
 
 struct HitParams {
   const float* rects;
   const float* boxes;
   const float* spheres;
-  const float* nodes;
-  const float* tri_geom;
-  const float* tri_nodes;
+  const float4* nodes;
+  const int2* links;
+  const float* tri_slots;
+  const float4* tri_nodes;
+  const int2* tri_links;
   int n_rects, n_boxes, n_spheres, n_nodes, n_tri_slots, n_tri_nodes, n;
   float t_min;
-};
-
-// A BVH's nodes in the hit tiers' layout (HIT_NODE_COLS): bounds, a leaf's
-// first row or slot (-1: internal), then the (hit, miss) links of the 8
-// direction octants; the walk follows octant `oct`'s.
-struct OctantNodes {
-  const float* rec;
-  int oct;
-  __device__ __forceinline__ const float* box(int node) const {
-    return rec + node * kHitNodeCols;
-  }
-  __device__ __forceinline__ int leaf(int node) const {
-    return static_cast<int>(rec[node * kHitNodeCols + 6]);
-  }
-  __device__ __forceinline__ int next(int node, bool hit) const {
-    return static_cast<int>(
-        rec[node * kHitNodeCols + 7 + 2 * oct + (hit ? 0 : 1)]);
-  }
 };
 
 // The closest winner so far: its distance, outward normal, material, uv
@@ -138,23 +147,21 @@ hit_kernel(const HitParams hp, const float* __restrict__ o,
            float* __restrict__ p_out, float* __restrict__ u_out,
            float* __restrict__ v_out, float* __restrict__ n_out,
            float* __restrict__ slot) {
+  // every thread stays to the end: the BVH walks are the warp's
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= hp.n) return;
-  slot[i] = 0.0f;
-  if (!alive[i]) {
-    packed[i] = 0;
-    u_out[i] = v_out[i] = 0.0f;
-    for (int k = 0; k < 3; ++k) p_out[3 * i + k] = n_out[3 * i + k] = 0.0f;
-    return;
+  const bool in = i < hp.n;
+  const bool live = in && alive[i] != 0;
+  rt::Ray r{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  float tm = 0.0f;
+  if (live) {
+    r.ox = o[3 * i];
+    r.oy = o[3 * i + 1];
+    r.oz = o[3 * i + 2];
+    r.dx = d[3 * i];
+    r.dy = d[3 * i + 1];
+    r.dz = d[3 * i + 2];
+    tm = tm_in[i];
   }
-  rt::Ray r;
-  r.ox = o[3 * i];
-  r.oy = o[3 * i + 1];
-  r.oz = o[3 * i + 2];
-  r.dx = d[3 * i];
-  r.dy = d[3 * i + 1];
-  r.dz = d[3 * i + 2];
-  const float tm = tm_in[i];
   const float t_min = hp.t_min;
   Best b;
   b.t = rt::kBig;
@@ -162,7 +169,7 @@ hit_kernel(const HitParams hp, const float* __restrict__ o,
   b.mat = 0;
   b.sph = false;
 
-  for (int k = 0; k < hp.n_rects; ++k) {
+  for (int k = 0; k < (live ? hp.n_rects : 0); ++k) {
     const float* q = hp.rects + k * rt::kRectCols;
     const rt::RectCross c = rt::rect_cross(q, r);
     const bool ok = c.t >= t_min && c.pa >= q[1] && c.pa <= q[2] &&
@@ -174,7 +181,7 @@ hit_kernel(const HitParams hp, const float* __restrict__ o,
            (c.pb - q[3]) / rt::extent(q[4], q[3]), false);
     }
   }
-  for (int k = 0; k < hp.n_boxes; ++k) {
+  for (int k = 0; k < (live ? hp.n_boxes : 0); ++k) {
     const float* q = hp.boxes + k * rt::kBoxCols;
     const rt::Slabs s = rt::box_slabs(q, r);
     const float tn = fmaxf(fmaxf(s.tnx, s.tny), s.tnz);
@@ -204,7 +211,8 @@ hit_kernel(const HitParams hp, const float* __restrict__ o,
            (is_x || is_y) ? uc : ub, false);
     }
   }
-  if (hp.n_spheres > 0) {
+  const int oct = octant(r);
+  if (hp.n_spheres > 0) {  // uniform across the launch
     // the sphere rows (sph_cand, :1877-1925, the megakernel's
     // sphere_candidate) against the closest rect or box so far
     rt::Hit hs;
@@ -214,20 +222,12 @@ hit_kernel(const HitParams hp, const float* __restrict__ o,
     const float a = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
     const float inv_a = 1.0f / fmaxf(a, rt::kEps);
     if (hp.n_nodes == 0) {
-      for (int k = 0; k < hp.n_spheres; ++k)
+      for (int k = 0; k < (live ? hp.n_spheres : 0); ++k)
         rt::sphere_candidate(hp.spheres + k * rt::kSphCols, r, tm, a, inv_a,
                              t_min, hs);
     } else {
-      const float ivx = 1.0f / rt::guard(r.dx);
-      const float ivy = 1.0f / rt::guard(r.dy);
-      const float ivz = 1.0f / rt::guard(r.dz);
-      rt::bvh_walk(OctantNodes{hp.nodes, octant(r)}, r, ivx, ivy, ivz, t_min,
-                   hs.t, [&](int start) {
-                     for (int k = 0; k < rt::kSphLeafK; ++k)
-                       rt::sphere_candidate(
-                           hp.spheres + (start + k) * rt::kSphCols, r, tm, a,
-                           inv_a, t_min, hs);
-                   });
+      rt::sphere_bvh_walk(rt::BvhNodes{hp.nodes, hp.links, kOctants, oct},
+                          hp.spheres, live, r, tm, a, inv_a, t_min, hs);
     }
     if (hs.sh != nullptr)  // a sphere row is the closest: its mat, uv phase
       take(b, hs.t, hs.nx, hs.ny, hs.nz, hs.sh[rt::kShMat],
@@ -241,21 +241,35 @@ hit_kernel(const HitParams hp, const float* __restrict__ o,
     const float ivx = 1.0f / rt::guard(r.dx);
     const float ivy = 1.0f / rt::guard(r.dy);
     const float ivz = 1.0f / rt::guard(r.dz);
-    rt::bvh_walk(OctantNodes{hp.tri_nodes, octant(r)}, r, ivx, ivy, ivz,
-                 t_min, t_best, [&](int start) {
-                   for (int k = 0; k < kHitTriLeafK; ++k) {
-                     float t, ub, vb;
-                     if (rt::tri_candidate(
-                             hp.tri_geom + (start + k) * kTriGeom, r, t_min,
-                             &t, &ub, &vb) &&
-                         t < t_best) {
-                       t_best = t;
-                       slot_win = start + k;
-                       tu = ub;
-                       tv = vb;
-                     }
-                   }
-                 });
+    rt::warp_bvh_walk<32>(
+        rt::BvhNodes{hp.tri_nodes, hp.tri_links, kOctants, oct}, live, r,
+        ivx, ivy, ivz, t_min, t_best,
+        [&](const rt::Ray& rb, int, int s, bool valid, float tb) {
+          rt::Cand c{false, rt::kBig, 0.0f, 0.0f, 0.0f};
+          float t, ub, vb;
+          if (valid &&
+              rt::tri_candidate(rt::tri_geom4(hp.tri_slots + s * kTriSlotCols),
+                                rb, t_min, &t, &ub, &vb) &&
+              t < tb) {
+            c.ok = true;
+            c.t = t;
+            c.a = ub;
+            c.b = vb;
+          }
+          return c;
+        },
+        [&](int s, float, float ub, float vb, float) {
+          slot_win = s;
+          tu = ub;
+          tv = vb;
+        });
+  }
+  if (!in) return;
+  if (!live) {
+    packed[i] = 0;
+    u_out[i] = v_out[i] = slot[i] = 0.0f;
+    for (int k = 0; k < 3; ++k) p_out[3 * i + k] = n_out[3 * i + k] = 0.0f;
+    return;
   }
   const bool tri = slot_win >= 0;  // strictly closer than every other hit
   if (tri) b.sph = false;
@@ -274,7 +288,7 @@ hit_kernel(const HitParams hp, const float* __restrict__ o,
   p_out[3 * i + 2] = r.oz + t_best * r.dz;
   u_out[i] = tri ? tu : u;
   v_out[i] = tri ? tv : v;
-  if (tri) slot[i] = static_cast<float>(slot_win);  // else 0, above
+  slot[i] = tri ? static_cast<float>(slot_win) : 0.0f;
   n_out[3 * i] = b.nx * flip * nlen;
   n_out[3 * i + 1] = b.ny * flip * nlen;
   n_out[3 * i + 2] = b.nz * flip * nlen;
@@ -284,12 +298,15 @@ hit_kernel(const HitParams hp, const float* __restrict__ o,
 
 // C entry (bound with ctypes): one launch over n rays on `stream`, never
 // synchronizing; returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for counts the kernel does not take (a dense loop
-// of more than 64 rows, a BVH table that is not whole leaves, triangle
-// slots without nodes).
+// cudaErrorInvalidValue for what the kernel does not take (a dense loop of
+// more than 64 rows, a BVH table that is not whole leaves, triangle slots
+// without nodes, a table read with 16-byte loads that is not 16-byte
+// aligned).  A BVH is its node records (n_nodes x 32 bytes) and link pairs
+// (n_nodes x 8 int2); a triangle slot is 12 floats.
 extern "C" int rt_hit(const float* rects, const float* boxes,
-                      const float* spheres, const float* nodes,
-                      const float* tri_geom, const float* tri_nodes,
+                      const float* spheres, const float4* nodes,
+                      const int2* links, const float* tri_slots,
+                      const float4* tri_nodes, const int2* tri_links,
                       int n_rects, int n_boxes, int n_spheres, int n_nodes,
                       int n_tri_slots, int n_tri_nodes, int n, float t_min,
                       const float* o, const float* d, const float* tm,
@@ -298,15 +315,21 @@ extern "C" int rt_hit(const float* rects, const float* boxes,
                       void* stream) {
   const bool ok = n > 0 && n_rects >= 0 && n_boxes >= 0 && n_spheres >= 0 &&
                   n_nodes >= 0 &&
-                  (n_nodes > 0 ? n_spheres % rt::kSphLeafK == 0
+                  (n_nodes > 0 ? n_spheres % rt::kSphLeafK == 0 &&
+                                     rt::aligned16(spheres) &&
+                                     rt::aligned16(nodes) &&
+                                     rt::aligned16(links)
                                : n_spheres <= rt::kMaxSpheres) &&
                   n_tri_slots >= 0 && n_tri_slots % kHitTriLeafK == 0 &&
-                  (n_tri_nodes > 0) == (n_tri_slots > 0);
+                  (n_tri_nodes > 0) == (n_tri_slots > 0) &&
+                  (n_tri_nodes == 0 ||
+                   (rt::aligned16(tri_slots) && rt::aligned16(tri_nodes) &&
+                    rt::aligned16(tri_links)));
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  const HitParams hp{rects,     boxes,       spheres,     nodes,
-                     tri_geom,  tri_nodes,   n_rects,     n_boxes,
-                     n_spheres, n_nodes,     n_tri_slots, n_tri_nodes,
-                     n,         t_min};
+  const HitParams hp{rects,     boxes,     spheres,     nodes,
+                     links,     tri_slots, tri_nodes,   tri_links,
+                     n_rects,   n_boxes,   n_spheres,   n_nodes,
+                     n_tri_slots, n_tri_nodes, n,       t_min};
   const int blocks = (n + rt::kThreads - 1) / rt::kThreads;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_tri_nodes > 0)

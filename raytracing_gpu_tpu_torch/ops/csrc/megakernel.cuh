@@ -109,32 +109,51 @@
 // descends where any lane's box is hit; here each thread walks its own ray
 // through the same preorder threading (hit_link after a hit box, miss_link
 // after a missed one, -1 at the end), slab-testing a node against its own
-// closest hit so far (`tn <= t`) and testing the 8 rows of a hit leaf.  A
-// lane of a TPU tile tests a leaf only where its own box mask holds, and a
-// child's box lies inside its parent's, so both visit a lane's leaves in
-// the same order and keep the same winner.  The table (672 rows for
-// big_scene1) and nodes do not fit the 48 KB of static shared memory with
-// room to spare, and each thread reads only the nodes on its own path, so
-// they stay in device memory behind the L1 cache; rects, boxes and media are
-// staged as before.  Both BVH walks serve both modes: the record
-// instantiations are keyed on the geometry bits and kFeatTriBvh only, since
-// the record mode evaluates no albedo.
+// closest hit so far (`tn <= t`) and testing the real rows of a hit leaf.
+// A lane of a TPU tile tests a leaf only where its own box mask holds, and
+// a child's box lies inside its parent's, so both visit a lane's leaves in
+// the same order and keep the same winner.  Both BVH walks serve both
+// modes: the record instantiations are keyed on the geometry bits and
+// kFeatTriBvh only, since the record mode evaluates no albedo.
+//
+// What bounds the sphere walk on Hopper.  Not bytes or operations (big_scene1's
+// 32,768-ray training wave needs ~2.5 us of either): the latency of
+// gathers that diverge once the lanes of a warp walk different nodes, each
+// warp load touching up to 32 cache lines, and 8-row leaves (a quarter of
+// big_scene1's rows are pads) tested by each lane alone.  So a node is one
+// 32-byte record (lo xyz and the leaf's first row, hi xyz and its count of real
+// rows) read as two float4s with its (hit, miss) link pair as one int2, a
+// row's geometry is three float4 loads of its 96-byte row, a leaf tests
+// only its real rows (pads sit at its tail), and the warp tests the
+// leaves together (`warp_bvh_walk`): the lanes waiting in a leaf are
+// served four at a time, a group of 8 lanes each, lane j testing row j of
+// its owner's leaf against the owner's broadcast ray, and the group keeps
+// the first least distance, which is the serial loop's winner bit for bit.
+// Over every wave of a big_scene1 chunk that is 7-11% faster on the H100
+// than each lane's own leaf loop over the same records (a wave of the
+// image's upper rows, mostly sky, shows the reverse by 1-2%).  So a thread
+// past the wave's end, or whose path has ended, stays in the kernel until
+// its warp is done (kWarpWalk).  The tables (672 rows and
+// 167 nodes for big_scene1) stay in device memory behind L1: staging them in
+// shared memory would cap the scenes the kernel takes.  Rects, boxes and
+// media are staged as before.
 //
 // The triangle BVH (kFeatTriBvh, kernel 1d's triangle half: the packet walk
 // of :1187-1289 over the 40-column rows of :128-133, leaves of 4, preorder
-// links).  The same threaded walk (`bvh_walk`, one walk for both BVHs, the
-// leaf test a functor) over the leaf-contiguous triangle table, after the
-// spheres, with a strict `<` throughout.  Each candidate reads its 9
-// geometry floats (v0 e1 e2) for Moller-Trumbore with the 1e-7 determinant
-// cut; the walk keeps only the winner's row and barycentrics (ub, vb), and
-// the winner's vertex normals and shading columns are read once after the
-// walk.  The normal is interpolated with the expression order of
-// :1227-1234, so it rounds as the TPU kernel's per-candidate select did (it
-// selects every column per candidate only because it has no gather).  The
-// winner's shading block, in this header's order, goes into a 12-float
-// array of the thread that the Hit points at.  A 100k-triangle mesh's table
-// (~22 MB) and nodes (~1.4 MB) live in device memory: the JAX kernel's
-// HBM-streamed leaf tier and its VMEM budget have no counterpart here.
+// links).  A threaded walk over the same node records, after the spheres,
+// one thread a ray with its own leaf loop (`bvh_walk`) over the leaf's real
+// rows, with a strict `<` throughout.  Each candidate reads its 9 geometry
+// floats (v0 e1 e2, three float4 loads) for Moller-Trumbore with the 1e-7
+// determinant cut; the walk keeps only the winner's row and barycentrics
+// (ub, vb), and the winner's vertex normals and shading columns are read
+// once after the walk.  The normal is interpolated with the expression
+// order of :1227-1234, so it rounds as the TPU kernel's per-candidate select
+// did (it selects every column per candidate only because it has no
+// gather).  The winner's shading block, in this header's order, goes into a
+// 12-float array of the thread that the Hit points at.  A 100k-triangle
+// mesh's table (~22 MB) and nodes (~1.5 MB) live in device memory: the JAX
+// kernel's HBM-streamed leaf tier and its VMEM budget have no counterpart
+// here.
 //
 // Rounding.  The build compiles this code with -fmad=false and without
 // --use_fast_math, so every multiply and add rounds on its own, as in the
@@ -175,22 +194,22 @@ struct RtParams {
 };
 
 // The record tables, in device memory (keep in step with RtTables in
-// ../build.py); the sphere BVH's nodes (lo xyz,
-// hi xyz), preorder (hit, miss) links and leaf start rows (-1: internal) are
-// read only by the kFeatSphereBvh instantiations, the triangle rows and
-// their BVH's arrays (the same layout) only by the kFeatTriBvh ones.
+// ../build.py).  A BVH is two arrays: one 32-byte record a node, two
+// float4s (lo xyz and the leaf's first row as int bits, -1 on an internal
+// node; hi xyz and the leaf's count of real rows as int bits), and its
+// preorder (hit, miss) links, one int2 a node.  The sphere BVH's are read
+// only by the kFeatSphereBvh instantiations, the triangle rows and their
+// BVH's only by the kFeatTriBvh ones.  Every table is 16-byte aligned.
 struct RtTables {
   const float* rects;
   const float* boxes;
   const float* spheres;
   const float* media;
-  const float* sph_nodes;
-  const int* sph_links;
-  const int* sph_start;
+  const float4* sph_nodes;
+  const int2* sph_links;
   const float* tri_rows;
-  const float* tri_nodes;
-  const int* tri_links;
-  const int* tri_start;
+  const float4* tri_nodes;
+  const int2* tri_links;
 };
 
 // Instantiation bits (FEAT_* in ../cuda_trace.py).
@@ -229,12 +248,14 @@ constexpr float kThird = static_cast<float>(1.0 / 3.0);
 constexpr float kPerlinNorm = static_cast<float>(1.0 / 1.15);
 constexpr float kRrFloor = static_cast<float>(0.05);
 constexpr int kThreads = 128;
+constexpr unsigned kFullMask = 0xffffffffu;  // every lane of a warp
 constexpr size_t kMaxTableBytes = 48 * 1024;
 constexpr int kMaxSpheres = 64;
 constexpr int kMaxMedia = 16;
 constexpr int kSphLeafK = 8;  // sphere rows per BVH leaf (`_SPH_LEAF_K`)
 constexpr int kTriLeafK = 4;  // triangle rows per BVH leaf (`_TRI_LEAF_K`)
 constexpr float kTriDet = 1e-7f;  // Moller-Trumbore determinant cut
+static_assert(kSphLeafK == 8, "the warp tests four sphere leaves at once");
 
 // record layouts (RECT_COLS ... in ../cuda_trace.py)
 constexpr int kShKind = 0, kShC1 = 1, kShC2 = 4, kShScale = 7, kShFuzz = 8;
@@ -349,10 +370,11 @@ struct Hit {
 // spheres there too for the dense loop, in device memory under a BVH.
 struct Tables {
   const float *rects, *boxes, *spheres, *media;
-  const float* sph_nodes;
-  const int *sph_links, *sph_start;
-  const float *tri_rows, *tri_nodes;
-  const int *tri_links, *tri_start;
+  const float4* sph_nodes;
+  const int2* sph_links;
+  const float* tri_rows;
+  const float4* tri_nodes;
+  const int2* tri_links;
 };
 
 // Copies the four tables into the block's shared memory; every thread of
@@ -371,11 +393,9 @@ __device__ __forceinline__ Tables stage_tables(const RtTables& t,
   s.media = s.boxes + box_words + sph_words;
   s.sph_nodes = t.sph_nodes;
   s.sph_links = t.sph_links;
-  s.sph_start = t.sph_start;
   s.tri_rows = t.tri_rows;
   s.tri_nodes = t.tri_nodes;
   s.tri_links = t.tri_links;
-  s.tri_start = t.tri_start;
   for (int k = threadIdx.x; k < rect_words; k += blockDim.x) smem[k] = t.rects[k];
   for (int k = threadIdx.x; k < box_words; k += blockDim.x)
     smem[rect_words + k] = t.boxes[k];
@@ -479,136 +499,323 @@ __device__ __forceinline__ Slabs box_slabs(const float* q, const Ray& r) {
   return b;
 }
 
-// One sphere row q (sphere_candidate, :1105-1168) against the ray, kept when
-// strictly closer than h: the center moves to the ray's shutter time, a
-// negative radius turns the normal inward, and an all-zero pad row of the
-// BVH's leaf-contiguous table never hits (radius 0).
-__device__ __forceinline__ void sphere_candidate(const float* q, const Ray& r,
-                                                 float tm, float a,
-                                                 float inv_a, float t_min,
-                                                 Hit& h) {
-  const float span = q[7] - q[6];
+// The geometry of a sphere row (c0 xyz, c1 xyz, t0 t1 radius): read as
+// nine floats from the dense loop's shared-memory table, or as three
+// 16-byte loads of the 96-byte row from device memory under a BVH.
+struct SphereGeom {
+  float c0x, c0y, c0z, c1x, c1y, c1z, t0, t1, rad;
+};
+
+__device__ __forceinline__ SphereGeom sphere_geom(const float* q) {
+  return SphereGeom{q[0], q[1], q[2], q[3], q[4], q[5], q[6], q[7], q[8]};
+}
+
+__device__ __forceinline__ SphereGeom sphere_geom4(const float* q) {
+  const float4* v = reinterpret_cast<const float4*>(q);
+  const float4 a = v[0], b = v[1], c = v[2];
+  return SphereGeom{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x};
+}
+
+// The nearest root past t_min of sphere g along the ray (sphere_candidate,
+// :1105-1168), kBig where none: the center moves to the ray's shutter time,
+// and an all-zero pad row of the BVH's leaf-contiguous table never hits
+// (radius 0).  The moved center goes to c.
+__device__ __forceinline__ float sphere_distance(const SphereGeom& g,
+                                                 const Ray& r, float tm,
+                                                 float a, float inv_a,
+                                                 float t_min, float* cx,
+                                                 float* cy, float* cz) {
+  const float span = g.t1 - g.t0;
   const float denom = fabsf(span) < kEps ? 1.0f : span;
-  const float frac = (tm - q[6]) / denom;
-  const float cx = q[0] + frac * (q[3] - q[0]);
-  const float cy = q[1] + frac * (q[4] - q[1]);
-  const float cz = q[2] + frac * (q[5] - q[2]);
-  const float ocx = r.ox - cx, ocy = r.oy - cy, ocz = r.oz - cz;
-  const float rad = q[8];
+  const float frac = (tm - g.t0) / denom;
+  *cx = g.c0x + frac * (g.c1x - g.c0x);
+  *cy = g.c0y + frac * (g.c1y - g.c0y);
+  *cz = g.c0z + frac * (g.c1z - g.c0z);
+  const float ocx = r.ox - *cx, ocy = r.oy - *cy, ocz = r.oz - *cz;
   const float hb = ocx * r.dx + ocy * r.dy + ocz * r.dz;
-  const float cc = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
+  const float cc = ocx * ocx + ocy * ocy + ocz * ocz - g.rad * g.rad;
   const float disc = hb * hb - a * cc;
   const float sq = sqrtf(fmaxf(disc, 0.0f));
   const float near = (-hb - sq) * inv_a;
   const float far = (-hb + sq) * inv_a;
-  const bool has = disc > 0.0f && fabsf(rad) > 0.0f;
-  const float t = (has && near >= t_min) ? near
-                  : ((has && far >= t_min) ? far : kBig);
+  const bool has = disc > 0.0f && fabsf(g.rad) > 0.0f;
+  return (has && near >= t_min) ? near
+         : ((has && far >= t_min) ? far : kBig);
+}
+
+// The outward normal of sphere g (center c) at distance t along the ray; a
+// negative radius turns it inward.
+__device__ __forceinline__ void sphere_normal(const SphereGeom& g,
+                                              const Ray& r, float t, float cx,
+                                              float cy, float cz, float* nx,
+                                              float* ny, float* nz) {
+  const float inv_r = 1.0f / (fabsf(g.rad) < kEps ? 1.0f : g.rad);
+  *nx = (r.ox + t * r.dx - cx) * inv_r;
+  *ny = (r.oy + t * r.dy - cy) * inv_r;
+  *nz = (r.oz + t * r.dz - cz) * inv_r;
+}
+
+// One sphere row q of the dense loop against the ray, kept when strictly
+// closer than h.
+__device__ __forceinline__ void sphere_candidate(const float* q, const Ray& r,
+                                                 float tm, float a,
+                                                 float inv_a, float t_min,
+                                                 Hit& h) {
+  const SphereGeom g = sphere_geom(q);
+  float cx, cy, cz;
+  const float t = sphere_distance(g, r, tm, a, inv_a, t_min, &cx, &cy, &cz);
   if (t < kBig * 0.5f && t < h.t) {
-    const float inv_r = 1.0f / (fabsf(rad) < kEps ? 1.0f : rad);
     h.t = t;
-    h.nx = (r.ox + t * r.dx - cx) * inv_r;
-    h.ny = (r.oy + t * r.dy - cy) * inv_r;
-    h.nz = (r.oz + t * r.dz - cz) * inv_r;
+    sphere_normal(g, r, t, cx, cy, cz, &h.nx, &h.ny, &h.nz);
     h.sh = q + kSphSh;
     h.uv = kUvSphere;
   }
 }
 
-// The ray's slab interval against a node's box (lo xyz, hi xyz), with the
-// guarded reciprocals of its direction.
-__device__ __forceinline__ void node_slab(const float* nd, const Ray& r,
-                                          float ivx, float ivy, float ivz,
-                                          float* tn, float* tf) {
-  const float tx0 = (nd[0] - r.ox) * ivx, tx1 = (nd[3] - r.ox) * ivx;
-  const float ty0 = (nd[1] - r.oy) * ivy, ty1 = (nd[4] - r.oy) * ivy;
-  const float tz0 = (nd[2] - r.oz) * ivz, tz1 = (nd[5] - r.oz) * ivz;
-  *tn = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1));
-  *tf = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
-}
-
-// A BVH's nodes in the megakernel's layout: bounds (lo xyz, hi xyz), the
-// preorder (hit, miss) links, a leaf's first row (-1: internal).
-struct PreorderNodes {
-  const float* bounds;
-  const int* links;
-  const int* start;
-  __device__ __forceinline__ const float* box(int node) const {
-    return bounds + node * 6;
-  }
-  __device__ __forceinline__ int leaf(int node) const { return start[node]; }
-  __device__ __forceinline__ int next(int node, bool hit) const {
-    return links[2 * node + (hit ? 0 : 1)];
-  }
+// A BVH in device memory (see RtTables): the 32-byte node records and the
+// (hit, miss) link pairs, `stride` pairs a node, of which the walk follows
+// pair `link`: 0 of 1 in the megakernel's preorder threading, the ray's
+// direction octant of 8 in the hit kernel's.
+struct BvhNodes {
+  const float4* rec;
+  const int2* links;
+  int stride, link;
 };
 
-// The threaded walk of one ray (packet_walk, :1055-1103): a node is pruned
-// unless its box is hit no farther than the closest hit so far (`t_best`,
-// which `leaf` may lower); `leaf(first row)` tests a hit leaf's rows.  The
-// node layout (`Nodes`) picks the threading: the preorder links here, a
-// direction octant's in the hit kernel.
-template <class Nodes, class Leaf>
-__device__ __forceinline__ void bvh_walk(const Nodes& nodes, const Ray& r,
+// One node test of a walk (packet_walk, :1055-1103): the node is hit when
+// its slab interval starts no farther than the closest hit so far
+// (`t_best`); `start` is a hit leaf's first row (else -1) and `count` its
+// real rows; `next` the link that the test picks.  Three loads: the two
+// halves of the record and the link pair.
+struct NodeVisit {
+  int start, count, next;
+};
+
+__device__ __forceinline__ NodeVisit visit_node(const BvhNodes& nodes,
+                                                int node, const Ray& r,
+                                                float ivx, float ivy,
+                                                float ivz, float t_min,
+                                                float t_best) {
+  const float4 lo = nodes.rec[2 * node];
+  const float4 hi = nodes.rec[2 * node + 1];
+  const int2 ln = nodes.links[node * nodes.stride + nodes.link];
+  const float tx0 = (lo.x - r.ox) * ivx, tx1 = (hi.x - r.ox) * ivx;
+  const float ty0 = (lo.y - r.oy) * ivy, ty1 = (hi.y - r.oy) * ivy;
+  const float tz0 = (lo.z - r.oz) * ivz, tz1 = (hi.z - r.oz) * ivz;
+  const float tn =
+      fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1));
+  const float tf =
+      fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
+  const bool hit = tf >= fmaxf(tn, t_min) && tn <= t_best;
+  const int first = __float_as_int(lo.w);
+  NodeVisit v;
+  v.start = hit ? first : -1;
+  v.count = __float_as_int(hi.w);
+  v.next = hit ? ln.x : ln.y;
+  return v;
+}
+
+// The threaded walk of one ray by one thread: `leaf(first row, count)`
+// tests a hit leaf's rows and may lower `t_best`.  The megakernel's
+// triangle BVH (leaves of 4) takes it.
+template <class Leaf>
+__device__ __forceinline__ void bvh_walk(const BvhNodes& nodes, const Ray& r,
                                          float ivx, float ivy, float ivz,
                                          float t_min, const float& t_best,
                                          Leaf leaf) {
   int node = 0;
   while (node >= 0) {
-    float tn, tf;
-    node_slab(nodes.box(node), r, ivx, ivy, ivz, &tn, &tf);
-    const bool hit_box = tf >= fmaxf(tn, t_min) && tn <= t_best;
-    const int start = nodes.leaf(node);
-    if (hit_box && start >= 0) leaf(start);
-    node = nodes.next(node, hit_box);
+    const NodeVisit v =
+        visit_node(nodes, node, r, ivx, ivy, ivz, t_min, t_best);
+    if (v.start >= 0) leaf(v.start, v.count);
+    node = v.next;
   }
 }
 
-// The threaded sphere-BVH walk of one ray, with the leaves of :1170-1180.
-__device__ __forceinline__ void sphere_bvh_walk(const Tables& s, const Ray& r,
+// A row that one lane tests for a leaf's owner: accepted (`ok`) when it
+// beats the owner's closest hit, with its distance and three floats that
+// the owner takes if it wins (a sphere's normal, a triangle's weights).
+struct Cand {
+  bool ok;
+  float t, a, b, c;
+};
+
+// A float's order as an unsigned key (ties: -0 and +0 equal).
+__device__ __forceinline__ unsigned order_key(float t) {
+  const unsigned u = __float_as_uint(t + 0.0f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// The threaded walk of the warp's 32 rays, one a lane, with the leaves
+// tested by the whole warp.  Each lane steps through its own ray's
+// threading with the node test of `visit_node`; a lane with no node
+// (`live` false: a dead ray, or a thread past the wave's end) only takes
+// part.  In each step the lanes that reached a hit leaf are served, lowest
+// lane first, 32 / G at a time: the warp splits into groups of G lanes,
+// group g takes the g-th waiting lane's ray and closest hit, its lane j
+// tests row `start + j` for j < count (`test(ray, owner, row, valid,
+// t_best)`, called by every lane, which may broadcast more of the owner's
+// state), and the group's least accepted distance wins, its lowest lane
+// among equals.  That is the row a serial loop over the leaf with a strict
+// `<` keeps, bit for bit; the owner lowers `t_best` to it and calls
+// `take(row, t, a, b, c)`.  Every lane of the warp must call this function
+// (the intrinsics name all 32), and a leaf holds at most G rows.
+template <int G, class Test, class Take>
+__device__ __forceinline__ void warp_bvh_walk(const BvhNodes& nodes,
+                                              bool live, const Ray& r,
+                                              float ivx, float ivy, float ivz,
+                                              float t_min, float& t_best,
+                                              Test test, Take take) {
+  static_assert(G == 8 || G == 16 || G == 32, "groups tile the warp");
+  constexpr int kOwners = 32 / G;  // leaves served a pass
+  constexpr unsigned kGroupBits = G == 32 ? kFullMask : (1u << G) - 1u;
+  const int lane = threadIdx.x & 31;
+  const int group = lane / G;
+  int node = live ? 0 : -1;
+  while (__any_sync(kFullMask, node >= 0)) {
+    int start = -1, count = 0;
+    if (node >= 0) {
+      const NodeVisit v =
+          visit_node(nodes, node, r, ivx, ivy, ivz, t_min, t_best);
+      start = v.start;
+      count = v.count;
+      node = v.next;
+    }
+    unsigned waiting = __ballot_sync(kFullMask, start >= 0);
+    while (waiting != 0) {
+      // this pass serves the first kOwners waiting lanes, group g the g-th
+      unsigned mine = waiting;
+      for (int g = 0; g < group; ++g) mine &= mine - 1u;
+      const bool serving = mine != 0;
+      const int owner = serving ? __ffs(mine) - 1 : lane;
+      const int rank = __popc(waiting & ((1u << lane) - 1u));
+      const bool served = ((waiting >> lane) & 1u) && rank < kOwners;
+      for (int k = 0; k < kOwners; ++k) waiting &= waiting - 1u;
+      Ray rb;
+      rb.ox = __shfl_sync(kFullMask, r.ox, owner);
+      rb.oy = __shfl_sync(kFullMask, r.oy, owner);
+      rb.oz = __shfl_sync(kFullMask, r.oz, owner);
+      rb.dx = __shfl_sync(kFullMask, r.dx, owner);
+      rb.dy = __shfl_sync(kFullMask, r.dy, owner);
+      rb.dz = __shfl_sync(kFullMask, r.dz, owner);
+      const int first = __shfl_sync(kFullMask, start, owner);
+      const int n = __shfl_sync(kFullMask, count, owner);
+      const float tb = __shfl_sync(kFullMask, t_best, owner);
+      const int j = lane - group * G;
+      const Cand c = test(rb, owner, first + j, serving && j < n, tb);
+      const unsigned key = c.ok ? order_key(c.t) : 0xffffffffu;
+      unsigned least;
+      if (G == 32) {
+        least = __reduce_min_sync(kFullMask, key);
+      } else {
+        least = key;
+        for (int off = G / 2; off > 0; off >>= 1)
+          least = min(least, __shfl_xor_sync(kFullMask, least, off));
+      }
+      const unsigned won = __ballot_sync(kFullMask, c.ok && key == least);
+      if (won != 0) {  // uniform across the warp
+        // the lane that won in the group serving this lane, if any
+        const int g = served ? rank : group;
+        const unsigned gwon = (won >> (g * G)) & kGroupBits;
+        const int w = gwon != 0 ? g * G + __ffs(gwon) - 1 : lane;
+        const float t = __shfl_sync(kFullMask, c.t, w);
+        const float ca = __shfl_sync(kFullMask, c.a, w);
+        const float cb = __shfl_sync(kFullMask, c.b, w);
+        const float cc = __shfl_sync(kFullMask, c.c, w);
+        if (served && gwon != 0) {
+          t_best = t;
+          take(start + (w - g * G), t, ca, cb, cc);
+        }
+      }
+    }
+  }
+}
+
+// The threaded sphere-BVH walk (kernel 1d's sphere half, the leaves of
+// :1170-1180) of the warp's rays over the leaf-contiguous table `spheres`,
+// each against its closest hit so far h; every lane of the warp calls it,
+// `live` false for a lane with no ray.  Shared by the megakernel (preorder
+// links) and the hit kernel (octant links).
+__device__ __forceinline__ void sphere_bvh_walk(const BvhNodes& nodes,
+                                                const float* spheres,
+                                                bool live, const Ray& r,
                                                 float tm, float a,
                                                 float inv_a, float t_min,
                                                 Hit& h) {
   const float ivx = 1.0f / guard(r.dx);
   const float ivy = 1.0f / guard(r.dy);
   const float ivz = 1.0f / guard(r.dz);
-  bvh_walk(PreorderNodes{s.sph_nodes, s.sph_links, s.sph_start}, r, ivx, ivy,
-           ivz, t_min, h.t, [&](int start) {
-             for (int k = 0; k < kSphLeafK; ++k)
-               sphere_candidate(s.spheres + (start + k) * kSphCols, r, tm, a,
-                                inv_a, t_min, h);
-           });
+  warp_bvh_walk<kSphLeafK>(
+      nodes, live, r, ivx, ivy, ivz, t_min, h.t,
+      [&](const Ray& rb, int owner, int row, bool valid, float tb) {
+        const float tmb = __shfl_sync(kFullMask, tm, owner);
+        const float ab = __shfl_sync(kFullMask, a, owner);
+        const float inv_ab = __shfl_sync(kFullMask, inv_a, owner);
+        Cand c{false, kBig, 0.0f, 0.0f, 0.0f};
+        if (valid) {
+          const SphereGeom g = sphere_geom4(spheres + row * kSphCols);
+          float cx, cy, cz;
+          const float t =
+              sphere_distance(g, rb, tmb, ab, inv_ab, t_min, &cx, &cy, &cz);
+          if (t < kBig * 0.5f && t < tb) {
+            c.ok = true;
+            c.t = t;
+            sphere_normal(g, rb, t, cx, cy, cz, &c.a, &c.b, &c.c);
+          }
+        }
+        return c;
+      },
+      [&](int row, float, float nx, float ny, float nz) {
+        h.nx = nx;
+        h.ny = ny;
+        h.nz = nz;
+        h.sh = spheres + row * kSphCols + kSphSh;
+        h.uv = kUvSphere;
+      });
+}
+
+// A triangle candidate's geometry v0 e1 e2, three 16-byte loads from a
+// 16-byte aligned row: the hit kernel's 48-byte slot (v0 e1 e2 and three
+// zeros) or the first 48 bytes of a megakernel row.
+struct TriGeom {
+  float v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z;
+};
+
+__device__ __forceinline__ TriGeom tri_geom4(const float* q) {
+  const float4* v = reinterpret_cast<const float4*>(q);
+  const float4 a = v[0], b = v[1], c = v[2];
+  return TriGeom{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x};
 }
 
 // Moller-Trumbore (reference triangle.h:120-178, :1193-1250) of one
-// candidate g = v0 e1 e2 against the ray: true when it is hit at t >= t_min
-// inside the triangle, with t and the barycentric weights (ub, vb) of
-// vertices 1 and 2.  A degenerate triangle, or an all-zero pad row, fails
-// the determinant cut.
-__device__ __forceinline__ bool tri_candidate(const float* g, const Ray& r,
+// candidate g against the ray: true when it is hit at t >= t_min inside the
+// triangle, with t and the barycentric weights (ub, vb) of vertices 1 and
+// 2.  A degenerate triangle, or an all-zero pad row, fails the determinant
+// cut.
+__device__ __forceinline__ bool tri_candidate(const TriGeom& g, const Ray& r,
                                               float t_min, float* t,
                                               float* ub, float* vb) {
-  const float e1x = g[3], e1y = g[4], e1z = g[5];
-  const float e2x = g[6], e2y = g[7], e2z = g[8];
-  const float hx = r.dy * e2z - r.dz * e2y;
-  const float hy = r.dz * e2x - r.dx * e2z;
-  const float hz = r.dx * e2y - r.dy * e2x;
-  const float a = e1x * hx + e1y * hy + e1z * hz;
+  const float hx = r.dy * g.e2z - r.dz * g.e2y;
+  const float hy = r.dz * g.e2x - r.dx * g.e2z;
+  const float hz = r.dx * g.e2y - r.dy * g.e2x;
+  const float a = g.e1x * hx + g.e1y * hy + g.e1z * hz;
   const float f = 1.0f / (fabsf(a) < kTriDet ? kTriDet : a);
-  const float sx = r.ox - g[0], sy = r.oy - g[1], sz = r.oz - g[2];
+  const float sx = r.ox - g.v0x, sy = r.oy - g.v0y, sz = r.oz - g.v0z;
   *ub = f * (sx * hx + sy * hy + sz * hz);
-  const float qx = sy * e1z - sz * e1y;
-  const float qy = sz * e1x - sx * e1z;
-  const float qz = sx * e1y - sy * e1x;
+  const float qx = sy * g.e1z - sz * g.e1y;
+  const float qy = sz * g.e1x - sx * g.e1z;
+  const float qz = sx * g.e1y - sy * g.e1x;
   *vb = f * (r.dx * qx + r.dy * qy + r.dz * qz);
-  *t = f * (e2x * qx + e2y * qy + e2z * qz);
+  *t = f * (g.e2x * qx + g.e2y * qy + g.e2z * qz);
   return fabsf(a) > kTriDet && *ub >= 0.0f && *ub <= 1.0f && *vb >= 0.0f &&
          *ub + *vb <= 1.0f && *t >= t_min;
 }
 
 // The triangle walk of one ray (kernel 1d's triangle half, :1252-1289)
-// after every other primitive: a triangle strictly closer than h wins, its
-// normal the vertex normals weighted by (1 - ub - vb, ub, vb) and its
-// shading block copied into `tri_sh`, which h.sh then points at.
+// after every other primitive, one thread a ray over the real rows of each
+// hit leaf: a triangle strictly closer than h wins, its normal the vertex
+// normals weighted by (1 - ub - vb, ub, vb) and its shading block copied
+// into `tri_sh`, which h.sh then points at.
 __device__ __forceinline__ void tri_bvh_walk(const Tables& s, const Ray& r,
                                              float t_min, float* tri_sh,
                                              Hit& h) {
@@ -617,12 +824,12 @@ __device__ __forceinline__ void tri_bvh_walk(const Tables& s, const Ray& r,
   const float ivz = 1.0f / guard(r.dz);
   int best = -1;
   float bu = 0.0f, bv = 0.0f;
-  bvh_walk(PreorderNodes{s.tri_nodes, s.tri_links, s.tri_start}, r, ivx, ivy,
-           ivz, t_min, h.t, [&](int start) {
-             for (int k = 0; k < kTriLeafK; ++k) {
+  bvh_walk(BvhNodes{s.tri_nodes, s.tri_links, 1, 0}, r, ivx, ivy, ivz, t_min,
+           h.t, [&](int start, int count) {
+             for (int k = 0; k < count; ++k) {
                float t, ub, vb;
-               if (tri_candidate(s.tri_rows + (start + k) * kTriCols, r,
-                                 t_min, &t, &ub, &vb) &&
+               if (tri_candidate(tri_geom4(s.tri_rows + (start + k) * kTriCols),
+                                 r, t_min, &t, &ub, &vb) &&
                    t < h.t) {
                  h.t = t;
                  best = start + k;
@@ -676,17 +883,21 @@ __device__ __forceinline__ RectCross rect_cross(const float* q, const Ray& r) {
 }
 
 // ---- closest hit: rects, boxes, spheres, then triangles, strict <
-// (:961-1289); a triangle winner's shading block goes into `tri_sh` ----
+// (:961-1289); a triangle winner's shading block goes into `tri_sh`.  Every
+// lane of the warp calls it, for the sphere-BVH walk; a lane with no ray
+// (`live` false) tests nothing and gets a miss ----
 template <unsigned F>
 __device__ __forceinline__ Hit closest_hit(const Tables& s, const RtParams& p,
                                            const Ray& r, float tm,
-                                           float* tri_sh) {
+                                           float* tri_sh, bool live) {
   Hit h;
   h.t = kBig;
   h.nx = h.ny = h.nz = 0.0f;
   h.sh = nullptr;
   h.uv = kUvNone;
-  for (int k = 0; k < p.n_rects; ++k) {
+  const int n_rects = live ? p.n_rects : 0;
+  const int n_boxes = live ? p.n_boxes : 0;
+  for (int k = 0; k < n_rects; ++k) {
     const float* q = s.rects + k * kRectCols;
     const RectCross c = rect_cross(q, r);
     const bool ok = c.t >= p.t_min && c.pa >= q[1] && c.pa <= q[2] &&
@@ -700,7 +911,7 @@ __device__ __forceinline__ Hit closest_hit(const Tables& s, const RtParams& p,
       h.uv = k;
     }
   }
-  for (int k = 0; k < p.n_boxes; ++k) {
+  for (int k = 0; k < n_boxes; ++k) {
     // world -> object transform + slab test (box.h + hittable.h wrappers)
     const float* q = s.boxes + k * kBoxCols;
     const Slabs b = box_slabs(q, r);
@@ -731,14 +942,15 @@ __device__ __forceinline__ Hit closest_hit(const Tables& s, const RtParams& p,
     const float a = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
     const float inv_a = 1.0f / fmaxf(a, kEps);
     if (F & kFeatSpheres) {  // dense sphere loop
-      for (int k = 0; k < p.n_spheres; ++k)
+      for (int k = 0; k < (live ? p.n_spheres : 0); ++k)
         sphere_candidate(s.spheres + k * kSphCols, r, tm, a, inv_a, p.t_min,
                          h);
     } else {
-      sphere_bvh_walk(s, r, tm, a, inv_a, p.t_min, h);
+      sphere_bvh_walk(BvhNodes{s.sph_nodes, s.sph_links, 1, 0}, s.spheres,
+                      live, r, tm, a, inv_a, p.t_min, h);
     }
   }
-  if (F & kFeatTriBvh) tri_bvh_walk(s, r, p.t_min, tri_sh, h);
+  if ((F & kFeatTriBvh) && live) tri_bvh_walk(s, r, p.t_min, tri_sh, h);
   return h;
 }
 
@@ -1029,13 +1241,15 @@ __device__ __forceinline__ bool surface(const Hit& h, const Ray& r, float& nx,
   return front;
 }
 
-// Closest hit over the surfaces, then the media, for bounce draw `draw`.
+// Closest hit over the surfaces, then the media, for bounce draw `draw`;
+// every lane of the warp calls it (`closest_hit`).
 template <unsigned F>
 __device__ __forceinline__ Hit scene_hit(const Tables& s, const RtParams& p,
                                          const Ray& r, float tm,
-                                         uint32_t draw, float* tri_sh) {
-  Hit h = closest_hit<F>(s, p, r, tm, tri_sh);
-  if (F & kFeatMedia) media_hit(s, p, r, tm, draw, h);
+                                         uint32_t draw, float* tri_sh,
+                                         bool live) {
+  Hit h = closest_hit<F>(s, p, r, tm, tri_sh, live);
+  if ((F & kFeatMedia) && live) media_hit(s, p, r, tm, draw, h);
   return h;
 }
 
@@ -1048,6 +1262,24 @@ __device__ __forceinline__ uint32_t draw_window(uint32_t rng_base, int b) {
   return rng_base + static_cast<uint32_t>(b * 32) * kDrawMul;
 }
 
+// A lane's first ray (zeros for a thread past the wave's end, which has
+// none).
+__device__ __forceinline__ Ray lane_ray(const RtParams& p, int i, bool in,
+                                        uint32_t rng_base, float* tm) {
+  *tm = 0.0f;
+  Ray r{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (in) r = first_ray(p, i, rng_base, tm);
+  return r;
+}
+
+// With the sphere BVH (kWarpWalk), whose walk is the warp's, every thread
+// stays until its whole warp is done: a thread past the wave's end, or one
+// whose path has ended, goes through each bounce's closest hit with no ray,
+// and writes what it wrote when it left early.  Without it a thread leaves
+// when its path ends, as the TPU kernel's dead lanes add nothing.
+template <unsigned F>
+constexpr bool kWarpWalk = (F & kFeatSphereBvh) != 0;
+
 template <unsigned F>
 __global__ void __launch_bounds__(kThreads)
 megakernel_fwd(const RtTables tables, const RtParams p,
@@ -1056,22 +1288,28 @@ megakernel_fwd(const RtTables tables, const RtParams p,
   extern __shared__ float smem[];
   const Tables s = stage_tables(tables, p, smem);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p.n) return;
+  const bool in = i < p.n;
+  if (!kWarpWalk<F> && !in) return;
   const uint32_t rng_base = lane_base(p, i);
   float tm;
-  Ray r = first_ray(p, i, rng_base, &tm);
+  Ray r = lane_ray(p, i, in, rng_base, &tm);
 
   float tr = 1.0f, tg = 1.0f, tb = 1.0f;
   float lr = 0.0f, lg = 0.0f, lb = 0.0f;
   float tri_sh[12];  // a triangle winner's shading block (kFeatTriBvh)
+  bool alive = in;
   for (int b = 0; b < p.max_depth; ++b) {
+    if (kWarpWalk<F> ? !__any_sync(kFullMask, alive) : !alive) break;
     const uint32_t draw = draw_window(rng_base, b);
-    const Hit h = scene_hit<F>(s, p, r, tm, draw, tri_sh);
+    const Hit h = scene_hit<F>(s, p, r, tm, draw, tri_sh,
+                               kWarpWalk<F> ? alive : true);
+    if (!alive) continue;
     if (!(h.t < kBig * 0.5f)) {  // miss: background, then the path ends
       lr = lr + tr * p.bg[0];
       lg = lg + tg * p.bg[1];
       lb = lb + tb * p.bg[2];
-      break;
+      alive = false;
+      continue;
     }
     float nx, ny, nz, px, py, pz, ar, ag, ab;
     const bool front = surface(h, r, nx, ny, nz, px, py, pz);
@@ -1081,9 +1319,13 @@ megakernel_fwd(const RtTables tables, const RtParams p,
       lr = lr + tr * ar;
       lg = lg + tg * ag;
       lb = lb + tb * ab;
-      break;
+      alive = false;
+      continue;
     }
-    if (!scatter(kind, h.sh, front, nx, ny, nz, draw, r)) break;
+    if (!scatter(kind, h.sh, front, nx, ny, nz, draw, r)) {
+      alive = false;
+      continue;
+    }
     if (kind != kDielectric) {  // throughput (:1515-1519)
       tr = tr * ar;
       tg = tg * ag;
@@ -1093,7 +1335,10 @@ megakernel_fwd(const RtTables tables, const RtParams p,
       // russian roulette (:1521-1534): go on with p = clip(max throughput,
       // 0.05, 1), reweighted by 1 / p
       const float pr = fminf(fmaxf(fmaxf(tr, fmaxf(tg, tb)), kRrFloor), 1.0f);
-      if (!(uniform01(draw, 8u) < pr)) break;
+      if (!(uniform01(draw, 8u) < pr)) {
+        alive = false;
+        continue;
+      }
       const float inv_p = 1.0f / pr;
       tr = tr * inv_p;
       tg = tg * inv_p;
@@ -1103,6 +1348,7 @@ megakernel_fwd(const RtTables tables, const RtParams p,
     r.oy = py;
     r.oz = pz;
   }
+  if (!in) return;
   out_r[i] = lr;
   out_g[i] = lg;
   out_b[i] = lb;
@@ -1117,24 +1363,27 @@ megakernel_record(const RtTables tables, const RtParams p,
   extern __shared__ float smem[];
   const Tables s = stage_tables(tables, p, smem);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p.n) return;
+  const bool in = i < p.n;
+  if (!kWarpWalk<F> && !in) return;
   const uint32_t rng_base = lane_base(p, i);
   float tm;
-  Ray r = first_ray(p, i, rng_base, &tm);
+  Ray r = lane_ray(p, i, in, rng_base, &tm);
 
   const size_t stride = static_cast<size_t>(p.n);
   const bool need_p = out_px != nullptr;  // uniform across the launch
   const bool need_uv = out_u != nullptr;  // uniform across the launch
   float tri_sh[12];  // a triangle winner's shading block (kFeatTriBvh)
-  bool alive = true;
+  bool alive = in;
   for (int b = 0; b < p.max_depth; ++b) {
     int32_t word = 0;  // a bounce after the path's end records nothing
     float px = 0.0f, py = 0.0f, pz = 0.0f;  // the hit point, 0 but on a hit
     float u = 0.0f, v = 0.0f;               // the winner's uv, likewise
+    // hit, cont and miss as at pallas_trace.py:1397-1398 and :1512-1513
+    const uint32_t draw = draw_window(rng_base, b);
+    Hit h;
+    if (kWarpWalk<F> || alive)
+      h = scene_hit<F>(s, p, r, tm, draw, tri_sh, alive);
     if (alive) {
-      // hit, cont and miss as at pallas_trace.py:1397-1398 and :1512-1513
-      const uint32_t draw = draw_window(rng_base, b);
-      const Hit h = scene_hit<F>(s, p, r, tm, draw, tri_sh);
       if (!(h.t < kBig * 0.5f)) {
         word = kMissBit;
         alive = false;
@@ -1152,6 +1401,7 @@ megakernel_record(const RtTables tables, const RtParams p,
         r.oz = pz;
       }
     }
+    if (!in) continue;
     const size_t at = b * stride + i;
     out_packed[at] = word;
     if (need_p) {
@@ -1164,6 +1414,11 @@ megakernel_record(const RtTables tables, const RtParams p,
       out_v[at] = v;
     }
   }
+}
+
+// Whether a table the kernels read with 16-byte loads is 16-byte aligned.
+inline bool aligned16(const void* t) {
+  return reinterpret_cast<uintptr_t>(t) % 16 == 0;
 }
 
 // False when `p` is outside what the kernels take; else sets the
@@ -1194,11 +1449,23 @@ inline bool check_launch(const RtParams& p, size_t* table_bytes) {
          *table_bytes <= kMaxTableBytes;
 }
 
+// check_launch, and the BVH tables 16-byte aligned where they are read.
+inline bool check_tables(const RtTables& t, const RtParams& p,
+                         size_t* table_bytes) {
+  const bool bvh = (p.features & kFeatSphereBvh) != 0;
+  const bool tri = (p.features & kFeatTriBvh) != 0;
+  return check_launch(p, table_bytes) &&
+         (!bvh || (aligned16(t.spheres) && aligned16(t.sph_nodes) &&
+                   aligned16(t.sph_links))) &&
+         (!tri || (aligned16(t.tri_rows) && aligned16(t.tri_nodes) &&
+                   aligned16(t.tri_links)));
+}
+
 template <unsigned F>
 int launch_fwd(const RtTables& t, const RtParams& p, float* out_r,
                float* out_g, float* out_b, cudaStream_t stream) {
   size_t table_bytes;
-  if (!check_launch(p, &table_bytes))
+  if (!check_tables(t, p, &table_bytes))
     return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (p.n + kThreads - 1) / kThreads;
   megakernel_fwd<F><<<blocks, kThreads, table_bytes, stream>>>(t, p, out_r,

@@ -19,7 +19,7 @@ template <unsigned F>
 int launch_record(const RtTables& t, const RtParams& p, int32_t* out,
                   const Planes& o, cudaStream_t stream) {
   size_t table_bytes;
-  if (!rt::check_launch(p, &table_bytes))
+  if (!rt::check_tables(t, p, &table_bytes))
     return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (p.n + rt::kThreads - 1) / rt::kThreads;
   rt::megakernel_record<F><<<blocks, rt::kThreads, table_bytes, stream>>>(

@@ -111,6 +111,8 @@ MEDIUM_COLS, MEDIUM_SH = 24, 12
 MAX_SPHERES = 64   # the dense loop; a sphere BVH above (`_SPH_BVH_MIN`, :149)
 SPH_LEAF_K = 8     # sphere rows per BVH leaf (`_SPH_LEAF_K`, :150)
 HIT_NODE_COLS = 23  # bounds | leaf start | 8 octant (hit, miss) link pairs
+NODE_REC_COLS = 8   # a kernel's node record: lo xyz, first | hi xyz, count
+TRI_SLOT_COLS = 12  # a hit-tier slot on the device: v0 e1 e2, 3 zeros
 MAX_MEDIA = 16     # RNG salts per bounce for free paths (`_MAX_MEDIA`, :178)
 # triangle rows of the megakernel (`_TRI_*`, pallas_trace.py:128-133): v0 e1
 # e2 | n0 n1 n2 | uv0 uv1 uv2 | kind fuzz ir mat | c1 c2 scale texk | pad
@@ -183,6 +185,25 @@ class SceneBake(NamedTuple):
         return n_tris > 0 and (
             n_tris * 512 > budget
             or (len(self.tri_table) + len(self.tri_nodes)) * 512 > budget)
+
+    def sph_leaf_count(self) -> np.ndarray:
+        """(M,) int32 rows each sphere-BVH node's leaf tests: up to its
+        last row of radius != 0 (pads, radius 0, sit at a leaf's tail and
+        never hit); 0 on an internal node."""
+        return _leaf_counts(self.sphere_table[:, 8] != 0, self.sph_start,
+                            SPH_LEAF_K)
+
+    def tri_leaf_count(self) -> np.ndarray:
+        """(Mt,) int32 real rows of each megakernel triangle leaf
+        (`tri_ids >= 0`); 0 on an internal node."""
+        return _leaf_counts(self.tri_ids >= 0, self.tri_start, TRI_LEAF_K)
+
+    def tri_hit_leaf_count(self) -> np.ndarray:
+        """(Mh,) int32 real slots of each hit-tier leaf (`tri_perm >= 0`);
+        0 on an internal node."""
+        return _leaf_counts(self.tri_perm >= 0,
+                            self.tri_hit_nodes[:, 6].astype(np.int64),
+                            HIT_TRI_LEAF_K)
 
     def world_bounds(self) -> tuple:
         """(lo, hi) float32 (3,) for the wavefront's morton keys
@@ -502,6 +523,62 @@ def _leaf_contiguous(rows: np.ndarray, bvh: bvh_mod.FlatBVH, leaf_k: int):
     links = np.stack([np.asarray(bvh.hit_link, np.int32),
                       np.asarray(bvh.miss_link, np.int32)], axis=1)
     return table, nodes, links, start
+
+
+def _leaf_counts(real: np.ndarray, start: np.ndarray,
+                 leaf_k: int) -> np.ndarray:
+    """(M,) int32: for each node with a leaf (`start` >= 0, its first row
+    of a leaf-contiguous table) the count of its rows up to its last real
+    one (`real`, one flag a row), 0 for the others."""
+    start = np.asarray(start).reshape(-1).astype(np.int64)
+    count = np.zeros(len(start), np.int32)
+    leaf = start >= 0
+    if leaf.any():
+        rows = np.asarray(real).reshape(-1, leaf_k)[start[leaf] // leaf_k]
+        tail = np.argmax(rows[:, ::-1], axis=1)
+        count[leaf] = np.where(rows.any(1), leaf_k - tail, 0)
+    return count
+
+
+def node_records(bounds: np.ndarray, start: np.ndarray,
+                 count: np.ndarray) -> np.ndarray:
+    """(M, NODE_REC_COLS) float32: a BVH's 32-byte node records as the
+    kernels read them, two float4s a node: lo xyz and the leaf's first row
+    as int32 bits (-1 on an internal node), hi xyz and the leaf's count of
+    real rows as int32 bits (`csrc/megakernel.cuh` RtTables)."""
+    rec = np.zeros((len(bounds), NODE_REC_COLS), np.float32)
+    rec[:, 0:3] = bounds[:, 0:3]
+    rec[:, 4:7] = bounds[:, 3:6]
+    ints = rec.view(np.int32)
+    ints[:, 3] = np.asarray(start).reshape(-1)
+    ints[:, 7] = count
+    return rec
+
+
+def device_tables(bake: SceneBake) -> dict:
+    """The BVH tables the kernels read, from the bake, as numpy arrays
+    whose rows are whole 16-byte words: the sphere BVH's node records
+    (`node_records`) with its preorder (hit, miss) links (M, 2) int32 for
+    the megakernel and its octant link pairs (M, 16) int32 for the hit
+    kernel (octant o's pair at columns 2o, 2o + 1); the megakernel's
+    triangle BVH likewise; the hit tier's slots (Sl, TRI_SLOT_COLS) (v0 e1
+    e2 and three zeros), node records and octant link pairs."""
+    slots = np.zeros((len(bake.tri_geom), TRI_SLOT_COLS), np.float32)
+    slots[:, :9] = bake.tri_geom
+    return dict(
+        sph_nodes=node_records(bake.sph_nodes, bake.sph_start,
+                               bake.sph_leaf_count()),
+        sph_links=np.ascontiguousarray(bake.sph_links, np.int32),
+        sph_octant_links=bake.sph_hit_nodes[:, 7:].astype(np.int32),
+        tri_nodes=node_records(bake.tri_nodes, bake.tri_start,
+                               bake.tri_leaf_count()),
+        tri_links=np.ascontiguousarray(bake.tri_links, np.int32),
+        tri_slots=slots,
+        tri_slot_nodes=node_records(
+            bake.tri_hit_nodes[:, :6],
+            bake.tri_hit_nodes[:, 6].astype(np.int32),
+            bake.tri_hit_leaf_count()),
+        tri_slot_links=bake.tri_hit_nodes[:, 7:].astype(np.int32))
 
 
 def _octant_links(bvh: bvh_mod.FlatBVH) -> np.ndarray:
@@ -832,6 +909,7 @@ def _closest_hit(bake: SceneBake, o3: tuple, d3: tuple, tm: torch.Tensor,
         w = sphere_walk_reference(bake, o3, d3, tm, t_min, t_best, alive)
         walk["nodes"] += int(w.nodes.sum())
         walk["rows"] += int(w.rows.sum())
+        walk["leaf_tests"] = walk["leaf_tests"] + w.leaf_tests
     if len(bake.sphere_table):
         sph = _closest_sphere(bake.sphere_table, o3, d3, tm, t_min, t_best)
         better = upd(sph.better, sph.t, *sph.normal, row + sph.row)
@@ -851,6 +929,7 @@ def _closest_hit(bake: SceneBake, o3: tuple, d3: tuple, tm: torch.Tensor,
             walk["tri_nodes"] += int(tw.nodes.sum())
             walk["tri_rows"] += int(tw.rows.sum())
             walk["tri_wins"] += int(tw.better.sum())
+            walk["tri_leaf_tests"] = walk["tri_leaf_tests"] + tw.leaf_tests
             walk["tri_read"] = tri_reads(tw, len(bake.tri_table))
     return _Hit(t_best, (nx, ny, nz), idx, (uu, vv, sphf) if uv else None)
 
@@ -955,6 +1034,7 @@ class SphereWalk(NamedTuple):
     row: torch.Tensor     # (n,) int64 its row in the leaf-contiguous table
     nodes: torch.Tensor   # (n,) int64 node slab tests
     rows: torch.Tensor    # (n,) int64 sphere rows tested
+    leaf_tests: torch.Tensor  # (M,) int64 lanes that tested each node's leaf
 
 
 def sphere_walk_reference(bake: SceneBake, o3: tuple, d3: tuple,
@@ -963,8 +1043,8 @@ def sphere_walk_reference(bake: SceneBake, o3: tuple, d3: tuple,
                           octant: bool = False) -> SphereWalk:
     """The stackless sphere-BVH walk of the kernels, every live lane in
     lockstep: slab-test the lane's node against its closest hit so far
-    (`tn <= t`), test a hit leaf's SPH_LEAF_K rows in order with a strict
-    `<`, then follow the node's hit or miss link until -1.
+    (`tn <= t`), test a hit leaf's real rows (`sph_leaf_count`) in order
+    with a strict `<`, then follow the node's hit or miss link until -1.
     `megakernel_fwd` follows the preorder links (`sph_links`, octant
     False); `rt_hit` the links of the ray's own direction octant
     (`sph_hit_nodes`, octant True).
@@ -977,6 +1057,7 @@ def sphere_walk_reference(bake: SceneBake, o3: tuple, d3: tuple,
     dev = tm.device
     nodes = torch.as_tensor(bake.sph_nodes, device=dev)
     start = torch.as_tensor(bake.sph_start[:, 0], device=dev).long()
+    count = torch.as_tensor(bake.sph_leaf_count(), device=dev).long()
     if octant:
         links = torch.as_tensor(bake.sph_hit_nodes[:, 7:], device=dev).long()
         oct_ = ((dx < 0).long() << 2) | ((dy < 0).long() << 1) | (dz < 0).long()
@@ -991,6 +1072,7 @@ def sphere_walk_reference(bake: SceneBake, o3: tuple, d3: tuple,
     best_t = t_best.clone()
     best_row = torch.zeros_like(col)
     n_nodes, n_rows = torch.zeros_like(col), torch.zeros_like(col)
+    leaf_tests = torch.zeros(len(nodes), dtype=torch.int64, device=dev)
     node = torch.where(alive, 0, -1).long()
     while bool((node >= 0).any()):
         active = node >= 0
@@ -1011,15 +1093,17 @@ def sphere_walk_reference(bake: SceneBake, o3: tuple, d3: tuple,
         for k in range(SPH_LEAF_K):
             r = torch.where(leaf, start[at] + k, 0)
             t = sr.distance(r, o3, d3, tm, a, inv_a, t_min)
-            take = leaf & (t < BIG * 0.5) & (t < best_t)
+            take = (leaf & (k < count[at]) & (t < BIG * 0.5)
+                    & (t < best_t))
             best_t = torch.where(take, t, best_t)
             best_row = torch.where(take, r, best_row)
         n_nodes += active.long()
-        n_rows += SPH_LEAF_K * leaf.long()
+        n_rows += count[at] * leaf.long()
+        leaf_tests += torch.bincount(at[leaf], minlength=len(nodes))
         nxt = links[at, col + (~hit_box).long()]
         node = torch.where(active, nxt, -1)
     better = alive & (best_t < t_best)
-    return SphereWalk(better, best_t, best_row, n_nodes, n_rows)
+    return SphereWalk(better, best_t, best_row, n_nodes, n_rows, leaf_tests)
 
 
 class TriWalk(NamedTuple):
@@ -1035,6 +1119,7 @@ class TriWalk(NamedTuple):
     node_seen: torch.Tensor   # (M,) bool, the nodes any lane tested
     link_seen: torch.Tensor   # (M, links) bool, the link columns followed
     leaf_seen: torch.Tensor   # (leaves,) bool, the leaves any lane tested
+    leaf_tests: torch.Tensor  # (M,) int64 lanes that tested each node's leaf
 
 
 def tri_candidates(g: torch.Tensor, o3: tuple, d3: tuple, t_min: float):
@@ -1079,9 +1164,10 @@ def tri_walk_reference(bake: SceneBake, o3: tuple, d3: tuple, t_min: float,
     `tri_table` in leaves of TRI_LEAF_K (`row` is a table row).  octant
     True: `rt_hit`'s triangle tier, the links of the ray's own direction
     octant over `tri_geom` in leaves of HIT_TRI_LEAF_K (`row` is a slot).
-    Among equal distances the first in the lane's visit order wins, so a
-    ray through an edge that two triangles share keeps the one the kernel
-    keeps.  The node and candidate tests are counted for the bounds."""
+    A leaf's real rows are tested, not the pads at its tail.  Among equal
+    distances the first in the lane's visit order wins, so a ray through
+    an edge that two triangles share keeps the one the kernel keeps.  The
+    node and candidate tests are counted for the bounds."""
     dx, dy, dz = d3
     dev = t_best.device
     if octant:
@@ -1091,6 +1177,7 @@ def tri_walk_reference(bake: SceneBake, o3: tuple, d3: tuple, t_min: float,
         oct_ = ((dx < 0).long() << 2) | ((dy < 0).long() << 1) | (dz < 0).long()
         col = 2 * oct_
         geom = torch.as_tensor(bake.tri_geom, device=dev)
+        count = bake.tri_hit_leaf_count()
         leaf_k = HIT_TRI_LEAF_K
     else:
         bounds = torch.as_tensor(bake.tri_nodes, device=dev)
@@ -1098,7 +1185,9 @@ def tri_walk_reference(bake: SceneBake, o3: tuple, d3: tuple, t_min: float,
         links = torch.as_tensor(bake.tri_links, device=dev).long()
         col = torch.zeros_like(t_best, dtype=torch.int64)
         geom = torch.as_tensor(bake.tri_table[:, :9], device=dev)
+        count = bake.tri_leaf_count()
         leaf_k = TRI_LEAF_K
+    count = torch.as_tensor(count, device=dev).long()
     ivx, ivy, ivz = 1.0 / _guard(dx), 1.0 / _guard(dy), 1.0 / _guard(dz)
     best_t = t_best.clone()
     zero_f = torch.zeros_like(best_t)
@@ -1109,6 +1198,7 @@ def tri_walk_reference(bake: SceneBake, o3: tuple, d3: tuple, t_min: float,
     link_seen = torch.zeros(links.shape, dtype=torch.bool, device=dev)
     leaf_seen = torch.zeros(len(geom) // leaf_k, dtype=torch.bool,
                             device=dev)
+    leaf_tests = torch.zeros(len(bounds), dtype=torch.int64, device=dev)
     ks = torch.arange(leaf_k, device=dev)
     node = torch.where(alive, 0, -1).long()
     while bool((node >= 0).any()):
@@ -1136,7 +1226,7 @@ def tri_walk_reference(bake: SceneBake, o3: tuple, d3: tuple, t_min: float,
             col1 = (lambda x: x[lanes][:, None])
             t, ub, vb, ok = tri_candidates(
                 geom[rows], tuple(map(col1, o3)), tuple(map(col1, d3)), t_min)
-            t = torch.where(ok, t, BIG)
+            t = torch.where(ok & (ks < count[at[lanes]][:, None]), t, BIG)
             j = torch.argmin(t, dim=1)
             pick = (lambda x: torch.gather(x, 1, j[:, None])[:, 0])
             t_j = pick(t)
@@ -1148,7 +1238,8 @@ def tri_walk_reference(bake: SceneBake, o3: tuple, d3: tuple, t_min: float,
             best_v[won] = pick(vb)[take]
             leaf_seen[start[at[lanes]] // leaf_k] = True
         n_nodes += active.long()
-        n_rows += leaf_k * leaf.long()
+        n_rows += count[at] * leaf.long()
+        leaf_tests += torch.bincount(at[leaf], minlength=len(bounds))
         link = col + (~hit_box).long()
         node_seen[at[active]] = True
         link_seen[at[active], link[active]] = True
@@ -1156,7 +1247,7 @@ def tri_walk_reference(bake: SceneBake, o3: tuple, d3: tuple, t_min: float,
         node = torch.where(active, nxt, -1)
     better = alive & (best_t < t_best)
     return TriWalk(better, best_t, best_row, best_u, best_v, n_nodes, n_rows,
-                   node_seen, link_seen, leaf_seen)
+                   node_seen, link_seen, leaf_seen, leaf_tests)
 
 
 def tri_reads(walk: TriWalk, n_rows: int) -> dict:
@@ -1461,6 +1552,7 @@ def _bounce(bake: SceneBake, shading: torch.Tensor, base: torch.Tensor,
     draw = _draw_window(base, b)
     walk = None if counts is None else dict(nodes=0, rows=0, tri_nodes=0,
                                             tri_rows=0, tri_wins=0,
+                                            leaf_tests=0, tri_leaf_tests=0,
                                             tri_read=None)
     h = _scene_hit(bake, o3, d3, tm, t_min, draw, n, dev, alive, walk, uv)
     hit = alive & (h.t < BIG * 0.5)
@@ -1472,7 +1564,8 @@ def _bounce(bake: SceneBake, shading: torch.Tensor, base: torch.Tensor,
     cont = hit & ok & (kind != st.DIFFUSE_LIGHT)
     if counts is not None:
         counts["live"] += int(alive.sum())
-        for k in ("nodes", "rows", "tri_nodes", "tri_rows", "tri_wins"):
+        for k in ("nodes", "rows", "tri_nodes", "tri_rows", "tri_wins",
+                  "leaf_tests", "tri_leaf_tests"):
             counts[k] += walk[k]
         counts["tri_read"] = merge_reads(counts["tri_read"], walk["tri_read"])
         lit = kind == st.DIFFUSE_LIGHT
@@ -1508,8 +1601,9 @@ def trace_pixels_reference(bake: SceneBake, camera, img_h: int, img_w: int,
     `counts`, when given a dict, receives the work the kernel does for these
     paths: "live" bounces, "cont" bounces that go on, "scatter" {material
     kind: hits that scatter}, the sphere-BVH walk's "nodes" and "rows"
-    tests (`sphere_walk_reference`), and the triangle walk's "tri_nodes"
-    and "tri_rows" tests and "tri_wins" (`tri_walk_reference`), and
+    tests and "leaf_tests" (`sphere_walk_reference`), and the triangle
+    walk's "tri_nodes" and "tri_rows" tests, "tri_wins" and
+    "tri_leaf_tests" (`tri_walk_reference`), and
     "tri_read", the union of the walks' `tri_reads` (None without
     triangles).
     """
@@ -1549,7 +1643,8 @@ def _trace(bake: SceneBake, o3: tuple, d3: tuple, tm: torch.Tensor,
     bgr, bgg, bgb = bake.background
     if counts is not None:
         counts.update(live=0, cont=0, scatter={}, nodes=0, rows=0,
-                      tri_nodes=0, tri_rows=0, tri_wins=0, tri_read=None)
+                      tri_nodes=0, tri_rows=0, tri_wins=0, leaf_tests=0,
+                      tri_leaf_tests=0, tri_read=None)
 
     for b in range(max_depth):
         if not bool(alive.any()):
@@ -2104,11 +2199,16 @@ def _check_count(n: int) -> None:
 
 def _check_table(t: torch.Tensor, cols: int, device: torch.device,
                  dtype: torch.dtype = torch.float32) -> None:
+    """A kernel table: contiguous, (rows, cols) of `dtype` on `device`, and
+    16-byte aligned (the kernels read BVH nodes, triangle slots and sphere
+    rows 16 bytes at a time)."""
     if (t.device != device or t.dtype != dtype
-            or not t.is_contiguous() or t.dim() != 2 or t.shape[1] != cols):
-        raise ValueError(f"kernel table must be a contiguous {dtype} "
-                         f"(rows, {cols}) tensor on {device}, got "
-                         f"{tuple(t.shape)} {t.dtype} on {t.device}")
+            or not t.is_contiguous() or t.dim() != 2 or t.shape[1] != cols
+            or t.data_ptr() % 16 != 0):
+        raise ValueError(f"kernel table must be a contiguous, 16-byte "
+                         f"aligned {dtype} (rows, {cols}) tensor on "
+                         f"{device}, got {tuple(t.shape)} {t.dtype} on "
+                         f"{t.device} at {t.data_ptr():#x}")
 
 
 def _check_rays(o: torch.Tensor, d: torch.Tensor, tm: torch.Tensor,
@@ -2183,16 +2283,15 @@ class Tracer:
         self.bake = bake = bake_scene(scene)
         self.need_p, self.need_uv = bake.need_p, bake.need_uv
         self.supports_forward = supports_forward(scene)
-        (self.rect_table, self.box_table, self.sphere_table, self.media_table,
-         self.sph_nodes, self.sph_links, self.sph_start,
-         self.sph_hit_nodes, self.tri_table, self.tri_nodes, self.tri_links,
-         self.tri_start, self.tri_geom, self.tri_hit_nodes) = (
+        (self.rect_table, self.box_table, self.sphere_table,
+         self.media_table, self.tri_table) = (
             torch.as_tensor(t, device=self.device) for t in (
                 bake.rect_table(), bake.box_table(), bake.sphere_table,
-                bake.media_table(), bake.sph_nodes, bake.sph_links,
-                bake.sph_start, bake.sph_hit_nodes, bake.tri_table,
-                bake.tri_nodes, bake.tri_links, bake.tri_start,
-                bake.tri_geom, bake.tri_hit_nodes))
+                bake.media_table(), bake.tri_table))
+        # the BVHs as the kernels read them (`device_tables`): node
+        # records, link pairs, the hit tier's 48-byte slots
+        for name, t in device_tables(bake).items():
+            setattr(self, name, torch.as_tensor(t, device=self.device))
         # the hit kernel draws no random numbers, so no media
         # (pallas_trace.py:2372-2387; the VMEM budget has no meaning here)
         self.supports_hit = not (bake.sphere_media or bake.box_media)
@@ -2432,10 +2531,14 @@ class Tracer:
             return plain
 
         tables = (self.rect_table, self.box_table, self.sphere_table,
-                  self.sph_hit_nodes, self.tri_geom, self.tri_hit_nodes)
-        for t, cols in zip(tables, (RECT_COLS, BOX_COLS, SPHERE_COLS,
-                                    HIT_NODE_COLS, 9, HIT_NODE_COLS)):
-            _check_table(t, cols, self.device)
+                  self.sph_nodes, self.sph_octant_links, self.tri_slots,
+                  self.tri_slot_nodes, self.tri_slot_links)
+        f32, i32 = torch.float32, torch.int32
+        for t, cols, dtype in zip(
+                tables, (RECT_COLS, BOX_COLS, SPHERE_COLS, NODE_REC_COLS, 16,
+                         TRI_SLOT_COLS, NODE_REC_COLS, 16),
+                (f32,) * 4 + (i32, f32, f32, i32)):
+            _check_table(t, cols, self.device, dtype)
         ptrs = tuple(t.data_ptr() for t in tables)
         counts = (len(self.bake.rects), len(self.bake.boxes),
                   len(self.bake.sphere_table), len(self.bake.sph_hit_nodes),
@@ -2470,18 +2573,17 @@ class Tracer:
         return self.bind_hit(t_min)(o, d, tm, alive)
 
     def _checked_tables(self) -> "build.RtTables":
-        """The megakernels' eleven tables, checked, as the struct the C
+        """The megakernels' nine tables, checked, as the struct the C
         entries take.  It keeps the tensors alive (`.tensors`): a bound
         launch may outlive the tracer (`compile_renderer`)."""
         tensors = (self.rect_table, self.box_table, self.sphere_table,
                    self.media_table, self.sph_nodes, self.sph_links,
-                   self.sph_start, self.tri_table, self.tri_nodes,
-                   self.tri_links, self.tri_start)
+                   self.tri_table, self.tri_nodes, self.tri_links)
         f32, i32 = torch.float32, torch.int32
         for t, cols, dtype in zip(
-                tensors, (RECT_COLS, BOX_COLS, SPHERE_COLS, MEDIUM_COLS, 6, 2,
-                          1, TRI_COLS, 6, 2, 1),
-                (f32,) * 5 + (i32,) * 2 + (f32,) * 2 + (i32,) * 2):
+                tensors, (RECT_COLS, BOX_COLS, SPHERE_COLS, MEDIUM_COLS,
+                          NODE_REC_COLS, 2, TRI_COLS, NODE_REC_COLS, 2),
+                (f32,) * 5 + (i32, f32, f32, i32)):
             _check_table(t, cols, self.device, dtype)
         tables = build.RtTables(*(t.data_ptr() for t in tensors))
         tables.tensors = tensors

@@ -203,11 +203,19 @@ def test_big_scene1_chunk_matches_pinned_golden():
 def test_plain_forward_counts_the_walk(big):
     tsd, tracer = big[1], big[3]
     counts = {}
-    out = ct.trace_pixels_reference(tracer.bake, tsd.camera, 450, 800, 0,
-                                    512, 77, 4, counts=counts)
+    # the middle rows: the top of the image is sky and tests no leaf
+    out = ct.trace_pixels_reference(tracer.bake, tsd.camera, 450, 800,
+                                    800 * 225, 512, 77, 4, counts=counts)
     assert out.shape == (512, 3) and torch.isfinite(out).all()
     assert counts["live"] >= 512 and counts["cont"] < counts["live"]
     assert 0 < counts["nodes"] < 40 * counts["live"]
-    assert counts["rows"] % ct.SPH_LEAF_K == 0
+    # a tested leaf counts exactly its real rows (pads never hit); a
+    # quarter of big_scene1's rows are pads, so that is fewer than whole
+    # leaves
+    tests = counts["leaf_tests"].numpy()
+    real = tracer.bake.sph_leaf_count()
+    assert tests.sum() > 0 and (tests[real == 0] == 0).all()
+    assert counts["rows"] == int((tests * real).sum())
+    assert counts["rows"] < ct.SPH_LEAF_K * int(tests.sum())
     assert set(counts["scatter"]) <= {tst.LAMBERTIAN, tst.METAL,
                                       tst.DIELECTRIC}

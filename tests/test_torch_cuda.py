@@ -808,3 +808,67 @@ def test_hit_kernel_on_image_scenes_matches_plain(dev, name):
     res = ct.hit_agreement(tracer.hit(*rays),
                            ct.hit_reference(tracer.bake, *rays))
     assert res["packed_equal"] and res["exact_frac"] >= EXACT_FLOOR, res
+
+
+# ---------------------------------------------------------------------------
+# the warp-cooperative BVH walks on every lane: a partial last warp, sparse
+# live lanes, exact ties
+# ---------------------------------------------------------------------------
+
+
+def _every_lane_sd(name):
+    if name == "tie":
+        from raytracing_gpu_tpu_torch.models import probes
+
+        scene, cam, aspect = probes.tie_mesh(SceneBuilder, Camera)
+        return scenes.SceneDef(scene, cam, aspect)
+    return _mesh(name)
+
+
+def _lane_masks(n):
+    """Half the lanes dead at random, every other warp dead, and every lane
+    live but warp 1's, which keeps one."""
+    lane = torch.arange(n)
+    one = torch.ones(n, dtype=torch.bool)
+    one[32:64] = False
+    one[49] = True
+    return [torch.rand(n, generator=torch.Generator().manual_seed(5)) >= 0.5,
+            (lane // 32) % 2 == 0, one]
+
+
+@pytest.mark.parametrize("name", ["big_scene1", "backpack", "tie"])
+def test_hit_kernel_matches_plain_on_every_lane(dev, name):
+    sd = _every_lane_sd(name)
+    tracer = ct.Tracer(sd.scene, dev)
+    rays = _camera_rays(sd, 65536 + 37, 65)
+    for bounce in range(2):
+        o, d, tm, alive = (x.to(dev) for x in rays)
+        for mask in _lane_masks(len(tm)):
+            live = (alive & mask.to(dev)).contiguous()
+            got = tracer.hit(o, d, tm, live)
+            want = ct.hit_reference(tracer.bake, o, d, tm, live)
+            torch.cuda.synchronize()
+            for k, g, w in zip(got._fields, got, want):
+                assert torch.equal(g, w), (k, bounce)
+        rays = _one_bounce(sd, tracer.bake, rays, 66)
+
+
+@pytest.mark.parametrize("name,depth", [("big_scene1", 16), ("tie", 8)])
+def test_bvh_waves_match_plain_on_every_lane(dev, name, depth):
+    sd = _every_lane_sd(name)
+    tracer = ct.Tracer(sd.scene, dev)
+    n, h, w, seed = 32768 + 37, 450, 800, 67
+    got = tracer.walk_packed_pixels(sd.camera, h, w, 0, n, seed,
+                                    max_depth=depth)
+    want = ct.walk_packed_pixels_reference(tracer.bake, sd.camera, h, w, 0,
+                                           n, seed, depth, device=dev)
+    o, d, tm, _ = (x.to(dev) for x in _camera_rays(sd, n, 68))
+    got_r = tracer.walk_packed(o, d, tm, seed, max_depth=depth)
+    want_r = ct.walk_packed_reference(tracer.bake, o, d, tm, seed, depth)
+    fwd = tracer.trace_pixels(sd.camera, h, w, 0, n, seed, max_depth=depth)
+    fwd_want = ct.trace_pixels_reference(tracer.bake, sd.camera, h, w, 0, n,
+                                         seed, depth, device=dev)
+    torch.cuda.synchronize()
+    for a, b in zip((*got, *got_r, fwd), (*want, *want_r, fwd_want)):
+        assert torch.equal(a, b)
+    assert len(got) == len(want) and len(got_r) == len(want_r)

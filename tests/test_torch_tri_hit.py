@@ -181,8 +181,15 @@ def test_walk_keeps_the_dense_winner(golden, tracer, octant):
     live = int(alive.sum())
     n_nodes = len(bake.tri_hit_nodes if octant else bake.tri_nodes)
     assert 0 < walk.nodes.sum() / live < n_nodes
-    assert int(walk.rows.sum()) % (ct.HIT_TRI_LEAF_K if octant
-                                   else ct.TRI_LEAF_K) == 0
+    # a tested leaf counts exactly its real slots (pads never hit): fewer
+    # than whole leaves where the leaves hold pads
+    leaf_k = ct.HIT_TRI_LEAF_K if octant else ct.TRI_LEAF_K
+    real = bake.tri_hit_leaf_count() if octant else bake.tri_leaf_count()
+    tests = walk.leaf_tests.numpy()
+    assert tests.sum() > 0 and (tests[real == 0] == 0).all()
+    assert int(walk.rows.sum()) == int((tests * real).sum())
+    pads = ((tests > 0) & (real > 0) & (real < leaf_k)).any()
+    assert (int(walk.rows.sum()) < leaf_k * int(tests.sum())) == pads
     assert int(walk.nodes[~alive].sum()) == 0
 
 
@@ -204,7 +211,9 @@ def test_walk_reads_what_it_tests(golden, tracer, octant):
                                                    reads["nodes"])
     assert 0 < int(reads["nodes"].sum()) <= int(walk.nodes.sum())
     assert len(reads["leaves"]) * leaf_k == n_rows
-    assert 0 < int(reads["leaves"].sum()) * leaf_k <= int(walk.rows.sum())
+    ids = bake.tri_perm if octant else bake.tri_ids
+    real = torch.from_numpy((ids.reshape(-1, leaf_k) >= 0).sum(1))
+    assert 0 < int(real[reads["leaves"]].sum()) <= int(walk.rows.sum())
     won = torch.unique(walk.row[walk.better])
     assert torch.equal(torch.nonzero(reads["won"])[:, 0], won)
     assert bool(reads["leaves"][won // leaf_k].all())

@@ -90,7 +90,12 @@ def test_plain_forward_counts_the_triangle_walk(name):
     live = counts["live"]
     assert live >= 512 and counts["cont"] < live
     assert 0 < counts["tri_nodes"] <= live * len(bake.tri_nodes)
-    assert counts["tri_rows"] % ct.TRI_LEAF_K == 0 and counts["tri_rows"] > 0
+    # a tested leaf counts exactly its real rows (pads never hit)
+    tests = counts["tri_leaf_tests"].numpy()
+    real = bake.tri_leaf_count()
+    assert tests.sum() > 0 and (tests[real == 0] == 0).all()
+    assert counts["tri_rows"] == int((tests * real).sum())
+    assert counts["tri_rows"] <= ct.TRI_LEAF_K * int(tests.sum())
     assert counts["nodes"] == counts["rows"] == 0  # no sphere BVH
 
 

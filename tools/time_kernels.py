@@ -1,0 +1,169 @@
+"""Time the port's BVH kernels at their main shapes, on one CUDA card.
+
+    python tools/time_kernels.py [--tree DIR]
+
+Imports `raytracing_gpu_tpu_torch`, `chip_smoke` and `bench_torch` from the
+checkout at DIR (default: this one), so that two checkouts (say a commit
+and its parent, unpacked with `git archive`) can be timed in turns on one
+card in one sitting: run it once per checkout and compare.  Each run
+builds that checkout's kernels (forced, so nvcc's ptxas report of
+registers and spills is printed), then times each wave as chip_smoke
+does, with CUDA events around 50 launches queued behind a
+`torch.cuda._sleep` (`event_ms`): `rt_hit` on step 40 of config 5's first
+64-spp regen chunk (131,072 rays) and of config 2's (65,536), big_scene1's
+training record wave (32,768 rays, depth 16), its ray-plane record wave
+(kernel 1c) and its forward megakernel wave (65,536, depth 16), then every
+wave of a big_scene1 chunk in turn for those three (ms a chunk), and the
+waves that share the node records but not the sphere walk: the backpack's
+triangle megakernel wave, `triangles`' record wave, the Cornell forward
+and record waves, `first` and `cornell_smoke`.  Prints one JSON line:
+{"tree", "card", "ms": {wave: ms}, "registers": [ptxas lines]}.  Uses only
+the port's public entry points and `chip_smoke.py`'s helpers, so an older
+checkout with the image-texture slice can be timed too.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    args = ap.parse_args()
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
+
+    import torch
+
+    import bench_torch
+    import chip_smoke as cs
+    from raytracing_gpu_tpu_torch import RenderSettings
+    from raytracing_gpu_tpu_torch.engine import render
+    from raytracing_gpu_tpu_torch.models import scenes
+    from raytracing_gpu_tpu_torch.ops import build, cuda_trace
+
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 1
+    assert os.path.dirname(os.path.abspath(build.__file__)).startswith(tree)
+    # ptxas' report: each entry's name, then its registers and spills
+    lines = [ln.strip() for ln in build.build(force=True).log.splitlines()
+             if "Compiling entry function" in ln or "Used" in ln
+             or "stack frame" in ln]
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    ms = {}
+
+    def time(name, fn):
+        ms[name] = cs.event_ms(fn, reps=50, hold_device=True)
+
+    base = 414133122
+    # rt_hit on config 5's and config 2's regen steps
+    psd, bsd = scenes.get("backpack"), scenes.get("big_scene1")
+    width, spp, _, depth = cs.CONFIG5
+    c5 = RenderSettings(image_width=width, aspect_ratio=cs.CONFIG5_ASPECT,
+                        spp_per_chunk=spp, num_chunks=1, max_depth=depth,
+                        ray_batch=cs.CONFIG5_RAY_BATCH)
+    rays5, _, _ = cs.capture_step(psd, c5, dev, cs.render_bases(
+        c5.with_(num_chunks=cs.CONFIG5[2]))[:1])
+    ptr = cuda_trace.Tracer(psd.scene, dev)
+    hit5 = ptr.bind_hit()
+    time("rt_hit config 5 step 40, 131072 rays", lambda r: hit5(*rays5))
+    width, spp, _, depth = cs.CONFIG2
+    c2 = RenderSettings(image_width=width, aspect_ratio=bsd.aspect,
+                        spp_per_chunk=spp, num_chunks=1, max_depth=depth,
+                        ray_batch=65536)
+    rays2, _, _ = cs.capture_step(bsd, c2, dev, [base])
+    btr = cuda_trace.Tracer(bsd.scene, dev)
+    hit2 = btr.bind_hit()
+    time("rt_hit config 2 step 40, 65536 rays", lambda r: hit2(*rays2))
+
+    # big_scene1's sphere-BVH waves
+    width, spp, chunks, depth, batch = cs.BIG_TRAIN
+    bst = RenderSettings(image_width=width, aspect_ratio=bsd.aspect,
+                         spp_per_chunk=spp, num_chunks=chunks,
+                         max_depth=depth, ray_batch=batch)
+    gen = torch.Generator().manual_seed(bench_torch.SEED)
+    bbase = cuda_trace.chunk_seed(gen)
+    wave = btr.bind_record(bsd.camera, bst.image_height, width, depth,
+                           bst.t_min)
+    wseed = cuda_trace.wave_seed(bbase, 0, 1)
+    time("1b big_scene1 training wave, 32768 rays, depth 16",
+         lambda r: wave(batch, batch, wseed + r))
+    o, d, tm, rseed = render.wave_rays(bsd.camera.to(dev), bst, 0, batch,
+                                       cuda_trace.wave_seed(bbase, 0, 0), dev)
+    walk = btr.bind_walk_packed(depth, bst.t_min)
+    time("1c big_scene1 first wave, 32768 rays, depth 16",
+         lambda r: walk(o, d, tm, rseed + r))
+
+    def forward(tracer, sd, h, w, n, depth, wave_id, name):
+        pix = n * wave_id if h * w > n * wave_id else 0
+        launch = tracer.bind(sd.camera, h, w, depth)
+        time(name, lambda r: launch(pix, n, cuda_trace.wave_seed(base, r, 1)))
+
+    forward(btr, bsd, 450, 800, 65536, 16, 1,
+            "1d-s big_scene1 forward wave, 65536 rays, depth 16")
+
+    # every wave of a big_scene1 chunk, each launched as the main path
+    # launches them (the single waves above lie in the image's upper rows,
+    # mostly sky): ms a chunk, summed over groups of waves few enough for
+    # the host to enqueue while the device is held
+    def chunk(name, launches, group=44):
+        ms[name] = sum(
+            cs.event_ms(lambda r, g=launches[k:k + group]: [f(r) for f in g],
+                        reps=2, hold_device=True)
+            for k in range(0, len(launches), group))
+
+    hw = bst.image_height * width
+    waves = [(s, b, b * batch) for s in range(spp)
+             for b in range(-(-hw // batch))]
+    chunk("1b big_scene1 training chunk, 176 waves of 32768 rays, depth 16",
+          [lambda r, s=s, b=b, pix=pix: wave(
+              pix, min(batch, hw - pix),
+              cuda_trace.wave_seed(bbase, s, b) + r)
+           for s, b, pix in waves])
+    planes = [render.wave_rays(bsd.camera.to(dev), bst, pix, batch,
+                               cuda_trace.wave_seed(bbase, s, b), dev)
+              for s, b, pix in waves]
+    chunk("1c big_scene1 ray-plane chunk, 176 waves of 32768 rays, depth 16",
+          [lambda r, p=p: walk(p[0], p[1], p[2], p[3] + r) for p in planes])
+    mega = btr.bind(bsd.camera, 450, 800, 16)
+    chunk("1d-s big_scene1 megakernel render, 8 spp x 6 waves, depth 16",
+          [lambda r, s=s, pix=pix: mega(pix, min(65536, hw - pix),
+                                        cuda_trace.wave_seed(base, s, 1) + r)
+           for s in range(8) for pix in range(0, hw, 65536)])
+    forward(ptr, psd, 600, 800, 65536, 16, cs.MESH_WAVE,
+            "1d-t backpack forward centre wave, 65536 rays, depth 16")
+    tsd = scenes.get("triangles")
+    ttr = cuda_trace.Tracer(tsd.scene, dev)
+    twave = ttr.bind_record(tsd.camera, 225, 400, 8)
+    time("1d-t triangles record wave, 65536 rays, depth 8",
+         lambda r: twave(0, 65536, cuda_trace.wave_seed(base, r, 1)))
+    csd = scenes.get("cornell_box")
+    ctr = cuda_trace.Tracer(csd.scene, dev)
+    forward(ctr, csd, 512, 512, 65536, 8, 1,
+            "1a Cornell forward wave, 65536 rays, depth 8")
+    cwave = ctr.bind_record(csd.camera, 512, 512, 8)
+    time("1b Cornell record wave, 32768 rays, depth 8",
+         lambda r: cwave(32768, 32768, cuda_trace.wave_seed(base, r, 1)))
+    for name, width, depth in (("first", 400, 8), ("cornell_smoke", 512, 16)):
+        sd = scenes.get(name)
+        h = int(width / sd.aspect)
+        forward(cuda_trace.Tracer(sd.scene, dev), sd, h, width, 65536, depth,
+                1, f"1a {name} forward wave, 65536 rays, depth {depth}")
+    print(json.dumps({"tree": tree, "card": card, "ms": ms,
+                      "registers": lines}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
