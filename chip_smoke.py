@@ -59,8 +59,9 @@ kernel on the way.  Phases, each of which raises on failure:
    cornell_32.npz, made by tools/make_torch_goldens.py): one chunk at 32x32,
    2 spp, depth 3, under the depth-8 rule;
 7. serving path: `render()` of cornell_box at 512x512, 16 spp x 4 chunks,
-   depth 8, ray_batch 65536 (must launch the forward kernel 64 spp x 4
-   waves = 256 times and the record kernel never); the image must be finite
+   depth 8, ray_batch 65536 (must launch the forward kernel once a chunk,
+   4 times through `rt_trace_chunk`, and no other kernel); the image must
+   be finite
    and lit; writes the PNG; a profiled repeat gives the device's busy share;
    then the plain version renders one 16-spp chunk on the card;
 8. record kernel against its plain version on the card: Cornell 64x64,
@@ -96,16 +97,16 @@ kernel on the way.  Phases, each of which raises on failure:
    >= 99.9% of the words equal) and against the golden's planes (every lane
    at bounce 0, >= 99% of lanes over all bounces);
 15. BASELINE config 1: `render()` of first at 400x225, 16 spp as 1 chunk,
-   depth 8, ray_batch 65536 (must launch the forward kernel 16 x 2 = 32
-   times and the record kernel never); finite and lit, PNG written,
+   depth 8, ray_batch 65536 (must launch the forward kernel once, a chunk
+   launch, and no other kernel); finite and lit, PNG written,
    Mrays/s and the busy share of a profiled repeat; its main wave (65,536
    rays) held against the plain version on the same seed under phase 5's
    depth-8 rule with >= 99.9% bit-exact, then timed (kernel, loop, plain
    version) beside its bound, counted from the live bounces by material
    kind of a record walk of the same seed;
 16. BASELINE config 4: the same for cornell_smoke at 512x512, 128 spp as
-   4 chunks x 32, depth 16 (must launch the forward kernel 128 x 4 = 512
-   times);
+   4 chunks x 32, depth 16 (must launch the forward kernel 4 times, once a
+   chunk);
 17. russian roulette: one 65,536-ray wave of cornell_smoke at 512x512,
    depth 16, rr_start 2, against its plain version under the depth-8 rule
    with >= 99.9% bit-exact (and unlike the wave without it); then
@@ -123,8 +124,9 @@ kernel on the way.  Phases, each of which raises on failure:
    three lane masks (half dead at random, every other warp dead, one live
    lane in a warp): every output equal on every lane (`hit_every_lane`);
 19. big_scene1 on the megakernel route: `render()` at 800x450, 8 spp,
-   depth 16 (must launch the forward kernel 8 x 6 = 48 times and the hit
-   kernel never), its main wave against the plain version and timed beside
+   depth 16 (must launch the forward kernel once, a chunk launch, and the
+   hit kernel never), its main wave against the plain version and timed
+   beside
    its bound (counted by the plain version: live bounces, scatters by
    material kind, and the BVH walk's node and row tests); then the regen
    and megakernel routes at 400x225, 16 spp, depth 16 agree statistically
@@ -178,7 +180,7 @@ kernel on the way.  Phases, each of which raises on failure:
    same chunk's `debug_stats` count), then the wavefront and regen routes
    at 160x120 agree statistically;
 26. `triangles` on the megakernel route: `render()` at 400x225, 16 spp,
-   depth 8 (the triangle megakernel 16 x 2 = 32 times, no hit launch);
+   depth 8 (the triangle megakernel once, a chunk launch, no hit launch);
 27. kernel 1b's hit-point planes and BVH walks against their plain
    versions on the card: the record planes of two_spheres,
    two_perlin_spheres, big_scene1 and triangles at 64x64, 4 spp, depth 8,
@@ -249,7 +251,16 @@ kernel on the way.  Phases, each of which raises on failure:
    waves of 131,072 (regen: hit launches only, uv from `rt_hit`, the
    image shade in torch), Mrays/s, steps beside phase 24's, the busy
    share of a one-chunk sub-run; then its mesh-grad row (800x600, 4 spp,
-   depth 8, wavefront-record) with nonzero atlas_data gradients.
+   depth 8, wavefront-record) with nonzero atlas_data gradients;
+37. whole chunks of the megakernel route: one chunk each of Cornell
+   (512x512, 16 spp, depth 8), config 1, config 4 (32 spp, depth 16),
+   big_scene1 (800x450, 8 spp, depth 16: the sphere-BVH walk) and
+   `triangles` (400x225, 16 spp, depth 8), waves of 65,536 rays: the chunk
+   launch, the per-wave launches' sums added in order and the plain
+   version on the card equal bit for bit on every row; the chunk launch and
+   the per-wave launches timed (device held, and with the host), beside
+   the plain chunk and the chunk's bound (its waves' operations, counted by
+   the plain version), with the grid the card's occupancy gives.
 
 Prints each phase's seconds, a JSON line of kernels, the card's name and
 power limit, and as its last line `{"ok": true, "device": {...}}`.  Exits
@@ -299,6 +310,13 @@ GOLDEN_MEAN_TOL = 3e-3  # see golden_cmp
 BASELINE = ((15, 1, "first", 400, 16, 1, 8),
             (16, 4, "cornell_smoke", 512, 32, 4, 16))
 RR_RENDER = ("cornell_smoke", 512, 32, 16, 2)  # scene, width, spp, depth, rr
+# phase 37's whole chunks (label, scene, width, spp, depth), each one
+# chunk of a render above
+CHUNKS = (("Cornell", "cornell_box", 512, 16, 8),
+          ("config 1", "first", 400, 16, 8),
+          ("config 4", "cornell_smoke", 512, 32, 16),
+          ("big_scene1", "big_scene1", 800, 8, 16),
+          ("triangles", "triangles", 400, 16, 8))
 RR_MEAN_TOL = 0.05
 FMA_CHECK_STEPS = (1, 7, 8, 13, 21)  # the unrolled-by-8 loop and its tail
 BIG = "big_scene1"
@@ -377,7 +395,7 @@ OPS_SCATTER = {0: 50,  # lambertian: face normal, normalize, draws, n + u
                2: 105,  # dielectric: + Schlick and the refraction
                4: 47}  # isotropic: face normal, in_sphere
 OPS_FWD_CONT = 3       # megakernel_fwd's throughput multiply per bounce
-OPS_FWD_END = 6        # megakernel_fwd's radiance update at the path's end
+OPS_FWD_END = 9        # megakernel_fwd's path term (0 + t x) into its row sum
 OPS_NODE = 25          # one BVH node: 6 slabs, their min/max, the tests
 OPS_WALK = 19          # per walk: the guarded 1/d and the sphere 1/a
 # csrc/hit.cu per live ray: front face, normalize, the hit point; and a
@@ -756,38 +774,38 @@ def time_wave(tracer, sd, st, base: int, card: str, label: str,
 
 def render_counted(sd, st, dev, card: str, label: str, png: str) -> dict:
     """`render()` with the launch counts set to 0 just before and read just
-    after: exactly spp x waves forward launches and no record or hit
-    launch; a
-    finite, lit image written to `png`; Mrays/s and the busy share of a
-    profiled repeat."""
+    after: exactly one chunk launch of the forward kernel a chunk, and no
+    per-wave, ray-plane, record or hit launch; a finite, lit image written
+    to `png`; Mrays/s, the busy share of a profiled repeat, and a repeat's
+    set-up and chunk milliseconds."""
     import numpy as np
     import torch
 
-    from raytracing_gpu_tpu_torch import render
+    from raytracing_gpu_tpu_torch import render, render_linear
     from raytracing_gpu_tpu_torch.engine import film
     from raytracing_gpu_tpu_torch.ops import cuda_trace
+    from raytracing_gpu_tpu_torch.utils.profiling import PhaseTimer
 
-    waves = -(-st.num_pixels // st.ray_batch)
-    expected = st.spp_per_chunk * st.num_chunks * waves
+    expected = st.num_chunks
     render(sd.scene, sd.camera, st.with_(num_chunks=1, spp_per_chunk=1),
            device=dev)  # warm-up
     torch.cuda.synchronize()
-    cuda_trace.Tracer.launches = cuda_trace.Tracer.record_launches = 0
-    cuda_trace.Tracer.hit_launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     img = render(sd.scene, sd.camera, st, device=dev)
     wall = time.perf_counter() - t0
-    launches = cuda_trace.Tracer.launches
-    stray = cuda_trace.Tracer.record_launches + cuda_trace.Tracer.hit_launches
+    launches = cuda_trace.Tracer.chunk_launches
+    stray = (cuda_trace.Tracer.launches + cuda_trace.Tracer.ray_launches
+             + cuda_trace.Tracer.record_launches
+             + cuda_trace.Tracer.hit_launches)
     rays = st.num_pixels * st.rays_per_pixel
     print(f"[main] render {label} {st.image_width}x{st.image_height} "
           f"{st.rays_per_pixel}spp depth {st.max_depth}: {wall:.6f} s, "
-          f"{rays / wall / 1e6:.6f} Mrays/s, launches {launches} (expected "
-          f"{expected}), record and hit launches {stray} on {card}")
+          f"{rays / wall / 1e6:.6f} Mrays/s, chunk launches {launches} "
+          f"(expected {expected}), other launches {stray} on {card}")
     if launches != expected or stray != 0:
-        raise AssertionError(f"{label}: {launches} forward and {stray} "
-                             f"record or hit kernel launches, expected "
-                             f"{expected} and 0")
+        raise AssertionError(f"{label}: {launches} chunk and {stray} other "
+                             f"kernel launches, expected {expected} and 0")
     if (img.shape != (st.image_height, st.image_width, 3)
             or not np.isfinite(img).all()):
         raise AssertionError(f"{label}: bad image: shape {img.shape}, "
@@ -805,9 +823,108 @@ def render_counted(sd, st, dev, card: str, label: str, png: str) -> dict:
     print(f"[main] {label} device busy share of the counted render: "
           f"{busy:.6f} ({prof['device_ms']:.3f} ms of device time in "
           f"{wall * 1e3:.3f} ms) on {card}")
+    # where a repeat's wall goes: the renderer's set-up (the bake, the
+    # tables' upload, the launch's binding) and the chunks
+    timer = PhaseTimer()
+    render_linear(sd.scene, sd.camera, st, device=dev, timer=timer)
+    phases = {k: v * 1e3 for k, v in timer.phases.items()}
+    print(f"[main] {label} a repeat's phases (ms): {phases} on {card}")
     return dict(launches=launches, wall_s=wall, mrays_per_s=rays / wall / 1e6,
                 busy_share=busy, profiled_busy_share=prof["busy_share"],
-                image_mean=float(img.mean()))
+                image_mean=float(img.mean()),
+                build_ms=phases.get("build"), trace_ms=phases.get("trace"))
+
+
+def held_ms(launches: list, group: int = 44) -> float:
+    """Device milliseconds of the calls in `launches`, one after another,
+    each group queued behind a `torch.cuda._sleep` (`event_ms`, 2 reps):
+    the groups are few enough calls for the host to enqueue while the
+    device is held."""
+    return sum(event_ms(lambda r, g=launches[k:k + group]: [f(r) for f in g],
+                        reps=2, hold_device=True)
+               for k in range(0, len(launches), group))
+
+
+def time_chunk(sd, st, base: int, card: str, label: str) -> dict:
+    """One sample chunk of the megakernel route (`compile_renderer`, one
+    chunk launch) against the same chunk a wave at a time, the per-wave
+    kernel launches' sums added in order, and against the plain version on
+    the card (`cuda_trace.trace_chunk_reference`): all
+    three equal bit for bit on every row.  Times the chunk launch and the
+    per-wave launches (device held), the chunk's call and the per-wave loop
+    with its slice-adds (host and device), and the plain chunk
+    (`trace_chunk_reference`, counting its work); the bound is the whole
+    chunk's float32 operations over the card's rate (the sum of its waves'
+    operation bounds) or its bytes (the outputs and tables once, a
+    triangle table's parts that the walks read) over its memory rate."""
+    import torch
+
+    from raytracing_gpu_tpu_torch import compile_renderer
+    from raytracing_gpu_tpu_torch.ops import cuda_trace
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    chunk = compile_renderer(sd.scene, sd.camera, st, dev)
+    if chunk.engine_name != "megakernel":
+        raise AssertionError(f"{label}: route {chunk.engine_name}")
+    tracer = cuda_trace.Tracer(sd.scene, dev)
+    h, w, b, depth = st.image_height, st.image_width, st.ray_batch, \
+        st.max_depth
+    b = min(b, -(-h * w // 8) * 8)
+    rows = cuda_trace.chunk_rows(h, w, b)
+    waves = [(s, bid) for s in range(st.spp_per_chunk)
+             for bid in range(rows // b)]
+    wave = tracer.bind(sd.camera, h, w, depth, st.t_min, st.rr_start)
+
+    def per_wave(seed_base: int) -> torch.Tensor:
+        sums = torch.zeros((rows, 3), dtype=torch.float32, device=dev)
+        for s, bid in waves:
+            sums[bid * b:(bid + 1) * b] += wave(
+                bid * b, b, cuda_trace.wave_seed(seed_base, s, bid))
+        return sums
+
+    got, by_wave = chunk(base), per_wave(base)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    counts = {}
+    plain = cuda_trace.trace_chunk_reference(
+        tracer.bake, sd.camera, h, w, base, st.spp_per_chunk, b, depth,
+        st.t_min, dev, st.rr_start, counts=counts)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    ops = wave_ops(tracer.bake, counts, rows * st.spp_per_chunk)
+    same = torch.equal(got, by_wave) and torch.equal(got, plain)
+    print(f"[chunk-vs-waves-vs-plain] {label} {w}x{h} {st.spp_per_chunk}spp "
+          f"depth {depth}, {rows} rows in {len(waves)} waves of {b}: equal "
+          f"bit for bit on every row {same} (chunk vs waves "
+          f"{torch.equal(got, by_wave)}, vs plain {torch.equal(got, plain)})")
+    if not same:
+        raise AssertionError(f"{label}: the chunk launch differs from its "
+                             "waves or from the plain version")
+    ms = event_ms(lambda r: chunk(base + r), reps=5, hold_device=True)
+    loop_ms = event_ms(lambda r: chunk(base + r), reps=5)
+    waves_ms = held_ms([lambda r, s=s, bid=bid: wave(
+        bid * b, b, cuda_trace.wave_seed(base + r, s, bid))
+        for s, bid in waves])
+    waves_loop_ms = event_ms(lambda r: per_wave(base + r), reps=3)
+    nbytes = 12 * rows + table_bytes(tracer) + tri_bytes(
+        counts["tri_read"], leaf_real(tracer.bake.tri_ids,
+                                      cuda_trace.TRI_LEAF_K), TRI_WIN_BYTES)
+    bound_ms, bound_by = bound(ops, nbytes)
+    per_sm, sms, grid = chunk.occupancy
+    print(f"[time] {label} chunk: one launch {ms:.6f} ms on the device "
+          f"({loop_ms:.6f} ms a call), {len(waves)} per-wave launches "
+          f"{waves_ms:.6f} ms on the device ({waves_loop_ms:.6f} ms a chunk "
+          f"with the slice-adds), plain {plain_ms:.6f} ms; bound "
+          f"{bound_ms:.6f} ms by {bound_by} ({ops:.0f} ops, {nbytes} bytes; "
+          f"{spec_bound_ms(ops, nbytes):.6f} ms over the spec sheet); grid "
+          f"{grid} blocks of 128 ({per_sm} an SM x {sms} SMs) for {rows} "
+          f"rows, on {card}")
+    return dict(chunk_ms=ms, chunk_loop_ms=loop_ms, waves_ms=waves_ms,
+                waves_loop_ms=waves_loop_ms, chunk_plain_ms=plain_ms,
+                chunk_bound_ms=bound_ms, chunk_bound_by=bound_by,
+                waves=len(waves), rows=rows, blocks_per_sm=per_sm,
+                grid_blocks=grid, chunk_max_abs_err=float(
+                    (got - plain).abs().max()))
 
 
 def camera_rays(sd, n: int, seed: int, dev):
@@ -1140,10 +1257,17 @@ def counted(fn):
     reset_counts()
     out = fn()
     torch.cuda.synchronize()
-    return out, dict(launches=cuda_trace.Tracer.launches,
+    return out, dict(launches=forward_launches(),
                      record=cuda_trace.Tracer.record_launches,
                      ray=cuda_trace.Tracer.ray_launches,
                      hit=cuda_trace.Tracer.hit_launches)
+
+
+def forward_launches() -> int:
+    """Launches of the forward kernel, on one wave or on a whole chunk."""
+    from raytracing_gpu_tpu_torch.ops import cuda_trace
+
+    return cuda_trace.Tracer.launches + cuda_trace.Tracer.chunk_launches
 
 
 def reset_counts() -> None:
@@ -1152,6 +1276,7 @@ def reset_counts() -> None:
     from raytracing_gpu_tpu_torch.utils import roofline
 
     cuda_trace.Tracer.launches = 0
+    cuda_trace.Tracer.chunk_launches = 0
     cuda_trace.Tracer.record_launches = 0
     cuda_trace.Tracer.ray_launches = 0
     cuda_trace.Tracer.hit_launches = 0
@@ -1262,7 +1387,7 @@ def big_scene1_phases(dev, card: str, base: int, png: str) -> tuple:
         img2 = render(bsd.scene, bsd.camera, c2, device=dev)
         wall2 = time.perf_counter() - t0
         steps = cuda_trace.Tracer.hit_launches
-        stray = cuda_trace.Tracer.launches + cuda_trace.Tracer.record_launches
+        stray = forward_launches() + cuda_trace.Tracer.record_launches
         rays2 = c2.num_pixels * c2.rays_per_pixel
         mrays2 = rays2 / wall2 / 1e6
         print(f"[main] render {BIG} (config 2, engine {engine}) {width}x"
@@ -1492,7 +1617,7 @@ def triangle_phases(dev, card: str, base: int, png: str) -> list:
         img5 = render(psd.scene, psd.camera, c5, device=dev)
         wall5 = time.perf_counter() - t0
         steps5 = cuda_trace.Tracer.hit_launches
-        stray = cuda_trace.Tracer.launches + cuda_trace.Tracer.record_launches
+        stray = forward_launches() + cuda_trace.Tracer.record_launches
         peak5 = torch.cuda.max_memory_allocated() / 2**20
         rays5 = c5.num_pixels * c5.rays_per_pixel
         mrays5 = rays5 / wall5 / 1e6
@@ -1540,7 +1665,7 @@ def triangle_phases(dev, card: str, base: int, png: str) -> list:
         img_rr = render(psd.scene, psd.camera, c5rr, device=dev)
         wall_rr = time.perf_counter() - t0
         steps_rr = cuda_trace.Tracer.hit_launches
-        stray = cuda_trace.Tracer.launches + cuda_trace.Tracer.record_launches
+        stray = forward_launches() + cuda_trace.Tracer.record_launches
         mrays_rr = rays5 / wall_rr / 1e6
         print(f"[main] render backpack (config 5-rr, rr_start "
               f"{CONFIG5_RR_START}) {width}x{c5.image_height} "
@@ -1571,7 +1696,7 @@ def triangle_phases(dev, card: str, base: int, png: str) -> list:
         wimg = render(psd.scene, psd.camera, wst, device=dev)
         wwall = time.perf_counter() - t0
         wlaunches = cuda_trace.Tracer.hit_launches
-        stray = cuda_trace.Tracer.launches + cuda_trace.Tracer.record_launches
+        stray = forward_launches() + cuda_trace.Tracer.record_launches
         # the bounces of the same chunk, through debug_stats
         _, wstats = wavefront.compile_wavefront_renderer(
             psd.scene, psd.camera, wst, debug_stats=True,
@@ -2303,7 +2428,7 @@ def image_phases(dev, card: str, base: int, c5_steps: int) -> tuple:
         t0 = time.perf_counter()
         eimg = render(esd.scene, esd.camera, est, device=dev)
         ewall = time.perf_counter() - t0
-        ecounts = dict(launches=cuda_trace.Tracer.launches,
+        ecounts = dict(launches=forward_launches(),
                        record=cuda_trace.Tracer.record_launches,
                        ray=cuda_trace.Tracer.ray_launches,
                        hit=cuda_trace.Tracer.hit_launches)
@@ -2441,7 +2566,7 @@ def image_phases(dev, card: str, base: int, c5_steps: int) -> tuple:
         img = render(bsd.scene, bsd.camera, c5, device=dev)
         wall = time.perf_counter() - t0
         steps = cuda_trace.Tracer.hit_launches
-        stray = (cuda_trace.Tracer.launches + cuda_trace.Tracer.record_launches
+        stray = (forward_launches() + cuda_trace.Tracer.record_launches
                  + cuda_trace.Tracer.ray_launches)
         rays5 = c5.num_pixels * c5.rays_per_pixel
         mrays5 = rays5 / wall / 1e6
@@ -2902,7 +3027,7 @@ def main() -> int:
         torch.cuda.synchronize()
         t_wall = time.perf_counter() - t0
         t_launches = cuda_trace.Tracer.record_launches
-        t_stray = cuda_trace.Tracer.launches
+        t_stray = forward_launches()
         peak_mb = torch.cuda.max_memory_allocated() / 2**20
         t_rays = tst.num_pixels * tst.rays_per_pixel
         t_mrays = t_rays / t_wall / 1e6
@@ -3042,16 +3167,34 @@ def main() -> int:
                                      tri_rows[1]["config5_steps"])
     tri_rows[1].update(map_rates)  # config 5 with its map runs rt_hit<tri>
 
+    # ---- 37. whole chunks: one chunk launch against the per-wave ones ----
+    with Phase("37 whole chunks"):
+        chunks = {}
+        for label, name, width, spp, depth in CHUNKS:
+            csd = scenes.get(name)
+            cst = RenderSettings(image_width=width, aspect_ratio=csd.aspect,
+                                 spp_per_chunk=spp, num_chunks=1,
+                                 max_depth=depth, ray_batch=65536)
+            chunks[label] = time_chunk(csd, cst, base, card, label)
+    for row, label in ((tri_rows[0], "triangles"), ):
+        row.update({f"{label}_{k}": v for k, v in chunks[label].items()})
+
     scene_rates = {name: dict(c) for name, c in configs.items()}
+    cornell = chunks["Cornell"]
     print(json.dumps({"kernels": [{
-        "name": "megakernel_fwd", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": launches,
-        "max_abs_err": main_cmp["max_abs_err"],
-        "frac_within": main_cmp["frac_within"],
-        "ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": fwd_bound_ms, "bound_by": fwd_bound_by,
+        "name": "megakernel_fwd (rt_trace_chunk)", "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": REPLACES, "launches": launches,
+        "max_abs_err": cornell["chunk_max_abs_err"],
+        "ms": cornell["chunk_ms"], "plain_ms": cornell["chunk_plain_ms"],
+        "bound_ms": cornell["chunk_bound_ms"],
+        "bound_by": cornell["chunk_bound_by"],
         "library_ms": None,
-        "loop_ms": kernel_loop_ms,
+        "loop_ms": cornell["chunk_loop_ms"],
+        "chunks": chunks,
+        "wave_ms": kernel_ms, "wave_plain_ms": plain_ms,
+        "wave_bound_ms": fwd_bound_ms, "wave_bound_by": fwd_bound_by,
+        "wave_max_abs_err": main_cmp["max_abs_err"],
+        "wave_loop_ms": kernel_loop_ms,
         "render_mrays_per_s": serving["mrays_per_s"],
         "render_device_busy_share": serving["busy_share"],
         "profiled_render_busy_share": serving["profiled_busy_share"],
@@ -3068,15 +3211,21 @@ def main() -> int:
         "train_mrays_per_s": t_mrays,
         "train_device_busy_share": t_busy,
         "train_peak_allocated_mib": peak_mb}, {
-        "name": "megakernel_fwd<sphere_bvh>", "route": "cuda",
-        "source": KERNEL_SOURCE, "replaces": REPLACES,
+        "name": "megakernel_fwd<sphere_bvh> (rt_trace_chunk)",
+        "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
         "launches": big_mega["launches"],
-        "max_abs_err": big_mega["max_abs_err"],
-        "exact_frac": big_mega["exact_frac"],
-        "ms": big_mega["ms"], "plain_ms": big_mega["plain_ms"],
-        "bound_ms": big_mega["bound_ms"], "bound_by": big_mega["bound_by"],
+        "max_abs_err": chunks[BIG]["chunk_max_abs_err"],
+        "ms": chunks[BIG]["chunk_ms"],
+        "plain_ms": chunks[BIG]["chunk_plain_ms"],
+        "bound_ms": chunks[BIG]["chunk_bound_ms"],
+        "bound_by": chunks[BIG]["chunk_bound_by"],
         "library_ms": None,
-        "loop_ms": big_mega["loop_ms"],
+        "loop_ms": chunks[BIG]["chunk_loop_ms"],
+        "waves_ms": chunks[BIG]["waves_ms"],
+        "wave_ms": big_mega["ms"], "wave_plain_ms": big_mega["plain_ms"],
+        "wave_bound_ms": big_mega["bound_ms"],
+        "wave_max_abs_err": big_mega["max_abs_err"],
+        "wave_exact_frac": big_mega["exact_frac"],
         "render_mrays_per_s": big_mega["mrays_per_s"],
         "render_device_busy_share": big_mega["busy_share"]}, hit_row,
         *tri_rows, *train_rows, uv_row, {

@@ -4,10 +4,10 @@ Counterpart of `raytracing_gpu_tpu/engine/render.py`: `compile_renderer`
 with its megakernel, regen, wavefront and record-walk routes, chosen as it
 chooses them there, and the differentiable `compile_param_renderer` with
 its record-walk and wavefront-record routes.  A chunk is `spp_per_chunk`
-samples of every pixel.  On the megakernel route each sample is split into
-waves of `ray_batch` pixels, and each (sample, wave) is one kernel launch
-whose seed is scalar arithmetic on the chunk's base seed
-(`ops.cuda_trace.wave_seed`); the regen and wavefront routes
+samples of every pixel, each sample split into waves of `ray_batch`
+pixels, and wave (s, bid) seeded with scalar arithmetic on the chunk's base
+seed (`ops.cuda_trace.wave_seed`).  On the megakernel route the whole chunk
+is one kernel launch (`Tracer.bind_chunk`); the regen and wavefront routes
 (`engine/wavefront.py`) seed their generators with the base.
 `chunk_sums` draws each (sample, wave)'s camera rays in torch, from a
 generator seeded with the wave's seed, for the routes that take ray planes.
@@ -129,9 +129,10 @@ def compile_renderer(scene: Scene, camera: Camera, settings: RenderSettings,
     float32 radiance sums on `device` over `spp_per_chunk` samples; its
     `engine_name` is the route (`route`).
 
-    The megakernel route (`engine/render.py:172-199`) launches once per
-    (sample, wave), with russian roulette from bounce `settings.rr_start`
-    when it is > 0; the regen and wavefront routes are
+    The megakernel route (`engine/render.py:172-199`) launches the forward
+    kernel once a chunk (`Tracer.bind_chunk`: the (sample, wave) sums added
+    in order, bit for bit), with russian roulette from bounce
+    `settings.rr_start` when it is > 0; the regen and wavefront routes are
     `wavefront.compile_regen_renderer` and
     `wavefront.compile_wavefront_renderer`; the record-walk route
     (`:200-228`) is `chunk_sums` over `Tracer.walk` (kernel 1c with the
@@ -152,18 +153,10 @@ def compile_renderer(scene: Scene, camera: Camera, settings: RenderSettings,
                         else wavefront.compile_wavefront_renderer)
         return compile_wave(scene, camera, settings, tracer=tracer,
                             device=device)
-    h, w, _npix, npix_pad, b, nb = _grid_geometry(settings)
-    trace = tracer.bind(camera, h, w, settings.max_depth, settings.t_min,
-                        settings.rr_start)
-
-    def chunk(base: int) -> torch.Tensor:
-        sums = torch.zeros((npix_pad, 3), dtype=torch.float32, device=device)
-        for s in range(settings.spp_per_chunk):
-            for bid in range(nb):
-                sums[bid * b:(bid + 1) * b] += trace(
-                    bid * b, b, cuda_trace.wave_seed(base, s, bid))
-        return sums
-
+    h, w, _, _, b, _ = _grid_geometry(settings)
+    chunk = tracer.bind_chunk(camera, h, w, settings.max_depth,
+                              settings.t_min, settings.rr_start, b,
+                              settings.spp_per_chunk)
     chunk.engine_name = "megakernel"
     return chunk
 

@@ -2,12 +2,16 @@
 // notes: megakernel.cuh), and the forward instantiations for scenes whose
 // textures are all solid and that have no triangles.
 //
-// Entry points (plain C, bound with ctypes): rt_trace_pixels launches the
-// forward kernel on camera rays, picking the instantiation (and its
-// translation unit) from p.features, and rt_trace_rays the same on ray
-// planes (kernel 1c); rt_walk_packed_pixels and rt_walk_packed the record
-// kernel on camera rays and on ray planes (megakernel_record.cu), with the
-// hit-point planes and the uv planes when they are given; rt_pcg_uniform writes
+// Entry points (plain C, bound with ctypes): rt_trace_chunk launches the
+// forward kernel once for a whole sample chunk of camera rays, picking the
+// instantiation (and its translation unit) from p.features;
+// rt_trace_pixels launches it on one (sample, wave), a chunk of one sample
+// and one wave with its seed given, and rt_trace_rays the same on ray
+// planes (kernel 1c); rt_trace_occupancy reports how many blocks of the
+// scene's forward instantiation an SM holds, for sizing the chunk's grid;
+// rt_walk_packed_pixels and rt_walk_packed launch the record kernel on
+// camera rays and on ray planes (megakernel_record.cu), with the hit-point
+// planes and the uv planes when they are given; rt_pcg_uniform writes
 // uniform(base, salt) per lane so a test can hold the device RNG against
 // the plain version; rt_error_string names a returned CUDA error.  The
 // tables and the launch constants come by value (RtTables, RtParams).  Each
@@ -16,9 +20,9 @@
 
 #include "megakernel.cuh"
 
-int launch_fwd_solid(const RtTables& t, const RtParams& p, float* out_r,
-                     float* out_g, float* out_b, cudaStream_t s) {
-  return rt::launch_fwd_family<0>(t, p, out_r, out_g, out_b, s);
+int launch_fwd_solid(const RtTables& t, const RtParams& p, float* out,
+                     int* next_row, int* blocks_per_sm, cudaStream_t s) {
+  return rt::launch_fwd_family<0>(t, p, out, next_row, blocks_per_sm, s);
 }
 
 namespace {
@@ -32,37 +36,63 @@ pcg_uniform_kernel(uint32_t seed_mix, int lanes, uint32_t salt,
                          salt);
 }
 
-int trace(const RtTables& t, const RtParams& p, float* out_r, float* out_g,
-          float* out_b, cudaStream_t s) {
+int trace(const RtTables& t, const RtParams& p, float* out, int* next_row,
+          int* blocks_per_sm, cudaStream_t s) {
   const unsigned feat = static_cast<unsigned>(p.features);
   const unsigned tex = feat & (kFeatChecker | kFeatPerlin);
   const bool tri = (feat & kFeatTriBvh) != 0;
   if (tex == 0)
-    return (tri ? launch_fwd_tri_solid : launch_fwd_solid)(t, p, out_r, out_g,
-                                                           out_b, s);
+    return (tri ? launch_fwd_tri_solid : launch_fwd_solid)(
+        t, p, out, next_row, blocks_per_sm, s);
   if (tex == kFeatChecker)
     return (tri ? launch_fwd_tri_checker : launch_fwd_checker)(
-        t, p, out_r, out_g, out_b, s);
+        t, p, out, next_row, blocks_per_sm, s);
   if (tex == (kFeatChecker | kFeatPerlin))
-    return (tri ? launch_fwd_tri_perlin : launch_fwd_perlin)(t, p, out_r,
-                                                             out_g, out_b, s);
+    return (tri ? launch_fwd_tri_perlin : launch_fwd_perlin)(
+        t, p, out, next_row, blocks_per_sm, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-extern "C" int rt_trace_pixels(RtTables t, RtParams p, float* out_r,
-                               float* out_g, float* out_b, void* stream) {
+// p.n rows of p.spp samples in waves of p.wave, at most p.grid blocks;
+// `next_row` is a 4-byte counter that this entry zeroes on the stream.
+extern "C" int rt_trace_chunk(RtTables t, RtParams p, float* out,
+                              int* next_row, void* stream) {
+  if (next_row == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   p.rays = nullptr;
-  return trace(t, p, out_r, out_g, out_b, static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t rc = cudaMemsetAsync(next_row, 0, sizeof(int), s);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  return trace(t, p, out, next_row, nullptr, s);
+}
+
+// One wave of p.n rays, a block a kThreads rays (no counter).
+extern "C" int rt_trace_pixels(RtTables t, RtParams p, float* out,
+                               void* stream) {
+  p.rays = nullptr;
+  p.wave = p.n;
+  p.spp = 1;
+  p.grid = 0;
+  return trace(t, p, out, nullptr, nullptr, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int rt_trace_rays(RtTables t, RtParams p, const float* rays,
-                             float* out_r, float* out_g, float* out_b,
-                             void* stream) {
+                             float* out, void* stream) {
   if (rays == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   p.rays = rays;
-  return trace(t, p, out_r, out_g, out_b, static_cast<cudaStream_t>(stream));
+  p.wave = p.n;
+  p.spp = 1;
+  p.grid = 0;
+  return trace(t, p, out, nullptr, nullptr, static_cast<cudaStream_t>(stream));
+}
+
+// The resident blocks an SM holds of the forward instantiation that p
+// selects, with its tables in shared memory.
+extern "C" int rt_trace_occupancy(RtTables t, RtParams p, int* blocks_per_sm) {
+  if (blocks_per_sm == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return trace(t, p, nullptr, nullptr, blocks_per_sm, nullptr);
 }
 
 extern "C" int rt_walk_packed_pixels(RtTables t, RtParams p,

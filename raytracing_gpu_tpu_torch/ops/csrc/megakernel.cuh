@@ -15,10 +15,11 @@
 // both modes trace the same paths with the same rounding:
 //
 // - megakernel_fwd, forward mode (shade=True, record=False): per ray
-//   radiance over the whole bounce loop (`PallasTracer.trace_pixels`, and
-//   `__call__` on ray planes), for scenes without image textures, whose
-//   atlas the torch shade reads (as the JAX kernel refuses them,
-//   `supports_forward`, :229-234).
+//   radiance over the whole bounce loop, summed over a sample chunk in one
+//   launch (the chunk of `compile_renderer`'s megakernel route), or over
+//   one wave (`PallasTracer.trace_pixels`, and `__call__` on ray planes),
+//   for scenes without image textures, whose atlas the torch shade reads
+//   (as the JAX kernel refuses them, `supports_forward`, :229-234).
 // - megakernel_record, record mode (record=True, shade=False): per bounce
 //   one packed int32 word `mat | hit<<16 | cont<<17 | miss<<18`
 //   (pallas_trace.py:1536-1541) and, for scenes whose checker or perlin
@@ -44,11 +45,34 @@
 // megakernel_record.cu; nvcc compiles them in parallel.  The host side and
 // the plain PyTorch versions of both functions are in ../cuda_trace.py.
 //
-// Design.  One thread traces one ray of the wave and runs its own bounce
-// loop, leaving it when its ray dies.  That is what the TPU tile computes:
-// there a (64, 128) tile loops until all its lanes are dead, and a dead lane
-// adds nothing (pallas_trace.py:1397-1398, 1626-1637).  In record mode the
-// thread writes word b of its ray to out[b * n + i], so the 32 threads of a
+// Design.  One thread runs one path's bounce loop at a time, leaving it
+// when the path dies.  That is what the TPU tile computes: there a (64, 128)
+// tile loops until all its lanes are dead, and a dead lane adds nothing
+// (pallas_trace.py:1397-1398, 1626-1637).
+//
+// The forward kernel computes a whole sample chunk in one launch: row r of
+// its (n, 3) output is the sum over samples s = 0 .. spp - 1, added in that
+// order from 0, of lane r % wave of wave (s, r / wave), seeded
+// wave_seed(base, s, r / wave), which is the float32 sum the host added a
+// wave at a time, bit for bit.  The TPU's chunk is a sequential map over
+// (sample, wave) launches; on the H100 a 65,536-ray wave is 512 blocks, a
+// quarter of what the card holds resident, and its lanes idle from their
+// path's end to the warp's longest path's.  So the grid is persistent:
+// what the card holds resident of the instantiation (its occupancy times
+// the SMs, `rt_trace_occupancy`), each thread taking one row and then rows
+// from an atomic counter, and tracing each row's samples in order.  When a
+// path ends (a miss, a light, metal below the surface, russian roulette or
+// the depth) its one radiance term has gone into the row's sum, and the
+// thread starts the next sample's camera ray at once, or the next row's
+// first after the row's last sample: its lane idles only when no row is
+// left.  The bounce body stays one block of code that the warp's live
+// lanes run together; ray generation is a branch that some lanes take.
+// The per-wave entries are the same kernel on a chunk of one sample and
+// one wave, its seed given, a block a 128 rays.  The tables are staged
+// once a block, for the whole launch.
+//
+// In record mode one thread traces one ray of the wave; it writes word b
+// of its ray to out[b * n + i], so the 32 threads of a
 // warp store one contiguous 128-byte line per bounce; after its path ends it
 // writes 0 for its remaining bounces, which takes the place of the TPU
 // kernel's pre-zeroed plane (:1558-1561).  A TPU lane that died inside a
@@ -89,19 +113,20 @@
 // :175-177); the closest hit keeps a pointer to the winner's block instead
 // of copying its fields.
 //
-// What bounds it on Hopper.  Per-thread ALU work and divergence, not bytes:
-// each ray tests every primitive record at every bounce, draws its random
-// numbers from a counter-based hash, and writes 12 bytes at the end
+// What bounds it on Hopper.  Per-thread ALU work, its latency and
+// divergence, not bytes: each ray tests every primitive record at every
+// bounce (a rect's IEEE divide, a box's three, of which 1 / guard(d.y) is
+// every box's and is computed once a ray), draws its random numbers from a
+// counter-based hash, and writes 12 bytes a row at the chunk's end
 // (forward) or 4 bytes per bounce, 16 with the hit point, 8 more with uv
 // (record).  So the records are staged once per block into shared memory,
 // where every thread of a warp reads the same word at the same time (a
 // broadcast), and the only
 // device-memory traffic is the output stores and the ray planes' 28 bytes a
-// ray.  Rays of a warp that die early leave their lanes idle until the
-// warp's longest path ends; regrouping live rays is work for a later
-// change.  (On the H100 the record kernels' bounds come out by bytes, yet
-// they run at 1-3% of them: the divergent walks, not the stores, take the
-// time.)
+// ray.  A warp of the record kernel keeps lanes whose rays died idle until
+// its longest path ends; the forward kernel's chunk refills them.  (On the
+// H100 the record kernels' bounds come out by bytes, yet they run at 1-3%
+// of them: the divergent walks, not the stores, take the time.)
 //
 // The sphere BVH (kFeatSphereBvh, kernel 1d's sphere half: the packet walk
 // of :1055-1103 over the leaf-contiguous table with leaves of 8,
@@ -132,8 +157,10 @@
 // Over every wave of a big_scene1 chunk that is 7-11% faster on the H100
 // than each lane's own leaf loop over the same records (a wave of the
 // image's upper rows, mostly sky, shows the reverse by 1-2%).  So a thread
-// past the wave's end, or whose path has ended, stays in the kernel until
-// its warp is done (kWarpWalk).  The tables (672 rows and
+// with no row left, or whose path has ended, stays in the walk until its
+// warp is done (kWarpWalk); in the forward chunk a lane's path ends only
+// for the next sample's to start, so the warp's lanes keep the groups full
+// until the rows run out.  The tables (672 rows and
 // 167 nodes for big_scene1) stay in device memory behind L1: staging them in
 // shared memory would cap the scenes the kernel takes.  Rects, boxes and
 // media are staged as before.
@@ -188,6 +215,11 @@ struct RtParams {
   int n_rects, n_boxes, n_spheres, n_sph_nodes, n_tri_rows, n_tri_nodes;
   int n_sphere_media, n_box_media;
   int has_time, rr_start, features;
+  // The forward kernel's chunk: rows [0, n), each the sum of `spp` samples,
+  // in waves of `wave` rows (see megakernel_fwd); at most `grid` blocks, 0
+  // for one block a kThreads rows.  The per-wave entries set wave = n and
+  // spp = 1 (rt_trace_pixels, rt_trace_rays); the record kernel reads none.
+  int wave, spp, grid;
   // kernel 1c: (7, n) ray planes o xyz, d xyz, tm; nullptr: camera rays.
   // The C entries set it (rt_trace_rays, rt_walk_packed).
   const float* rays;
@@ -218,20 +250,24 @@ constexpr unsigned kFeatChecker = 8, kFeatPerlin = 16, kFeatTriBvh = 32;
 constexpr unsigned kFeatGeometry = kFeatSpheres | kFeatMedia | kFeatSphereBvh;
 
 // Forward launchers, one per albedo family without and with triangles, in
-// five translation units: `features` selects the instantiation.
-int launch_fwd_solid(const RtTables& t, const RtParams& p, float* out_r,
-                     float* out_g, float* out_b, cudaStream_t s);
-int launch_fwd_checker(const RtTables& t, const RtParams& p, float* out_r,
-                       float* out_g, float* out_b, cudaStream_t s);
-int launch_fwd_perlin(const RtTables& t, const RtParams& p, float* out_r,
-                      float* out_g, float* out_b, cudaStream_t s);
-int launch_fwd_tri_solid(const RtTables& t, const RtParams& p, float* out_r,
-                         float* out_g, float* out_b, cudaStream_t s);
-int launch_fwd_tri_checker(const RtTables& t, const RtParams& p,
-                           float* out_r, float* out_g, float* out_b,
+// five translation units: `features` selects the instantiation.  Each
+// writes the (n, 3) row sums to `out` and claims rows past the grid's first
+// pass from `*next_row` (zeroed by the caller; unused, and may be nullptr,
+// when the grid covers every row); with `blocks_per_sm` set it launches
+// nothing and reports how many blocks of the instantiation an SM holds.
+int launch_fwd_solid(const RtTables& t, const RtParams& p, float* out,
+                     int* next_row, int* blocks_per_sm, cudaStream_t s);
+int launch_fwd_checker(const RtTables& t, const RtParams& p, float* out,
+                       int* next_row, int* blocks_per_sm, cudaStream_t s);
+int launch_fwd_perlin(const RtTables& t, const RtParams& p, float* out,
+                      int* next_row, int* blocks_per_sm, cudaStream_t s);
+int launch_fwd_tri_solid(const RtTables& t, const RtParams& p, float* out,
+                         int* next_row, int* blocks_per_sm, cudaStream_t s);
+int launch_fwd_tri_checker(const RtTables& t, const RtParams& p, float* out,
+                           int* next_row, int* blocks_per_sm,
                            cudaStream_t s);
-int launch_fwd_tri_perlin(const RtTables& t, const RtParams& p, float* out_r,
-                          float* out_g, float* out_b, cudaStream_t s);
+int launch_fwd_tri_perlin(const RtTables& t, const RtParams& p, float* out,
+                          int* next_row, int* blocks_per_sm, cudaStream_t s);
 // The record launcher (megakernel_record.cu): `features` holds only the
 // geometry bits and kFeatTriBvh; the hit-point planes are all three set or
 // all three nullptr, and the uv planes both or neither.
@@ -283,6 +319,8 @@ constexpr uint32_t kSeedMix = 0x85EBCA6Bu;
 constexpr uint32_t kSaltMul = 0x9E3779B9u;
 constexpr uint32_t kDrawMul = 0x68E31DA4u;
 constexpr uint32_t kCamDraw = 0x7F4A7C15u * 0x68E31DA4u;  // wraps mod 2^32
+// a wave's seed: base + s * 7919 + bid * 104729 (`wave_seed`, cuda_trace.py)
+constexpr uint32_t kWaveSample = 7919u, kWaveBatch = 104729u;
 
 __device__ __forceinline__ uint32_t pcg_hash(uint32_t x) {
   x = x * 747796405u + 2891336453u;
@@ -469,12 +507,15 @@ __device__ __forceinline__ Ray first_ray(const RtParams& p, int i,
 }
 
 // World -> object transform of a ray for a box record at q (bmin3 bmax3 cos
-// sin off3), then the six slab distances: near/far per axis.
+// sin off3), then the six slab distances: near/far per axis.  rotate_y
+// leaves y alone, so `ivy`, 1 / guard(r.dy), is the same for every box and
+// the caller computes it once a ray.
 struct Slabs {
   float tnx, tfx, tny, tfy, tnz, tfz, dx2, dz2;
 };
 
-__device__ __forceinline__ Slabs box_slabs(const float* q, const Ray& r) {
+__device__ __forceinline__ Slabs box_slabs(const float* q, const Ray& r,
+                                           float ivy) {
   const float c = q[6], s = q[7];
   const float ox_t = r.ox - q[8];
   const float oy_t = r.oy - q[9];
@@ -485,7 +526,6 @@ __device__ __forceinline__ Slabs box_slabs(const float* q, const Ray& r) {
   b.dx2 = c * r.dx - s * r.dz;
   b.dz2 = s * r.dx + c * r.dz;
   const float ivx = 1.0f / guard(b.dx2);
-  const float ivy = 1.0f / guard(r.dy);
   const float ivz = 1.0f / guard(b.dz2);
   const float tx0 = (q[0] - ox2) * ivx, tx1 = (q[3] - ox2) * ivx;
   const float ty0 = (q[1] - oy_t) * ivy, ty1 = (q[4] - oy_t) * ivy;
@@ -497,6 +537,10 @@ __device__ __forceinline__ Slabs box_slabs(const float* q, const Ray& r) {
   b.tnz = fminf(tz0, tz1);
   b.tfz = fmaxf(tz0, tz1);
   return b;
+}
+
+__device__ __forceinline__ Slabs box_slabs(const float* q, const Ray& r) {
+  return box_slabs(q, r, 1.0f / guard(r.dy));
 }
 
 // The geometry of a sphere row (c0 xyz, c1 xyz, t0 t1 radius): read as
@@ -911,10 +955,12 @@ __device__ __forceinline__ Hit closest_hit(const Tables& s, const RtParams& p,
       h.uv = k;
     }
   }
+  // every box's 1 / guard(r.dy) (box_slabs), only where there are boxes
+  const float ivy = n_boxes > 0 ? 1.0f / guard(r.dy) : 0.0f;
   for (int k = 0; k < n_boxes; ++k) {
     // world -> object transform + slab test (box.h + hittable.h wrappers)
     const float* q = s.boxes + k * kBoxCols;
-    const Slabs b = box_slabs(q, r);
+    const Slabs b = box_slabs(q, r, ivy);
     const float tn = fmaxf(fmaxf(b.tnx, b.tny), b.tnz);
     const float tf = fminf(fminf(b.tfx, b.tfy), b.tfz);
     const float t = tn >= p.t_min ? tn : tf;
@@ -993,6 +1039,7 @@ __device__ __forceinline__ void media_hit(const Tables& s, const RtParams& p,
   float m_t = kBig;
   const float* m_sh = nullptr;
   const int n_media = p.n_sphere_media + p.n_box_media;
+  const float ivy = p.n_box_media > 0 ? 1.0f / guard(r.dy) : 0.0f;
   for (int im = 0; im < n_media; ++im) {
     const float* q = s.media + im * kMedCols;
     float lo, hi;
@@ -1012,7 +1059,7 @@ __device__ __forceinline__ void media_hit(const Tables& s, const RtParams& p,
       hi = (-hb + sq) * inv_a;
       exists = disc > 0.0f;
     } else {
-      const Slabs b = box_slabs(q + 1, r);
+      const Slabs b = box_slabs(q + 1, r, ivy);
       lo = fmaxf(fmaxf(b.tnx, b.tny), b.tnz);
       hi = fminf(fminf(b.tfx, b.tfy), b.tfz);
       exists = hi > lo;
@@ -1273,85 +1320,150 @@ __device__ __forceinline__ Ray lane_ray(const RtParams& p, int i, bool in,
 }
 
 // With the sphere BVH (kWarpWalk), whose walk is the warp's, every thread
-// stays until its whole warp is done: a thread past the wave's end, or one
-// whose path has ended, goes through each bounce's closest hit with no ray,
-// and writes what it wrote when it left early.  Without it a thread leaves
-// when its path ends, as the TPU kernel's dead lanes add nothing.
+// stays until its whole warp is done: a thread whose path has ended, or
+// that has no ray (no row left in the forward chunk, past the wave's end
+// in the record walk), goes through each bounce's closest hit with no ray.
+// Without it a thread leaves when its work is done.
 template <unsigned F>
 constexpr bool kWarpWalk = (F & kFeatSphereBvh) != 0;
 
+// One path of the forward kernel: its ray and shutter time, its random
+// stream, throughput and bounce.  A path gains radiance once, where it ends
+// on a miss or a light, so it carries none: that term goes straight into
+// its row's sum (`bounce`).
+struct Path {
+  Ray r;
+  float tm;
+  uint32_t rng_base;
+  float tr, tg, tb;
+  int b;
+};
+
+// A row's sum over its samples so far.
+struct Sum {
+  float r, g, b;
+};
+
+// Starts the path of sample s of chunk row `row`: lane row % wave of wave
+// bid = row / wave, seeded wave_seed(p.seed, s, bid) (uint32 arithmetic
+// wrapping, as the int32 seed of a per-wave launch), its camera ray made
+// for pixel p.pix_base + row, or read from the ray planes at `row`.
+__device__ __forceinline__ void start_path(const RtParams& p, int row, int s,
+                                           Path& q) {
+  const int bid = row / p.wave;
+  const uint32_t seed = static_cast<uint32_t>(p.seed) +
+                        static_cast<uint32_t>(s) * kWaveSample +
+                        static_cast<uint32_t>(bid) * kWaveBatch;
+  q.rng_base = pcg_hash(static_cast<uint32_t>(row - bid * p.wave) ^
+                        (seed * kSeedMix));
+  q.r = first_ray(p, row, q.rng_base, &q.tm);
+  q.tr = q.tg = q.tb = 1.0f;
+  q.b = 0;
+}
+
+// Bounce q.b of a live path, after its closest hit h: the background on a
+// miss and the emission on a light end it (:1432-1442), as does metal below
+// the surface; else the scatter, the throughput (:1515-1519), russian
+// roulette from bounce rr_start (:1521-1534) and the next ray.  Returns
+// whether the path goes on, which it does not past max_depth.  The path's
+// radiance, 0 + its one term, rounded as a per-wave launch writes it, is
+// added to the row's sum `acc` where it ends; a path that ends with none
+// adds nothing.
 template <unsigned F>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ bool bounce(const RtParams& p, const Hit& h,
+                                       uint32_t draw, Path& q, Sum& acc) {
+  if (!(h.t < kBig * 0.5f)) {  // miss: background, then the path ends
+    acc.r = acc.r + (0.0f + q.tr * p.bg[0]);
+    acc.g = acc.g + (0.0f + q.tg * p.bg[1]);
+    acc.b = acc.b + (0.0f + q.tb * p.bg[2]);
+    return false;
+  }
+  float nx, ny, nz, px, py, pz, ar, ag, ab;
+  const bool front = surface(h, q.r, nx, ny, nz, px, py, pz);
+  albedo<F>(h.sh, px, py, pz, ar, ag, ab);
+  const int kind = static_cast<int>(h.sh[kShKind]);
+  if (kind == kDiffuseLight) {  // emission, then the path ends
+    acc.r = acc.r + (0.0f + q.tr * ar);
+    acc.g = acc.g + (0.0f + q.tg * ag);
+    acc.b = acc.b + (0.0f + q.tb * ab);
+    return false;
+  }
+  if (!scatter(kind, h.sh, front, nx, ny, nz, draw, q.r)) return false;
+  if (kind != kDielectric) {
+    q.tr = q.tr * ar;
+    q.tg = q.tg * ag;
+    q.tb = q.tb * ab;
+  }
+  if (p.rr_start > 0 && q.b >= p.rr_start) {  // uniform across the launch
+    // go on with p = clip(max throughput, 0.05, 1), reweighted by 1 / p
+    const float pr =
+        fminf(fmaxf(fmaxf(q.tr, fmaxf(q.tg, q.tb)), kRrFloor), 1.0f);
+    if (!(uniform01(draw, 8u) < pr)) return false;
+    const float inv_p = 1.0f / pr;
+    q.tr = q.tr * inv_p;
+    q.tg = q.tg * inv_p;
+    q.tb = q.tb * inv_p;
+  }
+  q.r.ox = px;
+  q.r.oy = py;
+  q.r.oz = pz;
+  return ++q.b < p.max_depth;
+}
+
+// The forward kernel: row r of out (n x 3) is the sum over samples s = 0 ..
+// spp - 1, added in that order from 0, of the radiance of lane r % wave of
+// wave (s, r / wave), the in-order float32 sum the host adds a wave at a
+// time.  The grid is persistent (at most what the card holds resident): a
+// thread takes row blockIdx.x * kThreads + threadIdx.x, then rows from the
+// counter `next_row`, and traces each row's samples in order; when a path
+// ends it adds the radiance to its row's sum and starts the next sample's
+// ray at once, so its lane idles only when no row is left.  The explicit
+// minimum of one block an SM lets ptxas give each instantiation what its
+// loop needs: left unstated, it held several to 56 or 64 registers and
+// spilled 4-12 bytes (H100 build, CUDA 12.8), at no gain in time.
+template <unsigned F>
+__global__ void __launch_bounds__(kThreads, 1)
 megakernel_fwd(const RtTables tables, const RtParams p,
-               float* __restrict__ out_r, float* __restrict__ out_g,
-               float* __restrict__ out_b) {
+               float* __restrict__ out, int* __restrict__ next_row) {
   extern __shared__ float smem[];
   const Tables s = stage_tables(tables, p, smem);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool in = i < p.n;
-  if (!kWarpWalk<F> && !in) return;
-  const uint32_t rng_base = lane_base(p, i);
-  float tm;
-  Ray r = lane_ray(p, i, in, rng_base, &tm);
-
-  float tr = 1.0f, tg = 1.0f, tb = 1.0f;
-  float lr = 0.0f, lg = 0.0f, lb = 0.0f;
-  float tri_sh[12];  // a triangle winner's shading block (kFeatTriBvh)
-  bool alive = in;
-  for (int b = 0; b < p.max_depth; ++b) {
-    if (kWarpWalk<F> ? !__any_sync(kFullMask, alive) : !alive) break;
-    const uint32_t draw = draw_window(rng_base, b);
-    const Hit h = scene_hit<F>(s, p, r, tm, draw, tri_sh,
-                               kWarpWalk<F> ? alive : true);
-    if (!alive) continue;
-    if (!(h.t < kBig * 0.5f)) {  // miss: background, then the path ends
-      lr = lr + tr * p.bg[0];
-      lg = lg + tg * p.bg[1];
-      lb = lb + tb * p.bg[2];
-      alive = false;
-      continue;
-    }
-    float nx, ny, nz, px, py, pz, ar, ag, ab;
-    const bool front = surface(h, r, nx, ny, nz, px, py, pz);
-    albedo<F>(h.sh, px, py, pz, ar, ag, ab);
-    const int kind = static_cast<int>(h.sh[kShKind]);
-    if (kind == kDiffuseLight) {  // emission, then the path ends
-      lr = lr + tr * ar;
-      lg = lg + tg * ag;
-      lb = lb + tb * ab;
-      alive = false;
-      continue;
-    }
-    if (!scatter(kind, h.sh, front, nx, ny, nz, draw, r)) {
-      alive = false;
-      continue;
-    }
-    if (kind != kDielectric) {  // throughput (:1515-1519)
-      tr = tr * ar;
-      tg = tg * ag;
-      tb = tb * ab;
-    }
-    if (p.rr_start > 0 && b >= p.rr_start) {  // uniform across the launch
-      // russian roulette (:1521-1534): go on with p = clip(max throughput,
-      // 0.05, 1), reweighted by 1 / p
-      const float pr = fminf(fmaxf(fmaxf(tr, fmaxf(tg, tb)), kRrFloor), 1.0f);
-      if (!(uniform01(draw, 8u) < pr)) {
-        alive = false;
-        continue;
-      }
-      const float inv_p = 1.0f / pr;
-      tr = tr * inv_p;
-      tg = tg * inv_p;
-      tb = tb * inv_p;
-    }
-    r.ox = px;
-    r.oy = py;
-    r.oz = pz;
+  const int stride = gridDim.x * blockDim.x;
+  int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (!kWarpWalk<F> && row >= p.n) return;
+  Path q{{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f}, 0.0f, 0u, 0.0f, 0.0f, 0.0f,
+         0};
+  bool alive = false;
+  if (row < p.n) {
+    start_path(p, row, 0, q);
+    alive = p.max_depth > 0;
   }
-  if (!in) return;
-  out_r[i] = lr;
-  out_g[i] = lg;
-  out_b[i] = lb;
+  Sum acc{0.0f, 0.0f, 0.0f};  // the row's sum so far
+  int smp = 0;                // the row's current sample
+  float tri_sh[12];  // a triangle winner's shading block (kFeatTriBvh)
+  for (;;) {
+    const bool busy = row < p.n;
+    if (kWarpWalk<F> ? !__any_sync(kFullMask, busy) : !busy) break;
+    if (kWarpWalk<F> || alive) {
+      const uint32_t draw = draw_window(q.rng_base, q.b);
+      const Hit h = scene_hit<F>(s, p, q.r, q.tm, draw, tri_sh,
+                                 kWarpWalk<F> ? alive : true);
+      if (alive) alive = bounce<F>(p, h, draw, q, acc);
+    }
+    if (busy && !alive) {  // the path ended: on to the next sample or row
+      if (++smp == p.spp) {
+        out[3 * static_cast<size_t>(row)] = acc.r;
+        out[3 * static_cast<size_t>(row) + 1] = acc.g;
+        out[3 * static_cast<size_t>(row) + 2] = acc.b;
+        row = stride < p.n ? stride + atomicAdd(next_row, 1) : p.n;
+        smp = 0;
+        acc = Sum{0.0f, 0.0f, 0.0f};
+      }
+      if (row < p.n) {
+        start_path(p, row, smp, q);
+        alive = p.max_depth > 0;
+      }
+    }
+  }
 }
 
 template <unsigned F>
@@ -1461,15 +1573,28 @@ inline bool check_tables(const RtTables& t, const RtParams& p,
                    aligned16(t.tri_links)));
 }
 
+// The forward kernel's grid: a block a kThreads rows, capped at p.grid
+// blocks when it is set (the card's resident blocks, `rt_trace_occupancy`).
 template <unsigned F>
-int launch_fwd(const RtTables& t, const RtParams& p, float* out_r,
-               float* out_g, float* out_b, cudaStream_t stream) {
+int launch_fwd(const RtTables& t, const RtParams& p, float* out,
+               int* next_row, int* blocks_per_sm, cudaStream_t stream) {
   size_t table_bytes;
-  if (!check_tables(t, p, &table_bytes))
+  if (!check_tables(t, p, &table_bytes) || p.wave <= 0 || p.spp <= 0 ||
+      p.grid < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (p.n + kThreads - 1) / kThreads;
-  megakernel_fwd<F><<<blocks, kThreads, table_bytes, stream>>>(t, p, out_r,
-                                                                out_g, out_b);
+  if (blocks_per_sm != nullptr)
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, megakernel_fwd<F>, kThreads, table_bytes));
+  int blocks = (p.n + kThreads - 1) / kThreads;
+  if (p.grid > 0 && p.grid < blocks) blocks = p.grid;
+  // rows past the grid's first pass come from the counter, and a claim
+  // (the grid's first pass plus one a thread) stays within int32
+  const long long threads = static_cast<long long>(blocks) * kThreads;
+  if ((threads < p.n && next_row == nullptr) ||
+      p.n + threads > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  megakernel_fwd<F><<<blocks, kThreads, table_bytes, stream>>>(t, p, out,
+                                                                next_row);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1479,15 +1604,15 @@ int launch_fwd(const RtTables& t, const RtParams& p, float* out_r,
 // without media).  Russian roulette is a branch on p.rr_start, uniform
 // across the launch, not an instantiation.
 template <unsigned TEX>
-int launch_fwd_family(const RtTables& t, const RtParams& p, float* out_r,
-                      float* out_g, float* out_b, cudaStream_t s) {
+int launch_fwd_family(const RtTables& t, const RtParams& p, float* out,
+                      int* next_row, int* blocks_per_sm, cudaStream_t s) {
   switch (static_cast<unsigned>(p.features) & kFeatGeometry) {
-    case 0: return launch_fwd<TEX | 0>(t, p, out_r, out_g, out_b, s);
-    case 1: return launch_fwd<TEX | 1>(t, p, out_r, out_g, out_b, s);
-    case 2: return launch_fwd<TEX | 2>(t, p, out_r, out_g, out_b, s);
-    case 3: return launch_fwd<TEX | 3>(t, p, out_r, out_g, out_b, s);
-    case 4: return launch_fwd<TEX | 4>(t, p, out_r, out_g, out_b, s);
-    case 6: return launch_fwd<TEX | 6>(t, p, out_r, out_g, out_b, s);
+    case 0: return launch_fwd<TEX | 0>(t, p, out, next_row, blocks_per_sm, s);
+    case 1: return launch_fwd<TEX | 1>(t, p, out, next_row, blocks_per_sm, s);
+    case 2: return launch_fwd<TEX | 2>(t, p, out, next_row, blocks_per_sm, s);
+    case 3: return launch_fwd<TEX | 3>(t, p, out, next_row, blocks_per_sm, s);
+    case 4: return launch_fwd<TEX | 4>(t, p, out, next_row, blocks_per_sm, s);
+    case 6: return launch_fwd<TEX | 6>(t, p, out, next_row, blocks_per_sm, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

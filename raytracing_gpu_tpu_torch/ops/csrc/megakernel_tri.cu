@@ -5,14 +5,15 @@
 
 #include "megakernel.cuh"
 
-int launch_fwd_tri_solid(const RtTables& t, const RtParams& p, float* out_r,
-                         float* out_g, float* out_b, cudaStream_t s) {
-  return rt::launch_fwd_family<kFeatTriBvh>(t, p, out_r, out_g, out_b, s);
+int launch_fwd_tri_solid(const RtTables& t, const RtParams& p, float* out,
+                         int* next_row, int* blocks_per_sm, cudaStream_t s) {
+  return rt::launch_fwd_family<kFeatTriBvh>(t, p, out, next_row,
+                                            blocks_per_sm, s);
 }
 
-int launch_fwd_tri_checker(const RtTables& t, const RtParams& p,
-                           float* out_r, float* out_g, float* out_b,
+int launch_fwd_tri_checker(const RtTables& t, const RtParams& p, float* out,
+                           int* next_row, int* blocks_per_sm,
                            cudaStream_t s) {
-  return rt::launch_fwd_family<kFeatTriBvh | kFeatChecker>(t, p, out_r, out_g,
-                                                           out_b, s);
+  return rt::launch_fwd_family<kFeatTriBvh | kFeatChecker>(
+      t, p, out, next_row, blocks_per_sm, s);
 }

@@ -4,8 +4,8 @@
 
 #include "megakernel.cuh"
 
-int launch_fwd_tri_perlin(const RtTables& t, const RtParams& p, float* out_r,
-                          float* out_g, float* out_b, cudaStream_t s) {
+int launch_fwd_tri_perlin(const RtTables& t, const RtParams& p, float* out,
+                          int* next_row, int* blocks_per_sm, cudaStream_t s) {
   return rt::launch_fwd_family<kFeatTriBvh | kFeatChecker | kFeatPerlin>(
-      t, p, out_r, out_g, out_b, s);
+      t, p, out, next_row, blocks_per_sm, s);
 }

@@ -40,11 +40,13 @@ uint32 dtype lacks those operations on the CPU.
 
 `Tracer` holds a baked scene on one device.  On a CUDA device its
 `trace_pixels`, `__call__`, `walk_packed_pixels`, `walk_packed` and `hit`
-launch the kernels (a failed build or launch raises); on the CPU they run
-the plain versions.  `Tracer.launches`, `Tracer.record_launches`,
-`Tracer.ray_launches` (both ray-plane entries) and `Tracer.hit_launches`
-count the launches of each entry, so a caller can show that a render went
-through it.
+launch the kernels, and `bind_chunk` the forward kernel once for a whole
+sample chunk (a failed build or launch raises); on the CPU they run the
+plain versions (`trace_chunk_reference` for the chunk).
+`Tracer.launches` (one wave), `Tracer.chunk_launches`,
+`Tracer.record_launches`, `Tracer.ray_launches` (both ray-plane entries)
+and `Tracer.hit_launches` count the launches of each entry, so a caller
+can show that a render went through it.
 """
 
 from __future__ import annotations
@@ -1626,6 +1628,51 @@ def trace_rays_reference(bake: SceneBake, o: torch.Tensor, d: torch.Tensor,
                   max_depth, t_min, rr_start, counts)
 
 
+def chunk_rows(img_h: int, img_w: int, ray_batch: int) -> int:
+    """The rows of a sample chunk: img_h * img_w pixels rounded up to whole
+    waves of `ray_batch` (rows past the image trace its last pixel)."""
+    if img_h <= 0 or img_w <= 0 or ray_batch <= 0:
+        raise ValueError(f"bad image {img_h}x{img_w} or ray_batch "
+                         f"{ray_batch}")
+    return -(-img_h * img_w // ray_batch) * ray_batch
+
+
+def trace_chunk_reference(bake: SceneBake, camera, img_h: int, img_w: int,
+                          base: int, spp: int, ray_batch: int,
+                          max_depth: int = 50, t_min: float = 0.001,
+                          device: torch.device | str = "cpu",
+                          rr_start: int = 0,
+                          counts: Optional[dict] = None) -> torch.Tensor:
+    """One sample chunk's radiance sums, (chunk_rows, 3) float32: for s in
+    0..spp-1 and each wave bid of `ray_batch` pixels, in that order,
+    `trace_pixels_reference` of pixels [bid * b, (bid + 1) * b) with seed
+    `wave_seed(base, s, bid)` added to the wave's rows of sums that start
+    at 0.  The plain version of the chunk launch (`Tracer.bind_chunk`).
+
+    Every lane's arithmetic is its own, so the waves' lanes go through one
+    bounce loop together (one set of eager launches a bounce for the whole
+    chunk, not one a wave), and their radiance is then added wave by wave
+    in the per-wave order.  `counts` receives the chunk's work, as
+    `trace_pixels_reference`'s does a wave's."""
+    dev = torch.device(device)
+    rows = chunk_rows(img_h, img_w, ray_batch)
+    rays, bases = [], []
+    for s in range(spp):
+        for bid in range(rows // ray_batch):
+            b = rng_base(ray_batch, wave_seed(base, s, bid), dev)
+            rays.append(_camera_rays(camera, img_h, img_w, bid * ray_batch,
+                                     ray_batch, b, dev))
+            bases.append(b)
+    o3, d3 = (tuple(torch.cat([r[j][k] for r in rays]) for k in range(3))
+              for j in range(2))
+    rad = _trace(bake, o3, d3, torch.cat([r[2] for r in rays]),
+                 torch.cat(bases), max_depth, t_min, rr_start, counts)
+    sums = torch.zeros((rows, 3), dtype=torch.float32, device=dev)
+    for s in range(spp):
+        sums += rad[s * rows:(s + 1) * rows]
+    return sums
+
+
 def _trace(bake: SceneBake, o3: tuple, d3: tuple, tm: torch.Tensor,
            base: torch.Tensor, max_depth: int, t_min: float, rr_start: int,
            counts: Optional[dict]) -> torch.Tensor:
@@ -2253,10 +2300,11 @@ class Tracer:
     one (`PallasTracer.need_p`, `need_uv`).
 
     On a CUDA device `trace_pixels`, `__call__`, `walk_packed_pixels`,
-    `walk_packed` and `hit` launch the kernels (`csrc/megakernel.cuh`,
-    `csrc/hit.cu`); on the CPU they run `trace_pixels_reference`,
-    `trace_rays_reference`, `walk_packed_pixels_reference`,
-    `walk_packed_reference` and `hit_reference`.  Nothing falls back from
+    `walk_packed`, `hit` and the chunk of `bind_chunk` launch the kernels
+    (`csrc/megakernel.cuh`, `csrc/hit.cu`); on the CPU they run
+    `trace_pixels_reference`, `trace_rays_reference`,
+    `walk_packed_pixels_reference`, `walk_packed_reference`,
+    `hit_reference` and `trace_chunk_reference`.  Nothing falls back from
     one to the other.  The constructor raises NotImplementedError for a
     scene no kernel covers (`unported_feature`), the forward entries
     (`trace_pixels`, `__call__`) ValueError for an image-textured scene
@@ -2264,7 +2312,8 @@ class Tracer:
     for one with media (`supports_hit`).
     """
 
-    launches = 0         # megakernel_fwd launches on camera rays, all tracers
+    launches = 0         # megakernel_fwd launches on one wave, all tracers
+    chunk_launches = 0   # megakernel_fwd launches on a whole sample chunk
     record_launches = 0  # megakernel_record launches on camera rays
     ray_launches = 0     # launches of both modes on ray planes (kernel 1c)
     hit_launches = 0     # rt_hit launches
@@ -2376,17 +2425,73 @@ class Tracer:
 
         def launch(pix_base: int, n: int, seed: int) -> torch.Tensor:
             check_range(pix_base, n)
-            out = torch.empty((3, n), dtype=torch.float32, device=device)
+            out = torch.empty((n, 3), dtype=torch.float32, device=device)
             p.pix_base, p.n, p.seed = int(pix_base), int(n), _int32(seed)
-            r = out.data_ptr()
             with torch.cuda.device(device):
-                rc = lib.rt_trace_pixels(tables, p, r, r + 4 * n, r + 8 * n,
+                rc = lib.rt_trace_pixels(tables, p, out.data_ptr(),
                                          _stream(device))
             _check(lib, rc, "rt_trace_pixels")
             Tracer.launches += 1
-            return out.T
+            return out
 
         launch.tables = tables  # the kernel reads them through pointers
+        return launch
+
+    def bind_chunk(self, camera, img_h: int, img_w: int, max_depth: int,
+                   t_min: float, rr_start: int, ray_batch: int,
+                   spp_per_chunk: int) -> Callable[[int], torch.Tensor]:
+        """One sample chunk in one launch: returns `launch(base) ->
+        (chunk_rows, 3)` float32 sums over `spp_per_chunk` samples of every
+        pixel in waves of `ray_batch` pixels, wave (s, bid) seeded
+        `wave_seed(base, s, bid)`, equal bit for bit to those waves'
+        `trace_pixels` added in order (`trace_chunk_reference`, which the
+        CPU runs).  On the card the grid is what the card holds resident
+        of the scene's instantiation (`occupancy`: blocks an SM, SMs,
+        blocks), computed here once."""
+        self._require_forward()
+        rows = chunk_rows(img_h, img_w, ray_batch)
+        if spp_per_chunk <= 0:
+            raise ValueError(f"spp_per_chunk must be positive, got "
+                             f"{spp_per_chunk}")
+        if self.device.type == "cpu":
+            def plain(base: int) -> torch.Tensor:
+                return trace_chunk_reference(
+                    self.bake, camera, img_h, img_w, base, spp_per_chunk,
+                    ray_batch, max_depth, t_min, self.device, rr_start)
+            return plain
+
+        tables, device = self._checked_tables(), self.device
+        p, check_range = self._launch_params(
+            camera, img_h, img_w, max_depth, t_min, rr_start,
+            self.bake.features())
+        check_range(0, rows)
+        p.n, p.wave, p.spp = rows, int(ray_batch), int(spp_per_chunk)
+        lib = build.load()
+        per_sm = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            rc = lib.rt_trace_occupancy(tables, p, ctypes.addressof(per_sm))
+        _check(lib, rc, "rt_trace_occupancy")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        p.grid = per_sm.value * sms
+        if p.grid <= 0:
+            raise RuntimeError("rt_trace_occupancy: the forward kernel fits "
+                               "no block on an SM")
+
+        def launch(base: int) -> torch.Tensor:
+            # the sums, then the kernel's 4-byte row counter
+            out = torch.empty(3 * rows + 1, dtype=torch.float32,
+                              device=device)
+            p.seed = _int32(base)
+            ptr = out.data_ptr()
+            with torch.cuda.device(device):
+                rc = lib.rt_trace_chunk(tables, p, ptr, ptr + 12 * rows,
+                                        _stream(device))
+            _check(lib, rc, "rt_trace_chunk")
+            Tracer.chunk_launches += 1
+            return out[:3 * rows].view(rows, 3)
+
+        launch.tables = tables  # the kernel reads them through pointers
+        launch.occupancy = (per_sm.value, sms, p.grid)
         return launch
 
     def bind_trace_rays(self, max_depth: int = 50, t_min: float = 0.001,
@@ -2410,15 +2515,14 @@ class Tracer:
         def launch(o, d, tm, seed: int) -> torch.Tensor:
             n = _check_rays(o, d, tm, None, device)
             rays = _ray_planes(o, d, tm)
-            out = torch.empty((3, n), dtype=torch.float32, device=device)
+            out = torch.empty((n, 3), dtype=torch.float32, device=device)
             p.n, p.seed = n, _int32(seed)
-            r = out.data_ptr()
             with torch.cuda.device(device):
-                rc = lib.rt_trace_rays(tables, p, rays.data_ptr(), r,
-                                       r + 4 * n, r + 8 * n, _stream(device))
+                rc = lib.rt_trace_rays(tables, p, rays.data_ptr(),
+                                       out.data_ptr(), _stream(device))
             _check(lib, rc, "rt_trace_rays")
             Tracer.ray_launches += 1
-            return out.T
+            return out
 
         launch.tables = tables
         return launch

@@ -40,6 +40,10 @@ the rules of tests/test_torch_record_p.py and tests/test_torch_rayplane.py
 (bounce 0 on the lanes whose lens angle rounds as XLA's, hit points under
 `cuda_trace.p_agreement`, radiance channel means within 3e-3).
 
+The megakernel route's chunk launch (`Tracer.bind_chunk`): equal bit for
+bit on every row to its (sample, wave) launches added in order and to
+`trace_chunk_reference`, with one chunk launch and no per-wave launch.
+
 The record kernel's uv planes (image textures): the same bit rule and
 >= 99.9% of the u and v values bit-exact against the plain version, on
 camera rays and on ray planes; against the Pallas goldens the rules of
@@ -128,9 +132,11 @@ def test_kernel_matches_jax_golden(dev):
                         max_depth=int(g["max_depth"]),
                         ray_batch=int(g["ray_batch"]), t_min=float(g["t_min"]))
     sd = scenes.get("cornell_box")
-    before = ct.Tracer.launches
+    before = (ct.Tracer.launches, ct.Tracer.chunk_launches)
     got = compile_renderer(sd.scene, sd.camera, st, dev)(int(g["base"]))
-    assert ct.Tracer.launches == before + st.spp_per_chunk
+    # one launch for the chunk, none a wave
+    assert (ct.Tracer.launches, ct.Tracer.chunk_launches) == \
+        (before[0], before[1] + 1)
     assert_matches(got, torch.from_numpy(g["sums"]), st.max_depth)
 
 
@@ -419,11 +425,12 @@ def test_regen_route_on_the_card_matches_jax_golden(dev):
     sd = scenes.get("big_scene1")
     chunk = compile_renderer(sd.scene, sd.camera, st, dev)
     assert chunk.engine_name == "regen"
-    fwd, hits = ct.Tracer.launches, ct.Tracer.hit_launches
+    fwd = ct.Tracer.launches + ct.Tracer.chunk_launches
+    hits = ct.Tracer.hit_launches
     got = chunk(20241)
     steps = ct.Tracer.hit_launches - hits
-    assert ct.Tracer.launches == fwd and 0.9 < steps / int(g["iterations"]) \
-        < 1.1
+    assert ct.Tracer.launches + ct.Tracer.chunk_launches == fwd
+    assert 0.9 < steps / int(g["iterations"]) < 1.1
     npix = st.num_pixels
     diff_ = (got.cpu().double()[:npix] - torch.from_numpy(
         g["sums"][:npix]).double()) / st.spp_per_chunk
@@ -515,9 +522,11 @@ def test_mesh_wavefronts_on_the_card_match_jax_golden(dev, engine):
     sd = _mesh("mesh")
     compile_wave = (wavefront.compile_regen_renderer if engine == "regen"
                     else wavefront.compile_wavefront_renderer)
-    fwd, hits = ct.Tracer.launches, ct.Tracer.hit_launches
+    fwd = ct.Tracer.launches + ct.Tracer.chunk_launches
+    hits = ct.Tracer.hit_launches
     got = compile_wave(sd.scene, sd.camera, st, device=dev)(20241)
-    assert ct.Tracer.launches == fwd and ct.Tracer.hit_launches > hits
+    assert ct.Tracer.launches + ct.Tracer.chunk_launches == fwd
+    assert ct.Tracer.hit_launches > hits
     npix = st.num_pixels
     diff_ = (got.cpu().double()[:npix] - torch.from_numpy(
         g["sums"][:npix]).double()) / st.spp_per_chunk
@@ -661,14 +670,14 @@ def test_param_renderer_routes_launch_their_kernels(dev):
     fused = fused_diff.compile_fused_param_renderer(
         sd.scene, sd.camera, st, gen_rays=False, device=dev)
     assert walk.engine_name == "record-walk"
-    counts = (ct.Tracer.launches, ct.Tracer.record_launches,
-              ct.Tracer.hit_launches)
+    counts = (ct.Tracer.launches, ct.Tracer.chunk_launches,
+              ct.Tracer.record_launches, ct.Tracer.hit_launches)
     before = ct.Tracer.ray_launches
     assert torch.equal(walk(params, 9), fused(params, 9))
     waves = st.spp_per_chunk * render._grid_geometry(st)[5]
     assert ct.Tracer.ray_launches == before + 2 * waves
-    assert (ct.Tracer.launches, ct.Tracer.record_launches,
-            ct.Tracer.hit_launches) == counts
+    assert (ct.Tracer.launches, ct.Tracer.chunk_launches,
+            ct.Tracer.record_launches, ct.Tracer.hit_launches) == counts
     msd = _mesh("mesh")
     wave = render.compile_param_renderer(msd.scene, msd.camera,
                                          st.with_(aspect_ratio=msd.aspect),
@@ -872,3 +881,69 @@ def test_bvh_waves_match_plain_on_every_lane(dev, name, depth):
     for a, b in zip((*got, *got_r, fwd), (*want, *want_r, fwd_want)):
         assert torch.equal(a, b)
     assert len(got) == len(want) and len(got_r) == len(want_r)
+
+
+# ---------------------------------------------------------------------------
+# the chunk launch: one persistent launch a sample chunk
+# ---------------------------------------------------------------------------
+
+# scene, width, ray_batch, spp a chunk, depth, rr_start: Cornell at 512x512
+# has more rows than the card holds threads (rows from the counter); `first`
+# 50 wide pads its last wave; big_scene1 walks the sphere BVH by warps
+CHUNK_CASES = [("cornell_box", 512, 65536, 2, 8, 0),
+               ("first", 50, 768, 3, 8, 0),
+               ("cornell_smoke", 64, 1024, 4, 16, 0),
+               ("cornell_smoke", 64, 1024, 4, 16, 2),
+               ("big_scene1", 80, 1024, 8, 16, 0),
+               ("triangles", 64, 1024, 4, 8, 0),
+               ("cornell_box", 48, 1024, 1, 8, 0)]
+
+
+@pytest.mark.parametrize("name,width,batch,spp,depth,rr", CHUNK_CASES)
+def test_chunk_launch_equals_waves_and_plain(dev, name, width, batch, spp,
+                                             depth, rr):
+    sd = scenes.get(name)
+    st = RenderSettings(image_width=width, aspect_ratio=sd.aspect,
+                        spp_per_chunk=spp, num_chunks=1, max_depth=depth,
+                        ray_batch=batch, rr_start=rr)
+    h, w = st.image_height, st.image_width
+    base = int(np.random.default_rng(95).integers(0, 2**31 - 1))
+    chunk = compile_renderer(sd.scene, sd.camera, st, dev)
+    assert chunk.engine_name == "megakernel"
+    before = (ct.Tracer.launches, ct.Tracer.chunk_launches)
+    got = chunk(base)
+    assert (ct.Tracer.launches, ct.Tracer.chunk_launches) == \
+        (before[0], before[1] + 1)
+    tracer = ct.Tracer(sd.scene, dev)
+    b = min(batch, -(-h * w // 8) * 8)
+    rows = ct.chunk_rows(h, w, b)
+    assert got.shape == (rows, 3) and got.dtype == torch.float32
+    # the per-wave kernel route, its sums added in order
+    wave = tracer.bind(sd.camera, h, w, depth, st.t_min, rr)
+    waves = torch.zeros((rows, 3), dtype=torch.float32, device=dev)
+    for s in range(spp):
+        for bid in range(rows // b):
+            waves[bid * b:(bid + 1) * b] += wave(bid * b, b,
+                                                 ct.wave_seed(base, s, bid))
+    want = ct.trace_chunk_reference(tracer.bake, sd.camera, h, w, base, spp,
+                                    b, depth, st.t_min, dev, rr)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and float(got.sum()) > 0.0
+    assert torch.equal(got, waves)
+    assert torch.equal(got, want)
+
+
+def test_chunk_launch_fills_the_card(dev):
+    sd = scenes.get("cornell_box")
+    launch = ct.Tracer(sd.scene, dev).bind_chunk(sd.camera, 64, 64, 8, 0.001,
+                                                 0, 1024, 2)
+    per_sm, sms, grid = launch.occupancy
+    props = torch.cuda.get_device_properties(dev)
+    assert sms == props.multi_processor_count and grid == per_sm * sms
+    assert per_sm * 128 <= props.max_threads_per_multi_processor
+    assert per_sm >= 4  # more than a 65,536-ray wave's 512 blocks
+    gc.collect()
+    got = launch(7)
+    assert torch.equal(got, ct.trace_chunk_reference(
+        ct.bake_scene(sd.scene), sd.camera, 64, 64, 7, 2, 1024, 8,
+        device=dev))

@@ -1,6 +1,6 @@
-"""Time the port's BVH kernels at their main shapes, on one CUDA card.
+"""Time the port's kernels at their main shapes, on one CUDA card.
 
-    python tools/time_kernels.py [--tree DIR]
+    python tools/time_kernels.py [--tree DIR] [--sets chunks,bvh]
 
 Imports `raytracing_gpu_tpu_torch`, `chip_smoke` and `bench_torch` from the
 checkout at DIR (default: this one), so that two checkouts (say a commit
@@ -9,7 +9,19 @@ card in one sitting: run it once per checkout and compare.  Each run
 builds that checkout's kernels (forced, so nvcc's ptxas report of
 registers and spills is printed), then times each wave as chip_smoke
 does, with CUDA events around 50 launches queued behind a
-`torch.cuda._sleep` (`event_ms`): `rt_hit` on step 40 of config 5's first
+`torch.cuda._sleep` (`event_ms`).
+
+The set "chunks": one whole chunk of the megakernel route each for
+Cornell (512x512, 16 spp, depth 8), config 1 (`first`, 400x225, 16 spp,
+depth 8), config 4 (`cornell_smoke`, 512x512, 32 spp, depth 16),
+big_scene1 (800x450, 8 spp, depth 16) and `triangles` (400x225, 16 spp,
+depth 8), waves of 65,536 rays: the per-wave launches (`Tracer.bind`, one a
+(sample, wave), device held), and the route's chunk (`compile_renderer`:
+a checkout whose route launches once a chunk runs its chunk launch, an
+older one its per-wave loop with the slice-adds), device held and as a
+call (host and device).
+
+The set "bvh": `rt_hit` on step 40 of config 5's first
 64-spp regen chunk (131,072 rays) and of config 2's (65,536), big_scene1's
 training record wave (32,768 rays, depth 16), its ray-plane record wave
 (kernel 1c) and its forward megakernel wave (65,536, depth 16), then every
@@ -35,7 +47,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
+    ap.add_argument("--sets", default="chunks,bvh",
+                    help="comma-separated: chunks, bvh")
     args = ap.parse_args()
+    sets = set(args.sets.split(","))
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
 
@@ -43,7 +58,7 @@ def main() -> int:
 
     import bench_torch
     import chip_smoke as cs
-    from raytracing_gpu_tpu_torch import RenderSettings
+    from raytracing_gpu_tpu_torch import RenderSettings, compile_renderer
     from raytracing_gpu_tpu_torch.engine import render
     from raytracing_gpu_tpu_torch.models import scenes
     from raytracing_gpu_tpu_torch.ops import build, cuda_trace
@@ -67,6 +82,39 @@ def main() -> int:
         ms[name] = cs.event_ms(fn, reps=50, hold_device=True)
 
     base = 414133122
+    if "chunks" in sets:
+        for label, name, width, spp, depth in (
+                ("Cornell", "cornell_box", 512, 16, 8),
+                ("config 1", "first", 400, 16, 8),
+                ("config 4", "cornell_smoke", 512, 32, 16),
+                ("big_scene1", "big_scene1", 800, 8, 16),
+                ("triangles", "triangles", 400, 16, 8)):
+            sd = scenes.get(name)
+            st = RenderSettings(image_width=width, aspect_ratio=sd.aspect,
+                                spp_per_chunk=spp, num_chunks=1,
+                                max_depth=depth, ray_batch=65536)
+            h, n = st.image_height, 65536
+            tracer = cuda_trace.Tracer(sd.scene, dev)
+            wave = tracer.bind(sd.camera, h, width, depth)
+            nb = -(-h * width // n)
+            waves = [lambda r, s=s, b=b: wave(
+                b * n, n, cuda_trace.wave_seed(base + r, s, b))
+                for s in range(spp) for b in range(nb)]
+            ms[f"{label} chunk, {len(waves)} per-wave launches"] = sum(
+                cs.event_ms(lambda r, g=waves[k:k + 44]: [f(r) for f in g],
+                            reps=2, hold_device=True)
+                for k in range(0, len(waves), 44))
+            # one call behind the hold: a per-wave route's chunk enqueues
+            # a launch and a slice-add a wave
+            chunk = compile_renderer(sd.scene, sd.camera, st, dev)
+            ms[f"{label} chunk, the route's chunk"] = cs.event_ms(
+                lambda r: chunk(base + r), reps=1, hold_device=True)
+            ms[f"{label} chunk, the route's chunk as a call"] = cs.event_ms(
+                lambda r: chunk(base + r), reps=5)
+    if "bvh" not in sets:
+        print(json.dumps({"tree": tree, "card": card, "ms": ms,
+                          "registers": lines}))
+        return 0
     # rt_hit on config 5's and config 2's regen steps
     psd, bsd = scenes.get("backpack"), scenes.get("big_scene1")
     width, spp, _, depth = cs.CONFIG5
