@@ -82,8 +82,9 @@ kernel on the way.  Phases, each of which raises on failure:
    over the plain walk on the card: primal under the depth-8 rule,
    gradients of the L2 loss allclose rtol 2e-4, atol 1e-7;
 12. training path: `bench_torch.train_renders` for one full 64-spp forward
-   plus backward render (must launch the record kernel 8 chunks x 8 spp x
-   8 waves = 512 times, planes saved, and the forward kernel never); prints
+   plus backward render (must launch the record kernel once a chunk, 8
+   times through `rt_walk_chunk` for its 8 x 8 x 8 = 512 waves, planes
+   saved, and the forward kernel never); prints
    Mrays/s, the peak of allocated device memory, and the device's busy
    share from a profiled repeat;
 13. the dense scenes (basic, first, two_spheres, two_perlin_spheres,
@@ -204,12 +205,13 @@ kernel on the way.  Phases, each of which raises on failure:
 30. config 2's scene in training: `bench_torch.train_renders` over
    `compile_fused_param_renderer` on big_scene1 at 800x450, 2 chunks of
    16 spp, depth 16, waves of 32,768 rays, L2 loss against zeros (the
-   record kernel 2 x 16 x 11 = 352 times forward and as many backward,
-   planes not saved; no other kernel); finite, nonzero tex_c1 and tex_c2
-   gradients; Mrays/s, peak memory, the busy share of a one-chunk
-   sub-run; the training wave held against its plain version and timed;
-   then `triangles` in training (400x225, 8 spp, depth 8), its wave held
-   and timed;
+   record chunk launch once a chunk forward and once backward, planes not
+   saved: 4 launches for 2 x 2 x 16 x 11 = 704 waves; no other kernel);
+   finite, nonzero tex_c1 and tex_c2 gradients; Mrays/s, peak memory, the
+   busy share of a one-chunk sub-run; the training wave held against its
+   plain version and timed; then `triangles` in training (400x225, 8 spp,
+   depth 8: one record chunk launch for its 16 waves), its wave held and
+   timed;
 31. the record-walk route: `compile_param_renderer` on big_scene1 at
    800x450, one 16-spp chunk, depth 16 (engine "record-walk", the ray-plane
    record entry 16 x 11 = 176 times), its primal equal to
@@ -260,7 +262,20 @@ kernel on the way.  Phases, each of which raises on failure:
    version on the card equal bit for bit on every row; the chunk launch and
    the per-wave launches timed (device held, and with the host), beside
    the plain chunk and the chunk's bound (its waves' operations, counted by
-   the plain version), with the grid the card's occupancy gives.
+   the plain version), with the grid the card's occupancy gives;
+38. whole training chunks of the record kernel: one chunk each of the
+   Cornell training render (512x512, 8 spp, depth 8, waves of 32,768),
+   big_scene1's (800x450, 16 spp, depth 16, hit-point planes, the sphere
+   BVH) and `triangles`' (400x225, 8 spp, depth 8, the triangle BVH): the
+   record chunk launch (`rt_walk_chunk`), the per-wave launches stacked
+   and the plain chunk walk on the card equal bit for bit on every plane,
+   wave and lane; the chunk launch and the per-wave launches timed (device
+   held), beside the plain chunk and the chunk's bound (operations from
+   the plain chunk's counts, bytes as the planes written once and the
+   tables read once), with the grid and ptxas' registers; then a whole
+   chunk of config 5's frame (backpack, 800x600, 4 spp, depth 16, waves of
+   65,536) through the forward chunk launch (the triangle walk) against
+   its per-wave launches, bit for bit, both timed.
 
 Prints each phase's seconds, a JSON line of kernels, the card's name and
 power limit, and as its last line `{"ok": true, "device": {...}}`.  Exits
@@ -317,6 +332,15 @@ CHUNKS = (("Cornell", "cornell_box", 512, 16, 8),
           ("config 4", "cornell_smoke", 512, 32, 16),
           ("big_scene1", "big_scene1", 800, 8, 16),
           ("triangles", "triangles", 400, 16, 8))
+# phase 38's whole training chunks (label, scene, width, spp, depth, ray
+# batch), each one chunk of a training render above (phases 12 and 30)
+TRAIN_CHUNKS = (("Cornell", "cornell_box", 512, 8, 8, 32768),
+                ("big_scene1", "big_scene1", 800, 16, 16, 32768),
+                ("triangles", "triangles", 400, 8, 8, 65536))
+# phase 38's backpack chunk through the forward chunk launch: width (its
+# 800x600 frame), spp, depth, ray batch
+BACKPACK_CHUNK = (800, 4, 16, 65536)
+PLAIN_CHUNK_RAYS = 3 << 20  # rays a plain record walk takes at once on the card
 RR_MEAN_TOL = 0.05
 FMA_CHECK_STEPS = (1, 7, 8, 13, 21)  # the unrolled-by-8 loop and its tail
 BIG = "big_scene1"
@@ -796,8 +820,7 @@ def render_counted(sd, st, dev, card: str, label: str, png: str) -> dict:
     wall = time.perf_counter() - t0
     launches = cuda_trace.Tracer.chunk_launches
     stray = (cuda_trace.Tracer.launches + cuda_trace.Tracer.ray_launches
-             + cuda_trace.Tracer.record_launches
-             + cuda_trace.Tracer.hit_launches)
+             + record_launches() + cuda_trace.Tracer.hit_launches)
     rays = st.num_pixels * st.rays_per_pixel
     print(f"[main] render {label} {st.image_width}x{st.image_height} "
           f"{st.rays_per_pixel}spp depth {st.max_depth}: {wall:.6f} s, "
@@ -925,6 +948,183 @@ def time_chunk(sd, st, base: int, card: str, label: str) -> dict:
                 waves=len(waves), rows=rows, blocks_per_sm=per_sm,
                 grid_blocks=grid, chunk_max_abs_err=float(
                     (got - plain).abs().max()))
+
+
+def add_counts(a: dict, b: dict) -> dict:
+    """The plain versions' work counts of two runs together."""
+    from raytracing_gpu_tpu_torch.ops import cuda_trace
+
+    out = {k: a[k] + b[k] for k in a if k not in ("scatter", "tri_read")}
+    out["scatter"] = {k: a["scatter"].get(k, 0) + b["scatter"].get(k, 0)
+                      for k in set(a["scatter"]) | set(b["scatter"])}
+    out["tri_read"] = cuda_trace.merge_reads(a["tri_read"], b["tri_read"])
+    return out
+
+
+def kernel_registers(log: str, kernel: str, features: int):
+    """ptxas' registers of instantiation `kernel<features>` (`rt::` kernels
+    templated on their feature bits) in the build log, None if absent."""
+    mangled = f"{len(kernel)}{kernel}ILj{features}E"
+    entry = None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line
+        elif "registers" in line and entry is not None and mangled in entry:
+            return int(line.split("Used")[1].split("registers")[0])
+    return None
+
+
+def time_record_chunk(sd, st, base: int, card: str, label: str,
+                      log: str) -> dict:
+    """One training chunk's record walk in one launch
+    (`Tracer.bind_record_chunk`) against the same waves' per-wave launches
+    (`Tracer.bind_record`) stacked and against the plain chunk on the card
+    (`cuda_trace.walk_chunk_reference`, a group of at most
+    PLAIN_CHUNK_RAYS rays at a time): every plane equal bit for bit on every
+    wave and lane.  Times the chunk launch and the per-wave launches
+    (device held), the chunk's call, and the plain chunk (counting its
+    work); the bound is the chunk's float32 operations over the card's rate
+    (`record_wave_ops` of the plain chunk's counts) or its bytes (the
+    planes written once, the tables read once, a triangle table's parts
+    that the walks read) over its memory rate."""
+    import torch
+
+    from raytracing_gpu_tpu_torch.ops import cuda_trace
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    tracer = cuda_trace.Tracer(sd.scene, dev)
+    h, w, depth, spp = (st.image_height, st.image_width, st.max_depth,
+                        st.spp_per_chunk)
+    b = min(st.ray_batch, -(-h * w // 8) * 8)
+    launch = tracer.bind_record_chunk(sd.camera, h, w, depth, st.t_min, b,
+                                      spp)
+    nb, n_waves = launch.nb, spp * launch.nb
+    if launch.groups != [(0, n_waves)]:
+        raise AssertionError(f"{label}: groups {launch.groups}")
+    wave = tracer.bind_record(sd.camera, h, w, depth, st.t_min)
+    waves = [(s, bid) for s in range(spp) for bid in range(nb)]
+    got = launch(base)
+    by_wave = [wave(bid * b, b, cuda_trace.wave_seed(base, s, bid))
+               for s, bid in waves]
+    torch.cuda.synchronize()
+    same_waves = all(torch.equal(g, torch.stack([x[k] for x in by_wave]))
+                     for k, g in enumerate(got))
+    del by_wave
+    per_group = max(1, PLAIN_CHUNK_RAYS // b)
+    counts, same_plain, err = None, True, 0.0
+    plain_ms = 0.0
+    for first in range(0, n_waves, per_group):
+        count = min(per_group, n_waves - first)
+        c = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = cuda_trace.walk_chunk_reference(
+            tracer.bake, sd.camera, h, w, base, spp, b, depth, st.t_min, dev,
+            first, count, counts=c)
+        torch.cuda.synchronize()
+        plain_ms += (time.perf_counter() - t0) * 1e3
+        counts = c if counts is None else add_counts(counts, c)
+        for g, v in zip(got, plain):
+            part = g[first:first + count]
+            same_plain = same_plain and torch.equal(part, v)
+            err = max(err, float((part.double() - v.double()).abs().max()))
+        del plain
+    print(f"[record-chunk-vs-waves-vs-plain] {label} {w}x{h} {spp}spp depth "
+          f"{depth}, {n_waves} waves of {b}, {len(got)} planes: equal bit "
+          f"for bit on every plane, wave and lane: vs waves {same_waves}, "
+          f"vs plain {same_plain}")
+    if not (same_waves and same_plain):
+        raise AssertionError(f"{label}: the record chunk launch differs from "
+                             "its waves or from the plain version")
+    del got
+    ms = event_ms(lambda r: launch(base + r), reps=5, hold_device=True)
+    loop_ms = event_ms(lambda r: launch(base + r), reps=5)
+    waves_ms = held_ms([lambda r, s=s, bid=bid: wave(
+        bid * b, b, cuda_trace.wave_seed(base + r, s, bid))
+        for s, bid in waves])
+    n = n_waves * b
+    ops = record_wave_ops(tracer.bake, counts, n, True)
+    nbytes = record_wave_bytes(tracer, counts, n, depth, False)
+    bound_ms, bound_by = bound(ops, nbytes)
+    per_sm, sms, grid = launch.occupancy
+    regs = kernel_registers(log, "megakernel_record",
+                            tracer._record_features())
+    print(f"[time] {label} training chunk's record walk: one launch "
+          f"{ms:.6f} ms on the device ({loop_ms:.6f} ms a call), "
+          f"{n_waves} per-wave launches {waves_ms:.6f} ms on the device, "
+          f"plain {plain_ms:.6f} ms; bound {bound_ms:.6f} ms by {bound_by} "
+          f"({ops:.0f} ops from {counts['live']} live and {counts['cont']} "
+          f"continued bounces, {counts['nodes']} node and {counts['rows']} "
+          f"sphere-row tests, {counts['tri_nodes']} triangle-node and "
+          f"{counts['tri_rows']} triangle tests; {nbytes} bytes; "
+          f"{spec_bound_ms(ops, nbytes):.6f} ms over the spec sheet); grid "
+          f"{grid} blocks of 128 ({per_sm} an SM x {sms} SMs) for {n} rays; "
+          f"megakernel_record<{tracer._record_features()}> {regs} registers; "
+          f"on {card}")
+    return dict(chunk_ms=ms, chunk_loop_ms=loop_ms, waves_ms=waves_ms,
+                chunk_plain_ms=plain_ms, chunk_bound_ms=bound_ms,
+                chunk_bound_by=bound_by, waves=n_waves, rays=n,
+                blocks_per_sm=per_sm, grid_blocks=grid, registers=regs,
+                chunk_max_abs_err=err)
+
+
+def time_backpack_chunk(card: str, base: int, log: str) -> dict:
+    """A whole chunk of config 5's frame (800x600, BACKPACK_CHUNK) through
+    the forward chunk launch (`Tracer.bind_chunk`: the triangle walk of
+    megakernel_fwd) against its per-wave launches' sums added in order,
+    equal bit for bit on every row, both timed with the device held (the
+    plain walk over 100k triangles takes too long for a whole chunk)."""
+    import torch
+
+    from raytracing_gpu_tpu_torch.models import scenes
+    from raytracing_gpu_tpu_torch.ops import cuda_trace
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    sd = scenes.get("backpack")
+    width, spp, depth, b = BACKPACK_CHUNK
+    h = int(width / CONFIG5_ASPECT)
+    tracer = cuda_trace.Tracer(sd.scene, dev)
+    launch = tracer.bind_chunk(sd.camera, h, width, depth, 0.001, 0, b, spp)
+    rows = cuda_trace.chunk_rows(h, width, b)
+    waves = [(s, bid) for s in range(spp) for bid in range(rows // b)]
+    wave = tracer.bind(sd.camera, h, width, depth)
+    got = launch(base)
+    sums = torch.zeros((rows, 3), dtype=torch.float32, device=dev)
+    for s, bid in waves:
+        sums[bid * b:(bid + 1) * b] += wave(bid * b, b,
+                                            cuda_trace.wave_seed(base, s, bid))
+    torch.cuda.synchronize()
+    same = torch.equal(got, sums)
+    print(f"[chunk-vs-waves] backpack {width}x{h} {spp}spp depth {depth}, "
+          f"{len(waves)} waves of {b}: equal bit for bit on every row {same}")
+    if not same:
+        raise AssertionError("backpack: the chunk launch differs from its "
+                             "waves")
+    ms = event_ms(lambda r: launch(base + r), reps=3, hold_device=True)
+    waves_ms = held_ms([lambda r, s=s, bid=bid: wave(
+        bid * b, b, cuda_trace.wave_seed(base + r, s, bid))
+        for s, bid in waves])
+    regs = kernel_registers(log, "megakernel_fwd", tracer.bake.features())
+    print(f"[time] backpack chunk: one launch {ms:.6f} ms on the device, "
+          f"{len(waves)} per-wave launches {waves_ms:.6f} ms; "
+          f"megakernel_fwd<{tracer.bake.features()}> {regs} registers, "
+          f"{launch.occupancy[0]} blocks an SM, on {card}")
+    return dict(backpack_chunk_ms=ms, backpack_waves_ms=waves_ms,
+                backpack_waves=len(waves), backpack_registers=regs)
+
+
+def chunk_fields(row: dict, chunk: dict) -> None:
+    """Makes a record row's numbers its training chunk's (the main path's
+    launch since the chunk launch), keeping its single wave's as wave_*."""
+    for k in ("ms", "loop_ms", "plain_ms", "bound_ms", "bound_by",
+              "max_abs_err", "exact_frac"):
+        if k in row:
+            row[f"wave_{k}"] = row.pop(k)
+    row.update(ms=chunk["chunk_ms"], loop_ms=chunk["chunk_loop_ms"],
+               plain_ms=chunk["chunk_plain_ms"],
+               bound_ms=chunk["chunk_bound_ms"],
+               bound_by=chunk["chunk_bound_by"],
+               max_abs_err=chunk["chunk_max_abs_err"], chunk=chunk)
 
 
 def camera_rays(sd, n: int, seed: int, dev):
@@ -1258,7 +1458,8 @@ def counted(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, dict(launches=forward_launches(),
-                     record=cuda_trace.Tracer.record_launches,
+                     record=record_launches(),
+                     record_chunk=cuda_trace.Tracer.record_chunk_launches,
                      ray=cuda_trace.Tracer.ray_launches,
                      hit=cuda_trace.Tracer.hit_launches)
 
@@ -1270,6 +1471,15 @@ def forward_launches() -> int:
     return cuda_trace.Tracer.launches + cuda_trace.Tracer.chunk_launches
 
 
+def record_launches() -> int:
+    """Launches of the record kernel on camera rays, on one wave or on a
+    group of a training chunk's waves."""
+    from raytracing_gpu_tpu_torch.ops import cuda_trace
+
+    return (cuda_trace.Tracer.record_launches
+            + cuda_trace.Tracer.record_chunk_launches)
+
+
 def reset_counts() -> None:
     """Every kernel launch count to 0."""
     from raytracing_gpu_tpu_torch.ops import cuda_trace
@@ -1278,6 +1488,7 @@ def reset_counts() -> None:
     cuda_trace.Tracer.launches = 0
     cuda_trace.Tracer.chunk_launches = 0
     cuda_trace.Tracer.record_launches = 0
+    cuda_trace.Tracer.record_chunk_launches = 0
     cuda_trace.Tracer.ray_launches = 0
     cuda_trace.Tracer.hit_launches = 0
     roofline.launches = 0
@@ -1387,7 +1598,7 @@ def big_scene1_phases(dev, card: str, base: int, png: str) -> tuple:
         img2 = render(bsd.scene, bsd.camera, c2, device=dev)
         wall2 = time.perf_counter() - t0
         steps = cuda_trace.Tracer.hit_launches
-        stray = forward_launches() + cuda_trace.Tracer.record_launches
+        stray = forward_launches() + record_launches()
         rays2 = c2.num_pixels * c2.rays_per_pixel
         mrays2 = rays2 / wall2 / 1e6
         print(f"[main] render {BIG} (config 2, engine {engine}) {width}x"
@@ -1617,7 +1828,7 @@ def triangle_phases(dev, card: str, base: int, png: str) -> list:
         img5 = render(psd.scene, psd.camera, c5, device=dev)
         wall5 = time.perf_counter() - t0
         steps5 = cuda_trace.Tracer.hit_launches
-        stray = forward_launches() + cuda_trace.Tracer.record_launches
+        stray = forward_launches() + record_launches()
         peak5 = torch.cuda.max_memory_allocated() / 2**20
         rays5 = c5.num_pixels * c5.rays_per_pixel
         mrays5 = rays5 / wall5 / 1e6
@@ -1665,7 +1876,7 @@ def triangle_phases(dev, card: str, base: int, png: str) -> list:
         img_rr = render(psd.scene, psd.camera, c5rr, device=dev)
         wall_rr = time.perf_counter() - t0
         steps_rr = cuda_trace.Tracer.hit_launches
-        stray = forward_launches() + cuda_trace.Tracer.record_launches
+        stray = forward_launches() + record_launches()
         mrays_rr = rays5 / wall_rr / 1e6
         print(f"[main] render backpack (config 5-rr, rr_start "
               f"{CONFIG5_RR_START}) {width}x{c5.image_height} "
@@ -1696,7 +1907,7 @@ def triangle_phases(dev, card: str, base: int, png: str) -> list:
         wimg = render(psd.scene, psd.camera, wst, device=dev)
         wwall = time.perf_counter() - t0
         wlaunches = cuda_trace.Tracer.hit_launches
-        stray = forward_launches() + cuda_trace.Tracer.record_launches
+        stray = forward_launches() + record_launches()
         # the bounces of the same chunk, through debug_stats
         _, wstats = wavefront.compile_wavefront_renderer(
             psd.scene, psd.camera, wst, debug_stats=True,
@@ -2000,19 +2211,25 @@ def training_phases(dev, card: str, base: int) -> tuple:
             bchunk, bparams, target, bbases))
         bwall = time.perf_counter() - t0
         bpeak = torch.cuda.max_memory_allocated() / 2**30
-        expected = chunks * spp * nb
+        # one record chunk launch a chunk forward and one backward (planes
+        # not saved); before the chunk launch, one a (sample, wave) each
+        # way: 2 x 2 x 16 x 11 = 704
+        expected = chunks
         brays = bst.num_pixels * bst.rays_per_pixel
         bmrays = brays / bwall / 1e6
         print(f"[train] fwd+bwd big_scene1 {width}x{bst.image_height} "
               f"{bst.rays_per_pixel}spp ({chunks} x {spp}) depth {depth}, "
               f"ray_batch {batch}, save_planes {bchunk.save_planes}: "
               f"{bwall:.6f} s, {bmrays:.6f} Mrays/s, launches {bcounts} "
-              f"(expected {expected} record launches forward and as many "
-              f"backward), peak allocated {bpeak:.3f} GiB on {card}")
-        if (bcounts["record"] != 2 * expected or bchunk.save_planes
+              f"(expected {expected} record chunk launches forward and as "
+              f"many backward, for {2 * chunks * spp * nb} waves), peak "
+              f"allocated {bpeak:.3f} GiB on {card}")
+        if (bcounts["record_chunk"] != 2 * expected
+                or bcounts["record"] != 2 * expected or bchunk.save_planes
                 or bcounts["launches"] or bcounts["hit"] or bcounts["ray"]):
             raise AssertionError(f"big_scene1 training: launches {bcounts}, "
-                                 f"expected {2 * expected} record launches")
+                                 f"expected {2 * expected} record chunk "
+                                 "launches")
         if not (bool(torch.isfinite(loss)) and float(loss) > 0.0
                 and all(bool(torch.isfinite(v).all())
                         for v in grads.values())
@@ -2073,12 +2290,15 @@ def training_phases(dev, card: str, base: int) -> tuple:
         (tloss, tgrads), tcounts = counted(lambda: bench_torch.train_renders(
             tchunk, tparams, ttarget, [base]))
         twall = time.perf_counter() - t0
-        texpected = spp * -(-tst.num_pixels // batch)
-        texpected *= 1 if tchunk.save_planes else 2
+        # one record chunk launch (planes kept); 16 waves before it
+        texpected = 1 if tchunk.save_planes else 2
         print(f"[train] fwd+bwd triangles {width}x{tst.image_height} "
               f"{spp}spp depth {depth}: {twall:.6f} s, launches {tcounts} "
-              f"(expected {texpected} record launches) on {card}")
-        if (tcounts["record"] != texpected or tcounts["launches"]
+              f"(expected {texpected} record chunk launches, for "
+              f"{spp * -(-tst.num_pixels // batch)} waves) on {card}")
+        if (tcounts["record_chunk"] != texpected
+                or tcounts["record"] != texpected or tcounts["launches"]
+                or not tchunk.save_planes
                 or not float(tgrads["tex_c1"].abs().max()) > 0.0):
             raise AssertionError("triangles training is off")
         tw = ttr.bind_record(tsd.camera, tst.image_height, width, depth,
@@ -2429,7 +2649,7 @@ def image_phases(dev, card: str, base: int, c5_steps: int) -> tuple:
         eimg = render(esd.scene, esd.camera, est, device=dev)
         ewall = time.perf_counter() - t0
         ecounts = dict(launches=forward_launches(),
-                       record=cuda_trace.Tracer.record_launches,
+                       record=record_launches(),
                        ray=cuda_trace.Tracer.ray_launches,
                        hit=cuda_trace.Tracer.hit_launches)
         enb = -(-est.num_pixels // est.ray_batch)
@@ -2566,7 +2786,7 @@ def image_phases(dev, card: str, base: int, c5_steps: int) -> tuple:
         img = render(bsd.scene, bsd.camera, c5, device=dev)
         wall = time.perf_counter() - t0
         steps = cuda_trace.Tracer.hit_launches
-        stray = (forward_launches() + cuda_trace.Tracer.record_launches
+        stray = (forward_launches() + record_launches()
                  + cuda_trace.Tracer.ray_launches)
         rays5 = c5.num_pixels * c5.rays_per_pixel
         mrays5 = rays5 / wall / 1e6
@@ -2722,6 +2942,7 @@ def main() -> int:
     with Phase("2 build"):
         res = build.build(force=True)
         build.load()
+        build_log = res.log
         print(f"[build] nvcc {' '.join(build.NVCC_FLAGS)}, "
               f"{len(build.sources())} sources in parallel: "
               f"{res.seconds:.2f} s -> {os.path.relpath(res.library, ROOT)}")
@@ -3017,8 +3238,11 @@ def main() -> int:
         bench_torch.train_renders(tchunk, params, target,
                                   [cuda_trace.chunk_seed(gen)])  # warm-up
         tbases = [cuda_trace.chunk_seed(gen) for _ in range(tst.num_chunks)]
-        t_expected = (tst.num_chunks * tst.spp_per_chunk
-                      * (tst.num_pixels // tst.ray_batch))
+        # one record launch a chunk (planes kept for the backward pass);
+        # before the chunk launch, one a (sample, wave): 8 x 8 x 8 = 512
+        t_waves = (tst.num_chunks * tst.spp_per_chunk
+                   * (tst.num_pixels // tst.ray_batch))
+        t_expected = tst.num_chunks
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
@@ -3026,20 +3250,21 @@ def main() -> int:
         loss, grads = bench_torch.train_renders(tchunk, params, target, tbases)
         torch.cuda.synchronize()
         t_wall = time.perf_counter() - t0
-        t_launches = cuda_trace.Tracer.record_launches
-        t_stray = forward_launches()
+        t_launches = cuda_trace.Tracer.record_chunk_launches
+        t_stray = forward_launches() + cuda_trace.Tracer.record_launches
         peak_mb = torch.cuda.max_memory_allocated() / 2**20
         t_rays = tst.num_pixels * tst.rays_per_pixel
         t_mrays = t_rays / t_wall / 1e6
         print(f"[train] fwd+bwd cornell_box 512x512 64spp depth 8, ray_batch "
               f"{tst.ray_batch}, save_planes {tchunk.save_planes}: "
-              f"{t_wall:.6f} s, {t_mrays:.6f} Mrays/s, record launches "
-              f"{t_launches} (expected {t_expected}), forward launches "
+              f"{t_wall:.6f} s, {t_mrays:.6f} Mrays/s, record chunk "
+              f"launches {t_launches} (expected {t_expected}, for "
+              f"{t_waves} waves), per-wave record and forward launches "
               f"{t_stray}, peak allocated {peak_mb:.3f} MiB on {card}")
-        if t_launches != t_expected or t_stray != 0:
-            raise AssertionError(f"{t_launches} record and {t_stray} forward "
-                                 f"kernel launches, expected {t_expected} "
-                                 "and 0")
+        if t_launches != t_expected or t_stray != 0 or not tchunk.save_planes:
+            raise AssertionError(f"{t_launches} record chunk and {t_stray} "
+                                 f"other kernel launches, expected "
+                                 f"{t_expected} and 0")
         if not (bool(torch.isfinite(loss)) and float(loss) > 0.0
                 and all(bool(torch.isfinite(g).all()) for g in grads.values())
                 and float(grads["tex_c1"].abs().max()) > 0.0):
@@ -3178,6 +3403,33 @@ def main() -> int:
             chunks[label] = time_chunk(csd, cst, base, card, label)
     for row, label in ((tri_rows[0], "triangles"), ):
         row.update({f"{label}_{k}": v for k, v in chunks[label].items()})
+    with Phase("38 whole training chunks"):
+        rchunks = {}
+        for label, name, width, spp, depth, batch in TRAIN_CHUNKS:
+            rsd = scenes.get(name)
+            rst = RenderSettings(image_width=width, aspect_ratio=rsd.aspect,
+                                 spp_per_chunk=spp, num_chunks=1,
+                                 max_depth=depth, ray_batch=batch)
+            rchunks[label] = time_record_chunk(rsd, rst, base, card, label,
+                                               build_log)
+        tri_rows[0].update(time_backpack_chunk(card, base, build_log))
+        tri_rows[0]["triangles_registers"] = kernel_registers(
+            build_log, "megakernel_fwd",
+            cuda_trace.bake_scene(scenes.get("triangles").scene).features())
+    chunk_fields(train_rows[0], rchunks[BIG])
+    chunk_fields(train_rows[1], rchunks["triangles"])
+    record_row = {
+        "name": "megakernel_record (rt_walk_chunk)", "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": REPLACES, "launches": t_launches,
+        "exact_frac": rec_cmp["exact_frac"], "library_ms": None,
+        "wave_ms": rec_ms, "wave_plain_ms": rec_plain_ms,
+        "wave_bound_ms": rec_bound_ms, "wave_bound_by": rec_bound_by,
+        "wave_max_abs_err": rec_cmp["max_abs_err"],
+        "wave_loop_ms": rec_loop_ms,
+        "train_mrays_per_s": t_mrays,
+        "train_device_busy_share": t_busy,
+        "train_peak_allocated_mib": peak_mb}
+    chunk_fields(record_row, rchunks["Cornell"])
 
     scene_rates = {name: dict(c) for name, c in configs.items()}
     cornell = chunks["Cornell"]
@@ -3199,18 +3451,7 @@ def main() -> int:
         "render_device_busy_share": serving["busy_share"],
         "profiled_render_busy_share": serving["profiled_busy_share"],
         "plain_chunk_mrays_per_s": plain_rays / plain_wall / 1e6,
-        "scenes": scene_rates}, {
-        "name": "megakernel_record", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": t_launches,
-        "max_abs_err": rec_cmp["max_abs_err"],
-        "exact_frac": rec_cmp["exact_frac"],
-        "ms": rec_ms, "plain_ms": rec_plain_ms,
-        "bound_ms": rec_bound_ms, "bound_by": rec_bound_by,
-        "library_ms": None,
-        "loop_ms": rec_loop_ms,
-        "train_mrays_per_s": t_mrays,
-        "train_device_busy_share": t_busy,
-        "train_peak_allocated_mib": peak_mb}, {
+        "scenes": scene_rates}, record_row, {
         "name": "megakernel_fwd<sphere_bvh> (rt_trace_chunk)",
         "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
         "launches": big_mega["launches"],

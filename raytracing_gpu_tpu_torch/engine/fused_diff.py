@@ -7,7 +7,8 @@ samples of every pixel, split into waves of `ray_batch` pixels.  Each
 (`integrator.shade_packed`): the packed plane, the hit-point planes when a
 checker or perlin texture needs them, and the uv planes when an image
 texture does.  With `gen_rays=True` the
-kernel makes the camera rays (`ops/cuda_trace.py` `Tracer.bind_record`);
+kernel makes the camera rays and walks every wave of the chunk in one
+launch (`ops/cuda_trace.py` `Tracer.bind_record_chunk`);
 with `gen_rays=False` each wave's rays are drawn in torch with
 `render.chunk_sums`'s schedule (`render.wave_rays`) and walked on ray
 planes (`Tracer.walk_packed`, kernel 1c): the record-walk route of
@@ -35,7 +36,7 @@ Not ported yet: the sharded form (`fused_diff.py:273`).
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Iterator
 
 import torch
 
@@ -110,23 +111,67 @@ def fused_chunk_from_walk(scene: Scene,
                           need_p: bool | None = None,
                           need_uv: bool | None = None
                           ) -> Callable[[dict, int], torch.Tensor]:
-    """The differentiable chunk over a record walk
+    """The differentiable chunk over a record walk a wave at a time,
     `walk(pix_base, n, seed) -> planes`: (packed (max_depth, n) int32, then
     px, py, pz (max_depth, n) float32 when the scene's textures need the
-    hit point, then u, v when an image texture needs them), the kernel's
-    (`compile_fused_param_renderer`) or its plain version.
+    hit point, then u, v when an image texture needs them), the ray-plane
+    kernel's (`compile_fused_param_renderer(gen_rays=False)`) or a plain
+    version.  Wave (s, bid) walks with seed `wave_seed(base, s, bid)`, the
+    JAX package's schedule (`fused_diff.py:184-193`).
 
     Returns `chunk(params, base) -> (npix_pad, 3)` float32 radiance sums,
     differentiable with respect to the tensors of `params`
-    (`engine.diff.get_params`).  Wave (s, bid) walks with seed
-    `wave_seed(base, s, bid)`, the JAX package's schedule
-    (`fused_diff.py:184-193`).
+    (`engine.diff.get_params`).
 
     save_planes: keep every wave's record planes from the forward pass for
     the backward pass, instead of walking the waves again.  Default: on
     when the planes of a chunk fit in 1 GiB.
     need_p, need_uv: whether the walk writes the hit-point and the uv
     planes; default the scene's bake's (`SceneBake.need_p`, `need_uv`).
+    """
+    _h, _w, _npix, _npix_pad, b, nb = _grid_geometry(settings)
+    spp = settings.spp_per_chunk
+
+    def waves(base: int):
+        for s in range(spp):
+            for bid in range(nb):
+                yield walk(bid * b, b, cuda_trace.wave_seed(base, s, bid))
+
+    return _fused_chunk(scene, waves, settings, save_planes, device, need_p,
+                        need_uv)
+
+
+def fused_chunk_from_chunk_walk(scene: Scene, walk_chunk: Callable[..., tuple],
+                                settings: RenderSettings,
+                                save_planes: bool | None = None,
+                                device: torch.device | str = "cuda",
+                                need_p: bool | None = None,
+                                need_uv: bool | None = None
+                                ) -> Callable[[dict, int], torch.Tensor]:
+    """`fused_chunk_from_walk` over a whole chunk's record walk,
+    `walk_chunk(base, first, count) -> planes` of waves [first, first +
+    count) in the schedule order, each plane (count, max_depth, ray_batch),
+    walked once for each of `walk_chunk.groups` (`Tracer.bind_record_chunk`:
+    one kernel launch a group, a whole chunk in one unless its planes pass
+    `cuda_trace.RECORD_CHUNK_BYTES`).  The waves are shaded in the same order from the same
+    planes, so the sums and the gradients equal the per-wave walk's bit for
+    bit.  Without saved planes the backward pass walks the groups again."""
+    def waves(base: int):
+        for first, count in walk_chunk.groups:
+            planes = walk_chunk(base, first, count)
+            for k in range(count):
+                yield tuple(p[k] for p in planes)
+
+    return _fused_chunk(scene, waves, settings, save_planes, device, need_p,
+                        need_uv)
+
+
+def _fused_chunk(scene: Scene, waves: Callable[[int], Iterator[tuple]],
+                 settings: RenderSettings, save_planes: bool | None,
+                 device: torch.device | str, need_p: bool | None,
+                 need_uv: bool | None) -> Callable[[dict, int], torch.Tensor]:
+    """The differentiable chunk over `waves(base)`, the record planes of its
+    (sample, wave)s in the schedule order, wave (s, bid) the s * nb + bid-th.
     """
     feature = cuda_trace.unported_record_feature(scene)
     if feature is not None:
@@ -142,10 +187,6 @@ def fused_chunk_from_walk(scene: Scene,
     plane_bytes = spp * nb * max_depth * b * 4 * n_planes
     if save_planes is None:
         save_planes = plane_bytes <= _SAVE_PLANES_MAX_BYTES
-    waves = [(s, bid) for s in range(spp) for bid in range(nb)]
-
-    def walk_wave(base: int, s: int, bid: int) -> tuple:
-        return walk(bid * b, b, cuda_trace.wave_seed(base, s, bid))
 
     class FusedChunk(torch.autograd.Function):
         @staticmethod
@@ -153,10 +194,9 @@ def fused_chunk_from_walk(scene: Scene,
             params = dict(zip(PARAM_KEYS, values))
             out = torch.zeros((nb, b, 3), dtype=torch.float32, device=device)
             kept = []
-            for s, bid in waves:
-                planes = walk_wave(base, s, bid)
-                out[bid] += shade_packed(scene, params, *planes,
-                                         need_p=need_p, need_uv=need_uv)
+            for w, planes in enumerate(waves(base)):
+                out[w % nb] += shade_packed(scene, params, *planes,
+                                            need_p=need_p, need_uv=need_uv)
                 if save_planes:
                     kept.append(planes)
             ctx.base = base
@@ -169,10 +209,9 @@ def fused_chunk_from_walk(scene: Scene,
             params = dict(zip(PARAM_KEYS, ctx.saved_tensors))
             g_waves = g.reshape(nb, b, 3)
             acc = {k: torch.zeros_like(v) for k, v in params.items()}
-            for i, (s, bid) in enumerate(waves):
-                planes = (ctx.kept[i] if ctx.kept is not None
-                          else walk_wave(ctx.base, s, bid))
-                d_p = _shade_chain_bwd(scene, params, planes, g_waves[bid],
+            kept = ctx.kept if ctx.kept is not None else waves(ctx.base)
+            for w, planes in enumerate(kept):
+                d_p = _shade_chain_bwd(scene, params, planes, g_waves[w % nb],
                                        need_p, need_uv)
                 acc = {k: acc[k] + d_p[k] for k in acc}
             return (None, *(acc[k] for k in PARAM_KEYS))
@@ -196,26 +235,29 @@ def compile_fused_param_renderer(
 
     The walks are the record kernel's on a CUDA device and its plain
     version on the CPU: on camera rays made in the kernel (`gen_rays`, the
-    route `bench.py` takes), or on each wave's rays drawn in torch
-    (`render.wave_rays`) and walked as ray planes (kernel 1c), the
-    record-walk route of `render.compile_param_renderer`, which passes its
-    `tracer` of `scene`.  Raises NotImplementedError for a scene outside
-    the ported feature set.  See `fused_chunk_from_walk` for
-    `save_planes`.
+    route `bench.py` takes), the whole chunk in one launch
+    (`Tracer.bind_record_chunk`, `fused_chunk_from_chunk_walk`), or on
+    each wave's rays drawn in torch (`render.wave_rays`) and walked as ray
+    planes (kernel 1c), one launch a wave, the record-walk route of
+    `render.compile_param_renderer`, which passes its `tracer` of `scene`.
+    Raises NotImplementedError for a scene outside the ported feature set.
+    See `fused_chunk_from_walk` for `save_planes`.
     """
     device = torch.device(device)
     if tracer is None:
         tracer = cuda_trace.Tracer(scene, device)  # raises for unported
-    h, w, *_ = _grid_geometry(settings)
+    h, w, _npix, _npix_pad, b, _nb = _grid_geometry(settings)
     depth, t_min = settings.max_depth, settings.t_min
     if gen_rays:
-        walk = tracer.bind_record(camera, h, w, depth, t_min)
-    else:
-        cam = camera.to(device)
-        walk_rays = tracer.bind_walk_packed(depth, t_min)
+        walk_chunk = tracer.bind_record_chunk(camera, h, w, depth, t_min, b,
+                                              settings.spp_per_chunk)
+        return fused_chunk_from_chunk_walk(scene, walk_chunk, settings,
+                                           save_planes, device,
+                                           tracer.need_p, tracer.need_uv)
+    cam = camera.to(device)
+    walk_rays = tracer.bind_walk_packed(depth, t_min)
 
-        def walk(pix_base: int, n: int, seed: int) -> tuple:
-            return walk_rays(*wave_rays(cam, settings, pix_base, n, seed,
-                                        device))
+    def walk(pix_base: int, n: int, seed: int) -> tuple:
+        return walk_rays(*wave_rays(cam, settings, pix_base, n, seed, device))
     return fused_chunk_from_walk(scene, walk, settings, save_planes, device,
                                  tracer.need_p, tracer.need_uv)

@@ -40,11 +40,12 @@ _lib: Optional[ctypes.CDLL] = None
 class RtParams(ctypes.Structure):
     """Launch constants of the megakernel entries (`rt_trace_chunk`,
     `rt_trace_pixels`, `rt_trace_rays`, `rt_trace_occupancy`,
-    `rt_walk_packed_pixels`, `rt_walk_packed`), passed by value; the field
-    order and types follow `struct RtParams` in csrc/megakernel.cuh.
-    `rays` stays NULL here: the ray-plane entries set it from their
-    argument; `wave`, `spp` and `grid` shape the chunk launch, and the
-    per-wave entries set them themselves."""
+    `rt_walk_chunk`, `rt_walk_packed_pixels`, `rt_walk_packed`,
+    `rt_walk_occupancy`), passed by value; the field order and types follow
+    `struct RtParams` in csrc/megakernel.cuh.  `rays` stays NULL here: the
+    ray-plane entries set it from their argument; `wave`, `spp`, `grid`,
+    `wave0` and `waves` shape the chunk launches, and the per-wave entries
+    set them themselves."""
 
     _fields_ = [
         ("origin", ctypes.c_float * 3), ("llc", ctypes.c_float * 3),
@@ -65,7 +66,8 @@ class RtParams(ctypes.Structure):
         ("n_box_media", ctypes.c_int), ("has_time", ctypes.c_int),
         ("rr_start", ctypes.c_int), ("features", ctypes.c_int),
         ("wave", ctypes.c_int), ("spp", ctypes.c_int),
-        ("grid", ctypes.c_int), ("rays", ctypes.c_void_p),
+        ("grid", ctypes.c_int), ("wave0", ctypes.c_int),
+        ("waves", ctypes.c_int), ("rays", ctypes.c_void_p),
     ]
 
 
@@ -163,13 +165,15 @@ def load() -> ctypes.CDLL:
             for name, n_in, n_out in (("rt_trace_chunk", 0, 2),
                                       ("rt_trace_pixels", 0, 1),
                                       ("rt_trace_rays", 1, 1),
+                                      ("rt_walk_chunk", 0, 7),
                                       ("rt_walk_packed_pixels", 0, 6),
                                       ("rt_walk_packed", 1, 6)):
                 fn = getattr(lib, name)
                 fn.argtypes = [RtTables, RtParams, *[ptr] * (n_in + n_out + 1)]
                 fn.restype = ctypes.c_int
-            lib.rt_trace_occupancy.argtypes = [RtTables, RtParams, ptr]
-            lib.rt_trace_occupancy.restype = ctypes.c_int
+            for name in ("rt_trace_occupancy", "rt_walk_occupancy"):
+                getattr(lib, name).argtypes = [RtTables, RtParams, ptr]
+                getattr(lib, name).restype = ctypes.c_int
             i32 = ctypes.c_int
             lib.rt_hit.argtypes = [*[ptr] * 8, *[i32] * 7, ctypes.c_float,
                                    *[ptr] * 11]

@@ -9,9 +9,12 @@
 // and one wave with its seed given, and rt_trace_rays the same on ray
 // planes (kernel 1c); rt_trace_occupancy reports how many blocks of the
 // scene's forward instantiation an SM holds, for sizing the chunk's grid;
-// rt_walk_packed_pixels and rt_walk_packed launch the record kernel on
-// camera rays and on ray planes (megakernel_record.cu), with the hit-point
-// planes and the uv planes when they are given; rt_pcg_uniform writes
+// rt_walk_chunk launches the record kernel once for a whole training chunk
+// of camera rays (or a group of its waves), and rt_walk_packed_pixels and
+// rt_walk_packed on one wave of camera rays and of ray planes
+// (megakernel_record.cu), each with the hit-point planes and the uv planes
+// when they are given; rt_walk_occupancy reports how many blocks of the
+// scene's record instantiation an SM holds; rt_pcg_uniform writes
 // uniform(base, salt) per lane so a test can hold the device RNG against
 // the plain version; rt_error_string names a returned CUDA error.  The
 // tables and the launch constants come by value (RtTables, RtParams).  Each
@@ -95,14 +98,27 @@ extern "C" int rt_trace_occupancy(RtTables t, RtParams p, int* blocks_per_sm) {
   return trace(t, p, nullptr, nullptr, blocks_per_sm, nullptr);
 }
 
+// One wave of the record kernel: p.n rays, a block a kThreads rays (no
+// counter), its seed given.
+static int walk_wave(RtParams p, const RtTables& t, const RecordOut& o,
+              void* stream) {
+  p.wave = p.n;
+  p.waves = 1;
+  p.wave0 = 0;
+  p.grid = 0;
+  return launch_walk(t, p, o, nullptr, nullptr,
+                     static_cast<cudaStream_t>(stream));
+}
+
 extern "C" int rt_walk_packed_pixels(RtTables t, RtParams p,
                                      int32_t* out_packed, float* out_px,
                                      float* out_py, float* out_pz,
                                      float* out_u, float* out_v,
                                      void* stream) {
   p.rays = nullptr;
-  return launch_walk(t, p, out_packed, out_px, out_py, out_pz, out_u, out_v,
-                     static_cast<cudaStream_t>(stream));
+  return walk_wave(p, t,
+                   RecordOut{out_packed, out_px, out_py, out_pz, out_u, out_v},
+                   stream);
 }
 
 extern "C" int rt_walk_packed(RtTables t, RtParams p, const float* rays,
@@ -111,8 +127,38 @@ extern "C" int rt_walk_packed(RtTables t, RtParams p, const float* rays,
                               float* out_v, void* stream) {
   if (rays == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   p.rays = rays;
-  return launch_walk(t, p, out_packed, out_px, out_py, out_pz, out_u, out_v,
-                     static_cast<cudaStream_t>(stream));
+  return walk_wave(p, t,
+                   RecordOut{out_packed, out_px, out_py, out_pz, out_u, out_v},
+                   stream);
+}
+
+// p.n rays of whole waves of p.wave rays, waves p.wave0 .. of a chunk of
+// p.waves waves a sample seeded from p.seed, at most p.grid blocks;
+// `next_ray` is a 4-byte counter that this entry zeroes on the stream.
+extern "C" int rt_walk_chunk(RtTables t, RtParams p, int32_t* out_packed,
+                             float* out_px, float* out_py, float* out_pz,
+                             float* out_u, float* out_v, int* next_ray,
+                             void* stream) {
+  if (next_ray == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  p.rays = nullptr;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t rc = cudaMemsetAsync(next_ray, 0, sizeof(int), s);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  return launch_walk(
+      t, p, RecordOut{out_packed, out_px, out_py, out_pz, out_u, out_v},
+      next_ray, nullptr, s);
+}
+
+// The resident blocks an SM holds of the record instantiation that p
+// selects, with its tables in shared memory.
+extern "C" int rt_walk_occupancy(RtTables t, RtParams p, int* blocks_per_sm) {
+  if (blocks_per_sm == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.rays = nullptr;
+  return launch_walk(t, p,
+                     RecordOut{nullptr, nullptr, nullptr, nullptr, nullptr,
+                               nullptr},
+                     nullptr, blocks_per_sm, nullptr);
 }
 
 extern "C" int rt_pcg_uniform(int seed, int lanes, int salt, float* out,

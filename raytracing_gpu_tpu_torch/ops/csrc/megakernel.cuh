@@ -71,11 +71,21 @@
 // one wave, its seed given, a block a 128 rays.  The tables are staged
 // once a block, for the whole launch.
 //
-// In record mode one thread traces one ray of the wave; it writes word b
-// of its ray to out[b * n + i], so the 32 threads of a
-// warp store one contiguous 128-byte line per bounce; after its path ends it
-// writes 0 for its remaining bounces, which takes the place of the TPU
-// kernel's pre-zeroed plane (:1558-1561).  A TPU lane that died inside a
+// The record kernel, likewise, walks every (sample, wave) of a training
+// chunk in one launch (`rt_walk_chunk`): ray j of the launch is lane
+// j % wave of wave wave0 + j / wave in the chunk's schedule order (sample
+// s, wave bid), seeded wave_seed(base, s, bid), and it writes word b to
+// out[((j / wave) * depth + b) * wave + j % wave], so the planes of wave
+// (s, bid) are the (depth, wave) planes its own launch writes, and the 32
+// threads of a warp holding neighbouring rays store one contiguous
+// 128-byte line per bounce.  A wave's lanes idle on the H100 from their
+// path's end to the warp's longest path's, and a 32,768-ray wave is 256
+// blocks, two of the 16 an SM holds; so the grid is persistent, as the
+// forward chunk's, and a thread takes the next ray from the counter when
+// its path ends.  A thread writes 0 for the bounces after its path's end,
+// which takes the place of the TPU kernel's pre-zeroed plane (:1558-1561).
+// The per-wave entries are the same kernel on one wave, its seed given, a
+// block a 128 rays.  A TPU lane that died inside a
 // tile that is still live stores its frozen ray's `mat` with its mask bits
 // at zero; a thread here writes 0 instead.  The hit-point planes hold
 // o + t d (the expression `surface` computes) where the bounce hit, and 0
@@ -123,10 +133,11 @@
 // where every thread of a warp reads the same word at the same time (a
 // broadcast), and the only
 // device-memory traffic is the output stores and the ray planes' 28 bytes a
-// ray.  A warp of the record kernel keeps lanes whose rays died idle until
-// its longest path ends; the forward kernel's chunk refills them.  (On the
-// H100 the record kernels' bounds come out by bytes, yet they run at 1-3%
-// of them: the divergent walks, not the stores, take the time.)
+// ray.  A lane whose path has ended takes the next one (both chunk
+// launches); a per-wave launch keeps it idle until its warp's longest path
+// ends.  (On the H100 the record kernels' bounds come out by bytes, yet
+// they ran at 1-3% of them a wave: the divergent walks and the idle
+// lanes, not the stores, take the time.)
 //
 // The sphere BVH (kFeatSphereBvh, kernel 1d's sphere half: the packet walk
 // of :1055-1103 over the leaf-contiguous table with leaves of 8,
@@ -169,7 +180,11 @@
 // of :1187-1289 over the 40-column rows of :128-133, leaves of 4, preorder
 // links).  A threaded walk over the same node records, after the spheres,
 // one thread a ray with its own leaf loop (`bvh_walk`) over the leaf's real
-// rows, with a strict `<` throughout.  Each candidate reads its 9 geometry
+// rows, with a strict `<` throughout.  (The leaves tested by the warp, as
+// the sphere walk's are, by groups of 4 or 8 lanes: whole `triangles`
+// chunks 13-35% slower on the H100, a backpack chunk 2-7% faster; a leaf
+// holds at most 4 real rows, and a small mesh's lanes rarely wait in
+// leaves together.)  Each candidate reads its 9 geometry
 // floats (v0 e1 e2, three float4 loads) for Moller-Trumbore with the 1e-7
 // determinant cut; the walk keeps only the winner's row and barycentrics
 // (ub, vb), and the winner's vertex normals and shading columns are read
@@ -218,8 +233,12 @@ struct RtParams {
   // The forward kernel's chunk: rows [0, n), each the sum of `spp` samples,
   // in waves of `wave` rows (see megakernel_fwd); at most `grid` blocks, 0
   // for one block a kThreads rows.  The per-wave entries set wave = n and
-  // spp = 1 (rt_trace_pixels, rt_trace_rays); the record kernel reads none.
-  int wave, spp, grid;
+  // spp = 1 (rt_trace_pixels, rt_trace_rays).  The record kernel's chunk:
+  // rays [0, n), whole waves of `wave` rays, wave0 + j / wave the wave of
+  // ray j in the chunk's schedule order, `waves` waves a sample (see
+  // megakernel_record); its per-wave entries set wave = n, waves = 1,
+  // wave0 = 0.  Neither kernel reads the other's fields.
+  int wave, spp, grid, wave0, waves;
   // kernel 1c: (7, n) ray planes o xyz, d xyz, tm; nullptr: camera rays.
   // The C entries set it (rt_trace_rays, rt_walk_packed).
   const float* rays;
@@ -268,12 +287,22 @@ int launch_fwd_tri_checker(const RtTables& t, const RtParams& p, float* out,
                            cudaStream_t s);
 int launch_fwd_tri_perlin(const RtTables& t, const RtParams& p, float* out,
                           int* next_row, int* blocks_per_sm, cudaStream_t s);
+// The record planes (megakernel_record): the packed words, and the hit
+// point's x, y, z and the uv when a launch asks for them (else nullptr).
+struct RecordOut {
+  int32_t* packed;
+  float *px, *py, *pz, *u, *v;
+};
+
 // The record launcher (megakernel_record.cu): `features` holds only the
 // geometry bits and kFeatTriBvh; the hit-point planes are all three set or
-// all three nullptr, and the uv planes both or neither.
-int launch_walk(const RtTables& t, const RtParams& p, int32_t* out_packed,
-                float* out_px, float* out_py, float* out_pz, float* out_u,
-                float* out_v, cudaStream_t s);
+// all three nullptr, and the uv planes both or neither.  Rays past the
+// grid's first pass come from `*next_ray` (zeroed by the caller; may be
+// nullptr when the grid covers every ray); with `blocks_per_sm` set it
+// launches nothing and reports how many blocks of the instantiation an SM
+// holds.
+int launch_walk(const RtTables& t, const RtParams& p, const RecordOut& o,
+                int* next_ray, int* blocks_per_sm, cudaStream_t s);
 
 namespace rt {
 
@@ -1300,30 +1329,15 @@ __device__ __forceinline__ Hit scene_hit(const Tables& s, const RtParams& p,
   return h;
 }
 
-__device__ __forceinline__ uint32_t lane_base(const RtParams& p, int i) {
-  return pcg_hash(static_cast<uint32_t>(i) ^
-                  (static_cast<uint32_t>(p.seed) * kSeedMix));
-}
-
 __device__ __forceinline__ uint32_t draw_window(uint32_t rng_base, int b) {
   return rng_base + static_cast<uint32_t>(b * 32) * kDrawMul;
 }
 
-// A lane's first ray (zeros for a thread past the wave's end, which has
-// none).
-__device__ __forceinline__ Ray lane_ray(const RtParams& p, int i, bool in,
-                                        uint32_t rng_base, float* tm) {
-  *tm = 0.0f;
-  Ray r{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  if (in) r = first_ray(p, i, rng_base, tm);
-  return r;
-}
-
 // With the sphere BVH (kWarpWalk), whose walk is the warp's, every thread
 // stays until its whole warp is done: a thread whose path has ended, or
-// that has no ray (no row left in the forward chunk, past the wave's end
-// in the record walk), goes through each bounce's closest hit with no ray.
-// Without it a thread leaves when its work is done.
+// that has no ray (no row or ray left in a chunk, past the wave's end),
+// goes through each bounce's closest hit with no ray.  Without it a
+// thread leaves when its work is done.
 template <unsigned F>
 constexpr bool kWarpWalk = (F & kFeatSphereBvh) != 0;
 
@@ -1466,64 +1480,120 @@ megakernel_fwd(const RtTables tables, const RtParams p,
   }
 }
 
+// One ray of the record kernel: its ray and shutter time, its random
+// stream, its bounce, and where its entries go.
+struct RecordRay {
+  Ray r;
+  float tm;
+  uint32_t rng_base;
+  int b;
+  size_t at;  // entry 0 of its planes; entry b is at + b * wave
+};
+
+// Starts ray j of a record launch: lane j % wave of wave w = wave0 +
+// j / wave in the chunk's schedule order, sample s = w / waves and wave
+// bid = w % waves of it, seeded wave_seed(p.seed, s, bid) (uint32
+// arithmetic wrapping, as the int32 seed of a per-wave launch); its camera
+// ray is made for pixel p.pix_base + bid * wave + lane, or read from the
+// ray planes at that index (a launch of one wave).
+__device__ __forceinline__ void start_record(const RtParams& p, int j,
+                                             RecordRay& q) {
+  const int wl = j / p.wave;
+  const int lane = j - wl * p.wave;
+  const int w = p.wave0 + wl;
+  const int s = w / p.waves;
+  const int bid = w - s * p.waves;
+  const uint32_t seed = static_cast<uint32_t>(p.seed) +
+                        static_cast<uint32_t>(s) * kWaveSample +
+                        static_cast<uint32_t>(bid) * kWaveBatch;
+  q.rng_base = pcg_hash(static_cast<uint32_t>(lane) ^ (seed * kSeedMix));
+  q.r = first_ray(p, bid * p.wave + lane, q.rng_base, &q.tm);
+  q.b = 0;
+  q.at = static_cast<size_t>(wl) * p.max_depth * p.wave + lane;
+}
+
+// The record kernel: for ray j of the launch (see start_record), entry b
+// of each plane, at ((j / wave) * max_depth + b) * wave + j % wave, is
+// bounce b's packed word (hit, cont and miss as at pallas_trace.py:
+// 1397-1398 and :1512-1513) and, when asked, its hit point and uv; a
+// bounce after the path's end records 0 in every plane.  The grid is
+// persistent (at most what the card holds resident, p.grid): a thread
+// takes ray blockIdx.x * kThreads + threadIdx.x, then rays from the
+// counter `next_ray`, and when a path ends writes its remaining entries and
+// starts the next ray at once.  Which thread walks a ray changes none of
+// its entries.
 template <unsigned F>
-__global__ void __launch_bounds__(kThreads)
-megakernel_record(const RtTables tables, const RtParams p,
-                  int32_t* __restrict__ out_packed, float* __restrict__ out_px,
-                  float* __restrict__ out_py, float* __restrict__ out_pz,
-                  float* __restrict__ out_u, float* __restrict__ out_v) {
+__global__ void __launch_bounds__(kThreads, 1)
+megakernel_record(const RtTables tables, const RtParams p, const RecordOut o,
+                  int* __restrict__ next_ray) {
   extern __shared__ float smem[];
   const Tables s = stage_tables(tables, p, smem);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool in = i < p.n;
-  if (!kWarpWalk<F> && !in) return;
-  const uint32_t rng_base = lane_base(p, i);
-  float tm;
-  Ray r = lane_ray(p, i, in, rng_base, &tm);
-
-  const size_t stride = static_cast<size_t>(p.n);
-  const bool need_p = out_px != nullptr;  // uniform across the launch
-  const bool need_uv = out_u != nullptr;  // uniform across the launch
+  const int stride = gridDim.x * blockDim.x;
+  int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (!kWarpWalk<F> && j >= p.n) return;
+  RecordRay q{{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f}, 0.0f, 0u, 0, 0};
+  bool alive = false;
+  if (j < p.n) {
+    start_record(p, j, q);
+    alive = p.max_depth > 0;
+  }
+  const size_t wave = static_cast<size_t>(p.wave);
+  const bool need_p = o.px != nullptr;  // uniform across the launch
+  const bool need_uv = o.u != nullptr;  // uniform across the launch
   float tri_sh[12];  // a triangle winner's shading block (kFeatTriBvh)
-  bool alive = in;
-  for (int b = 0; b < p.max_depth; ++b) {
-    int32_t word = 0;  // a bounce after the path's end records nothing
-    float px = 0.0f, py = 0.0f, pz = 0.0f;  // the hit point, 0 but on a hit
-    float u = 0.0f, v = 0.0f;               // the winner's uv, likewise
-    // hit, cont and miss as at pallas_trace.py:1397-1398 and :1512-1513
-    const uint32_t draw = draw_window(rng_base, b);
-    Hit h;
-    if (kWarpWalk<F> || alive)
-      h = scene_hit<F>(s, p, r, tm, draw, tri_sh, alive);
-    if (alive) {
-      if (!(h.t < kBig * 0.5f)) {
-        word = kMissBit;
-        alive = false;
-      } else {
-        float nx, ny, nz;
-        const bool front = surface(h, r, nx, ny, nz, px, py, pz);
-        if (need_uv) hit_uv<F>(s, r, h, &u, &v);
-        const int kind = static_cast<int>(h.sh[kShKind]);
-        alive = kind != kDiffuseLight &&
-                scatter(kind, h.sh, front, nx, ny, nz, draw, r);
-        word = static_cast<int32_t>(h.sh[kShMat]) | kHitBit |
-               (alive ? kContBit : 0);
-        r.ox = px;
-        r.oy = py;
-        r.oz = pz;
+  for (;;) {
+    const bool busy = j < p.n;
+    if (kWarpWalk<F> ? !__any_sync(kFullMask, busy) : !busy) break;
+    if (kWarpWalk<F> || alive) {
+      const uint32_t draw = draw_window(q.rng_base, q.b);
+      const Hit h = scene_hit<F>(s, p, q.r, q.tm, draw, tri_sh,
+                                 kWarpWalk<F> ? alive : true);
+      if (alive) {
+        int32_t word;
+        float px = 0.0f, py = 0.0f, pz = 0.0f;  // the hit point, 0 on a miss
+        float u = 0.0f, v = 0.0f;               // the winner's uv, likewise
+        if (!(h.t < kBig * 0.5f)) {
+          word = kMissBit;
+          alive = false;
+        } else {
+          float nx, ny, nz;
+          const bool front = surface(h, q.r, nx, ny, nz, px, py, pz);
+          if (need_uv) hit_uv<F>(s, q.r, h, &u, &v);
+          const int kind = static_cast<int>(h.sh[kShKind]);
+          alive = kind != kDiffuseLight &&
+                  scatter(kind, h.sh, front, nx, ny, nz, draw, q.r);
+          word = static_cast<int32_t>(h.sh[kShMat]) | kHitBit |
+                 (alive ? kContBit : 0);
+          q.r.ox = px;
+          q.r.oy = py;
+          q.r.oz = pz;
+        }
+        const size_t at = q.at + q.b * wave;
+        o.packed[at] = word;
+        if (need_p) {
+          o.px[at] = px;
+          o.py[at] = py;
+          o.pz[at] = pz;
+        }
+        if (need_uv) {
+          o.u[at] = u;
+          o.v[at] = v;
+        }
+        if (++q.b == p.max_depth) alive = false;
       }
     }
-    if (!in) continue;
-    const size_t at = b * stride + i;
-    out_packed[at] = word;
-    if (need_p) {
-      out_px[at] = px;
-      out_py[at] = py;
-      out_pz[at] = pz;
-    }
-    if (need_uv) {
-      out_u[at] = u;
-      out_v[at] = v;
+    if (busy && !alive) {  // the path ended: its remaining entries, the next
+      for (int b = q.b; b < p.max_depth; ++b) {
+        const size_t at = q.at + b * wave;
+        o.packed[at] = 0;
+        if (need_p) o.px[at] = o.py[at] = o.pz[at] = 0.0f;
+        if (need_uv) o.u[at] = o.v[at] = 0.0f;
+      }
+      j = stride < p.n ? stride + atomicAdd(next_ray, 1) : p.n;
+      if (j < p.n) {
+        start_record(p, j, q);
+        alive = p.max_depth > 0;
+      }
     }
   }
 }

@@ -24,9 +24,12 @@ The kernels are `csrc/megakernel.cuh` and `csrc/hit.cu`;
 `trace_pixels_reference`, `trace_rays_reference`,
 `walk_packed_pixels_reference`, `walk_packed_reference` and
 `hit_reference` are the same functions in plain PyTorch, written op for op
-in the kernels' order so that the two round alike.  The plain versions test
-every sphere row densely, where the kernels walk the BVH; a pad row of the
-BVH's leaf-contiguous table has radius 0 and never hits.  Triangles they
+in the kernels' order so that the two round alike.  The plain megakernel
+versions walk the sphere BVH lane by lane as the kernels do
+(`sphere_walk_reference`): a ray that grazes a node's box can round out of
+it and miss a sphere that a dense loop over the rows would find.
+`hit_reference` tests every sphere row densely (a pad row of the BVH's
+leaf-contiguous table has radius 0 and never hits).  Triangles they
 walk lane by lane as the kernels do (`tri_walk_reference`), so that rays
 through a shared edge keep the same one of its two triangles.
 
@@ -40,13 +43,15 @@ uint32 dtype lacks those operations on the CPU.
 
 `Tracer` holds a baked scene on one device.  On a CUDA device its
 `trace_pixels`, `__call__`, `walk_packed_pixels`, `walk_packed` and `hit`
-launch the kernels, and `bind_chunk` the forward kernel once for a whole
-sample chunk (a failed build or launch raises); on the CPU they run the
-plain versions (`trace_chunk_reference` for the chunk).
-`Tracer.launches` (one wave), `Tracer.chunk_launches`,
-`Tracer.record_launches`, `Tracer.ray_launches` (both ray-plane entries)
-and `Tracer.hit_launches` count the launches of each entry, so a caller
-can show that a render went through it.
+launch the kernels, `bind_chunk` the forward kernel once for a whole
+sample chunk and `bind_record_chunk` the record kernel once for a whole
+training chunk (a failed build or launch raises); on the CPU they run the
+plain versions (`trace_chunk_reference` and `walk_chunk_reference` for
+the chunks).  `Tracer.launches` (one wave), `Tracer.chunk_launches`,
+`Tracer.record_launches` (one wave), `Tracer.record_chunk_launches`,
+`Tracer.ray_launches` (both ray-plane entries) and `Tracer.hit_launches`
+count the launches of each entry, so a caller can show that a render went
+through it.
 """
 
 from __future__ import annotations
@@ -822,11 +827,12 @@ def _closest_hit(bake: SceneBake, o3: tuple, d3: tuple, tm: torch.Tensor,
                  alive: torch.Tensor, walk: Optional[dict] = None,
                  uv: bool = False) -> _Hit:
     """Closest hit over the baked rects, then boxes, then spheres, then
-    triangles, strict `<` (pallas_trace.py:961-1043, 1105-1289).  With
-    `walk` (a dict of counts), the node and row tests that the kernel's
-    sphere-BVH walk makes on the `alive` lanes, and its triangle walk's
-    node and candidate tests, are added to it.  Only the `alive` lanes walk
-    the triangles.
+    triangles, strict `<` (pallas_trace.py:961-1043, 1105-1289): the
+    spheres a dense loop over the rows, or under a BVH the kernel's walk.
+    With `walk` (a dict of counts), the node and row tests that the
+    kernel's sphere-BVH walk makes on the `alive` lanes, and its triangle
+    walk's node and candidate tests, are added to it.  Only the `alive`
+    lanes walk the BVHs.
 
     With `uv`, the uv carry of the record kernel's `need_uv` mode
     (pallas_trace.py:930-958): a rect winner's uv from its hit coordinates
@@ -907,13 +913,21 @@ def _closest_hit(bake: SceneBake, o3: tuple, d3: tuple, tm: torch.Tensor,
         upd(ok, t, nwx, nobj_y, nwz, row)  # no uv: the carried one stays
         row += 1
 
-    if walk is not None and len(bake.sph_nodes):
+    sph = None
+    if len(bake.sph_nodes):
+        # the kernels' walk: a ray that grazes a node's box can round out
+        # of it and miss a sphere that a dense loop over the rows finds
+        # (one lane of the 5.77M of a big_scene1 training chunk)
         w = sphere_walk_reference(bake, o3, d3, tm, t_min, t_best, alive)
-        walk["nodes"] += int(w.nodes.sum())
-        walk["rows"] += int(w.rows.sum())
-        walk["leaf_tests"] = walk["leaf_tests"] + w.leaf_tests
-    if len(bake.sphere_table):
+        sph = _sphere_hit(_SphereRows.of(bake.sphere_table, dev), o3, d3,
+                          tm, w.better, w.t, w.row)
+        if walk is not None:
+            walk["nodes"] += int(w.nodes.sum())
+            walk["rows"] += int(w.rows.sum())
+            walk["leaf_tests"] = walk["leaf_tests"] + w.leaf_tests
+    elif len(bake.sphere_table):
         sph = _closest_sphere(bake.sphere_table, o3, d3, tm, t_min, t_best)
+    if sph is not None:
         better = upd(sph.better, sph.t, *sph.normal, row + sph.row)
         if uv:
             phase = torch.as_tensor(bake.sphere_table[:, SPHERE_SH + SH_COLS],
@@ -1001,7 +1015,6 @@ def _closest_sphere(table: np.ndarray, o3: tuple, d3: tuple,
     strict `<` keeps.  A negative radius turns the normal inward."""
     dev = tm.device
     sr = _SphereRows.of(table, dev)
-    ox, oy, oz = o3
     dx, dy, dz = d3
     a = dx * dx + dy * dy + dz * dz
     inv_a = 1.0 / torch.clamp(a, min=_EPS)
@@ -1017,15 +1030,23 @@ def _closest_sphere(table: np.ndarray, o3: tuple, d3: tuple,
         take = t_j < best_t
         best_t = torch.where(take, t_j, best_t)
         best_row = torch.where(take, lo + j, best_row)
+    return _sphere_hit(sr, o3, d3, tm,
+                       (best_t < BIG * 0.5) & (best_t < t_best), best_t,
+                       best_row)
 
+
+def _sphere_hit(sr: _SphereRows, o3: tuple, d3: tuple, tm: torch.Tensor,
+                better: torch.Tensor, best_t: torch.Tensor,
+                best_row: torch.Tensor) -> _SphereHit:
+    """The winning row's hit: its normal at distance `best_t` (the center
+    at the ray's time; a negative radius turns it inward)."""
     frac = (tm - sr.q[best_row, 6]) / sr.denom[best_row]
     cx, cy, cz = sr.center(frac, best_row)
     rad = sr.rad[best_row]
     inv_r = 1.0 / torch.where(rad.abs() < _EPS, 1.0, rad)
-    normal = ((ox + best_t * dx - cx) * inv_r, (oy + best_t * dy - cy) * inv_r,
-              (oz + best_t * dz - cz) * inv_r)
-    return _SphereHit((best_t < BIG * 0.5) & (best_t < t_best), best_t,
-                      normal, best_row)
+    normal = tuple((o + best_t * d - c) * inv_r
+                   for o, d, c in zip(o3, d3, (cx, cy, cz)))
+    return _SphereHit(better, best_t, normal, best_row)
 
 
 class SphereWalk(NamedTuple):
@@ -1656,21 +1677,40 @@ def trace_chunk_reference(bake: SceneBake, camera, img_h: int, img_w: int,
     `trace_pixels_reference`'s does a wave's."""
     dev = torch.device(device)
     rows = chunk_rows(img_h, img_w, ray_batch)
-    rays, bases = [], []
-    for s in range(spp):
-        for bid in range(rows // ray_batch):
-            b = rng_base(ray_batch, wave_seed(base, s, bid), dev)
-            rays.append(_camera_rays(camera, img_h, img_w, bid * ray_batch,
-                                     ray_batch, b, dev))
-            bases.append(b)
-    o3, d3 = (tuple(torch.cat([r[j][k] for r in rays]) for k in range(3))
-              for j in range(2))
-    rad = _trace(bake, o3, d3, torch.cat([r[2] for r in rays]),
-                 torch.cat(bases), max_depth, t_min, rr_start, counts)
+    nb = rows // ray_batch
+    o3, d3, tm, bases = _waves_rays(camera, img_h, img_w, base, ray_batch,
+                                    nb, range(spp * nb), dev)
+    rad = _trace(bake, o3, d3, tm, bases, max_depth, t_min, rr_start, counts)
     sums = torch.zeros((rows, 3), dtype=torch.float32, device=dev)
     for s in range(spp):
         sums += rad[s * rows:(s + 1) * rows]
     return sums
+
+
+def _waves_rays(camera, img_h: int, img_w: int, base: int, ray_batch: int,
+                nb: int, waves, dev: torch.device) -> tuple:
+    """The camera rays and random streams of a chunk's waves, `waves` an
+    iterable of wave numbers w in the schedule order (sample w // nb, wave
+    w % nb of it, seeded `wave_seed(base, s, bid)`), lane after lane and
+    wave after wave: (o3, d3, tm, rng bases)."""
+    rays, bases = [], []
+    for w in waves:
+        s, bid = divmod(w, nb)
+        b = rng_base(ray_batch, wave_seed(base, s, bid), dev)
+        rays.append(_camera_rays(camera, img_h, img_w, bid * ray_batch,
+                                 ray_batch, b, dev))
+        bases.append(b)
+    o3, d3 = (tuple(torch.cat([r[j][k] for r in rays]) for k in range(3))
+              for j in range(2))
+    return o3, d3, torch.cat([r[2] for r in rays]), torch.cat(bases)
+
+
+def _zero_counts(counts: Optional[dict]) -> None:
+    """Sets every work count of the plain versions' `counts` to 0."""
+    if counts is not None:
+        counts.update(live=0, cont=0, scatter={}, nodes=0, rows=0,
+                      tri_nodes=0, tri_rows=0, tri_wins=0, leaf_tests=0,
+                      tri_leaf_tests=0, tri_read=None)
 
 
 def _trace(bake: SceneBake, o3: tuple, d3: tuple, tm: torch.Tensor,
@@ -1688,10 +1728,7 @@ def _trace(bake: SceneBake, o3: tuple, d3: tuple, tm: torch.Tensor,
                   for _ in range(3))
     alive = torch.ones(n, dtype=torch.bool, device=dev)
     bgr, bgg, bgb = bake.background
-    if counts is not None:
-        counts.update(live=0, cont=0, scatter={}, nodes=0, rows=0,
-                      tri_nodes=0, tri_rows=0, tri_wins=0, leaf_tests=0,
-                      tri_leaf_tests=0, tri_read=None)
+    _zero_counts(counts)
 
     for b in range(max_depth):
         if not bool(alive.any()):
@@ -1774,9 +1811,61 @@ def walk_packed_reference(bake: SceneBake, o: torch.Tensor, d: torch.Tensor,
                  max_depth, t_min)
 
 
+# The record planes one chunk launch writes at most (`record_groups`): a
+# chunk whose planes would take more launches once a group of waves.
+RECORD_CHUNK_BYTES = 4 << 30
+
+
+def record_groups(waves: int, wave_bytes: int, budget: int) -> list:
+    """A chunk's `waves` waves in the schedule order, split into groups of
+    consecutive waves whose record planes (`wave_bytes` a wave) fit in
+    `budget` bytes, one wave a group at the least: [(first, count), ...]."""
+    if waves <= 0 or wave_bytes <= 0:
+        raise ValueError(f"bad chunk: {waves} waves of {wave_bytes} bytes")
+    per = max(1, budget // wave_bytes)
+    return [(f, min(per, waves - f)) for f in range(0, waves, per)]
+
+
+def walk_chunk_reference(bake: SceneBake, camera, img_h: int, img_w: int,
+                         base: int, spp: int, ray_batch: int,
+                         max_depth: int = 50, t_min: float = 0.001,
+                         device: torch.device | str = "cpu",
+                         first: int = 0, count: Optional[int] = None,
+                         counts: Optional[dict] = None) -> tuple:
+    """The record planes of waves [first, first + count) (default: all
+    spp * nb) of a training chunk of `spp` samples of every pixel in waves
+    of `ray_batch` pixels (nb = ceil(img_h * img_w / ray_batch) waves a
+    sample), in the schedule order: wave w is sample w // nb, wave
+    bid = w % nb of it, `walk_packed_pixels_reference` of pixels
+    [bid * ray_batch, (bid + 1) * ray_batch) with seed
+    `wave_seed(base, s, bid)`.  Returns (packed[, px, py, pz][, u, v]),
+    each (count, max_depth, ray_batch), so plane[w - first] is wave w's
+    (max_depth, ray_batch) plane, and for a whole chunk
+    plane.view(spp, nb, max_depth, ray_batch)[s, bid].  The plain version
+    of the record chunk launch (`Tracer.bind_record_chunk`).
+
+    Every lane's arithmetic is its own, so the waves' lanes go through one
+    bounce loop together, as `trace_chunk_reference`'s do.  `counts`
+    receives the work of these paths, as `trace_pixels_reference`'s."""
+    dev = torch.device(device)
+    nb = -(-img_h * img_w // ray_batch) if ray_batch > 0 else 0
+    waves = spp * nb
+    count = waves - first if count is None else count
+    if ray_batch <= 0 or spp <= 0 or not 0 <= first < first + count <= waves:
+        raise ValueError(f"waves [{first}, {first + count}) of a chunk of "
+                         f"{spp} x {nb} waves of {ray_batch}")
+    o3, d3, tm, bases = _waves_rays(camera, img_h, img_w, base, ray_batch,
+                                    nb, range(first, first + count), dev)
+    planes = _walk(bake, o3, d3, tm, bases, max_depth, t_min, counts)
+    return tuple(p.view(max_depth, count, ray_batch).transpose(0, 1)
+                 .contiguous() for p in planes)
+
+
 def _walk(bake: SceneBake, o3: tuple, d3: tuple, tm: torch.Tensor,
-          base: torch.Tensor, max_depth: int, t_min: float) -> tuple:
-    """The record bounce loop of both plain record versions."""
+          base: torch.Tensor, max_depth: int, t_min: float,
+          counts: Optional[dict] = None) -> tuple:
+    """The record bounce loop of the plain record versions; `counts` as
+    `trace_pixels_reference`'s (the same paths)."""
     n, dev = tm.shape[0], tm.device
     t_min = _f32(t_min)
     shading = torch.as_tensor(bake.shading_table(), device=dev)
@@ -1786,12 +1875,13 @@ def _walk(bake: SceneBake, o3: tuple, d3: tuple, tm: torch.Tensor,
     uv_out = (torch.zeros((2, max_depth, n), dtype=torch.float32, device=dev)
               if bake.need_uv else None)
     alive = torch.ones(n, dtype=torch.bool, device=dev)
+    _zero_counts(counts)
 
     for b in range(max_depth):
         if not bool(alive.any()):
             break
         bn, _ = _bounce(bake, shading, base, b, alive, o3, d3, tm, t_min, n,
-                        dev, uv=uv_out is not None)
+                        dev, counts, uv=uv_out is not None)
         # hit, cont and miss as at pallas_trace.py:1397-1398, :1512-1513
         packed = (bn.sh[:, SH_MAT].to(torch.int32)
                   | (bn.hit.to(torch.int32) << 16)
@@ -1806,6 +1896,8 @@ def _walk(bake: SceneBake, o3: tuple, d3: tuple, tm: torch.Tensor,
                 uv_out[k, b] = torch.where(bn.hit, bn.uv[k], 0.0)
         o3, d3 = _advance(bn, o3, d3)
         alive = bn.cont
+        if counts is not None:
+            counts["cont"] += int(alive.sum())
 
     return ((out,) + (() if p_out is None else tuple(p_out.unbind(0)))
             + (() if uv_out is None else tuple(uv_out.unbind(0))))
@@ -2300,11 +2392,12 @@ class Tracer:
     one (`PallasTracer.need_p`, `need_uv`).
 
     On a CUDA device `trace_pixels`, `__call__`, `walk_packed_pixels`,
-    `walk_packed`, `hit` and the chunk of `bind_chunk` launch the kernels
-    (`csrc/megakernel.cuh`, `csrc/hit.cu`); on the CPU they run
-    `trace_pixels_reference`, `trace_rays_reference`,
-    `walk_packed_pixels_reference`, `walk_packed_reference`,
-    `hit_reference` and `trace_chunk_reference`.  Nothing falls back from
+    `walk_packed`, `hit` and the chunks of `bind_chunk` and
+    `bind_record_chunk` launch the kernels (`csrc/megakernel.cuh`,
+    `csrc/hit.cu`); on the CPU they run `trace_pixels_reference`,
+    `trace_rays_reference`, `walk_packed_pixels_reference`,
+    `walk_packed_reference`, `hit_reference`, `trace_chunk_reference` and
+    `walk_chunk_reference`.  Nothing falls back from
     one to the other.  The constructor raises NotImplementedError for a
     scene no kernel covers (`unported_feature`), the forward entries
     (`trace_pixels`, `__call__`) ValueError for an image-textured scene
@@ -2314,7 +2407,8 @@ class Tracer:
 
     launches = 0         # megakernel_fwd launches on one wave, all tracers
     chunk_launches = 0   # megakernel_fwd launches on a whole sample chunk
-    record_launches = 0  # megakernel_record launches on camera rays
+    record_launches = 0  # megakernel_record launches on one camera-ray wave
+    record_chunk_launches = 0  # megakernel_record launches on chunk waves
     ray_launches = 0     # launches of both modes on ray planes (kernel 1c)
     hit_launches = 0     # rt_hit launches
 
@@ -2553,6 +2647,98 @@ class Tracer:
             return planes
 
         launch.tables = walk.tables
+        return launch
+
+    def bind_record_chunk(self, camera, img_h: int, img_w: int,
+                          max_depth: int, t_min: float, ray_batch: int,
+                          spp_per_chunk: int) -> Callable[..., tuple]:
+        """A training chunk's record walk in one launch a group of waves:
+        returns `launch(base, first=0, count=None) -> planes` of waves
+        [first, first + count) of the chunk's spp_per_chunk * nb waves of
+        `ray_batch` pixels in the schedule order (nb waves a sample; wave
+        w is sample w // nb, wave w % nb, seeded `wave_seed(base, s,
+        bid)`), each plane (count, max_depth, ray_batch), equal bit for bit
+        to those waves' `walk_packed_pixels` stacked
+        (`walk_chunk_reference`, which the CPU runs).  `launch.groups`
+        splits the chunk into runs of consecutive waves whose planes take
+        at most RECORD_CHUNK_BYTES, one launch each; `launch.nb` is nb.  On
+        the
+        card the grid is what the card holds resident of the scene's record
+        instantiation (`occupancy`: blocks an SM, SMs, blocks)."""
+        if ray_batch <= 0 or spp_per_chunk <= 0:
+            raise ValueError(f"bad ray_batch {ray_batch} or spp_per_chunk "
+                             f"{spp_per_chunk}")
+        nb = chunk_rows(img_h, img_w, ray_batch) // ray_batch
+        waves = spp_per_chunk * nb
+        entry_bytes = 4 * (1 + 3 * self.need_p + 2 * self.need_uv)
+        groups = record_groups(waves, entry_bytes * max_depth * ray_batch,
+                               RECORD_CHUNK_BYTES)
+
+        def check(first: int, count: Optional[int]) -> int:
+            count = waves - first if count is None else count
+            if not 0 <= first < first + count <= waves:
+                raise ValueError(f"waves [{first}, {first + count}) of a "
+                                 f"chunk of {waves}")
+            return count
+
+        if self.device.type == "cpu":
+            def plain(base: int, first: int = 0,
+                      count: Optional[int] = None) -> tuple:
+                return walk_chunk_reference(
+                    self.bake, camera, img_h, img_w, base, spp_per_chunk,
+                    ray_batch, max_depth, t_min, self.device, first,
+                    check(first, count))
+            plain.groups, plain.nb = groups, nb
+            return plain
+
+        tables, device = self._checked_tables(), self.device
+        p, check_range = self._launch_params(
+            camera, img_h, img_w, max_depth, t_min, 0, self._record_features())
+        check_range(0, nb * ray_batch)
+        p.n, p.wave, p.waves = nb * ray_batch, int(ray_batch), nb
+        lib = build.load()
+        per_sm = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            rc = lib.rt_walk_occupancy(tables, p, ctypes.addressof(per_sm))
+        _check(lib, rc, "rt_walk_occupancy")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        p.grid = per_sm.value * sms
+        if p.grid <= 0:
+            raise RuntimeError("rt_walk_occupancy: the record kernel fits no "
+                               "block on an SM")
+        need_p, need_uv = self.need_p, self.need_uv
+
+        def launch(base: int, first: int = 0,
+                   count: Optional[int] = None) -> tuple:
+            count = check(first, count)
+            n = count * ray_batch
+            if n + p.grid * 128 > 2**31 - 1:  # the kernel's int32 claims
+                raise ValueError(f"{count} waves of {ray_batch} rays do not "
+                                 "fit int32")
+            # the packed plane, then the kernel's 4-byte ray counter
+            packed = torch.empty(n * max_depth + 1, dtype=torch.int32,
+                                 device=device)
+            pf = torch.empty((3 * need_p + 2 * need_uv, count, max_depth,
+                              ray_batch), dtype=torch.float32, device=device)
+            planes = pf.unbind(0)
+            ptrs = ([x.data_ptr() for x in planes[:3]] if need_p
+                    else [None] * 3)
+            ptrs += ([x.data_ptr() for x in planes[-2:]] if need_uv
+                     else [None] * 2)
+            p.n, p.wave0, p.seed = n, int(first), _int32(base)
+            ptr = packed.data_ptr()
+            with torch.cuda.device(device):
+                rc = lib.rt_walk_chunk(tables, p, ptr, *ptrs,
+                                       ptr + 4 * n * max_depth,
+                                       _stream(device))
+            _check(lib, rc, "rt_walk_chunk")
+            Tracer.record_chunk_launches += 1
+            return (packed[:n * max_depth].view(count, max_depth, ray_batch),
+                    *planes)
+
+        launch.tables = tables  # the kernel reads them through pointers
+        launch.groups, launch.nb = groups, nb
+        launch.occupancy = (per_sm.value, sms, p.grid)
         return launch
 
     def bind_walk_packed(self, max_depth: int = 50, t_min: float = 0.001

@@ -43,6 +43,10 @@ the rules of tests/test_torch_record_p.py and tests/test_torch_rayplane.py
 The megakernel route's chunk launch (`Tracer.bind_chunk`): equal bit for
 bit on every row to its (sample, wave) launches added in order and to
 `trace_chunk_reference`, with one chunk launch and no per-wave launch.
+The record chunk launch (`Tracer.bind_record_chunk`): every plane equal
+bit for bit on every wave and lane to its per-wave launches stacked and to
+`walk_chunk_reference`, for each record instantiation a scene or probe
+uses and under a split into groups; the training routes' launch counts.
 
 The record kernel's uv planes (image textures): the same bit rule and
 >= 99.9% of the u and v values bit-exact against the plain version, on
@@ -191,7 +195,9 @@ def test_record_kernel_matches_jax_golden(dev):
     assert res["first_bounce"] and res["lane_frac"] >= 0.99, res
 
 
-@pytest.mark.parametrize("save_planes,walks", [(True, 4), (False, 8)])
+# chunk launches: the primal, the forward of value_and_grad and, without
+# saved planes, its backward's walk
+@pytest.mark.parametrize("save_planes,walks", [(True, 2), (False, 3)])
 def test_fused_chunk_matches_jax_golden(dev, save_planes, walks):
     g = np.load(GRAD_GOLDEN)
     st = _golden_settings(g)
@@ -200,11 +206,12 @@ def test_fused_chunk_matches_jax_golden(dev, save_planes, walks):
         sd.scene, sd.camera, st, save_planes=save_planes, device=dev)
     params = diff.get_params(sd.scene, dev)
     base = int(g["base"])
-    before = ct.Tracer.record_launches
+    before = (ct.Tracer.record_launches, ct.Tracer.record_chunk_launches)
     out = chunk(params, base)
     _, grads = diff.value_and_grad(params, lambda p: chunk(p, base),
                                    torch.full_like(out, float(g["target"])))
-    assert ct.Tracer.record_launches == before + 4 + walks
+    assert (ct.Tracer.record_launches, ct.Tracer.record_chunk_launches) == \
+        (before[0], before[1] + walks)
     assert_matches(out.detach(), torch.from_numpy(g["primal"]), st.max_depth)
     for k in diff.PARAM_KEYS:
         torch.testing.assert_close(grads[k].cpu(),
@@ -671,13 +678,15 @@ def test_param_renderer_routes_launch_their_kernels(dev):
         sd.scene, sd.camera, st, gen_rays=False, device=dev)
     assert walk.engine_name == "record-walk"
     counts = (ct.Tracer.launches, ct.Tracer.chunk_launches,
-              ct.Tracer.record_launches, ct.Tracer.hit_launches)
+              ct.Tracer.record_launches, ct.Tracer.record_chunk_launches,
+              ct.Tracer.hit_launches)
     before = ct.Tracer.ray_launches
     assert torch.equal(walk(params, 9), fused(params, 9))
     waves = st.spp_per_chunk * render._grid_geometry(st)[5]
     assert ct.Tracer.ray_launches == before + 2 * waves
     assert (ct.Tracer.launches, ct.Tracer.chunk_launches,
-            ct.Tracer.record_launches, ct.Tracer.hit_launches) == counts
+            ct.Tracer.record_launches, ct.Tracer.record_chunk_launches,
+            ct.Tracer.hit_launches) == counts
     msd = _mesh("mesh")
     wave = render.compile_param_renderer(msd.scene, msd.camera,
                                          st.with_(aspect_ratio=msd.aspect),
@@ -862,7 +871,8 @@ def test_hit_kernel_matches_plain_on_every_lane(dev, name):
         rays = _one_bounce(sd, tracer.bake, rays, 66)
 
 
-@pytest.mark.parametrize("name,depth", [("big_scene1", 16), ("tie", 8)])
+@pytest.mark.parametrize("name,depth", [("big_scene1", 16), ("tie", 8),
+                                        ("mesh", 8)])
 def test_bvh_waves_match_plain_on_every_lane(dev, name, depth):
     sd = _every_lane_sd(name)
     tracer = ct.Tracer(sd.scene, dev)
@@ -947,3 +957,156 @@ def test_chunk_launch_fills_the_card(dev):
     assert torch.equal(got, ct.trace_chunk_reference(
         ct.bake_scene(sd.scene), sd.camera, 64, 64, 7, 2, 1024, 8,
         device=dev))
+
+
+# ---------------------------------------------------------------------------
+# the record chunk launch: a training chunk's walk in one persistent launch
+# ---------------------------------------------------------------------------
+
+def _record_sd(name):
+    """(scene, camera, aspect) of a registered scene, the 16 x 16 mesh, the
+    tie scene or an image probe."""
+    from raytracing_gpu_tpu_torch.models import probes
+
+    if name in ("image_probe", "image_spheres"):
+        return getattr(probes, name)(SceneBuilder, Camera)
+    sd = _every_lane_sd(name) if name in ("tie", "mesh") else scenes.get(name)
+    return sd.scene, sd.camera, sd.aspect
+
+
+# scene, width, ray_batch, spp, depth, budget in waves (0: one group); the
+# record instantiations the scenes and probes use: Cornell (none: rects and
+# boxes; its 512 x 512 chunk has more rays than the grid has threads),
+# two_spheres (dense spheres, p), cornell_smoke (media), big_scene1 (the
+# sphere BVH, p; split into groups of 3 waves), `triangles` and the tie
+# scene (the triangle BVH; ray_batch 1,000 ends a wave inside a warp),
+# the image probe (dense sphere, media, triangles, uv) and the image
+# spheres (the sphere BVH, uv)
+RECORD_CHUNK_CASES = [("cornell_box", 512, 32768, 2, 8, 0),
+                      ("two_spheres", 64, 1024, 3, 8, 0),
+                      ("cornell_smoke", 64, 1024, 4, 16, 0),
+                      ("big_scene1", 80, 1024, 4, 16, 3),
+                      ("triangles", 64, 1000, 3, 8, 0),
+                      ("tie", 64, 1000, 2, 8, 2),
+                      ("image_probe", 64, 1024, 2, 8, 0),
+                      ("image_spheres", 80, 1024, 2, 16, 0)]
+
+
+@pytest.mark.parametrize("name,width,batch,spp,depth,budget",
+                         RECORD_CHUNK_CASES)
+def test_record_chunk_launch_equals_waves_and_plain(dev, name, width, batch,
+                                                    spp, depth, budget,
+                                                    monkeypatch):
+    scene, cam, aspect = _record_sd(name)
+    h = int(width / aspect)
+    tracer = ct.Tracer(scene, dev)
+    entry = 4 * (1 + 3 * tracer.need_p + 2 * tracer.need_uv)
+    if budget:
+        monkeypatch.setattr(ct, "RECORD_CHUNK_BYTES",
+                            budget * entry * depth * batch)
+    launch = tracer.bind_record_chunk(cam, h, width, depth, 0.001, batch,
+                                      spp)
+    nb = launch.nb
+    assert len(launch.groups) == (-(-spp * nb // budget) if budget else 1)
+    base = int(np.random.default_rng(97).integers(0, 2**31 - 1))
+    before = (ct.Tracer.record_launches, ct.Tracer.record_chunk_launches)
+    groups = [launch(base, first, count) for first, count in launch.groups]
+    assert (ct.Tracer.record_launches, ct.Tracer.record_chunk_launches) == \
+        (before[0], before[1] + len(launch.groups))
+    got = tuple(torch.cat(p) for p in zip(*groups))
+    wave = tracer.bind_record(cam, h, width, depth)
+    waves = [wave(bid * batch, batch, ct.wave_seed(base, s, bid))
+             for s in range(spp) for bid in range(nb)]
+    want = ct.walk_chunk_reference(tracer.bake, cam, h, width, base, spp,
+                                   batch, depth, device=dev)
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == 1 + 3 * tracer.need_p + \
+        2 * tracer.need_uv
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert tuple(g.shape) == (spp * nb, depth, batch)
+        assert torch.equal(g, torch.stack([x[k] for x in waves])), k
+        assert torch.equal(g, w), k
+    assert int(((got[0] >> 16) & 1).sum()) > 0
+
+
+def test_record_chunk_launch_fills_the_card(dev):
+    sd = scenes.get("cornell_box")
+    launch = ct.Tracer(sd.scene, dev).bind_record_chunk(
+        sd.camera, 512, 512, 8, 0.001, 32768, 8)
+    per_sm, sms, grid = launch.occupancy
+    props = torch.cuda.get_device_properties(dev)
+    assert sms == props.multi_processor_count and grid == per_sm * sms
+    assert per_sm * 128 <= props.max_threads_per_multi_processor
+    assert per_sm >= 4  # more than a 32,768-ray wave's 256 blocks
+    assert launch.groups == [(0, 64)]
+    gc.collect()
+    got = launch(11)[0]
+    assert torch.equal(got, ct.walk_chunk_reference(
+        ct.bake_scene(sd.scene), sd.camera, 512, 512, 11, 8, 32768, 8,
+        device=dev)[0])
+
+
+@pytest.mark.parametrize("name", ["tie", "mesh"])
+def test_tri_walk_chunks_match_plain_on_every_lane(dev, name):
+    # the triangle walk in both chunk launches: waves of 1,000 rays end
+    # inside warps, and paths end at every bounce, so warps walk with
+    # partial and sparse live lanes
+    scene, cam, aspect = _record_sd(name)
+    tracer = ct.Tracer(scene, dev)
+    st = RenderSettings(image_width=64, aspect_ratio=aspect, spp_per_chunk=3,
+                        num_chunks=1, max_depth=8, ray_batch=1000)
+    h, w = st.image_height, st.image_width
+    fwd = tracer.bind_chunk(cam, h, w, 8, st.t_min, 0, 1000, 3)(5)
+    rec = tracer.bind_record_chunk(cam, h, w, 8, st.t_min, 1000, 3)(5)
+    want_fwd = ct.trace_chunk_reference(tracer.bake, cam, h, w, 5, 3, 1000,
+                                        8, st.t_min, dev)
+    want_rec = ct.walk_chunk_reference(tracer.bake, cam, h, w, 5, 3, 1000, 8,
+                                       st.t_min, dev)
+    torch.cuda.synchronize()
+    assert torch.equal(fwd, want_fwd)
+    for g, v in zip(rec, want_rec):
+        assert torch.equal(g, v)
+    hits = (rec[0] >> 16) & 1
+    assert int(hits.sum()) > 0 and int((1 - hits[:, 1:]).sum()) > 0
+
+
+def test_training_routes_make_one_record_launch_a_chunk(dev):
+    # bench.py's Cornell render (8 chunks of 8 spp, waves of 32,768, planes
+    # kept), big_scene1 in training as chip_smoke.py phase 30 runs it (2
+    # chunks of 16 spp, depth 16, planes walked again backward) and
+    # `triangles` in training (one chunk of 8 spp, planes kept)
+    cases = [("cornell_box", RenderSettings(
+                 image_width=512, aspect_ratio=1.0, spp_per_chunk=8,
+                 num_chunks=8, max_depth=8, ray_batch=32768), 8),
+             ("big_scene1", RenderSettings(
+                 image_width=800, aspect_ratio=16 / 9, spp_per_chunk=16,
+                 num_chunks=2, max_depth=16, ray_batch=32768), 4),
+             ("triangles", RenderSettings(
+                 image_width=400, aspect_ratio=16 / 9, spp_per_chunk=8,
+                 num_chunks=1, max_depth=8, ray_batch=65536), 1)]
+    for name, st, expected in cases:
+        sd = scenes.get(name)
+        chunk = fused_diff.compile_fused_param_renderer(sd.scene, sd.camera,
+                                                        st, device=dev)
+        params = diff.get_params(sd.scene, dev)
+        gen = torch.Generator().manual_seed(1984)
+        bases = [ct.chunk_seed(gen) for _ in range(st.num_chunks)]
+        target = torch.zeros_like(chunk(params, bases[0]))
+        torch.cuda.synchronize()
+        before = (ct.Tracer.record_launches, ct.Tracer.record_chunk_launches,
+                  ct.Tracer.launches, ct.Tracer.chunk_launches,
+                  ct.Tracer.ray_launches, ct.Tracer.hit_launches)
+        loss = 0.0
+        for base in bases:  # bench_torch.train_renders' loop
+            chunk_loss, grads = diff.value_and_grad(
+                params, lambda p, base=base: chunk(p, base), target)
+            loss = loss + chunk_loss
+        torch.cuda.synchronize()
+        after = (ct.Tracer.record_launches, ct.Tracer.record_chunk_launches,
+                 ct.Tracer.launches, ct.Tracer.chunk_launches,
+                 ct.Tracer.ray_launches, ct.Tracer.hit_launches)
+        assert [a - b for a, b in zip(after, before)] == \
+            [0, expected, 0, 0, 0, 0], name
+        assert bool(torch.isfinite(loss)) and float(loss) > 0.0, name
+        del chunk, target, grads
+        gc.collect()

@@ -1,6 +1,6 @@
 """Time the port's kernels at their main shapes, on one CUDA card.
 
-    python tools/time_kernels.py [--tree DIR] [--sets chunks,bvh]
+    python tools/time_kernels.py [--tree DIR] [--sets chunks,train,bvh]
 
 Imports `raytracing_gpu_tpu_torch`, `chip_smoke` and `bench_torch` from the
 checkout at DIR (default: this one), so that two checkouts (say a commit
@@ -20,6 +20,22 @@ depth 8), waves of 65,536 rays: the per-wave launches (`Tracer.bind`, one a
 a checkout whose route launches once a chunk runs its chunk launch, an
 older one its per-wave loop with the slice-adds), device held and as a
 call (host and device).
+
+The set "train": one whole training chunk each of the record kernel for
+Cornell (512x512, 8 spp, depth 8, waves of 32,768), big_scene1 (800x450,
+16 spp, depth 16, waves of 32,768) and `triangles` (400x225, 8 spp,
+depth 8, waves of 65,536): the per-wave launches (`Tracer.bind_record`,
+device held), and, in a checkout that has it, the record chunk launch
+(`Tracer.bind_record_chunk`, device held); then a whole chunk of config
+5's frame (backpack, 800x600, 4 spp, depth 16, waves of 65,536) through
+the forward chunk launch and its per-wave launches, the triangle walk of
+both, and its centre wave alone (as the set "bvh" times it).
+
+The set "profile": `bench_torch.py`'s training render (Cornell, 8 chunks
+of 8 spp) and one chunk of big_scene1's (800x450, 16 spp, depth 16), each
+forward plus backward: its wall time on the host clock and, from a
+profiled repeat (`chip_smoke.device_busy`), its device time and the four
+kernels that take the most of it.
 
 The set "bvh": `rt_hit` on step 40 of config 5's first
 64-spp regen chunk (131,072 rays) and of config 2's (65,536), big_scene1's
@@ -43,12 +59,20 @@ import subprocess
 import sys
 
 
+# chip_smoke.py's phase 38 shapes, here so that a checkout older than them
+# is timed at the same shapes
+TRAIN_CHUNKS = (("Cornell", "cornell_box", 512, 8, 8, 32768),
+                ("big_scene1", "big_scene1", 800, 16, 16, 32768),
+                ("triangles", "triangles", 400, 8, 8, 65536))
+BACKPACK_CHUNK = (800, 4, 16, 65536)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
-    ap.add_argument("--sets", default="chunks,bvh",
-                    help="comma-separated: chunks, bvh")
+    ap.add_argument("--sets", default="chunks,train,bvh",
+                    help="comma-separated: chunks, train, profile, bvh")
     args = ap.parse_args()
     sets = set(args.sets.split(","))
     tree = os.path.abspath(args.tree)
@@ -111,6 +135,80 @@ def main() -> int:
                 lambda r: chunk(base + r), reps=1, hold_device=True)
             ms[f"{label} chunk, the route's chunk as a call"] = cs.event_ms(
                 lambda r: chunk(base + r), reps=5)
+    if "train" in sets:
+        for label, name, width, spp, depth, batch in TRAIN_CHUNKS:
+            sd = scenes.get(name)
+            h = int(width / sd.aspect)
+            tracer = cuda_trace.Tracer(sd.scene, dev)
+            wave = tracer.bind_record(sd.camera, h, width, depth)
+            nb = -(-h * width // batch)
+            waves = [lambda r, s=s, b=b: wave(
+                b * batch, batch, cuda_trace.wave_seed(base + r, s, b))
+                for s in range(spp) for b in range(nb)]
+            ms[f"{label} training chunk, {len(waves)} per-wave record "
+               "launches"] = cs.held_ms(waves)
+            if hasattr(tracer, "bind_record_chunk"):
+                launch = tracer.bind_record_chunk(sd.camera, h, width, depth,
+                                                  0.001, batch, spp)
+                ms[f"{label} training chunk, the record chunk launch"] = \
+                    cs.event_ms(lambda r: launch(base + r), reps=3,
+                                hold_device=True)
+            del tracer, wave, waves
+        sd = scenes.get("backpack")
+        width, spp, depth, batch = BACKPACK_CHUNK
+        h = int(width / cs.CONFIG5_ASPECT)
+        tracer = cuda_trace.Tracer(sd.scene, dev)
+        wave = tracer.bind(sd.camera, h, width, depth)
+        nb = -(-h * width // batch)
+        ms[f"backpack chunk, {spp * nb} per-wave launches"] = cs.held_ms(
+            [lambda r, s=s, b=b: wave(b * batch, batch,
+                                      cuda_trace.wave_seed(base + r, s, b))
+             for s in range(spp) for b in range(nb)])
+        launch = tracer.bind_chunk(sd.camera, h, width, depth, 0.001, 0,
+                                   batch, spp)
+        ms["backpack chunk, the chunk launch"] = cs.event_ms(
+            lambda r: launch(base + r), reps=3, hold_device=True)
+        time("1d-t backpack forward centre wave, 65536 rays, depth 16",
+             lambda r: wave(65536 * cs.MESH_WAVE, 65536,
+                            cuda_trace.wave_seed(base, r, 1)))
+    if "profile" in sets:
+        import time as clock
+
+        from raytracing_gpu_tpu_torch.engine import diff, fused_diff
+
+        for label, name, width, spp, chunks, depth, batch in (
+                ("Cornell", "cornell_box", 512, 8, 8, 8, 32768),
+                ("big_scene1", "big_scene1", 800, 16, 1, 16, 32768)):
+            sd = scenes.get(name)
+            st = RenderSettings(image_width=width, aspect_ratio=sd.aspect,
+                                spp_per_chunk=spp, num_chunks=chunks,
+                                max_depth=depth, ray_batch=batch)
+            chunk = fused_diff.compile_fused_param_renderer(
+                sd.scene, sd.camera, st, device=dev)
+            params = diff.get_params(sd.scene, dev)
+            gen = torch.Generator().manual_seed(bench_torch.SEED)
+            bases = [cuda_trace.chunk_seed(gen) for _ in range(chunks)]
+            target = torch.zeros_like(chunk(params, bases[0]))
+
+            def train(chunk=chunk, params=params, target=target,
+                      bases=bases):
+                return bench_torch.train_renders(chunk, params, target,
+                                                 bases)
+
+            train()  # warm-up
+            torch.cuda.synchronize()
+            t0 = clock.perf_counter()
+            train()
+            torch.cuda.synchronize()
+            wall = (clock.perf_counter() - t0) * 1e3
+            prof = cs.device_busy(train)
+            what = f"{label} training, {chunks} x {spp} spp fwd+bwd"
+            ms[f"{what}, wall"] = wall
+            ms[f"{what}, device (profiled)"] = prof["device_ms"]
+            for k, (t, _) in sorted(prof["by_kernel"].items(),
+                                    key=lambda kv: -kv[1][0])[:4]:
+                ms[f"{what}, device in {k[:48]}"] = t
+            del chunk, target
     if "bvh" not in sets:
         print(json.dumps({"tree": tree, "card": card, "ms": ms,
                           "registers": lines}))
