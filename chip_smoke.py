@@ -275,7 +275,29 @@ kernel on the way.  Phases, each of which raises on failure:
    tables read once), with the grid and ptxas' registers; then a whole
    chunk of config 5's frame (backpack, 800x600, 4 spp, depth 16, waves of
    65,536) through the forward chunk launch (the triangle walk) against
-   its per-wave launches, bit for bit, both timed.
+   its per-wave launches, bit for bit, both timed;
+39. the pure-torch "xla" engine as an oracle of the hit kernel:
+   `engine.intersect.closest_hit` (its own BVH walk, `accel.traverse`)
+   against `rt_hit` resolved to hit records (`wavefront.
+   resolve_hit_packed`) on the same camera rays and one scattered bounce
+   of them, for config 2 (big_scene1, lens and motion blur, 65,536 rays)
+   and config 5's stand-in (backpack, 131,072 rays): hit equal on every
+   live lane, the material on >= 99.9% (camera) and >= 99.5% (bounce) of
+   them, the floats of the agreeing lanes within `hit_agreement`'s limits
+   (t, and p over |d|), >= 99% within HIT_CLOSE, triangle winners by
+   original id (`tri_perm[slot]`) equal on >= 99.9% and otherwise ties;
+40. xla renders: Cornell 512x512, 16 spp, depth 8 with `engine="xla"`
+   against the megakernel route's image (per-channel z < 4: the two draw
+   different random streams); the `many_media` probe (20 media, more than
+   the kernels take) at 512x512, 16 spp, depth 16 through "auto", which
+   must report "xla"; one Cornell training chunk (512x512, 8 spp, depth 8)
+   on `compile_param_renderer(engine="xla")`; each with its Mrays/s and
+   busy share and no hand kernel launched; then a Cornell render
+   (512x512, 4 x 16 spp, depth 8) stopped after 2 of its 4 chunks and
+   resumed from its checkpoint by a fresh renderer: equal to the
+   uninterrupted render bit for bit;
+41. `bench_all_torch.py`'s rows (configs 1, 2, 4, 5, 5-rr, earth-grad,
+   mesh-grad) at `--spp-scale` BENCH_SPP_SCALE, each finite.
 
 Prints each phase's seconds, a JSON line of kernels, the card's name and
 power limit, and as its last line `{"ok": true, "device": {...}}`.  Exits
@@ -352,6 +374,7 @@ BIG_MEGAKERNEL = (800, 8, 1, 16)
 CONFIG2 = (800, 16, 2, 16)
 ROUTES_AGREE = (400, 16, 16)  # width, spp, depth of phase 19's comparison
 Z_LIMIT = 4.0       # standard errors of a statistical agreement
+HIT_TIE_LIMIT = 2e-3  # t of two triangles that tie across an edge (HIT_CLOSE)
 CAPTURE_STEP = 40   # a regen step whose wave is full and still refilling
 HIT_RAYS = 65536
 # the every-lane checks of the warp-cooperative walks: a partial last warp
@@ -395,6 +418,17 @@ EARTH_RENDER = (800, 16, 2, 8)
 # chunk, chunks, depth, ray batch)
 EARTH_GRAD = (256, 8, 1, 8, 65536)
 PROBE_GRAD = (128, 4, 1, 8, 16384)  # the image probe's atlas gradients
+# Phases 39-41 (the pure-torch "xla" engine, checkpoint and resume,
+# bench_all_torch.py's rows)
+ORACLE_RAYS = {"big_scene1": 65536, "backpack": 131072}  # rt_hit's waves
+ORACLE_MAT_FLOOR = (0.999, 0.995)  # camera rays, scattered rays
+ORACLE_TRI_ID_FLOOR = 0.999  # triangle winners with equal ids (else a tie)
+XLA_CORNELL = (512, 16, 1, 8)      # width, spp per chunk, chunks, depth
+XLA_MEDIA = (512, 16, 1, 16)       # the many_media probe, through "auto"
+XLA_TRAIN = (512, 8, 1, 8, 32768)  # one Cornell training chunk
+RESUME = (512, 16, 4, 8, 2)        # width, spp, chunks, depth, stop after
+XLA_SUB_SPP = 1  # phase 40's profiled sub-runs: the same waves, 1 spp
+BENCH_SPP_SCALE = 16               # bench_all_torch.py's rows in phase 41
 # The Cornell forward wave (65,536 rays, depth 8) of the kernel before it
 # took spheres and media, H100 80GB HBM3 at 700 W (PERF.md, section 6)
 CORNELL_WAVE_MS_BEFORE = "0.0293-0.0294"
@@ -1111,6 +1145,55 @@ def time_backpack_chunk(card: str, base: int, log: str) -> dict:
           f"{launch.occupancy[0]} blocks an SM, on {card}")
     return dict(backpack_chunk_ms=ms, backpack_waves_ms=waves_ms,
                 backpack_waves=len(waves), backpack_registers=regs)
+
+
+def backpack_chunk_bound(card: str, base: int, stride: int = 7) -> dict:
+    """The bound of phase 38's whole backpack chunk (BACKPACK_CHUNK: 800x600,
+    4 spp, depth 16, 32 waves of 65,536), counted on every `stride`-th
+    wave of the chunk's (sample, wave) order by the plain walk on the card
+    (`trace_pixels_reference(counts=)`; a whole chunk's plain walk over
+    100k triangles takes minutes): the subset's operations scaled by the
+    chunk's waves over the subset's, the bytes as the chunk's rows written
+    once, the tables once and the triangle tables' parts that the subset's
+    walks read (a lower bound of the whole chunk's, not scaled)."""
+    import torch
+
+    from raytracing_gpu_tpu_torch.models import scenes
+    from raytracing_gpu_tpu_torch.ops import cuda_trace
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    sd = scenes.get("backpack")
+    width, spp, depth, b = BACKPACK_CHUNK
+    h = int(width / CONFIG5_ASPECT)
+    tracer = cuda_trace.Tracer(sd.scene, dev)
+    rows = cuda_trace.chunk_rows(h, width, b)
+    waves = [(s, bid) for s in range(spp) for bid in range(rows // b)]
+    sub = waves[::stride]
+    counts = None
+    t0 = time.perf_counter()
+    for s, bid in sub:
+        c = {}
+        cuda_trace.trace_pixels_reference(
+            tracer.bake, sd.camera, h, width, bid * b, b,
+            cuda_trace.wave_seed(base, s, bid), depth, 0.001, dev, counts=c)
+        counts = c if counts is None else add_counts(counts, c)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    ops = wave_ops(tracer.bake, counts, len(sub) * b) * len(waves) / len(sub)
+    nbytes = 12 * rows + table_bytes(tracer) + tri_bytes(
+        counts["tri_read"], leaf_real(tracer.bake.tri_ids,
+                                      cuda_trace.TRI_LEAF_K), TRI_WIN_BYTES)
+    bound_ms, bound_by = bound(ops, nbytes)
+    print(f"[bound] backpack chunk {width}x{h} {spp}spp depth {depth}: "
+          f"{bound_ms:.6f} ms by {bound_by} ({ops:.0f} ops, scaled from "
+          f"{len(sub)} of its {len(waves)} waves {sub}, {counts['live']} live "
+          f"bounces, {counts['tri_nodes']} node and {counts['tri_rows']} "
+          f"triangle tests there; {nbytes} bytes; "
+          f"{spec_bound_ms(ops, nbytes):.6f} ms over the spec sheet); the "
+          f"plain walks {plain_s:.3f} s, on {card}")
+    return dict(backpack_chunk_bound_ms=bound_ms,
+                backpack_chunk_bound_by=bound_by,
+                backpack_bound_waves=len(sub), backpack_plain_s=plain_s)
 
 
 def chunk_fields(row: dict, chunk: dict) -> None:
@@ -2906,6 +2989,276 @@ def ray_counts(tracer, o, d, tm, seed: int, depth: int) -> dict:
     return counts
 
 
+def oracle_cmp(xla, res, d, alive, mat_floor: float) -> dict:
+    """The xla engine's hit records against `rt_hit`'s resolved ones on the
+    live lanes: hit equal on every lane, the material on >= `mat_floor` of
+    the hits, and over the lanes that agree p over |d| (p = o + t d: t's
+    error), the normal and u, v (u modulo 1) within `hit_agreement`'s
+    limits, >= 99% of them within HIT_CLOSE."""
+    import torch
+
+    from raytracing_gpu_tpu_torch.ops import cuda_trace
+
+    hit_equal = bool(torch.equal(xla.hit & alive, res.hit & alive))
+    hit = res.hit & alive
+    same = hit & (xla.mat_id.long() == res.mat_id.long())
+    scale = torch.linalg.vector_norm(d.double(), dim=1).clamp(min=1.0)
+    errs, close = {}, torch.ones_like(same)
+    for name, limit in cuda_trace.HIT_LIMITS.items():
+        got, want = getattr(xla, name), getattr(res, name)
+        err = (got.double() - want.double()).abs()
+        if name == "u":
+            err = torch.minimum(err, 1.0 - err)
+        if err.dim() == 2:
+            err = err.amax(-1)
+        if name == "p":
+            err = err / scale
+        errs[name] = float(err[same].max()) if bool(same.any()) else 0.0
+        close &= err <= cuda_trace.HIT_CLOSE
+        errs[name + "_ok"] = errs[name] <= limit
+    mat_frac = float(same.sum()) / max(int(hit.sum()), 1)
+    close_frac = float((close & same).sum()) / max(int(same.sum()), 1)
+    ok = (hit_equal and mat_frac >= mat_floor and close_frac >= 0.99
+          and all(v for k, v in errs.items() if k.endswith("_ok")))
+    return dict(ok=ok, hits=int(hit.sum()), hit_equal=hit_equal,
+                mat_frac=mat_frac, close_frac=close_frac,
+                max_err={k: v for k, v in errs.items()
+                         if not k.endswith("_ok")})
+
+
+def oracle_rays(label: str, sd, tracer, geom, rays, bounce: bool) -> tuple:
+    """Phase 39 on one set of rays: `closest_hit` (media-free: no draws)
+    against `rt_hit` and its resolve, with triangle winners by id.
+    Returns the comparison and `rt_hit`'s resolved records."""
+    import torch
+
+    from raytracing_gpu_tpu_torch.accel import traverse
+    from raytracing_gpu_tpu_torch.engine import intersect, wavefront
+
+    o, d, tm, alive = rays
+    t0 = time.perf_counter()
+    xla = intersect.closest_hit(sd.scene, o, d, tm, geom=geom)
+    torch.cuda.synchronize()
+    xla_s = time.perf_counter() - t0
+    hr = tracer.hit(o, d, tm, alive)
+    table = wavefront.pack_attr_table(sd.scene, tracer.bake.tri_perm,
+                                      o.device)
+    res = wavefront.resolve_hit_packed(table, *hr, d)
+    cmp = oracle_cmp(xla, res, d, alive, ORACLE_MAT_FLOOR[int(bounce)])
+    if geom.tri_bvh is not None:
+        t_t, i_t = traverse.traverse_triangles(geom.triangles, geom.tri_bvh,
+                                               o, d, 0.001)
+        perm = torch.as_tensor(tracer.bake.tri_perm, device=o.device).long()
+        k_tri = alive & (((hr.packed >> 20) & 1) == 1)
+        x_tri = alive & xla.hit & (t_t == xla.t)
+        both = k_tri & x_tri
+        ids_equal = both & (perm[hr.slot.long()] == i_t)
+        # two triangles at one distance: across an edge they share
+        gap = (torch.linalg.vector_norm(xla.p - res.p, dim=1)
+               / torch.linalg.vector_norm(d, dim=1).clamp(min=1.0))
+        tie = both & ~ids_equal & (gap <= HIT_TIE_LIMIT)
+        cmp["triangle_winners"] = int(k_tri.sum())
+        cmp["triangle_id_frac"] = (float(ids_equal.sum()) / int(both.sum())
+                                   if bool(both.any()) else 1.0)
+        cmp["triangle_ties"] = int(tie.sum())
+        cmp["ok"] = (cmp["ok"] and bool(torch.equal(k_tri, x_tri))
+                     and cmp["triangle_id_frac"] >= ORACLE_TRI_ID_FLOOR
+                     and int((both & ~ids_equal & ~tie).sum()) == 0)
+    cmp["xla_s"] = xla_s
+    print(f"[oracle] {label}: {int(alive.sum())} live rays: {cmp}")
+    if not cmp["ok"]:
+        raise AssertionError(f"{label}: the xla engine and rt_hit disagree")
+    return cmp, res
+
+
+def bounce_rays(sd, res, rays, seed: int):
+    """The rays that go on from `rt_hit`'s resolved hits of `rays`, along
+    directions scattered in torch."""
+    import torch
+
+    from raytracing_gpu_tpu_torch.engine import diff
+    from raytracing_gpu_tpu_torch.scene import materials
+
+    o, d, tm, alive = rays
+    gen = torch.Generator(device=o.device).manual_seed(seed)
+    sc = materials.scatter(sd.scene, diff.get_params(sd.scene, o.device), gen,
+                           d, res.p, res.normal, res.front_face, res.u, res.v,
+                           res.mat_id)
+    alive = alive & res.hit & sc.ok
+    return (torch.where(alive[:, None], res.p, o).contiguous(),
+            torch.where(alive[:, None], sc.direction, d).contiguous(), tm,
+            alive)
+
+
+def xla_phases(dev, card: str, base: int) -> None:
+    """Phases 39-41: the xla engine as `rt_hit`'s oracle, its renders and
+    the checkpoint's resume, and `bench_all_torch.py`'s rows."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import bench_all_torch
+    import bench_torch
+    from raytracing_gpu_tpu_torch import RenderSettings, compile_renderer
+    from raytracing_gpu_tpu_torch.core.camera import Camera
+    from raytracing_gpu_tpu_torch.engine import diff, intersect
+    from raytracing_gpu_tpu_torch.engine import render as render_mod
+    from raytracing_gpu_tpu_torch.models import probes, scenes
+    from raytracing_gpu_tpu_torch.ops import cuda_trace
+    from raytracing_gpu_tpu_torch.scene.builder import SceneBuilder
+
+    with Phase("39 the xla engine against rt_hit"):
+        for name, n in ORACLE_RAYS.items():
+            sd = scenes.get(name)
+            tracer = cuda_trace.Tracer(sd.scene, dev)
+            geom = intersect.geometry(sd.scene, dev)
+            rays = camera_rays(sd, n, 39, dev)
+            _, res = oracle_rays(f"{name} camera", sd, tracer, geom, rays,
+                                 False)
+            oracle_rays(f"{name} bounce", sd, tracer, geom,
+                        bounce_rays(sd, res, rays, 40), True)
+
+    def rate(label, st, run, sub):
+        """Mrays/s of `run()` on the host clock, with every launch count
+        read (the xla route launches no hand kernel); its busy share is a
+        sub-run's (`sub`, the same route and waves at XLA_SUB_SPP spp): the
+        device time of a profiled repeat over the sub-run's own wall.  The
+        sub-run first warms the route up."""
+        sub()
+        t0 = time.perf_counter()
+        out, counts = counted(run)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sub()
+        torch.cuda.synchronize()
+        sub_wall = time.perf_counter() - t0
+        prof = device_busy(sub)
+        mrays = st.num_pixels * st.rays_per_pixel / wall / 1e6
+        busy = prof["device_ms"] / (sub_wall * 1e3)
+        top = sorted(prof["by_kernel"].items(), key=lambda kv: -kv[1][0])
+        print(f"[xla] {label}: {wall:.6f} s, {mrays:.6f} Mrays/s, launches "
+              f"{counts}; a {XLA_SUB_SPP}-spp sub-run {sub_wall:.6f} s, "
+              f"device busy share {busy:.6f} ({prof['device_ms']:.3f} ms of "
+              f"device time), top kernels (ms, count) {top[:4]}; on {card}")
+        if any(counts.values()):
+            raise AssertionError(f"{label}: the xla route launched a kernel")
+        return out
+
+    with Phase("40 xla renders, checkpoint and resume"):
+        sd = scenes.get("cornell_box")
+        width, spp, chunks, depth = XLA_CORNELL
+        st = RenderSettings(image_width=width, aspect_ratio=1.0,
+                            spp_per_chunk=spp, num_chunks=chunks,
+                            max_depth=depth, ray_batch=65536)
+        xchunk = compile_renderer(sd.scene, sd.camera, st, dev, engine="xla")
+        if xchunk.engine_name != "xla":
+            raise AssertionError("engine='xla' took " + xchunk.engine_name)
+        xsub = compile_renderer(sd.scene, sd.camera,
+                                st.with_(spp_per_chunk=XLA_SUB_SPP), dev,
+                                engine="xla")
+        xsums = rate(f"cornell_box {width}x{width} {spp}spp depth {depth} "
+                     "(engine xla)", st, lambda: xchunk(base).cpu(),
+                     lambda: xsub(base).cpu())
+        msums = compile_renderer(sd.scene, sd.camera, st, dev)(base).cpu()
+        n = st.num_pixels
+        z = z_scores(xsums[:n].numpy(), msums[:n].numpy())
+        print(f"[xla] cornell_box xla against the megakernel route, one "
+              f"{spp}-spp chunk: per-channel z {z.tolist()}, means "
+              f"{xsums[:n].mean(0).tolist()} and {msums[:n].mean(0).tolist()}")
+        if not (np.isfinite(xsums.numpy()).all()
+                and (np.abs(z) < Z_LIMIT).all()):
+            raise AssertionError("the xla route's Cornell image is off")
+
+        mscene, mcam, _ = probes.many_media(SceneBuilder, Camera)
+        width, spp, chunks, depth = XLA_MEDIA
+        mst = RenderSettings(image_width=width, aspect_ratio=1.0,
+                             spp_per_chunk=spp, num_chunks=chunks,
+                             max_depth=depth, ray_batch=65536)
+        mchunk = compile_renderer(mscene, mcam, mst, dev)
+        if mchunk.engine_name != "xla":
+            raise AssertionError("many_media took " + mchunk.engine_name)
+        msub = compile_renderer(mscene, mcam,
+                                mst.with_(spp_per_chunk=XLA_SUB_SPP), dev)
+        msums = rate(f"many_media ({cuda_trace.unported_feature(mscene)}) "
+                     f"{width}x{width} {spp}spp depth {depth} (auto -> xla)",
+                     mst, lambda: mchunk(base).cpu(),
+                     lambda: msub(base).cpu())
+        if not (np.isfinite(msums.numpy()).all() and msums.mean() > 0):
+            raise AssertionError("the many_media image is off")
+
+        width, spp, chunks, depth, batch = XLA_TRAIN
+        tst = RenderSettings(image_width=width, aspect_ratio=1.0,
+                             spp_per_chunk=spp, num_chunks=chunks,
+                             max_depth=depth, ray_batch=batch)
+        pchunk = render_mod.compile_param_renderer(sd.scene, sd.camera, tst,
+                                                   engine="xla", device=dev)
+        params = diff.get_params(sd.scene, dev)
+        target = torch.zeros((render_mod._grid_geometry(tst)[3], 3),
+                             device=dev)
+        tsub_st = tst.with_(spp_per_chunk=XLA_SUB_SPP)
+        tsub = render_mod.compile_param_renderer(sd.scene, sd.camera, tsub_st,
+                                                 engine="xla", device=dev)
+        tsub_target = torch.zeros((render_mod._grid_geometry(tsub_st)[3], 3),
+                                  device=dev)
+        loss, grads = rate(
+            f"cornell_box training chunk {width}x{width} {spp}spp depth "
+            f"{depth} fwd+bwd (engine {pchunk.engine_name})", tst,
+            lambda: bench_torch.train_renders(pchunk, params, target,
+                                              [base]),
+            lambda: bench_torch.train_renders(tsub, params, tsub_target,
+                                              [base]))
+        nz = int((grads["tex_c1"] != 0).sum())
+        if not (pchunk.engine_name == "xla" and bool(torch.isfinite(loss))
+                and nz > 0 and all(bool(torch.isfinite(g).all())
+                                   for g in grads.values())):
+            raise AssertionError("the xla training chunk is off")
+
+        width, spp, chunks, depth, stop = RESUME
+        rst = RenderSettings(image_width=width, aspect_ratio=1.0,
+                             spp_per_chunk=spp, num_chunks=chunks,
+                             max_depth=depth, ray_batch=65536, seed=base)
+        full = render_mod.render_linear(sd.scene, sd.camera, rst, device=dev)
+
+        class Stop(Exception):
+            pass
+
+        def stop_at(c, _n, _dt):
+            if c == stop:
+                raise Stop
+
+        with tempfile.TemporaryDirectory() as ckdir:
+            try:
+                render_mod.render_linear(sd.scene, sd.camera, rst,
+                                         device=dev, checkpoint_dir=ckdir,
+                                         progress=stop_at)
+            except Stop:
+                pass
+            ran = []
+            resumed = render_mod.render_linear(
+                sd.scene, sd.camera, rst, device=dev, checkpoint_dir=ckdir,
+                progress=lambda c, _n, _dt: ran.append(c))
+        equal = bool(np.array_equal(resumed, full))
+        print(f"[resume] cornell_box {width}x{width} {chunks} x {spp}spp "
+              f"stopped after chunk {stop}, resumed by a fresh renderer "
+              f"(chunks run {ran}): equal to the uninterrupted render bit "
+              f"for bit {equal}")
+        if not equal or ran != list(range(stop + 1, chunks + 1)):
+            raise AssertionError("the resumed render differs")
+
+    with Phase("41 bench_all_torch.py rows"):
+        rows = [bench_all_torch.bench_forward(k, BENCH_SPP_SCALE, dev)
+                for k in bench_all_torch.FORWARD]
+        rows += [bench_all_torch.bench_grad(w, dev)
+                 for w in ("earth", "mesh")]
+        for row in rows:
+            print(f"[bench_all_torch] --spp-scale {BENCH_SPP_SCALE}: "
+                  f"{json.dumps(row)}")
+            if not np.isfinite(row["mrays_per_s"]):
+                raise AssertionError(f"bench row {row['scene']} is off")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--png", default=os.path.join(ROOT, "build",
@@ -3416,6 +3769,7 @@ def main() -> int:
         tri_rows[0]["triangles_registers"] = kernel_registers(
             build_log, "megakernel_fwd",
             cuda_trace.bake_scene(scenes.get("triangles").scene).features())
+    xla_phases(dev, card, base)
     chunk_fields(train_rows[0], rchunks[BIG])
     chunk_fields(train_rows[1], rchunks["triangles"])
     record_row = {

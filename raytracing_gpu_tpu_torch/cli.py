@@ -11,7 +11,11 @@ versions on the CPU.  `list` prints the 13 registered scenes, meshes and
 image scenes included (`triangle`, `triangles`, `earth`, `door`,
 `backpack`, `cup`).  `render` logs the engine it takes ("megakernel",
 "regen", "wavefront" or, for an image-textured scene, "record-walk", as
-`engine.render.route` picks it) unless `--quiet`.
+`engine.render.route` picks it, or "xla" for a scene that no kernel
+covers) unless `--quiet`.  `--checkpoint-dir` saves the sums after every
+chunk and resumes a render stopped there; `--profile-dir` writes a
+`torch.profiler` trace of the render; `--debug-nans` stops on the first
+chunk whose sums hold a NaN.
 """
 
 from __future__ import annotations
@@ -19,8 +23,10 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import sys
 import time
+from contextlib import nullcontext
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -43,6 +49,14 @@ def _build_parser() -> argparse.ArgumentParser:
     r.add_argument("--rr-start", type=int, default=0,
                    help="russian roulette from this bounce (0 = off)")
     r.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    r.add_argument("--checkpoint-dir", default=None,
+                   help="directory for resumable float32 partial sums")
+    r.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of the render to this "
+                        "directory")
+    r.add_argument("--debug-nans", action="store_true",
+                   help="stop on the first chunk whose sums hold a NaN (one "
+                        "host read a chunk)")
     r.add_argument("--quiet", action="store_true")
 
     sub.add_parser("list", help="list registered scenes")
@@ -123,14 +137,25 @@ def main(argv=None) -> int:
         logger.addHandler(handler)
         logger.setLevel(logging.INFO)
     timer = PhaseTimer()
+    prof = _profiler(device) if args.profile_dir else nullcontext()
     t0 = time.perf_counter()
     try:
-        linear = render_linear(sd.scene, sd.camera, st, seed=args.seed,
-                               progress=progress, device=device, timer=timer)
+        with prof:
+            linear = render_linear(sd.scene, sd.camera, st, seed=args.seed,
+                                   progress=progress, device=device,
+                                   timer=timer,
+                                   checkpoint_dir=args.checkpoint_dir,
+                                   debug_nans=args.debug_nans)
     finally:
         logger.removeHandler(handler)
         logger.setLevel(level)
     elapsed = time.perf_counter() - t0
+    if args.profile_dir:
+        os.makedirs(args.profile_dir, exist_ok=True)
+        trace = os.path.join(args.profile_dir, "render_trace.json")
+        prof.export_chrome_trace(trace)
+        if not args.quiet:
+            print(f"profile trace -> {trace}", file=sys.stderr)
     img = film.finalize(linear * st.rays_per_pixel, st.rays_per_pixel)
     if args.output.endswith(".ppm"):
         film.write_ppm(args.output, img)
@@ -144,6 +169,16 @@ def main(argv=None) -> int:
               file=sys.stderr)
         print(timer.report(), file=sys.stderr)
     return 0
+
+
+def _profiler(device):
+    """A `torch.profiler` over the host and, on a card, the device."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    return torch.profiler.profile(activities=acts)
 
 
 if __name__ == "__main__":

@@ -17,6 +17,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from .accel.bvh import FlatBVH
 from .core.camera import Camera
 from .engine.diff import PARAM_KEYS
 from .scene import types as st
@@ -34,10 +35,10 @@ def _array(name: str, value) -> np.ndarray:
 
 def scene_from_numpy(tree: Mapping) -> st.Scene:
     """Port `Scene` from {table name: {field: array}, "background": (3,),
-    "has_sphere_media": bool, "has_box_media": bool}.  The `sphere_bvh` and
-    `tri_bvh` entries (the XLA engine's) are dropped: the kernel bake builds
-    its own BVHs from the sphere and triangle tables
-    (`ops.cuda_trace.bake_scene`)."""
+    "has_sphere_media": bool, "has_box_media": bool}, with the XLA
+    engine's `sphere_bvh` and `tri_bvh` ({field: array} of a FlatBVH, or
+    None) where the tree has them.  The kernel bake builds its own BVHs
+    from the sphere and triangle tables (`ops.cuda_trace.bake_scene`)."""
     tables = {}
     for name, cls in st.TABLES.items():
         leaves = tree[name]
@@ -49,7 +50,15 @@ def scene_from_numpy(tree: Mapping) -> st.Scene:
         background=_array("background", tree["background"]).astype(np.float32),
         has_sphere_media=bool(tree["has_sphere_media"]),
         has_box_media=bool(tree["has_box_media"]),
+        **{k: _bvh(k, tree.get(k)) for k in ("sphere_bvh", "tri_bvh")},
     )
+
+
+def _bvh(name: str, leaves) -> FlatBVH | None:
+    if leaves is None:
+        return None
+    return FlatBVH(**{f: _array(f"{name}.{f}", leaves[f])
+                      for f in FlatBVH._fields})
 
 
 def camera_from_numpy(tree: Mapping,

@@ -1,9 +1,12 @@
 """Render loop: sample chunks of kernel waves.
 
 Counterpart of `raytracing_gpu_tpu/engine/render.py`: `compile_renderer`
-with its megakernel, regen, wavefront and record-walk routes, chosen as it
-chooses them there, and the differentiable `compile_param_renderer` with
-its record-walk and wavefront-record routes.  A chunk is `spp_per_chunk`
+with its megakernel, regen, wavefront, record-walk and xla routes, chosen
+as it chooses them there, and the differentiable `compile_param_renderer`
+with its record-walk, wavefront-record and xla routes.  The "xla" route is
+the pure-torch engine (`integrator.trace`, `trace_diff`): it serves the
+scenes no kernel covers (`cuda_trace.unported_feature`), or any scene on
+request.  A chunk is `spp_per_chunk`
 samples of every pixel, each sample split into waves of `ray_batch`
 pixels, and wave (s, bid) seeded with scalar arithmetic on the chunk's base
 seed (`ops.cuda_trace.wave_seed`).  On the megakernel route the whole chunk
@@ -12,10 +15,9 @@ is one kernel launch (`Tracer.bind_chunk`); the regen and wavefront routes
 `chunk_sums` draws each (sample, wave)'s camera rays in torch, from a
 generator seeded with the wave's seed, for the routes that take ray planes.
 Chunk sums accumulate in float32 on the device; `render_linear` draws each
-chunk's base from a `torch.Generator` seeded with `settings.seed`.
-
-Not ported yet: the XLA engines (`integrator.trace`, `trace_diff`) and
-checkpoint/resume.
+chunk's base from a `torch.Generator` seeded with `settings.seed`, and with
+a checkpoint directory saves the sums after every chunk and resumes from
+the last one saved (`utils/checkpoint.py`).
 """
 
 from __future__ import annotations
@@ -122,12 +124,34 @@ def route(tracer: cuda_trace.Tracer, settings: RenderSettings) -> str:
     return "record-walk" if image else "megakernel"
 
 
+ENGINES = ("auto", "pallas", "xla")
+
+
+def _xla_wanted(scene: Scene, engine: str, engines: tuple) -> bool:
+    """Whether `engine` takes the xla route: asked for by name, or "auto"
+    on a scene that no kernel covers (where the JAX package's
+    `supports_scene` is false)."""
+    if engine not in engines:
+        raise ValueError(f"engine {engine!r}: use one of {engines}")
+    return engine == "xla" or (engine == "auto"
+                               and cuda_trace.unported_feature(scene)
+                               is not None)
+
+
 def compile_renderer(scene: Scene, camera: Camera, settings: RenderSettings,
-                     device: torch.device | str = "cuda"
+                     device: torch.device | str = "cuda",
+                     engine: str = "auto"
                      ) -> Callable[[int], torch.Tensor]:
     """Scene-specialized forward renderer: int32 base seed -> (npix_pad, 3)
     float32 radiance sums on `device` over `spp_per_chunk` samples; its
-    `engine_name` is the route (`route`).
+    `engine_name` is the route (`route`, or "xla").
+
+    engine: "pallas" takes the hand-written kernels (the JAX package's name
+    for its kernels) and raises NotImplementedError for a scene they do not
+    cover; "xla" the pure-torch engine (`integrator.trace`, `chunk_sums`
+    over it, russian roulette from `settings.rr_start`); "auto" takes
+    "xla" exactly where `cuda_trace.unported_feature(scene)` names a
+    feature, else the kernels.
 
     The megakernel route (`engine/render.py:172-199`) launches the forward
     kernel once a chunk (`Tracer.bind_chunk`: the (sample, wave) sums added
@@ -139,9 +163,10 @@ def compile_renderer(scene: Scene, camera: Camera, settings: RenderSettings,
     record kernel's uv planes) and `integrator.shade_radiance`, one launch
     per (sample, wave), and ignores `rr_start` with a warning, as the JAX
     package does.
-    Raises NotImplementedError for a scene outside the ported feature set.
     """
     device = torch.device(device)
+    if _xla_wanted(scene, engine, ENGINES):
+        return _xla_renderer(scene, camera, settings, device)
     tracer = cuda_trace.Tracer(scene, device)  # raises for unported scenes
     engine = route(tracer, settings)
     if engine == "record-walk":
@@ -158,6 +183,33 @@ def compile_renderer(scene: Scene, camera: Camera, settings: RenderSettings,
                               settings.t_min, settings.rr_start, b,
                               settings.spp_per_chunk)
     chunk.engine_name = "megakernel"
+    return chunk
+
+
+def _xla_renderer(scene: Scene, camera: Camera, settings: RenderSettings,
+                  device: torch.device) -> Callable[[int], torch.Tensor]:
+    """The xla route's chunk (`engine/render.py:222-228`): `chunk_sums`
+    over `integrator.trace`, each wave's draws from a generator seeded with
+    the wave's seed."""
+    from .diff import get_params
+    from .intersect import geometry
+    from .integrator import trace
+
+    params = get_params(scene, device)
+    geom = geometry(scene, device)
+
+    def trace_fn(scene_, o, d, tm, seed):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return trace(scene_, o, d, tm, gen, max_depth=settings.max_depth,
+                     t_min=settings.t_min, rr_start=settings.rr_start,
+                     params=params, geom=geom)
+
+    def chunk(base: int) -> torch.Tensor:
+        with torch.no_grad():
+            return chunk_sums(scene, camera, settings, int(base), trace_fn,
+                              device)
+
+    chunk.engine_name = "xla"
     return chunk
 
 
@@ -218,14 +270,25 @@ def compile_param_renderer(scene: Scene, camera: Camera,
       `gen_rays=False` and its closed-form backward pass.  It has no
       russian roulette (ValueError for `rr_start > 0`, as JAX asserts).
 
+    - "xla" for `engine="xla"`, or for "auto" on a scene that no kernel
+      covers (`cuda_trace.unported_feature`): `chunk_sums` over
+      `integrator.trace_diff`, the detached torch walk and the shade, each
+      wave's draws from a generator seeded with the wave's seed; no
+      russian roulette (ValueError).
+
     With `debug_stats` a wavefront-record chunk returns (sums,
-    {"iterations": hit launches}); the record-walk route refuses it
-    (`cuda_trace.Tracer.ray_launches` counts its launches).  Raises
-    NotImplementedError for a scene outside the ported feature set and for
-    `engine="xla"` (the XLA engine is not ported)."""
-    if engine not in ("auto", "pallas", "wavefront"):
-        raise NotImplementedError(f"engine {engine!r}: not yet ported")
+    {"iterations": hit launches}); the other routes refuse it
+    (`cuda_trace.Tracer.ray_launches` counts the record-walk's launches).
+    "pallas" raises NotImplementedError for a scene outside the kernels'
+    feature set."""
     device = torch.device(device)
+    if _xla_wanted(scene, engine, ENGINES + ("wavefront",)):
+        if settings.rr_start > 0:
+            raise ValueError("russian roulette is not supported on the diff "
+                             "path (its walk carries no throughput)")
+        if debug_stats:
+            raise ValueError("debug_stats: the wavefront-record route only")
+        return _xla_param_renderer(scene, camera, settings, device)
     tracer = cuda_trace.Tracer(scene, device)  # raises for unported scenes
     if not ((tracer.bake.jax_tri_stream or engine == "wavefront")
             and tracer.supports_hit):
@@ -272,6 +335,30 @@ def compile_param_renderer(scene: Scene, camera: Camera,
     return chunk
 
 
+def _xla_param_renderer(scene: Scene, camera: Camera,
+                        settings: RenderSettings, device: torch.device
+                        ) -> Callable[[dict, int], torch.Tensor]:
+    """The differentiable xla chunk: `chunk_sums` over
+    `integrator.trace_diff` with `params`."""
+    from .intersect import geometry
+    from .integrator import trace_diff
+
+    geom = geometry(scene, device)
+
+    def chunk(params: dict, base: int) -> torch.Tensor:
+        def trace_fn(scene_, o, d, tm, seed):
+            gen = torch.Generator(device=device).manual_seed(seed)
+            return trace_diff(scene_, params, o, d, tm, gen,
+                              max_depth=settings.max_depth,
+                              t_min=settings.t_min, geom=geom)
+
+        return chunk_sums(scene, camera, settings, int(base), trace_fn,
+                          device)
+
+    chunk.engine_name = "xla"
+    return chunk
+
+
 def render_linear(
     scene: Scene,
     camera: Camera,
@@ -280,25 +367,57 @@ def render_linear(
     progress: Optional[Callable[[int, int, float], None]] = None,
     device: torch.device | str = "cuda",
     timer=None,
+    checkpoint_dir: Optional[str] = None,
+    debug_nans: bool = False,
 ) -> np.ndarray:
     """Full render -> (H, W, 3) mean linear radiance (host numpy).
 
+    The chunk loop is the checkpoint grain: with `checkpoint_dir`, the
+    float32 sums and the count of finished chunks are saved after every
+    chunk, and a render of the same settings, seed and scene resumes after
+    the last chunk saved, bit for bit: chunk c's base is the c-th draw of
+    the seed's generator either way.  With `debug_nans`, a chunk whose
+    sums hold a NaN raises FloatingPointError (one host read a chunk).
+
     timer: optional `utils.profiling.PhaseTimer` collecting the build
-    (scene bake) and trace (chunks, synchronized) phases.
+    (scene bake), trace (chunks, synchronized) and io (checkpoint) phases.
     """
     phase = timer.phase if timer is not None else (lambda _name: nullcontext())
     device = torch.device(device)
     h, w, npix, npix_pad, _, _ = _grid_geometry(settings)
-    gen = torch.Generator().manual_seed(settings.seed if seed is None else seed)
+    seed = settings.seed if seed is None else seed
+    gen = torch.Generator().manual_seed(seed)
+    sums = torch.zeros((npix_pad, 3), dtype=torch.float32, device=device)
+    start, fp = 0, ""
+    if checkpoint_dir is not None:
+        from ..utils import checkpoint as ckpt
+
+        fp = ckpt.fingerprint(settings, seed, scene)
+        state = ckpt.load(checkpoint_dir, expected_shape=(npix_pad, 3), fp=fp)
+        if state is not None:
+            sums = torch.from_numpy(state[0]).to(device)
+            start = state[1]
+            logger.info("resuming after chunk %d of %d", start,
+                        settings.num_chunks)
     with phase("build"):
         chunk = compile_renderer(scene, camera, settings, device)
     logger.info("render engine: %s on %s", chunk.engine_name, device)
-    sums = torch.zeros((npix_pad, 3), dtype=torch.float32, device=device)
     for c in range(settings.num_chunks):
+        base = cuda_trace.chunk_seed(gen)  # drawn for every chunk, done or not
+        if c < start:
+            continue
         t0 = time.perf_counter()
         with phase("trace"):
-            sums += chunk(cuda_trace.chunk_seed(gen))
+            out = chunk(base)
+            if debug_nans and bool(torch.isnan(out).any()):
+                raise FloatingPointError(
+                    f"NaN in the sums of chunk {c + 1} of "
+                    f"{settings.num_chunks} (base seed {base})")
+            sums += out
             synchronize(device)
+        if checkpoint_dir is not None:
+            with phase("io"):
+                ckpt.save(checkpoint_dir, sums.cpu().numpy(), c + 1, fp=fp)
         if progress is not None:
             progress(c + 1, settings.num_chunks, time.perf_counter() - t0)
     out = sums[:npix].cpu().numpy()
@@ -312,10 +431,12 @@ def render(
     seed: Optional[int] = None,
     progress: Optional[Callable[[int, int, float], None]] = None,
     device: torch.device | str = "cuda",
+    checkpoint_dir: Optional[str] = None,
 ) -> np.ndarray:
     """Full render -> (H, W, 3) gamma-2 image in [0, 1) (reference `draw`,
-    `render.h:118-174`)."""
+    `render.h:118-174`), resumable from `checkpoint_dir`."""
     linear = render_linear(scene, camera, settings, seed=seed,
-                           progress=progress, device=device)
+                           progress=progress, device=device,
+                           checkpoint_dir=checkpoint_dir)
     return film.finalize(linear * settings.rays_per_pixel,
                          settings.rays_per_pixel)

@@ -142,3 +142,34 @@ def tie_mesh(builder_cls, camera_cls, copies: int = 40) -> tuple:
            np.arange(3 * copies).reshape(copies, 3), green)
     cam = _make_cam(camera_cls, (0, 0, 6), (0, 0, 0), 40, 16 / 9)
     return b.build(), cam, 16 / 9
+
+
+def many_media(builder_cls, camera_cls, n: int = 20) -> tuple:
+    """`n` constant media, more than the kernels' 16 (`MAX_MEDIA`), in a
+    lit Cornell box with one solid box: spheres and boxes of fog in turn,
+    of several densities and colors, on a 5-wide grid over the floor.  No
+    kernel renders it, so the "auto" engine takes the xla route."""
+    b = builder_cls(background=(0.0, 0.0, 0.0))
+    red = b.lambertian((0.65, 0.05, 0.05))
+    white = b.lambertian((0.73, 0.73, 0.73))
+    green = b.lambertian((0.12, 0.45, 0.15))
+    b.rect("yz", 0, 555, 0, 555, 555, green)
+    b.rect("yz", 0, 555, 0, 555, 0, red)
+    b.rect("xz", 113, 443, 127, 432, 554, b.diffuse_light((7.0, 7.0, 7.0)))
+    b.rect("xz", 0, 555, 0, 555, 0, white)
+    b.rect("xz", 0, 555, 0, 555, 555, white)
+    b.rect("xy", 0, 555, 0, 555, 555, white)
+    b.box((0, 0, 0), (120, 240, 120), white, rotate_y=20,
+          translate=(300, 0, 380))
+    for i in range(n):
+        x, z = 70 + 100 * (i % 5), 60 + 110 * (i // 5 % 4)
+        y = 60 + 90 * (i // 20)
+        color = ((i * 37 % 10) / 10, (i * 53 % 10) / 10, (i * 71 % 10) / 10)
+        density = 0.004 + 0.004 * (i % 4)
+        if i % 2:
+            b.sphere_medium((x, y, z), 45, density, color)
+        else:
+            b.box_medium((0, 0, 0), (80, 80, 80), density, color,
+                         rotate_y=15.0 * i, translate=(x - 40, y - 40, z - 40))
+    cam = _make_cam(camera_cls, (278, 278, -800), (278, 278, 0), 40, 1.0)
+    return b.build(), cam, 1.0

@@ -1072,9 +1072,11 @@ def sphere_walk_reference(bake: SceneBake, o3: tuple, d3: tuple,
     False); `rt_hit` the links of the ray's own direction octant
     (`sph_hit_nodes`, octant True).
 
-    The plain versions test every row densely instead; this one counts the
-    node and row tests a walk makes, which bound the kernels' work, and
-    shows that the walk keeps the dense loop's winner."""
+    The plain versions under a sphere BVH take this walk's winner (the
+    megakernel's `_closest_hit` the preorder walk, `hit_reference` the
+    octant walk), so a ray that rounds out of a node's box misses there as
+    in the kernels; it also counts the node and row tests a walk makes,
+    which bound the kernels' work."""
     ox, oy, oz = o3
     dx, dy, dz = d3
     dev = tm.device
@@ -2177,7 +2179,8 @@ def hit_reference(bake: SceneBake, o: torch.Tensor, d: torch.Tensor,
     (strict `<` in that order), then the triangle tier, intersection only:
     no shading, no scatter, no random numbers.  The plain PyTorch version
     of `rt_hit` (`pallas_trace._make_hit_kernel`, :1722-2235) for a scene
-    without media.
+    without media.  The spheres are a dense loop over the rows, or under a
+    sphere BVH `rt_hit`'s own walk (`sphere_walk_reference`, octant links).
 
     o, d: (N, 3) float32; tm: (N,) float32 shutter times; alive: (N,)
     bool.  A non-triangle winner's uv is final: a rect's or a box face's,
@@ -2263,8 +2266,16 @@ def hit_reference(bake: SceneBake, o: torch.Tensor, d: torch.Tensor,
              torch.where(is_x | is_y, uc, ub))
 
     table = bake.sphere_table
-    if len(table):
+    if len(bake.sph_hit_nodes):
+        # `rt_hit`'s own walk (the octant links): a ray that grazes a node's
+        # box can round out of it and miss a sphere the dense loop finds
+        w = sphere_walk_reference(bake, o3, d3, tm, t_min, t2, alive,
+                                  octant=True)
+        hs = _sphere_hit(_SphereRows.of(table, dev), o3, d3, tm, w.better,
+                         w.t, w.row)
+    elif len(table):
         hs = _closest_sphere(table, o3, d3, tm, t_min, t2)
+    if len(table):
         q = torch.as_tensor(table, device=dev)[hs.row]
         take(hs.better, hs.t, hs.normal,
              q[:, SPHERE_SH + SH_MAT].to(torch.int32),

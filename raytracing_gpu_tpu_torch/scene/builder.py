@@ -10,9 +10,9 @@ to two triangles), boxes under rotate_y + translate, constant media in a box
 or a sphere, triangles and triangle meshes (rotate_y, translate and scale
 baked into the vertices).  `build()` packs the same numpy
 tables, with the same padding, as the host snapshot that the JAX
-`SceneBuilder.build` keeps (`_host_np`); the kernel bake builds its own
-sphere and triangle BVHs from them (`ops/cuda_trace.py`), so the scene
-carries none.
+`SceneBuilder.build` keeps (`_host_np`); beside them, as there, the XLA
+engine's sphere and triangle BVHs (`accel.traverse`) above 64 primitives;
+the kernel bake builds its own from the tables (`ops/cuda_trace.py`).
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from typing import Optional, Sequence, Union
 
 import numpy as np
 
+from ..accel import bvh as bvh_mod
 from .types import (
     DIELECTRIC,
     DIFFUSE_LIGHT,
@@ -53,6 +54,7 @@ BLACK = (0.0, 0.0, 0.0)    # reference `scenes.h:73`
 
 ColorLike = Union[tuple, list, np.ndarray]
 _PAD = 4  # pad primitive tables to a multiple of this
+BVH_THRESHOLD = 64  # the XLA engine's BVHs above this many spheres, triangles
 
 
 def _rot_y(p: np.ndarray, degrees: float) -> np.ndarray:
@@ -328,7 +330,11 @@ class SceneBuilder:
     # -- packing -----------------------------------------------------------
 
     def build(self) -> Scene:
-        """Pack everything into the Scene tables (host numpy arrays)."""
+        """Pack everything into the Scene tables (host numpy arrays), with
+        a triangle BVH above BVH_THRESHOLD triangles and a sphere BVH above
+        BVH_THRESHOLD spheres, as the JAX builder's `bvh="auto"` gives
+        them: the XLA engine's BVHs (`accel.traverse`); the kernel bake
+        builds its own."""
         if not self._mat:
             self.lambertian((0.5, 0.5, 0.5))
         if not self._tex:
@@ -346,13 +352,19 @@ class SceneBuilder:
             scale=np.asarray([t["scale"] for t in self._tex], np.float32),
             image_id=np.asarray([t["image_id"] for t in self._tex], np.int32),
         )
+        tri_cols = self._tri_columns()
+        tri_bvh = (bvh_mod.build_triangle_bvh(tri_cols)
+                   if self.n_tris > BVH_THRESHOLD else None)
+        sph_bvh = (bvh_mod.build_sphere_bvh(self._spheres)
+                   if len(self._spheres) > BVH_THRESHOLD else None)
         return Scene(
             spheres=self._pack_spheres(), rects=self._pack_rects(),
             boxes=self._pack_boxes(),
-            triangles=_pack_tris(self._tri_columns()),
+            triangles=_pack_tris(tri_cols),
             materials=materials, textures=textures,
             atlas=self._pack_atlas(),
             background=np.asarray(self.background, np.float32),
+            tri_bvh=tri_bvh, sphere_bvh=sph_bvh,
             has_sphere_media=any(s["medium"] for s in self._spheres),
             has_box_media=any(b["medium"] for b in self._boxes),
         )

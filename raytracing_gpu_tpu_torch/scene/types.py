@@ -157,8 +157,9 @@ class Scene:
     textures: Textures
     atlas: ImageAtlas
     background: np.ndarray  # (3,) miss color (reference `scenes.h:69-78`)
-    # the XLA engine's BVHs, not ported: always None (the kernel bake builds
-    # the sphere and triangle BVHs from the tables, ops/cuda_trace.py)
+    # the XLA engine's BVHs (accel.bvh.FlatBVH, accel/traverse.py), None
+    # below the builder's threshold; the kernel bake builds its own from
+    # the tables (ops/cuda_trace.py)
     tri_bvh: Optional[Any] = None
     sphere_bvh: Optional[Any] = None
     has_sphere_media: bool = True

@@ -258,3 +258,46 @@ def test_samplers_follow_the_reference_rules():
     again = trng.unit_vector(torch.Generator().manual_seed(5), (4,))
     first = trng.unit_vector(torch.Generator().manual_seed(5), (4,))
     assert torch.equal(again, first)
+
+
+def test_hit_reference_takes_the_octant_walks_winner(golden, big_tracer):
+    """Under a sphere BVH the plain version walks as `rt_hit` does: with
+    one leaf's box moved out of every ray's way (a node box a ray rounds
+    out of, made certain), the spheres of that leaf are lost to the walk,
+    and `hit_reference` returns the octant walk's winner, not the dense
+    loop's."""
+    bake = big_tracer.bake
+    o, d, tm, alive = _rays(golden, 0)
+    o3, d3 = tuple(o.unbind(1)), tuple(d.unbind(1))
+    t_min = ct._f32(0.001)
+    big = torch.full_like(tm, ct.BIG)
+    dense = ct._closest_sphere(bake.sphere_table, o3, d3, tm, t_min, big)
+    start = bake.sph_start[:, 0]
+    leaves = np.nonzero(start >= 0)[0]
+    wins = [int(((dense.row >= start[m]) & (dense.row < start[m] + ct.
+                 SPH_LEAF_K) & dense.better & alive).sum()) for m in leaves]
+    leaf = int(leaves[int(np.argmax(wins))])
+    assert max(wins) > 20
+    nodes, hit_nodes = bake.sph_nodes.copy(), bake.sph_hit_nodes.copy()
+    nodes[leaf, :6] = hit_nodes[leaf, :6] = 1e4  # a point no ray reaches
+    moved = bake._replace(sph_nodes=nodes, sph_hit_nodes=hit_nodes)
+    walk = ct.sphere_walk_reference(moved, o3, d3, tm, t_min, big, alive,
+                                    octant=True)
+    got = ct.hit_reference(moved, o, d, tm, alive)
+    lost = (alive & dense.better & (dense.row >= int(start[leaf]))
+            & (dense.row < int(start[leaf]) + ct.SPH_LEAF_K))
+    assert int(lost.sum()) == max(wins)
+    hit = ((got.packed >> 16) & 1).bool()
+    assert torch.equal(hit, walk.better)
+    p = torch.stack([a + walk.t * b for a, b in zip(o3, d3)], dim=-1)
+    assert torch.equal(got.p[hit], p[hit])
+    mat = torch.as_tensor(bake.sphere_table[:, ct.SPHERE_SH + ct.SH_MAT])
+    assert torch.equal((got.packed & 0xFFFF)[hit],
+                       mat[walk.row][hit].to(torch.int32))
+    # the dense loop's winner is gone from every lane that had it
+    assert not (walk.row[lost & walk.better] == dense.row[lost
+                                                          & walk.better]
+                ).any()
+    # on the true bake the walk keeps every dense winner
+    same = ct.hit_reference(bake, o, d, tm, alive)
+    assert torch.equal(((same.packed >> 16) & 1).bool(), dense.better & alive)

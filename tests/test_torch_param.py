@@ -81,8 +81,9 @@ def test_record_walk_refuses_russian_roulette():
     with pytest.raises(ValueError, match="russian roulette"):
         render.compile_param_renderer(sd.scene, sd.camera,
                                       _settings(sd, rr_start=1), device="cpu")
-    with pytest.raises(NotImplementedError, match="xla"):
-        render.compile_param_renderer(sd.scene, sd.camera, _settings(sd),
+    with pytest.raises(ValueError, match="russian roulette"):
+        render.compile_param_renderer(sd.scene, sd.camera,
+                                      _settings(sd, rr_start=1),
                                       engine="xla", device="cpu")
     with pytest.raises(ValueError, match="debug_stats"):
         render.compile_param_renderer(sd.scene, sd.camera, _settings(sd),

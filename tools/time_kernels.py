@@ -31,6 +31,10 @@ device held), and, in a checkout that has it, the record chunk launch
 the forward chunk launch and its per-wave launches, the triangle walk of
 both, and its centre wave alone (as the set "bvh" times it).
 
+The set "bound": the bound of the "train" set's backpack chunk
+(`chip_smoke.backpack_chunk_bound`: the plain walk's work on every 7th of
+the chunk's 32 waves, scaled to the chunk).
+
 The set "profile": `bench_torch.py`'s training render (Cornell, 8 chunks
 of 8 spp) and one chunk of big_scene1's (800x450, 16 spp, depth 16), each
 forward plus backward: its wall time on the host clock and, from a
@@ -72,7 +76,8 @@ def main() -> int:
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     ap.add_argument("--sets", default="chunks,train,bvh",
-                    help="comma-separated: chunks, train, profile, bvh")
+                    help="comma-separated: chunks, train, bound, profile, "
+                         "bvh")
     args = ap.parse_args()
     sets = set(args.sets.split(","))
     tree = os.path.abspath(args.tree)
@@ -171,6 +176,17 @@ def main() -> int:
         time("1d-t backpack forward centre wave, 65536 rays, depth 16",
              lambda r: wave(65536 * cs.MESH_WAVE, 65536,
                             cuda_trace.wave_seed(base, r, 1)))
+    if "bound" in sets:
+        from raytracing_gpu_tpu_torch.utils import roofline
+
+        # the rates every bound divides by, as chip_smoke.py's phase 4
+        cs.Ceilings.flops = max(roofline.fma_ceiling(dev)["flops_per_s"],
+                                roofline.card_peaks(dev)["flops_per_s"])
+        cs.Ceilings.bytes_per_s = max(
+            roofline.hbm_ceiling(dev)["bytes_per_s"],
+            roofline.card_peaks(dev)["bytes_per_s"])
+        ms["backpack chunk, bound"] = cs.backpack_chunk_bound(
+            card, base)["backpack_chunk_bound_ms"]
     if "profile" in sets:
         import time as clock
 
