@@ -33,9 +33,17 @@ and power limit (`power_limit`, from nvidia-smi).  A workload that fails
 prints an error row, and the script then exits 1.  Exits non-zero, with
 no result line, when no CUDA device is available.
 
-Not here yet: `bench_all.py`'s `--scaling`, `--weak` and `--cpu-mesh`
-options and its shard-overhead rows, which wait for the port's parallel
-render (ROADMAP A10).
+`--scaling` adds `bench_all.py`'s scaling rows (:257-301): `first`
+(400x225, 8 spp, or 8 * dp under `--weak`, depth 8, waves of 8,192) on
+dp = 1, 2, 4, 8 ranks of a world of one rank a card, up to its size,
+each chunk through `parallel.render.compile_sharded_renderer`; and its
+shard-overhead rows (:304-378): the ms of one `all_reduce` of a
+(512*512/2, 3) float32 array over the sp group of a mesh of every rank,
+and the chunk of a tiny workload (64 wide, 1 spp, depth 2) on each dp.
+`--cpu-mesh N` runs those rows alone on N gloo ranks of the CPU (the
+kernels' plain versions: it checks the harness, and measures no card).
+A row from ranks that share a card says so (`shared_card`): it is not
+scaling across cards.
 """
 
 from __future__ import annotations
@@ -242,6 +250,125 @@ def bench_grad(which: str, dev) -> dict:
     return grad_row(which, st, seconds, chunk.engine_name)
 
 
+# bench_all.py:276-279, :336-337, :360-366
+SCALING = dict(scene="first", width=400, aspect=16 / 9, spp=8, depth=8,
+               ray_batch=8192)
+TINY = dict(scene="first", width=64, aspect=16 / 9, spp=1, depth=2,
+            ray_batch=1024)
+SCALING_DPS = (1, 2, 4, 8)
+PSUM_ROWS = 512 * 512 // 2
+PSUM_REPS = (8, 32)
+
+
+def scaling_rank(device, weak: bool = False, scaling: dict = SCALING,
+                 tiny: dict = TINY) -> list:
+    """One rank of the `--scaling` world (every rank calls it): the scaling
+    rows, then the shard-overhead rows, timed on rank 0 between barriers
+    of the world.  Returns the rows (rank 0's are the measured ones)."""
+    import torch
+    import torch.distributed as dist
+
+    from raytracing_gpu_tpu_torch import RenderSettings
+    from raytracing_gpu_tpu_torch.models import scenes
+    from raytracing_gpu_tpu_torch.parallel.mesh import make_mesh
+    from raytracing_gpu_tpu_torch.parallel.render import (
+        compile_sharded_renderer)
+    from raytracing_gpu_tpu_torch.utils.profiling import synchronize
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    backend = dist.get_backend() if dist.is_initialized() else "none"
+    cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    label = dict(backend=backend, shared_card=0 < cards < world)
+
+    def barrier():
+        synchronize(device)
+        if world > 1:
+            dist.barrier()
+
+    def timed(run, reps: int) -> float:
+        barrier()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            run()
+        barrier()
+        return time.perf_counter() - t0
+
+    def settings(shape: dict, spp: int):
+        return RenderSettings(image_width=shape["width"],
+                              aspect_ratio=shape["aspect"],
+                              spp_per_chunk=spp, num_chunks=1,
+                              max_depth=shape["depth"],
+                              ray_batch=shape["ray_batch"])
+
+    def chunk_seconds(shape: dict, spp: int, dp: int, reps: int) -> tuple:
+        st = settings(shape, spp)
+        mesh = make_mesh(1, dp, ranks=range(dp))   # every rank makes groups
+        sd = scenes.get(shape["scene"])
+        run = lambda: None                          # noqa: E731
+        if mesh.member:
+            chunk = compile_sharded_renderer(sd.scene, sd.camera, st, mesh,
+                                             device=device)
+            run = lambda: chunk(7)                  # noqa: E731
+        timed(run, 1)                               # warm-up
+        return st, timed(run, reps) / reps
+
+    rows, base = [], None
+    for dp in SCALING_DPS:
+        if dp > world:
+            break
+        spp = scaling["spp"] * dp if weak else scaling["spp"]
+        st, dt = chunk_seconds(scaling, spp, dp, 2)
+        rate = rays(st) / dt / 1e6
+        base = rate if base is None else base
+        rows.append(dict(mode="weak-scaling" if weak else "scaling",
+                         devices=dp, mrays_per_s=rate,
+                         efficiency=rate / (base * dp), config="scaling",
+                         **label))
+
+    mesh = make_mesh(n_sp=world)
+    x = torch.ones((PSUM_ROWS, 3), dtype=torch.float32, device=device)
+
+    def psums(reps: int):
+        def run():
+            y = x
+            for i in range(reps):
+                y = mesh.sum_sp(y * (1.0 + 1e-9 * i))
+        return run
+
+    ts = {reps: timed(psums(reps), 1) for reps in PSUM_REPS}
+    lo, hi = PSUM_REPS
+    rows.append(dict(mode="psum-cost", mesh=f"(sp={world},dp=1)",
+                     array=f"({PSUM_ROWS},3) f32/device",
+                     ms_per_psum=(ts[hi] - ts[lo]) / (hi - lo) * 1e3,
+                     config="shard-overhead", **label))
+    for dp in SCALING_DPS:
+        if dp > world:
+            break
+        _st, dt = chunk_seconds(tiny, tiny["spp"], dp, 4)
+        rows.append(dict(mode="tiny-workload-overhead", devices=dp,
+                         ms_per_chunk=dt * 1e3, config="shard-overhead",
+                         **label))
+    return rows
+
+
+def bench_scaling(weak: bool, cpu_mesh: int) -> list:
+    """The scaling and shard-overhead rows from a spawned world: one rank
+    a card (NCCL), or `cpu_mesh` gloo ranks on the CPU."""
+    import torch
+
+    from raytracing_gpu_tpu_torch.parallel import dryrun
+
+    if cpu_mesh:
+        n, device = cpu_mesh, "cpu"
+    else:
+        from raytracing_gpu_tpu_torch.ops import build
+
+        build.load()   # once, before the ranks load it
+        n, device = torch.cuda.device_count(), "cuda"
+    return dryrun.spawn(n, "bench_all_torch:scaling_rank", {"weak": weak},
+                        device=device, deadline=1800.0)[0]
+
+
 def parse_configs(text: str) -> list:
     """`--configs` as `bench_all.py` reads it: a comma-separated subset of
     1-5, where 5 brings 5-rr along."""
@@ -255,11 +382,7 @@ def parse_configs(text: str) -> list:
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(
-        description=__doc__.split("\n\n")[0],
-        epilog="bench_all.py's --scaling, --weak and --cpu-mesh options and "
-               "its shard-overhead rows wait for the port's parallel render "
-               "(ROADMAP A10).")
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--spp-scale", type=int, default=1,
                     help="divide the declared spp by this (rays/s is "
                          "intensive)")
@@ -269,40 +392,57 @@ def main(argv=None) -> int:
                     help="also run the backpack gradient row")
     ap.add_argument("--configs", default="1,2,3,4,5",
                     help="comma-separated subset of configs to run")
+    ap.add_argument("--scaling", action="store_true",
+                    help="also run the dp = 1, 2, 4, 8 scaling rows and the "
+                         "shard-overhead rows, on one rank a card")
+    ap.add_argument("--weak", action="store_true",
+                    help="the scaling rows keep each rank's work constant "
+                         "(spp scales with dp)")
+    ap.add_argument("--cpu-mesh", type=int, default=0, metavar="N",
+                    help="run only the scaling and shard-overhead rows, on N "
+                         "gloo ranks of the CPU (the plain versions)")
     ap.add_argument("--json-out", default=None)
     args = ap.parse_args(argv)
     if args.spp_scale < 1:
         ap.error("--spp-scale must be at least 1")
+    if args.cpu_mesh < 0:
+        ap.error("--cpu-mesh must be at least 1")
+    if args.cpu_mesh and (args.earth_grad or args.mesh_grad):
+        ap.error("--cpu-mesh runs the scaling rows alone")
     try:
-        run = parse_configs(args.configs)
+        run = [] if args.cpu_mesh else parse_configs(args.configs)
     except ValueError as e:
         ap.error(str(e))
 
     import torch
 
-    if not torch.cuda.is_available():
-        raise SystemExit("bench_all_torch: torch.cuda.is_available() is "
-                         "False; this benchmark needs a CUDA device")
     sys.path.insert(0, ROOT)
     import bench_torch
 
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-    card = dict(device=torch.cuda.get_device_name(0),
-                power_limit=bench_torch.power_limit())
+    if args.cpu_mesh:
+        card = dict(device="cpu", power_limit=None)
+    elif not torch.cuda.is_available():
+        raise SystemExit("bench_all_torch: torch.cuda.is_available() is "
+                         "False; this benchmark needs a CUDA device")
+    else:
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        card = dict(device=torch.cuda.get_device_name(0),
+                    power_limit=bench_torch.power_limit())
     results, failed = [], []
 
     def record(tag, thunk):
         # one failed workload must not lose the others' numbers
         try:
-            row = thunk()
+            rows = thunk()
         except Exception as e:  # noqa: BLE001 - printed as an error row
-            row = dict(config=tag, error=f"{type(e).__name__}: {e}"[:500])
+            rows = dict(config=tag, error=f"{type(e).__name__}: {e}"[:500])
             failed.append(tag)
-        row.setdefault("config", tag)
-        row.update(card)
-        results.append(row)
-        print(json.dumps(row), flush=True)
+        for row in rows if isinstance(rows, list) else [rows]:
+            row.setdefault("config", tag)
+            row.update(card)
+            results.append(row)
+            print(json.dumps(row), flush=True)
 
     for tag in run:
         if tag == "3":
@@ -314,6 +454,8 @@ def main(argv=None) -> int:
         record("earth-grad", lambda: bench_grad("earth", dev))
     if args.mesh_grad:
         record("mesh-grad", lambda: bench_grad("mesh", dev))
+    if args.scaling or args.cpu_mesh:
+        record("scaling", lambda: bench_scaling(args.weak, args.cpu_mesh))
 
     if args.json_out:
         with open(args.json_out, "w") as f:

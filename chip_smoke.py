@@ -297,7 +297,24 @@ kernel on the way.  Phases, each of which raises on failure:
    resumed from its checkpoint by a fresh renderer: equal to the
    uninterrupted render bit for bit;
 41. `bench_all_torch.py`'s rows (configs 1, 2, 4, 5, 5-rr, earth-grad,
-   mesh-grad) at `--spp-scale` BENCH_SPP_SCALE, each finite.
+   mesh-grad) at `--spp-scale` BENCH_SPP_SCALE, each finite;
+42. `parallel/`: (a) a world of one rank (NCCL), where config 3's training
+   chunk (Cornell 512x512, 8 spp, depth 8, waves of 32,768, the record
+   chunk launch) on a 1x1 mesh equals the unsharded chunk bit for bit,
+   primal and gradients, and config 2 (big_scene1 800x450, 2 x 16 spp,
+   depth 16) through `make_sharded_chunk_fn` and `render_linear` takes
+   regen and equals the regen body run without a process group bit for bit
+   (deterministic `index_add_`) and the unsharded regen render
+   statistically (mean within 3% + 5e-3, correlation > 0.9); (b) two
+   spawned ranks that share the card (gloo, `distributed.choose_backend`):
+   the training chunk at (sp, dp) = (2, 1) and (1, 2) against (a)'s
+   unsharded chunk (primal rtol 1e-6 / atol 1e-7, gradients within 2e-5
+   of their scale), config 2 at (1, 2) on regen (statistically) and one
+   16-spp chunk at (2, 1) on the megakernel route (kernel 1c) against
+   `render.chunk_sums` over `Tracer.__call__` (rtol 2e-5, atol 1e-5),
+   with each rank's launch counts (each route's kernel > 0), Mrays/s and
+   the ms of an sp `all_reduce` of a (512*512/2, 3) float32 array; then
+   whether NCCL takes two ranks on one card.
 
 Prints each phase's seconds, a JSON line of kernels, the card's name and
 power limit, and as its last line `{"ok": true, "device": {...}}`.  Exits
@@ -429,6 +446,17 @@ XLA_TRAIN = (512, 8, 1, 8, 32768)  # one Cornell training chunk
 RESUME = (512, 16, 4, 8, 2)        # width, spp, chunks, depth, stop after
 XLA_SUB_SPP = 1  # phase 40's profiled sub-runs: the same waves, 1 spp
 BENCH_SPP_SCALE = 16               # bench_all_torch.py's rows in phase 41
+# Phase 42 (parallel/): config 3's training chunk (Cornell: width, spp,
+# depth, ray batch) and config 2's render (big_scene1: width, spp per
+# chunk, chunks, depth, ray batch), on a world of one rank and on two ranks
+# that share the card, at (sp, dp) = (2, 1) and (1, 2)
+PAR_TRAIN = (512, 8, 8, 32768)
+PAR_SERVE = (800, 16, 2, 16, 65536)
+PAR_MESHES = ((2, 1), (1, 2))
+PAR_DEADLINE = 240.0     # the two-rank world
+NCCL_DEADLINE = 45.0     # the NCCL probe on two ranks of one card
+PAR_ALL_REDUCE = (512 * 512 // 2, (8, 32))  # rows of the array, repetitions
+PAR_STAT = (0.03, 5e-3, 0.9)  # regen: mean within 3% + 5e-3, correlation
 # The Cornell forward wave (65,536 rays, depth 8) of the kernel before it
 # took spheres and media, H100 80GB HBM3 at 700 W (PERF.md, section 6)
 CORNELL_WAVE_MS_BEFORE = "0.0293-0.0294"
@@ -3259,6 +3287,342 @@ def xla_phases(dev, card: str, base: int) -> None:
                 raise AssertionError(f"bench row {row['scene']} is off")
 
 
+def par_settings(kind: str):
+    """Phase 42's Cornell training chunk or big_scene1 render settings."""
+    from raytracing_gpu_tpu_torch import RenderSettings
+    from raytracing_gpu_tpu_torch.models import scenes
+
+    if kind == "train":
+        width, spp, depth, batch = PAR_TRAIN
+        return RenderSettings(image_width=width, aspect_ratio=1.0,
+                              spp_per_chunk=spp, num_chunks=1,
+                              max_depth=depth, ray_batch=batch)
+    width, spp, chunks, depth, batch = PAR_SERVE
+    return RenderSettings(image_width=width,
+                          aspect_ratio=scenes.get(BIG).aspect,
+                          spp_per_chunk=spp, num_chunks=chunks,
+                          max_depth=depth, ray_batch=batch)
+
+
+def par_barrier(dev) -> None:
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.synchronize(dev)
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+
+
+def par_timed(dev, fn) -> tuple:
+    """(fn's result, launch counts, seconds) between barriers of the
+    world, the counts set to 0 just before."""
+    par_barrier(dev)
+    t0 = time.perf_counter()
+    out, counts = counted(fn)
+    par_barrier(dev)
+    return out, counts, time.perf_counter() - t0
+
+
+def par_train(dev, mesh, base: int) -> dict:
+    """Config 3's training chunk (`compile_fused_param_renderer`, gen_rays)
+    on `mesh`, or unsharded for None: the primal on the image, the L2 loss
+    against a zero target and its gradients, counted and timed."""
+    import torch
+
+    from raytracing_gpu_tpu_torch.engine import diff, fused_diff
+    from raytracing_gpu_tpu_torch.models import scenes
+
+    st = par_settings("train")
+    sd = scenes.get("cornell_box")
+    chunk = fused_diff.compile_fused_param_renderer(sd.scene, sd.camera, st,
+                                                    device=dev, mesh=mesh)
+    params = diff.get_params(sd.scene, dev)
+    npix = st.num_pixels
+    seen = {}
+
+    def render_fn(p):
+        seen["primal"] = chunk(p, base)[:npix]
+        return seen["primal"]
+
+    target = torch.zeros(npix, 3, device=dev)
+    diff.value_and_grad(params, render_fn, target)   # warm-up
+    (loss, grads), counts, sec = par_timed(dev, lambda: diff.value_and_grad(
+        params, render_fn, target))
+    return dict(primal=seen["primal"].detach().cpu(), loss=loss.cpu(),
+                grads={k: v.cpu() for k, v in grads.items()}, counts=counts,
+                seconds=sec, mrays_per_s=npix * st.spp_per_chunk / sec / 1e6)
+
+
+def par_serve(dev, mesh) -> dict:
+    """Config 2's render through `make_sharded_chunk_fn` and
+    `render_linear` on `mesh`, counted and timed."""
+    import torch
+
+    from raytracing_gpu_tpu_torch.engine.render import render_linear
+    from raytracing_gpu_tpu_torch.models import scenes
+    from raytracing_gpu_tpu_torch.parallel.render import make_sharded_chunk_fn
+
+    st = par_settings("serve")
+    sd = scenes.get(BIG)
+    chunk_fn = make_sharded_chunk_fn(mesh, sd.scene, sd.camera, st,
+                                     device=dev)
+    linear, counts, sec = par_timed(dev, lambda: render_linear(
+        sd.scene, sd.camera, st, device=dev, chunk_fn=chunk_fn))
+    return dict(engine=chunk_fn.engine_name, linear=torch.from_numpy(linear),
+                counts=counts, seconds=sec,
+                mrays_per_s=st.num_pixels * st.rays_per_pixel / sec / 1e6)
+
+
+def par_megakernel(dev, mesh, base: int) -> dict:
+    """One 16-spp chunk of config 2 through `compile_sharded_renderer` on
+    `mesh` (2, 1): 8 spp a rank, so the megakernel route, kernel 1c on
+    torch-drawn rays.  The whole frame, counted and timed."""
+    from raytracing_gpu_tpu_torch.models import scenes
+    from raytracing_gpu_tpu_torch.parallel.render import (
+        compile_sharded_renderer)
+
+    st = par_settings("serve")
+    sd = scenes.get(BIG)
+    chunk = compile_sharded_renderer(sd.scene, sd.camera, st, mesh,
+                                     device=dev)
+    frame, counts, sec = par_timed(dev, lambda: mesh.gather_dp(chunk(base)))
+    return dict(engine=chunk.engine_name,
+                frame=frame[:st.num_pixels].cpu(), counts=counts,
+                seconds=sec,
+                mrays_per_s=st.num_pixels * st.spp_per_chunk / sec / 1e6)
+
+
+def par_all_reduce_ms(dev, mesh) -> float:
+    """ms of one `all_reduce` of a (512 * 512 / 2, 3) float32 array over
+    the sp group of `mesh`, by the difference of two runs of repeated
+    reduces (bench_all.py:341-355)."""
+    import torch
+
+    rows, (lo, hi) = PAR_ALL_REDUCE
+    x = torch.ones((rows, 3), dtype=torch.float32, device=dev)
+
+    def run(reps: int) -> float:
+        par_barrier(dev)
+        t0 = time.perf_counter()
+        y = x
+        for i in range(reps):
+            y = mesh.sum_sp(y * (1.0 + 1e-9 * i))
+        par_barrier(dev)
+        return time.perf_counter() - t0
+
+    run(lo)   # warm-up
+    return (run(hi) - run(lo)) / (hi - lo) * 1e3
+
+
+def parallel_rank(dev, base: int) -> dict:
+    """One rank of phase 42's two-rank world: config 3's training chunk at
+    (sp, dp) = (2, 1) and (1, 2), config 2's render at (1, 2) (regen) and
+    one of its chunks at (2, 1) (megakernel), and the sp all_reduce."""
+    import torch.distributed as dist
+
+    from raytracing_gpu_tpu_torch.parallel.mesh import make_mesh
+
+    meshes = {f"{s}x{d}": make_mesh(s, d) for s, d in PAR_MESHES}
+    out = dict(rank=dist.get_rank(), backend=dist.get_backend())
+    for name, mesh in meshes.items():
+        out[f"train_{name}"] = par_train(dev, mesh, base)
+    out["regen_1x2"] = par_serve(dev, meshes["1x2"])
+    out["megakernel_2x1"] = par_megakernel(dev, meshes["2x1"], base)
+    out["all_reduce_ms"] = par_all_reduce_ms(dev, meshes["2x1"])
+    return out
+
+
+def nccl_rank(dev) -> dict:
+    """One NCCL all_reduce, on ranks that may share a card."""
+    import torch
+    import torch.distributed as dist
+
+    x = torch.ones(4, device=dev)
+    dist.all_reduce(x)
+    torch.cuda.synchronize(dev)
+    return dict(sum=x.cpu())
+
+
+def stat_cmp(got, want) -> dict:
+    """tests/test_parallel.py's rule for two regen estimates (mean within
+    3% + 5e-3, correlation > 0.9), with the per-channel z-scores."""
+    import numpy as np
+
+    a = np.asarray(got, np.float64).reshape(-1, 3)
+    b = np.asarray(want, np.float64).reshape(-1, 3)
+    rel, floor, corr_min = PAR_STAT
+    corr = float(np.corrcoef(a.reshape(-1), b.reshape(-1))[0, 1])
+    mean_err = abs(float(a.mean()) - float(b.mean()))
+    return dict(ok=mean_err < rel * float(b.mean()) + floor
+                and corr > corr_min, mean=float(a.mean()),
+                want_mean=float(b.mean()), corr=corr,
+                z=[float(z) for z in z_scores(a, b)])
+
+
+def train_cmp(got: dict, want: dict) -> dict:
+    """A sharded training chunk against the unsharded one: the primal
+    within rtol 1e-6 / atol 1e-7 and the gradients within 2e-5 of their
+    scale (tests/test_parallel.py), with the bit-exact shares."""
+    import torch
+
+    res = dict(ok=bool(torch.allclose(got["primal"], want["primal"],
+                                      rtol=1e-6, atol=1e-7)),
+               primal_exact=float((got["primal"] == want["primal"])
+                                  .double().mean()),
+               primal_max_abs_err=float((got["primal"] - want["primal"])
+                                        .abs().max()))
+    for k, w in want["grads"].items():
+        err = float((got["grads"][k] - w).abs().max())
+        scale = float(w.abs().max()) + 1e-12
+        res[f"{k}_rel_err"] = err / scale
+        res["ok"] = res["ok"] and err <= 2e-5 * scale
+    return res
+
+
+def parallel_phases(dev, card: str, base: int) -> dict:
+    """Phase 42: `parallel/` on a world of one rank (NCCL) at full width,
+    then on two spawned ranks that share the card; returns each kernel's
+    launches on those paths, for the kernels line."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from raytracing_gpu_tpu_torch.engine import render as render_mod
+    from raytracing_gpu_tpu_torch.engine.wavefront import (
+        compile_regen_renderer)
+    from raytracing_gpu_tpu_torch.models import scenes
+    from raytracing_gpu_tpu_torch.ops import cuda_trace
+    from raytracing_gpu_tpu_torch.parallel import distributed, dryrun
+    from raytracing_gpu_tpu_torch.parallel.mesh import make_mesh
+    from raytracing_gpu_tpu_torch.parallel.render import REGEN_SALT
+
+    st = par_settings("serve")
+    sd = scenes.get(BIG)
+    npix = st.num_pixels
+    with Phase("42 parallel: a world of one rank"):
+        dist.init_process_group(
+            "nccl", init_method=f"tcp://localhost:{dryrun.free_port()}",
+            world_size=1, rank=0, timeout=datetime.timedelta(seconds=60))
+        try:
+            x = torch.ones(4, device=dev)
+            dist.all_reduce(x)
+            mesh = make_mesh()
+            one = par_train(dev, mesh, base)
+            single = par_train(dev, None, base)
+            exact = (torch.equal(one["primal"], single["primal"])
+                     and all(torch.equal(one["grads"][k], single["grads"][k])
+                             for k in single["grads"]))
+            print(f"[parallel] world of one ({dist.get_backend()}), config 3"
+                  f" training chunk {PAR_TRAIN}: sharded on {mesh} equals "
+                  f"the unsharded chunk bit for bit {exact} (primal and "
+                  f"gradients); launches {one['counts']} against "
+                  f"{single['counts']}; {one['mrays_per_s']:.6f} against "
+                  f"{single['mrays_per_s']:.6f} Mrays/s on {card}")
+            if not exact or one["counts"]["record_chunk"] == 0:
+                raise AssertionError("the 1x1 training chunk differs from "
+                                     "the unsharded one")
+            # index_add_ sums in a fixed order only in deterministic mode
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                served = par_serve(dev, mesh)
+                body = compile_regen_renderer(
+                    sd.scene, sd.camera, st, device=dev,
+                    _local=(npix, st.spp_per_chunk))
+                sums = torch.zeros((npix, 3), dtype=torch.float32,
+                                   device=dev)
+                for b in render_bases(st):
+                    sums += body(cuda_trace.wave_seed(b, REGEN_SALT, 0),
+                                 0)[:npix]
+                local = (sums / float(st.rays_per_pixel)).cpu().reshape(
+                    st.image_height, st.image_width, 3)
+            finally:
+                torch.use_deterministic_algorithms(False)
+            plain = torch.from_numpy(render_mod.render_linear(
+                sd.scene, sd.camera, st, device=dev))
+            body_exact = torch.equal(served["linear"], local)
+            scmp = stat_cmp(served["linear"], plain)
+            print(f"[parallel] world of one, config 2 {PAR_SERVE}: engine "
+                  f"{served['engine']}, equals the regen body without a "
+                  f"process group bit for bit {body_exact}; against the "
+                  f"unsharded regen render {scmp}; launches "
+                  f"{served['counts']}, {served['mrays_per_s']:.6f} Mrays/s "
+                  f"on {card}")
+            if not (served["engine"] == "regen" and body_exact and scmp["ok"]
+                    and served["counts"]["hit"] > 0):
+                raise AssertionError("the 1x1 regen render is off")
+        finally:
+            dist.destroy_process_group()
+
+    with Phase("42 parallel: two ranks on one card"):
+        backend = distributed.choose_backend("cuda", 2)
+        t0 = time.perf_counter()
+        ranks = dryrun.spawn(2, "chip_smoke:parallel_rank", {"base": base},
+                             device="cuda", deadline=PAR_DEADLINE)
+        world_s = time.perf_counter() - t0
+        tracer = cuda_trace.Tracer(sd.scene, dev)
+        want_mega = render_mod.chunk_sums(
+            sd.scene, sd.camera, st, base,
+            lambda _sc, o, d, tm, seed: tracer(o, d, tm, seed, st.max_depth,
+                                               st.t_min), dev)[:npix].cpu()
+        launches = dict(train={}, regen={}, megakernel={})
+        for r, out in enumerate(ranks):
+            res = dict(backend=out["backend"])
+            for name in ("2x1", "1x2"):
+                t = out[f"train_{name}"]
+                res[f"train_{name}"] = dict(train_cmp(t, single),
+                                            counts=t["counts"],
+                                            mrays_per_s=t["mrays_per_s"])
+            rg = out["regen_1x2"]
+            res["regen_1x2"] = dict(stat_cmp(rg["linear"], plain),
+                                    engine=rg["engine"], counts=rg["counts"],
+                                    mrays_per_s=rg["mrays_per_s"])
+            mk = out["megakernel_2x1"]
+            res["megakernel_2x1"] = dict(
+                ok=bool(torch.allclose(mk["frame"], want_mega, rtol=2e-5,
+                                       atol=1e-5)),
+                max_abs_err=float((mk["frame"] - want_mega).abs().max()),
+                engine=mk["engine"], counts=mk["counts"],
+                mrays_per_s=mk["mrays_per_s"])
+            res["all_reduce_ms"] = out["all_reduce_ms"]
+            print(f"[parallel] rank {r} of 2 on one card ({out['backend']}):"
+                  f" {json.dumps(res)} on {card}")
+            launches["train"][f"rank{r}"] = sum(
+                res[f"train_{m}"]["counts"]["record_chunk"]
+                for m in ("2x1", "1x2"))
+            launches["regen"][f"rank{r}"] = rg["counts"]["hit"]
+            launches["megakernel"][f"rank{r}"] = mk["counts"]["ray"]
+            if not (out["backend"] == backend
+                    and all(res[f"train_{m}"]["ok"] for m in ("2x1", "1x2"))
+                    and res["regen_1x2"]["ok"] and rg["engine"] == "regen"
+                    and res["megakernel_2x1"]["ok"]
+                    and mk["engine"] == "megakernel"
+                    and all(res[f"train_{m}"]["counts"]["record_chunk"] > 0
+                            for m in ("2x1", "1x2"))
+                    and rg["counts"]["hit"] > 0 and mk["counts"]["ray"] > 0):
+                raise AssertionError(f"rank {r}: a sharded route is off or "
+                                     "launched no kernel")
+        print(f"[parallel] the two-rank world took {world_s:.6f} s (spawn "
+              f"included); ranks share one card, so its rates are not "
+              f"scaling across cards; on {card}")
+        try:
+            dryrun.spawn(2, "chip_smoke:nccl_rank", device="cuda",
+                         backend="nccl", deadline=NCCL_DEADLINE)
+            nccl = "accepted"
+        except (RuntimeError, TimeoutError) as e:
+            lines = [ln for ln in str(e).splitlines()
+                     if "Duplicate GPU" in ln or "ncclInvalidUsage" in ln
+                     or "Error" in ln]
+            lines.sort(key=lambda ln: "Duplicate GPU" not in ln)
+            nccl = "refused: " + (lines[0][:300] if lines else
+                                  type(e).__name__)
+        print(f"[parallel] NCCL with two ranks on one card: {nccl}; the "
+              f"backend chosen for ranks that share a card: {backend}")
+    launches["world1"] = dict(train=one["counts"]["record_chunk"],
+                              regen=served["counts"]["hit"])
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--png", default=os.path.join(ROOT, "build",
@@ -3770,6 +4134,10 @@ def main() -> int:
             build_log, "megakernel_fwd",
             cuda_trace.bake_scene(scenes.get("triangles").scene).features())
     xla_phases(dev, card, base)
+    par = parallel_phases(dev, card, base)
+    hit_row["sharded_launches"] = dict(par["regen"],
+                                       world1=par["world1"]["regen"])
+    train_rows[3]["sharded_launches"] = par["megakernel"]
     chunk_fields(train_rows[0], rchunks[BIG])
     chunk_fields(train_rows[1], rchunks["triangles"])
     record_row = {
@@ -3782,7 +4150,9 @@ def main() -> int:
         "wave_loop_ms": rec_loop_ms,
         "train_mrays_per_s": t_mrays,
         "train_device_busy_share": t_busy,
-        "train_peak_allocated_mib": peak_mb}
+        "train_peak_allocated_mib": peak_mb,
+        "sharded_launches": dict(par["train"],
+                                 world1=par["world1"]["train"])}
     chunk_fields(record_row, rchunks["Cornell"])
 
     scene_rates = {name: dict(c) for name, c in configs.items()}

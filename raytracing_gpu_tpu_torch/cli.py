@@ -16,6 +16,18 @@ covers) unless `--quiet`.  `--checkpoint-dir` saves the sums after every
 chunk and resumes a render stopped there; `--profile-dir` writes a
 `torch.profiler` trace of the render; `--debug-nans` stops on the first
 chunk whose sums hold a NaN.
+
+`--sharded` splits each chunk over the ranks of a process group, as an
+(sp, dp) mesh with `--n-sp` on the sample axis (`parallel/`); the group
+comes from `--coordinator-address`, `--num-processes` and `--process-id`
+on every process, or from torchrun:
+
+    torchrun --nproc-per-node 2 -m raytracing_gpu_tpu_torch.cli render \
+        cornell_box --device cpu --sharded --n-sp 2 --width 64 --spp 4
+
+Every rank renders its share; rank 0 alone logs, saves checkpoints and
+writes the image.  `--multihost` is `--sharded` (the JAX package's flag for
+a mesh over every host's devices).
 """
 
 from __future__ import annotations
@@ -57,6 +69,21 @@ def _build_parser() -> argparse.ArgumentParser:
     r.add_argument("--debug-nans", action="store_true",
                    help="stop on the first chunk whose sums hold a NaN (one "
                         "host read a chunk)")
+    r.add_argument("--sharded", action="store_true",
+                   help="shard each chunk over the ranks of the process "
+                        "group (an sp x dp mesh); the group comes from the "
+                        "--coordinator-* flags or torchrun's environment, "
+                        "else the process renders alone")
+    r.add_argument("--n-sp", type=int, default=1,
+                   help="sample-parallel mesh axis size (with --sharded)")
+    r.add_argument("--multihost", action="store_true",
+                   help="join the process group (implies --sharded): pass "
+                        "the three --coordinator-* flags on every process, "
+                        "or start the processes with torchrun")
+    r.add_argument("--coordinator-address", default=None,
+                   help="host:port of rank 0's rendezvous")
+    r.add_argument("--num-processes", type=int, default=None)
+    r.add_argument("--process-id", type=int, default=None)
     r.add_argument("--quiet", action="store_true")
 
     sub.add_parser("list", help="list registered scenes")
@@ -85,6 +112,7 @@ def main(argv=None) -> int:
     import torch
 
     device = torch.device(args.device)
+    sharded = args.command == "render" and (args.sharded or args.multihost)
     if device.type == "cuda" and not torch.cuda.is_available():
         parser.error("no CUDA device is available; pass --device cpu to "
                      "render with the plain PyTorch version on the CPU")
@@ -121,13 +149,8 @@ def main(argv=None) -> int:
                         max_depth=args.depth, ray_batch=args.ray_batch,
                         seed=args.seed, rr_start=args.rr_start)
 
-    def progress(c, n, dt):
-        if not args.quiet:
-            rays = st.num_pixels * st.spp_per_chunk
-            print(f"chunk {c}/{n}: {dt:.2f}s ({rays / dt / 1e6:.2f} Mrays/s)",
-                  file=sys.stderr)
-
     from .engine import film
+    from .parallel import distributed
     from .utils.profiling import logger
 
     handler = logging.StreamHandler(sys.stderr)
@@ -136,20 +159,44 @@ def main(argv=None) -> int:
     if not args.quiet:  # render_linear logs the engine it takes
         logger.addHandler(handler)
         logger.setLevel(logging.INFO)
-    timer = PhaseTimer()
-    prof = _profiler(device) if args.profile_dir else nullcontext()
-    t0 = time.perf_counter()
     try:
+        chunk_fn = None
+        if sharded:
+            distributed.initialize(args.coordinator_address,
+                                   args.num_processes, args.process_id,
+                                   device=device)
+            device = distributed.rank_device(device)
+        # every rank renders its share; only the coordinator writes
+        # (`cli.py:169-172`)
+        is_coord = distributed.is_coordinator()
+        if not is_coord:
+            logger.removeHandler(handler)
+        if sharded:
+            chunk_fn = _sharded_chunk_fn(args.n_sp, sd, st, device)
+
+        def progress(c, n, dt):
+            if not args.quiet and is_coord:
+                rays = st.num_pixels * st.spp_per_chunk
+                print(f"chunk {c}/{n}: {dt:.2f}s "
+                      f"({rays / dt / 1e6:.2f} Mrays/s)", file=sys.stderr)
+
+        timer = PhaseTimer()
+        prof = _profiler(device) if args.profile_dir else nullcontext()
+        t0 = time.perf_counter()
         with prof:
-            linear = render_linear(sd.scene, sd.camera, st, seed=args.seed,
-                                   progress=progress, device=device,
-                                   timer=timer,
-                                   checkpoint_dir=args.checkpoint_dir,
-                                   debug_nans=args.debug_nans)
+            linear = render_linear(
+                sd.scene, sd.camera, st, seed=args.seed, progress=progress,
+                device=device, timer=timer,
+                checkpoint_dir=args.checkpoint_dir if is_coord else None,
+                debug_nans=args.debug_nans, chunk_fn=chunk_fn)
+        elapsed = time.perf_counter() - t0
     finally:
         logger.removeHandler(handler)
         logger.setLevel(level)
-    elapsed = time.perf_counter() - t0
+        if sharded:
+            distributed.finalize()
+    if not is_coord:
+        return 0
     if args.profile_dir:
         os.makedirs(args.profile_dir, exist_ok=True)
         trace = os.path.join(args.profile_dir, "render_trace.json")
@@ -169,6 +216,22 @@ def main(argv=None) -> int:
               file=sys.stderr)
         print(timer.report(), file=sys.stderr)
     return 0
+
+
+def _sharded_chunk_fn(n_sp: int, sd, st, device):
+    """`parallel.render.make_sharded_chunk_fn` over an (n_sp, world / n_sp)
+    mesh of the process group's ranks, logging its route."""
+    from .parallel.mesh import make_mesh
+    from .parallel.render import make_sharded_chunk_fn
+    from .utils.profiling import logger
+
+    mesh = make_mesh(n_sp=n_sp)
+    chunk_fn = make_sharded_chunk_fn(mesh, sd.scene, sd.camera, st,
+                                     device=device)
+    logger.info("render engine: %s (sharded, sp=%d, dp=%d) on %s",
+                chunk_fn.engine_name, mesh.shape["sp"], mesh.shape["dp"],
+                device)
+    return chunk_fn
 
 
 def _profiler(device):

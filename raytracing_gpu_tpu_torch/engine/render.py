@@ -33,6 +33,7 @@ import torch
 from ..core.camera import Camera
 from ..core.config import RenderSettings
 from ..ops import cuda_trace
+from ..parallel.mesh import DP_AXIS, SP_AXIS
 from ..scene.types import Scene
 from ..utils.profiling import logger, synchronize
 from . import film
@@ -48,6 +49,27 @@ def _grid_geometry(settings: RenderSettings):
 
 def _ceil_to(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
+
+
+def shard_geometry(settings: RenderSettings, mesh):
+    """A chunk's waves on an (sp, dp) `parallel.mesh.Mesh`
+    (`parallel/render.py:47-59`): (b, nb, npix_pad, local_npix, nb_local,
+    spp_local).  Waves of b pixels, nb of them over the image
+    (`_grid_geometry`); the pixel rows padded to npix_pad = a multiple of
+    b * n_dp, split into dp spans of local_npix rows, nb_local waves each;
+    spp_local samples a rank.  Raises ValueError when n_sp does not divide
+    `spp_per_chunk`, or on a rank outside the mesh."""
+    if not mesh.member:
+        raise ValueError("this rank is not in the mesh")
+    n_sp, n_dp = mesh.shape[SP_AXIS], mesh.shape[DP_AXIS]
+    if settings.spp_per_chunk % n_sp:
+        raise ValueError(f"spp_per_chunk={settings.spp_per_chunk} not "
+                         f"divisible by sp axis size {n_sp}")
+    _h, _w, npix, _npix_pad, b, nb = _grid_geometry(settings)
+    npix_pad = _ceil_to(npix, b * n_dp)
+    local_npix = npix_pad // n_dp
+    return (b, nb, npix_pad, local_npix, local_npix // b,
+            settings.spp_per_chunk // n_sp)
 
 
 def wave_rays(camera: Camera, settings: RenderSettings, pix_base: int,
@@ -186,11 +208,11 @@ def compile_renderer(scene: Scene, camera: Camera, settings: RenderSettings,
     return chunk
 
 
-def _xla_renderer(scene: Scene, camera: Camera, settings: RenderSettings,
-                  device: torch.device) -> Callable[[int], torch.Tensor]:
-    """The xla route's chunk (`engine/render.py:222-228`): `chunk_sums`
-    over `integrator.trace`, each wave's draws from a generator seeded with
-    the wave's seed."""
+def xla_trace_fn(scene: Scene, settings: RenderSettings,
+                 device: torch.device) -> Callable:
+    """The xla route's `trace_fn(scene, o, d, tm, seed) -> (n, 3)`:
+    `integrator.trace` with the scene's parameters, drawing from a
+    generator seeded with the wave's seed."""
     from .diff import get_params
     from .intersect import geometry
     from .integrator import trace
@@ -204,6 +226,16 @@ def _xla_renderer(scene: Scene, camera: Camera, settings: RenderSettings,
                      t_min=settings.t_min, rr_start=settings.rr_start,
                      params=params, geom=geom)
 
+    return trace_fn
+
+
+def _xla_renderer(scene: Scene, camera: Camera, settings: RenderSettings,
+                  device: torch.device) -> Callable[[int], torch.Tensor]:
+    """The xla route's chunk (`engine/render.py:222-228`): `chunk_sums`
+    over `integrator.trace`, each wave's draws from a generator seeded with
+    the wave's seed."""
+    trace_fn = xla_trace_fn(scene, settings, device)
+
     def chunk(base: int) -> torch.Tensor:
         with torch.no_grad():
             return chunk_sums(scene, camera, settings, int(base), trace_fn,
@@ -211,6 +243,31 @@ def _xla_renderer(scene: Scene, camera: Camera, settings: RenderSettings,
 
     chunk.engine_name = "xla"
     return chunk
+
+
+def record_walk_trace_fn(scene: Scene, settings: RenderSettings,
+                         tracer: cuda_trace.Tracer, device: torch.device
+                         ) -> Callable:
+    """The record-walk route's `trace_fn(scene, o, d, tm, seed) -> (n, 3)`:
+    the record kernel on the rays' planes, then the torch shade with the
+    scene's own parameters.  Warns that `rr_start` is ignored, as the JAX
+    package does."""
+    from .diff import get_params
+    from .integrator import shade_radiance, unpack_walk
+
+    if settings.rr_start > 0:
+        warnings.warn("rr_start ignored: image-textured scenes use the "
+                      "record-mode walk (no in-kernel throughput)",
+                      stacklevel=4)
+    params = get_params(scene, device)
+    walk = tracer.bind_walk_packed(settings.max_depth, settings.t_min)
+
+    def trace_fn(scene_, o, d, tm, seed):
+        data = unpack_walk(walk(o, d, tm, seed), tracer.need_p,
+                           tracer.need_uv)
+        return shade_radiance(scene_, params, data)
+
+    return trace_fn
 
 
 def _record_walk_renderer(scene: Scene, camera: Camera,
@@ -221,20 +278,7 @@ def _record_walk_renderer(scene: Scene, camera: Camera,
     (`engine/render.py:200-228`): each wave's torch-drawn rays walked by the
     record kernel on ray planes, then shaded in torch with the scene's own
     parameters."""
-    from .diff import get_params
-    from .integrator import shade_radiance, unpack_walk
-
-    if settings.rr_start > 0:
-        warnings.warn("rr_start ignored: image-textured scenes use the "
-                      "record-mode walk (no in-kernel throughput)",
-                      stacklevel=3)
-    params = get_params(scene, device)
-    walk = tracer.bind_walk_packed(settings.max_depth, settings.t_min)
-
-    def trace_fn(scene_, o, d, tm, seed):
-        data = unpack_walk(walk(o, d, tm, seed), tracer.need_p,
-                           tracer.need_uv)
-        return shade_radiance(scene_, params, data)
+    trace_fn = record_walk_trace_fn(scene, settings, tracer, device)
 
     def chunk(base: int) -> torch.Tensor:
         with torch.no_grad():
@@ -369,6 +413,7 @@ def render_linear(
     timer=None,
     checkpoint_dir: Optional[str] = None,
     debug_nans: bool = False,
+    chunk_fn: Optional[Callable] = None,
 ) -> np.ndarray:
     """Full render -> (H, W, 3) mean linear radiance (host numpy).
 
@@ -378,6 +423,11 @@ def render_linear(
     the last chunk saved, bit for bit: chunk c's base is the c-th draw of
     the seed's generator either way.  With `debug_nans`, a chunk whose
     sums hold a NaN raises FloatingPointError (one host read a chunk).
+
+    chunk_fn: `chunk_fn(scene, camera, settings, base) -> (npix_pad, 3)`
+    sums on `device` in place of `compile_renderer`'s chunk
+    (`render.py:352-361`), such as `parallel.render.make_sharded_chunk_fn`;
+    it gets the same bases.
 
     timer: optional `utils.profiling.PhaseTimer` collecting the build
     (scene bake), trace (chunks, synchronized) and io (checkpoint) phases.
@@ -399,9 +449,13 @@ def render_linear(
             start = state[1]
             logger.info("resuming after chunk %d of %d", start,
                         settings.num_chunks)
-    with phase("build"):
-        chunk = compile_renderer(scene, camera, settings, device)
-    logger.info("render engine: %s on %s", chunk.engine_name, device)
+    if chunk_fn is None:
+        with phase("build"):
+            chunk = compile_renderer(scene, camera, settings, device)
+        logger.info("render engine: %s on %s", chunk.engine_name, device)
+    else:
+        def chunk(base: int) -> torch.Tensor:
+            return chunk_fn(scene, camera, settings, base)
     for c in range(settings.num_chunks):
         base = cuda_trace.chunk_seed(gen)  # drawn for every chunk, done or not
         if c < start:

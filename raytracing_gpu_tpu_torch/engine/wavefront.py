@@ -41,8 +41,7 @@ position, the drain cursor and the pixel history are host integers.
 roulette draw from a `torch.Generator` seeded with the chunk's base seed,
 so a chunk is deterministic on the CPU for one seed and agrees with the
 JAX package statistically (on a CUDA device the ring's `index_add_` sums in
-no fixed order).  Not ported: the TPU packet rows (`hit_sub`) and the
-sharded form (`_local`).
+no fixed order).  Not ported: the TPU packet rows (`hit_sub`).
 """
 
 from __future__ import annotations
@@ -377,13 +376,21 @@ def compile_regen_renderer(scene: Scene, camera: Camera,
                            settings: RenderSettings,
                            tracer: cuda_trace.Tracer | None = None,
                            debug_stats: bool = False,
-                           device: torch.device | str = "cuda"
+                           device: torch.device | str = "cuda",
+                           _local: Optional[tuple] = None
                            ) -> Callable[[int], torch.Tensor]:
     """Regenerative wavefront chunk: base seed -> (npix_pad, 3) float32
     radiance sums over `spp_per_chunk` samples (npix_pad as
     `render._grid_geometry`), on `device`.  With `debug_stats` a chunk
     returns (sums, {"iterations": steps, "stream": rays issued}).  Raises
-    ValueError for a scene with media (`Tracer.supports_hit`)."""
+    ValueError for a scene with media (`Tracer.supports_hit`).
+
+    _local: for `parallel.render.compile_sharded_renderer`, a (npix_local,
+    spp_local) pair: the returned `body(seed, pix_lo)` renders one rank's
+    span of npix_local pixels from global pixel `pix_lo` at spp_local
+    samples, with its own stream seeded with `seed`, and returns the raw
+    sums, rows padded to the ring's drain block (`wavefront.py:504-509`,
+    `:519-537`, `:666-684`)."""
     from .render import _grid_geometry
 
     device = torch.device(device)
@@ -392,6 +399,8 @@ def compile_regen_renderer(scene: Scene, camera: Camera,
     hit = tracer.bind_hit(settings.t_min)  # raises without supports_hit
     h, w = settings.image_height, settings.image_width
     npix, n, spp = h * w, settings.ray_batch, settings.spp_per_chunk
+    if _local is not None:
+        npix, spp = _local
     max_depth, rr_start = settings.max_depth, settings.rr_start
     cam = camera.to(device)
     params = diff.get_params(scene, device)
@@ -410,8 +419,8 @@ def compile_regen_renderer(scene: Scene, camera: Camera,
     inv_h = 1.0 / max(h - 1, 1)
     lane = torch.arange(n, dtype=torch.int64, device=device)
 
-    def chunk(base: int):
-        gen = torch.Generator(device=device).manual_seed(int(base) % 2**63)
+    def body(seed: int, pix_lo: int):
+        gen = torch.Generator(device=device).manual_seed(int(seed) % 2**63)
         fb = torch.zeros((npix_pad, 3), dtype=torch.float32, device=device)
         ring = torch.zeros((ring_w, 3), dtype=torch.float32, device=device)
         pay = torch.zeros((n, 15), dtype=torch.float32, device=device)
@@ -433,9 +442,10 @@ def compile_regen_renderer(scene: Scene, camera: Camera,
             new = ~alive & (s_idx < total) & (lane >= n_live)
             pix_new = torch.clamp(torch.div(s_idx, spp, rounding_mode="floor"),
                                   0, npix_pad - 1)
-            row = torch.clamp(torch.div(pix_new, w, rounding_mode="floor"),
+            g = pix_lo + pix_new        # the global pixel, for the camera
+            row = torch.clamp(torch.div(g, w, rounding_mode="floor"),
                               max=h - 1)
-            col = torch.clamp(pix_new % w, max=w - 1)
+            col = torch.clamp(g % w, max=w - 1)
             jit2 = rng.uniform(gen, (n, 2))
             su = (col.to(torch.float32) + jit2[:, 0]) * inv_w
             sv = ((h - 1 - row).to(torch.float32) + jit2[:, 1]) * inv_h
@@ -503,15 +513,20 @@ def compile_regen_renderer(scene: Scene, camera: Camera,
         ok = p_cand < npix_pad
         fb.index_add_(0, torch.where(ok, p_cand, 0),
                       torch.where(ok[:, None], ring, 0.0))
+        return fb, {"iterations": steps, "stream": stream_next}
+
+    if _local is not None:
+        return lambda seed, pix_lo: body(seed, pix_lo)[0]
+
+    def chunk(base: int):
+        fb, stats = body(base, 0)
         if npix_pad_out <= npix_pad:
             fb = fb[:npix_pad_out]
         else:
             fb = torch.cat([fb, torch.zeros((npix_pad_out - npix_pad, 3),
                                             dtype=torch.float32,
                                             device=device)])
-        if debug_stats:
-            return fb, {"iterations": steps, "stream": stream_next}
-        return fb
+        return (fb, stats) if debug_stats else fb
 
     chunk.engine_name = "regen"
     return chunk

@@ -5,7 +5,9 @@ The script itself needs a card; here its planning is held to
 replaced by stand-ins (nothing is rendered): for every config the same
 settings (chunking, spp, depth, ray batch, russian roulette) and a row
 with the same keys and values but the measured ones.  Without a card the
-script exits non-zero and prints no row.
+script exits non-zero and prints no row.  The scaling and shard-overhead
+rows run on a spawned world of 2 gloo ranks at a small shape, with the keys
+of `bench_all.py`'s rows.
 """
 
 import os
@@ -121,4 +123,47 @@ def test_configs_and_the_card_check():
     help_text = subprocess.run(
         [sys.executable, os.path.join(ROOT, "bench_all_torch.py"), "--help"],
         capture_output=True, text=True, timeout=120).stdout
-    assert "A10" in help_text and "--scaling" in help_text
+    assert "A10" not in help_text
+    assert all(f in help_text for f in ("--scaling", "--weak", "--cpu-mesh"))
+
+
+# the scaling rows' workloads, cut to a size the CPU renders in a second
+SMALL = dict(bat.SCALING, width=32, ray_batch=256)
+SMALL_TINY = dict(bat.TINY, width=32, ray_batch=256)
+
+
+@pytest.fixture
+def jax_shard_rows(monkeypatch):
+    """`bench_all.py`'s scaling and shard-overhead rows, with a stand-in
+    for the chunk and its timer (its psum loops run on the 8 virtual
+    devices)."""
+    import raytracing_gpu_tpu.parallel.render as jprender
+
+    def fake_compile(scene, camera, st, mesh, *a, **k):
+        return lambda key: jnp.zeros((4, 3))
+
+    monkeypatch.setattr(jprender, "compile_sharded_renderer", fake_compile)
+    monkeypatch.setattr(bench_all, "_time_chunks", lambda *a: 2.0)
+    return bench_all.bench_scaling(dps=(1, 2)), bench_all.bench_shard_overhead()
+
+
+def test_scaling_rows_on_a_2_rank_cpu_mesh(jax_shard_rows):
+    from raytracing_gpu_tpu_torch.parallel import dryrun
+
+    rows = dryrun.spawn(2, "bench_all_torch:scaling_rank",
+                        {"scaling": SMALL, "tiny": SMALL_TINY},
+                        deadline=120.0)[0]
+    scaling, overhead = jax_shard_rows
+    want = {row["mode"]: set(row) | {"config", "shared_card"}
+            for row in scaling + overhead}
+    assert [(r["mode"], r.get("devices")) for r in rows] == [
+        ("scaling", 1), ("scaling", 2), ("psum-cost", None),
+        ("tiny-workload-overhead", 1), ("tiny-workload-overhead", 2)]
+    for row in rows:
+        assert set(row) == want[row["mode"]], row
+        assert row["backend"] == "gloo" and row["shared_card"] is False
+    assert rows[0]["efficiency"] == 1.0
+    assert rows[2]["mesh"] == "(sp=2,dp=1)"
+    assert rows[2]["array"] == overhead[0]["array"]
+    assert all(r["mrays_per_s"] > 0 for r in rows[:2])
+    assert all(r["ms_per_chunk"] > 0 for r in rows[3:])

@@ -52,6 +52,11 @@ The record kernel's uv planes (image textures): the same bit rule and
 >= 99.9% of the u and v values bit-exact against the plain version, on
 camera rays and on ray planes; against the Pallas goldens the rules of
 tests/test_torch_record_uv.py (`cuda_trace.uv_agreement`).
+
+Sharding (`parallel/`): the fused chunk on a 1x1 mesh equals the unsharded
+chunk bit for bit in the same launches; `dryrun_multichip` on two ranks
+that share the card holds the sharded training step and wavefront to the
+single-process ones.
 """
 
 import gc
@@ -1110,3 +1115,43 @@ def test_training_routes_make_one_record_launch_a_chunk(dev):
         assert bool(torch.isfinite(loss)) and float(loss) > 0.0, name
         del chunk, target, grads
         gc.collect()
+
+
+@pytest.mark.parametrize("gen_rays", [True, False])
+def test_sharded_fused_on_a_1x1_mesh_is_the_chunk(dev, gen_rays):
+    # without a process group the mesh is 1x1 and its collectives are the
+    # identity: the sharded chunk walks the same waves in the same
+    # launches (one record chunk launch, or one ray-plane launch a wave)
+    from raytracing_gpu_tpu_torch.parallel.mesh import make_mesh
+
+    sd = scenes.get("cornell_box")
+    st = RenderSettings(image_width=64, aspect_ratio=1.0, spp_per_chunk=4,
+                        num_chunks=1, max_depth=8, ray_batch=2048)
+    params = diff.get_params(sd.scene, dev)
+    runs = []
+    for mesh in (None, make_mesh()):
+        chunk = fused_diff.compile_fused_param_renderer(
+            sd.scene, sd.camera, st, gen_rays=gen_rays, device=dev, mesh=mesh)
+        torch.cuda.synchronize()
+        before = (ct.Tracer.record_chunk_launches, ct.Tracer.ray_launches)
+        out = chunk(params, 77)
+        loss, grads = diff.value_and_grad(params, lambda p: chunk(p, 77),
+                                          torch.zeros_like(out))
+        torch.cuda.synchronize()
+        after = (ct.Tracer.record_chunk_launches, ct.Tracer.ray_launches)
+        runs.append((out, grads, [a - b for a, b in zip(after, before)]))
+    (a, ga, na), (b, gb, nb) = runs
+    assert torch.equal(a, b) and na == nb and sum(na) > 0
+    for k in ga:
+        assert torch.equal(ga[k], gb[k]), k
+
+
+def test_dryrun_multichip_on_two_ranks_of_the_card(dev):
+    # two ranks that share the card take gloo (NCCL refuses them); the
+    # training step and the door wavefront against the single-process ones
+    from raytracing_gpu_tpu_torch.parallel import distributed, dryrun
+
+    assert distributed.choose_backend("cuda", torch.cuda.device_count() + 1) \
+        == "gloo"
+    report = dryrun.dryrun_multichip(2, device="cuda", deadline=300.0)
+    assert report["loss"] > 0.0 and report["grad_err"] <= 1e-4
