@@ -14,8 +14,8 @@ config 1 (`first`, 400x225, 16 spp, depth 8) and config 4
 on the megakernel route (800x450, 8 spp, depth 16: the sphere-BVH walk) and
 BASELINE config 2 (big_scene1, 800x450, 32 spp as 2 chunks of 16, depth
 16) through `render` on the regen route (the hit kernel); BASELINE config
-5 (`backpack`, the 100,352-triangle stand-in, 800x600, 256 spp as 4
-chunks of 64, depth 16, waves of 131,072 rays) and config 5-rr through
+5 (`backpack`, the 100,352-triangle stand-in, 800x600, one of its 4
+chunks of 64 spp, depth 16, waves of 131,072 rays) and config 5-rr through
 `render` on the regen route (the hit kernel's triangle tier), the same
 scene on the wavefront route (8 spp a chunk), and `triangles` on the
 megakernel route (its triangle walk); the training path beyond the
@@ -30,7 +30,10 @@ repository): `earth` (800x450, 32 spp as 2 chunks of 16, depth 8) through
 `render` on the record-walk route (the record kernel's uv planes on ray
 planes, the torch shade), `bench_all.py`'s earth-grad row through
 `compile_param_renderer`, and BASELINE config 5 with its diffuse map
-(800x600, 256 spp, depth 16, regen) and its mesh-grad row; and the
+(800x600, one chunk of 64 spp, depth 16, regen) and its mesh-grad row;
+the reference depth 50 (kernel 1a's and 1d-t's chunk launches, regen,
+every gallery scene on its full-size route, the CLI's default render);
+`tools/roofline_torch.py` (the north-star phases and the ceilings); and the
 ceiling probe whose rates every printed bound divides by.  It checks every
 kernel on the way.  Phases, each of which raises on failure:
 
@@ -157,7 +160,7 @@ kernel on the way.  Phases, each of which raises on failure:
    megakernel's record, ray-plane and forward waves of PARTIAL_WAVE
    (32,768 + 37) lanes equal their plain versions on every lane
    (`waves_every_lane`);
-23. config 5's four 64-spp regen chunks (waves of 131,072 rays,
+23. config 5's first 64-spp regen chunk (waves of 131,072 rays,
    `bench_all.py:441`) at the seeds `render()` draws, through
    `compile_regen_renderer`'s `debug_stats`: their steps, each with one hit
    launch; then timing at full size with CUDA events: `rt_hit` on the
@@ -168,8 +171,9 @@ kernel on the way.  Phases, each of which raises on failure:
    inputs, timed beside the plain version and the bound counted by the
    plain walk of the same rays (the bytes are the parts of the triangle
    tables that walk reads);
-24. BASELINE config 5: `render()` of backpack at 800x600, 256 spp as 4
-   chunks of 64, depth 16, ray_batch 131,072 on the regen route: the hit
+24. BASELINE config 5: `render()` of backpack at 800x600, one of its 4
+   chunks of 64 spp (CONFIG5; `bench_all_torch.py` renders all 4), depth
+   16, ray_batch 131,072 on the regen route: the hit
    kernel launched as many times as phase 23 counted regen steps, the
    megakernels never; finite and lit, PNG written; Mrays/s, steps, host
    time per step, peak device memory, and the busy share of a bounded
@@ -249,7 +253,7 @@ kernel on the way.  Phases, each of which raises on failure:
    (rtol 2e-4, atol 1e-7); the image probe's atlas gradients nonzero in
    both of its images;
 36. BASELINE config 5 with its map: `render()` of the backpack stand-in
-   with a 1024x1024 diffuse map at 800x600, 4 chunks of 64 spp, depth 16,
+   with a 1024x1024 diffuse map at 800x600, one chunk of 64 spp, depth 16,
    waves of 131,072 (regen: hit launches only, uv from `rt_hit`, the
    image shade in torch), Mrays/s, steps beside phase 24's, the busy
    share of a one-chunk sub-run; then its mesh-grad row (800x600, 4 spp,
@@ -286,18 +290,19 @@ kernel on the way.  Phases, each of which raises on failure:
    them, the floats of the agreeing lanes within `hit_agreement`'s limits
    (t, and p over |d|), >= 99% within HIT_CLOSE, triangle winners by
    original id (`tri_perm[slot]`) equal on >= 99.9% and otherwise ties;
-40. xla renders: Cornell 512x512, 16 spp, depth 8 with `engine="xla"`
+40. xla renders: Cornell 512x512, 4 spp, depth 8 with `engine="xla"`
    against the megakernel route's image (per-channel z < 4: the two draw
    different random streams); the `many_media` probe (20 media, more than
-   the kernels take) at 512x512, 16 spp, depth 16 through "auto", which
-   must report "xla"; one Cornell training chunk (512x512, 8 spp, depth 8)
+   the kernels take) at 512x512, 4 spp, depth 16 through "auto", which
+   must report "xla"; one Cornell training chunk (512x512, 2 spp, depth 8)
    on `compile_param_renderer(engine="xla")`; each with its Mrays/s and
    busy share and no hand kernel launched; then a Cornell render
    (512x512, 4 x 16 spp, depth 8) stopped after 2 of its 4 chunks and
    resumed from its checkpoint by a fresh renderer: equal to the
    uninterrupted render bit for bit;
-41. `bench_all_torch.py`'s rows (configs 1, 2, 4, 5, 5-rr, earth-grad,
-   mesh-grad) at `--spp-scale` BENCH_SPP_SCALE, each finite;
+41. `bench_all_torch.py`'s rows config 1, earth-grad and mesh-grad
+   (BENCH_CONFIGS; its other rows repeat phases 16, 20 and 24) at
+   `--spp-scale` BENCH_SPP_SCALE, each finite;
 42. `parallel/`: (a) a world of one rank (NCCL), where config 3's training
    chunk (Cornell 512x512, 8 spp, depth 8, waves of 32,768, the record
    chunk launch) on a 1x1 mesh equals the unsharded chunk bit for bit,
@@ -315,6 +320,33 @@ kernel on the way.  Phases, each of which raises on failure:
    with each rank's launch counts (each route's kernel > 0), Mrays/s and
    the ms of an sp `all_reduce` of a (512*512/2, 3) float32 array; then
    whether NCCL takes two ranks on one card.
+43. the reference depth 50 with russian roulette from bounce 4: kernel
+   1a's chunk launch on cornell_smoke and cornell_box and kernel 1d-t's on
+   `triangles` and `models.probes.mesh_box` (a closed box of triangles;
+   64 wide, 4 spp) equal to `trace_chunk_reference` bit for bit on every
+   row, one launch each, and roulette changing the plain chunk on every
+   scene but `triangles` (whose paths end before bounce 4); the chunks of
+   cornell_smoke, `triangles` and mesh_box against their depth-50 JAX
+   goldens (`<scene>_d50.npz`, `golden_cmp`'s rule) and the regen chunk
+   of big_scene1 against `big_scene1_regen_d50.npz` (per-channel z < 4,
+   the stream equal, the steps within 10%); then every scene of `tools/render_gallery_torch.py`'s
+   PLAN, and `earth` with a synthetic 1024x512 map, at its PLAN width, one
+   16-spp chunk, depth 50 (`render_scene`, through `render()`): finite and
+   lit, on the engine `route` names (regen for big_scene1, earth with its
+   map and the 100k-triangle stand-ins, the megakernel for the rest), with
+   that engine's kernel alone launched (one `rt_trace_chunk`; `rt_hit`
+   once a step of the render's own chunk, its steps read from the
+   `PhaseTimer` `render()` fills), each with its seconds, Mrays/s and
+   peak of allocated device memory; then `cli.main` on cornell_box at
+   the CLI's defaults (1200x1200, 10 x 100 spp, depth 50): ten
+   `rt_trace_chunk` launches and no other, a lit PNG;
+44. `python3 tools/roofline_torch.py` in a process of its own: every
+   line finite, the north-star phases A, B, E and F launching
+   `rt_trace_rays`, `rt_walk_packed`, `rt_walk_packed` and
+   `rt_trace_chunk`, C and D no hand kernel, each with a device time
+   above 0 (A, B, E and F with their hand kernel seen by the profiler);
+   the bf16 matmul rate between 10% and 105% of the card's bf16 peak
+   (`roofline.card_peaks`).
 
 Prints each phase's seconds, a JSON line of kernels, the card's name and
 power limit, and as its last line `{"ok": true, "device": {...}}`.  Exits
@@ -327,7 +359,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 import types
@@ -401,7 +432,7 @@ PARTIAL_WAVE = 32768 + 37     # the sphere-BVH and tie-scene waves (22, 27)
 # camera, as the JAX package renders it), phase 24: (width, spp per chunk,
 # chunks, depth), its wave (bench_all.py:441) and its bounded profiled
 # sub-run; config 5-rr (bench_all.py:445-447) adds russian roulette
-CONFIG5 = (800, 64, 4, 16)
+CONFIG5 = (800, 64, 1, 16)  # one of the config's 4 chunks (time budget)
 CONFIG5_ASPECT = 4 / 3
 CONFIG5_RAY_BATCH = 131072
 CONFIG5_RR_START = 2
@@ -440,12 +471,13 @@ PROBE_GRAD = (128, 4, 1, 8, 16384)  # the image probe's atlas gradients
 ORACLE_RAYS = {"big_scene1": 65536, "backpack": 131072}  # rt_hit's waves
 ORACLE_MAT_FLOOR = (0.999, 0.995)  # camera rays, scattered rays
 ORACLE_TRI_ID_FLOOR = 0.999  # triangle winners with equal ids (else a tie)
-XLA_CORNELL = (512, 16, 1, 8)      # width, spp per chunk, chunks, depth
-XLA_MEDIA = (512, 16, 1, 16)       # the many_media probe, through "auto"
-XLA_TRAIN = (512, 8, 1, 8, 32768)  # one Cornell training chunk
+XLA_CORNELL = (512, 4, 1, 8)       # width, spp per chunk, chunks, depth
+XLA_MEDIA = (512, 4, 1, 16)        # the many_media probe, through "auto"
+XLA_TRAIN = (512, 2, 1, 8, 32768)  # one Cornell training chunk
 RESUME = (512, 16, 4, 8, 2)        # width, spp, chunks, depth, stop after
 XLA_SUB_SPP = 1  # phase 40's profiled sub-runs: the same waves, 1 spp
 BENCH_SPP_SCALE = 16               # bench_all_torch.py's rows in phase 41
+BENCH_CONFIGS = ("1",)             # its forward rows there
 # Phase 42 (parallel/): config 3's training chunk (Cornell: width, spp,
 # depth, ray batch) and config 2's render (big_scene1: width, spp per
 # chunk, chunks, depth, ray batch), on a world of one rank and on two ranks
@@ -457,6 +489,30 @@ PAR_DEADLINE = 240.0     # the two-rank world
 NCCL_DEADLINE = 45.0     # the NCCL probe on two ranks of one card
 PAR_ALL_REDUCE = (512 * 512 // 2, (8, 32))  # rows of the array, repetitions
 PAR_STAT = (0.03, 5e-3, 0.9)  # regen: mean within 3% + 5e-3, correlation
+# Phase 43 (the reference depth 50, russian roulette from bounce 4): kernel
+# 1a's and 1d-t's chunk launch against the plain chunk at DEEP_WIDTH wide,
+# DEEP_SPP spp; the depth-50 goldens; every gallery scene at its PLAN width
+# (tools/render_gallery_torch.py) but GALLERY_SPP spp in one chunk (regen
+# takes >= 16 spp a chunk), plus earth with EARTH_MAP; the CLI's defaults
+DEEP_DEPTH, DEEP_RR_START = 50, 4
+DEEP_CHUNK_SCENES = ("cornell_smoke", "cornell_box", "triangles",
+                     "mesh_box")
+DEEP_NO_RR = ("triangles",)  # no path of its chunk reaches bounce 4
+DEEP_WIDTH, DEEP_SPP = 64, 4
+DEEP_GOLDENS = ("cornell_smoke", "triangles", "mesh_box")
+GALLERY_SPP = 16
+GALLERY_REGEN = ("big_scene1", "door", "backpack", "cup", "earth (map)")
+LIT_MEAN = 0.01      # a rendered image's mean above this is lit
+CLI_DEFAULT = dict(width=1200, spp=100, chunks=10, depth=50)  # cli.py
+# Phase 44 (tools/roofline_torch.py): the hand kernel each north-star phase
+# must launch, and the bf16 rate's share of the card's bf16 peak
+ROOFLINE_KERNELS = {"walk_forward_kernel": "rt_trace_rays",
+                    "walk_record_kernel": "rt_walk_packed",
+                    "xla_shade_forward": None, "xla_shade_fwd_bwd": None,
+                    "e2e_chunk_fwd_bwd": "rt_walk_packed",
+                    "e2e_chunk_forward": "rt_trace_chunk"}
+BF16_SHARE = (0.10, 1.05)
+ROOFLINE_S = 300  # phase 44's limit on the tool's process
 # The Cornell forward wave (65,536 rays, depth 8) of the kernel before it
 # took spheres and media, H100 80GB HBM3 at 700 W (PERF.md, section 6)
 CORNELL_WAVE_MS_BEFORE = "0.0293-0.0294"
@@ -506,11 +562,14 @@ TRI_WIN_BYTES = 84
 
 
 def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip()
+    """The card's name and power limit, as nvidia-smi prints them."""
+    from raytracing_gpu_tpu_torch.utils.profiling import card_line as read
+
+    line = read()
+    if line is None:
+        raise RuntimeError("nvidia-smi could not read the card's name and "
+                           "power limit")
+    return line
 
 
 def compare(got, want, depth: int, exact_floor: float = EXACT_FLOOR) -> dict:
@@ -572,24 +631,26 @@ def event_ms(fn, reps: int, hold_device: bool = False) -> float:
 
 def device_busy(fn) -> dict:
     """Profile one call of `fn` with torch.profiler, recording device
-    activity alone: device time summed by kernel name, wall time, the
-    device's busy share of the wall, and the seconds the profiler spent
-    around the call (start, trace collection, `key_averages`)."""
+    activity alone (`utils.profiling.kernel_times`): device time summed by
+    kernel name, wall time, the device's busy share of the wall, and the
+    seconds the profiler spent around the call (start, trace collection,
+    `key_averages`)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    t_start = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    from raytracing_gpu_tpu_torch.utils.profiling import kernel_times
+
+    walls = []
+
+    def timed():
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    by_kernel = {}
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total", 0.0)
-        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
-            by_kernel[evt.key[:60]] = (us / 1e3, evt.count)
+        walls.append(time.perf_counter() - t0)
+
+    t_start = time.perf_counter()
+    times = kernel_times(timed)
+    wall = walls[0]
+    by_kernel = {k[:60]: (t * 1e3, n) for k, (t, n) in times.items()}
     busy = sum(ms for ms, _ in by_kernel.values())
     return dict(wall_ms=wall * 1e3, device_ms=busy,
                 busy_share=busy / (wall * 1e3) if busy else None,
@@ -799,16 +860,18 @@ def golden_settings(g):
                           spp_per_chunk=int(g["spp_per_chunk"]),
                           num_chunks=1, max_depth=int(g["max_depth"]),
                           ray_batch=int(g["ray_batch"]),
-                          t_min=float(g["t_min"]))
+                          t_min=float(g["t_min"]),
+                          rr_start=int(g["rr_start"]) if "rr_start" in g
+                          else 0)
 
 
 def time_wave(tracer, sd, st, base: int, card: str, label: str,
-              wave_id: int = 1) -> dict:
+              wave_id: int = 1, plain_reps: int = 3) -> dict:
     """A render's main wave (wave `wave_id` of its grid, full width): the
     kernel against its plain version on the same seed (phase 5's rules),
-    kernel device time (device held), loop time, the plain version's time,
-    and the bound from the work the plain version counts on the same
-    seed."""
+    kernel device time (device held), loop time, the plain version's time
+    (over `plain_reps` calls after a warm-up), and the bound from the work
+    the plain version counts on the same seed."""
     from raytracing_gpu_tpu_torch.ops import cuda_trace
 
     h, w, n, depth = st.image_height, st.image_width, st.ray_batch, \
@@ -833,7 +896,7 @@ def time_wave(tracer, sd, st, base: int, card: str, label: str,
     loop_ms = event_ms(kernel_wave, reps=50)
     plain_ms = event_ms(lambda r: cuda_trace.trace_pixels_reference(
         tracer.bake, sd.camera, h, w, pix, n, cuda_trace.wave_seed(base, r, 1),
-        depth, st.t_min, tracer.device, st.rr_start), reps=3)
+        depth, st.t_min, tracer.device, st.rr_start), reps=plain_reps)
     ops = wave_ops(tracer.bake, counts, n)
     nbytes = 12 * n + table_bytes(tracer) + tri_bytes(
         counts["tri_read"], leaf_real(tracer.bake.tri_ids,
@@ -1596,12 +1659,7 @@ def reset_counts() -> None:
     from raytracing_gpu_tpu_torch.ops import cuda_trace
     from raytracing_gpu_tpu_torch.utils import roofline
 
-    cuda_trace.Tracer.launches = 0
-    cuda_trace.Tracer.chunk_launches = 0
-    cuda_trace.Tracer.record_launches = 0
-    cuda_trace.Tracer.record_chunk_launches = 0
-    cuda_trace.Tracer.ray_launches = 0
-    cuda_trace.Tracer.hit_launches = 0
+    cuda_trace.reset_launch_counts()
     roofline.launches = 0
 
 
@@ -1920,8 +1978,10 @@ def triangle_phases(dev, card: str, base: int, png: str) -> list:
               f"spec sheet) on {card}")
         # the 1d-t wave keeps its 65,536 rays, the wave PERF.md tracks
         mst = c5.with_(spp_per_chunk=1, num_chunks=1, ray_batch=65536)
+        # its plain walk takes 4-9 s a call: timed once
         mesh_wave = time_wave(ptr, psd, mst, base, card,
-                              "backpack (triangle megakernel)", MESH_WAVE)
+                              "backpack (triangle megakernel)", MESH_WAVE,
+                              plain_reps=1)
         print(f"[backpack megakernel wave] {mesh_wave}")
 
     # ---- 24. BASELINE config 5 on the regen route ----
@@ -3277,7 +3337,7 @@ def xla_phases(dev, card: str, base: int) -> None:
 
     with Phase("41 bench_all_torch.py rows"):
         rows = [bench_all_torch.bench_forward(k, BENCH_SPP_SCALE, dev)
-                for k in bench_all_torch.FORWARD]
+                for k in BENCH_CONFIGS]
         rows += [bench_all_torch.bench_grad(w, dev)
                  for w in ("earth", "mesh")]
         for row in rows:
@@ -3621,6 +3681,220 @@ def parallel_phases(dev, card: str, base: int) -> dict:
     launches["world1"] = dict(train=one["counts"]["record_chunk"],
                               regen=served["counts"]["hit"])
     return launches
+
+
+
+def tool(name: str):
+    """The module `tools/<name>.py`."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "tools", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def deep_phases(dev, card: str, base: int) -> dict:
+    """Phase 43: the reference depth 50 with russian roulette from bounce
+    DEEP_RR_START, after phase 4 set `Ceilings`.  Returns the launches of
+    its renders by path."""
+    import numpy as np
+    import torch
+
+    from raytracing_gpu_tpu_torch import (Camera, RenderSettings,
+                                         SceneBuilder, cli, compile_renderer)
+    from raytracing_gpu_tpu_torch.engine import film
+    from raytracing_gpu_tpu_torch.engine.render import _grid_geometry
+    from raytracing_gpu_tpu_torch.engine.wavefront import (
+        compile_regen_renderer)
+    from raytracing_gpu_tpu_torch.models import probes, scenes
+    from raytracing_gpu_tpu_torch.ops import cuda_trace
+
+    def deep_scene(name):
+        if name == "mesh_box":  # a closed box of triangles: kernel 1d-t
+            return scenes.SceneDef(*probes.mesh_box(SceneBuilder, Camera))
+        return scenes.get(name)
+
+    gallery = tool("render_gallery_torch")
+    out = {}
+    with Phase("43 depth 50"):
+        # kernel 1a's and 1d-t's chunk launch against the plain chunk
+        for name in DEEP_CHUNK_SCENES:
+            sd = deep_scene(name)
+            st = RenderSettings(image_width=DEEP_WIDTH, aspect_ratio=sd.aspect,
+                                spp_per_chunk=DEEP_SPP, num_chunks=1,
+                                max_depth=DEEP_DEPTH, ray_batch=65536,
+                                rr_start=DEEP_RR_START)
+            chunk = compile_renderer(sd.scene, sd.camera, st, dev)
+            got, counts = counted(lambda: chunk(base))
+            h, w, b = st.image_height, st.image_width, _grid_geometry(st)[4]
+            bake = cuda_trace.bake_scene(sd.scene)
+            plain = cuda_trace.trace_chunk_reference(
+                bake, sd.camera, h, w, base, DEEP_SPP, b, DEEP_DEPTH,
+                st.t_min, dev, DEEP_RR_START)
+            no_rr = cuda_trace.trace_chunk_reference(
+                bake, sd.camera, h, w, base, DEEP_SPP, b, DEEP_DEPTH,
+                st.t_min, dev)
+            same = torch.equal(got, plain)
+            rr_moved = not torch.equal(plain, no_rr)
+            print(f"[depth50] {name} {w}x{h} {DEEP_SPP}spp depth "
+                  f"{DEEP_DEPTH} rr_start {DEEP_RR_START} "
+                  f"({chunk.engine_name}): chunk launch equal to the plain "
+                  f"chunk on every row {same} (max abs err "
+                  f"{float((got - plain).abs().max())}), launches {counts}, "
+                  f"roulette moved the plain chunk {rr_moved}")
+            if not (same and chunk.engine_name == "megakernel"
+                    and rr_moved == (name not in DEEP_NO_RR)
+                    and counts == dict(launches=1, record=0, record_chunk=0,
+                                       ray=0, hit=0)):
+                raise AssertionError(f"{name}: the depth-50 chunk launch "
+                                     "disagrees with its plain version")
+        for name in DEEP_GOLDENS:
+            g = np.load(os.path.join(DATA, f"{name}_d50.npz"))
+            gst = golden_settings(g)
+            sd = deep_scene(name)
+            gcmp = golden_cmp(compile_renderer(sd.scene, sd.camera, gst, dev)(
+                int(g["base"])), torch.from_numpy(g["sums"]))
+            print(f"[kernel-vs-jax-golden] {name} {gst.image_width}x"
+                  f"{gst.image_height} {gst.spp_per_chunk}spp depth "
+                  f"{gst.max_depth} rr_start {gst.rr_start}: {gcmp}")
+            if not (gcmp["ok"] and gst.max_depth == DEEP_DEPTH):
+                raise AssertionError(f"{name}: the depth-50 chunk disagrees "
+                                     "with the JAX golden")
+        rg = np.load(os.path.join(DATA, f"{BIG}_regen_d50.npz"))
+        rst = golden_settings(rg)
+        bsd = scenes.get(BIG)
+        rsums, rstats = compile_regen_renderer(
+            bsd.scene, bsd.camera, rst, debug_stats=True, device=dev)(20241)
+        npix = rst.num_pixels
+        z = z_scores(rsums.cpu().numpy()[:npix] / rst.spp_per_chunk,
+                     rg["sums"][:npix] / rst.spp_per_chunk)
+        ratio = rstats["iterations"] / int(rg["iterations"])
+        print(f"[regen-vs-jax-golden] {BIG} {rst.image_width}x"
+              f"{rst.image_height} {rst.spp_per_chunk}spp depth "
+              f"{rst.max_depth} rr_start {rst.rr_start}: z {z}, steps "
+              f"{rstats} against JAX's {int(rg['iterations'])}, stream "
+              f"{int(rg['stream'])}")
+        if not ((np.abs(z) < Z_LIMIT).all() and abs(ratio - 1) < 0.1
+                and rstats["stream"] == int(rg["stream"])
+                and rst.max_depth == DEEP_DEPTH):
+            raise AssertionError("the depth-50 regen chunk disagrees with "
+                                 "the JAX regen golden")
+
+        # every gallery scene on its full-size route, one 16-spp chunk
+        emap = probes.synthetic_image(*EARTH_MAP)
+        sds = [(name, scenes.get(name), gallery.PLAN[name][0])
+               for name in gallery.PLAN]
+        sds.append(("earth (map)", scenes.earth(emap),
+                    gallery.PLAN["earth"][0]))
+        renders = {}
+        for label, sd, width in sds:
+            st = RenderSettings(image_width=width, aspect_ratio=sd.aspect,
+                                spp_per_chunk=GALLERY_SPP, num_chunks=1,
+                                max_depth=DEEP_DEPTH,
+                                ray_batch=gallery.RAY_BATCH,
+                                rr_start=gallery.RR_START)
+            torch.cuda.synchronize()
+            img, line = gallery.render_scene(sd, st, dev)
+            regen = label in GALLERY_REGEN
+            want = "regen" if regen else "megakernel"
+            counts = line["launches"]
+            # regen: one rt_hit launch a step of the render's own chunk
+            kinds_ok = (counts == {"rt_hit": line["steps"]}
+                        and line["steps"] > 0
+                        if regen else counts == {"rt_trace_chunk": 1})
+            mean = float(img.mean())
+            print(f"[gallery depth50] {label}: {json.dumps(line)}, image "
+                  f"mean {mean:.6f} on {card}")
+            if not (line["engine"] == want and kinds_ok
+                    and np.isfinite(img).all() and mean > LIT_MEAN):
+                raise AssertionError(f"{label}: engine {line['engine']} "
+                                     f"(want {want}), launches {counts}, "
+                                     f"mean {mean}")
+            renders[label] = dict(engine=line["engine"], launches=counts,
+                                  mrays_per_s=line["mrays_per_s"],
+                                  steps=line["steps"],
+                                  peak_mib=line["peak_mib"])
+        out["gallery"] = renders
+
+        # the CLI's defaults on the Cornell box
+        png = os.path.join(ROOT, "build", "chip_smoke_cli_cornell_box.png")
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(["render", "cornell_box", "-o", png])
+        wall = time.perf_counter() - t0
+        counts = cuda_trace.launch_counts()
+        pixels = film.read_png(png)
+        (h, w, _), mean = pixels.shape, float(pixels.mean()) / 256.0
+        c = CLI_DEFAULT
+        rays = c["width"] * c["width"] * c["spp"] * c["chunks"]
+        print(f"[cli default] render cornell_box {w}x{h} "
+              f"{c['chunks']} x {c['spp']}spp depth {c['depth']}: exit {rc}, "
+              f"{wall:.6f} s, {rays / wall / 1e6:.6f} Mrays/s, launches "
+              f"{({k: v for k, v in counts.items() if v})}, image mean "
+              f"{mean:.6f} on {card}")
+        if not (rc == 0 and (h, w) == (c["width"], c["width"])
+                and counts["rt_trace_chunk"] == c["chunks"]
+                and sum(counts.values()) == c["chunks"] and mean > LIT_MEAN):
+            raise AssertionError("the CLI's default render is off")
+        out["cli"] = dict(launches=counts["rt_trace_chunk"],
+                          mrays_per_s=rays / wall / 1e6)
+    return out
+
+
+def roofline_phase(card: str) -> list:
+    """Phase 44: `tools/roofline_torch.py` run as a user runs it, in a
+    process of its own (in this one, after the profiled runs of earlier
+    phases, torch.profiler returns the windows of phases A, B and F
+    empty): its lines, each finite, each north-star phase launching its
+    hand kernel (C and D none) with a device time above 0 in which the
+    profiler saw that kernel, the bf16 matmul rate within BF16_SHARE of
+    the card's bf16 peak."""
+    import math
+    import subprocess
+
+    with Phase("44 roofline tool"):
+        run = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "tools", "roofline_torch.py")],
+            cwd=ROOT, capture_output=True, text=True, timeout=ROOFLINE_S)
+        sys.stdout.write(run.stdout)
+        if run.returncode != 0:
+            raise AssertionError(f"tools/roofline_torch.py exited "
+                                 f"{run.returncode}: {run.stderr[-2000:]}")
+        lines = [json.loads(x) for x in run.stdout.splitlines()
+                 if x.startswith("{")]
+        by = {line["measure"]: line for line in lines}
+        for line in lines[1:]:
+            nums = [v for k, v in line.items()
+                    if isinstance(v, (int, float)) and not isinstance(v, bool)]
+            if not all(math.isfinite(v) for v in nums) or not nums:
+                raise AssertionError(f"roofline line not finite: {line}")
+        for measure, kernel in ROOFLINE_KERNELS.items():
+            line = by[measure]
+            got = line["launches"]
+            ok = (got == {} if kernel is None
+                  else set(got) == {kernel} and got[kernel] > 0)
+            # a device time the profiler measured: every phase runs
+            # kernels, and the hand kernel's own launches were seen
+            hand = line["hand_device_seconds"]
+            timed = (line["device_seconds"] > 0
+                     and (hand == 0 if kernel is None
+                          else hand > 0 and line["hand_events"] > 0))
+            if not (ok and timed and line["seconds"] > 0):
+                raise AssertionError(
+                    f"{measure}: launches {got} (want {kernel}), device "
+                    f"seconds {line['device_seconds']}, hand kernels "
+                    f"{hand} s in {line['hand_events']} events")
+        share = by["mxu_bf16_matmul"]["peak_share"]
+        print(f"[roofline] bf16 matmul {by['mxu_bf16_matmul']['tflops']:.3f}"
+              f" TFLOP/s, {share:.6f} of the card's bf16 peak "
+              f"{by['mxu_bf16_matmul']['peak_tflops']:.3f} on {card}; "
+              f"e2e_chunk_fwd_bwd route {by['e2e_chunk_fwd_bwd']['route']}")
+        if not BF16_SHARE[0] <= share <= BF16_SHARE[1]:
+            raise AssertionError(f"bf16 rate at {share} of the card's peak")
+    return lines
 
 
 def main() -> int:
@@ -4135,6 +4409,8 @@ def main() -> int:
             cuda_trace.bake_scene(scenes.get("triangles").scene).features())
     xla_phases(dev, card, base)
     par = parallel_phases(dev, card, base)
+    deep = deep_phases(dev, card, base)
+    roof = roofline_phase(card)
     hit_row["sharded_launches"] = dict(par["regen"],
                                        world1=par["world1"]["regen"])
     train_rows[3]["sharded_launches"] = par["megakernel"]
@@ -4175,7 +4451,7 @@ def main() -> int:
         "render_device_busy_share": serving["busy_share"],
         "profiled_render_busy_share": serving["profiled_busy_share"],
         "plain_chunk_mrays_per_s": plain_rays / plain_wall / 1e6,
-        "scenes": scene_rates}, record_row, {
+        "scenes": scene_rates, "depth50": deep}, record_row, {
         "name": "megakernel_fwd<sphere_bvh> (rt_trace_chunk)",
         "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
         "launches": big_mega["launches"],
@@ -4200,7 +4476,10 @@ def main() -> int:
         "bound_ms": fma_bound_ms, "bound_by": fma_bound_by,
         "library_ms": None,
         "fma_tflops": fma["flops_per_s"] / 1e12,
-        "memory_tb_per_s": hbm["bytes_per_s"] / 1e12}]}))
+        "memory_tb_per_s": hbm["bytes_per_s"] / 1e12,
+        "roofline_tool": {line["measure"]: {
+            k: v for k, v in line.items() if k != "measure"}
+            for line in roof}}]}))
     print(f"[done] {time.perf_counter() - t_start:.2f} s")
     print(card)  # name, power limit: nvidia-smi's own line
     print(json.dumps({"ok": True, "device": {

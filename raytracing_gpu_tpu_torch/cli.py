@@ -38,7 +38,8 @@ import logging
 import os
 import sys
 import time
-from contextlib import nullcontext
+
+TRACE_NAME = "render_trace.json"  # --profile-dir's trace file
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -151,7 +152,7 @@ def main(argv=None) -> int:
 
     from .engine import film
     from .parallel import distributed
-    from .utils.profiling import logger
+    from .utils.profiling import device_trace, logger
 
     handler = logging.StreamHandler(sys.stderr)
     handler.setFormatter(logging.Formatter("%(message)s"))
@@ -181,15 +182,15 @@ def main(argv=None) -> int:
                       f"({rays / dt / 1e6:.2f} Mrays/s)", file=sys.stderr)
 
         timer = PhaseTimer()
-        prof = _profiler(device) if args.profile_dir else nullcontext()
         t0 = time.perf_counter()
-        with prof:
+        with device_trace(args.profile_dir if is_coord else None, device,
+                          TRACE_NAME):
             linear = render_linear(
                 sd.scene, sd.camera, st, seed=args.seed, progress=progress,
                 device=device, timer=timer,
                 checkpoint_dir=args.checkpoint_dir if is_coord else None,
                 debug_nans=args.debug_nans, chunk_fn=chunk_fn)
-        elapsed = time.perf_counter() - t0
+            elapsed = time.perf_counter() - t0  # the trace's export after
     finally:
         logger.removeHandler(handler)
         logger.setLevel(level)
@@ -197,12 +198,10 @@ def main(argv=None) -> int:
             distributed.finalize()
     if not is_coord:
         return 0
-    if args.profile_dir:
-        os.makedirs(args.profile_dir, exist_ok=True)
-        trace = os.path.join(args.profile_dir, "render_trace.json")
-        prof.export_chrome_trace(trace)
-        if not args.quiet:
-            print(f"profile trace -> {trace}", file=sys.stderr)
+    if args.profile_dir and not args.quiet:
+        print(f"profile trace -> "
+              f"{os.path.join(args.profile_dir, TRACE_NAME)}",
+              file=sys.stderr)
     img = film.finalize(linear * st.rays_per_pixel, st.rays_per_pixel)
     if args.output.endswith(".ppm"):
         film.write_ppm(args.output, img)
@@ -232,16 +231,6 @@ def _sharded_chunk_fn(n_sp: int, sd, st, device):
                 chunk_fn.engine_name, mesh.shape["sp"], mesh.shape["dp"],
                 device)
     return chunk_fn
-
-
-def _profiler(device):
-    """A `torch.profiler` over the host and, on a card, the device."""
-    import torch
-
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if device.type == "cuda":
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    return torch.profiler.profile(activities=acts)
 
 
 if __name__ == "__main__":

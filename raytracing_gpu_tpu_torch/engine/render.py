@@ -35,7 +35,7 @@ from ..core.config import RenderSettings
 from ..ops import cuda_trace
 from ..parallel.mesh import DP_AXIS, SP_AXIS
 from ..scene.types import Scene
-from ..utils.profiling import logger, synchronize
+from ..utils.profiling import logger, nan_debugging, synchronize
 from . import film
 
 
@@ -421,8 +421,9 @@ def render_linear(
     float32 sums and the count of finished chunks are saved after every
     chunk, and a render of the same settings, seed and scene resumes after
     the last chunk saved, bit for bit: chunk c's base is the c-th draw of
-    the seed's generator either way.  With `debug_nans`, a chunk whose
-    sums hold a NaN raises FloatingPointError (one host read a chunk).
+    the seed's generator either way.  With `debug_nans`, or after
+    `utils.profiling.enable_nan_debugging()`, a chunk whose sums hold a
+    NaN raises FloatingPointError (one host read a chunk).
 
     chunk_fn: `chunk_fn(scene, camera, settings, base) -> (npix_pad, 3)`
     sums on `device` in place of `compile_renderer`'s chunk
@@ -430,9 +431,12 @@ def render_linear(
     it gets the same bases.
 
     timer: optional `utils.profiling.PhaseTimer` collecting the build
-    (scene bake), trace (chunks, synchronized) and io (checkpoint) phases.
+    (scene bake), trace (chunks, synchronized) and io (checkpoint) phases;
+    it also gets the engine the chunks took (`engine`, None with
+    `chunk_fn`) and their host steps (`steps`, on the regen route).
     """
     phase = timer.phase if timer is not None else (lambda _name: nullcontext())
+    debug_nans = debug_nans or nan_debugging()
     device = torch.device(device)
     h, w, npix, npix_pad, _, _ = _grid_geometry(settings)
     seed = settings.seed if seed is None else seed
@@ -474,6 +478,9 @@ def render_linear(
                 ckpt.save(checkpoint_dir, sums.cpu().numpy(), c + 1, fp=fp)
         if progress is not None:
             progress(c + 1, settings.num_chunks, time.perf_counter() - t0)
+    if timer is not None:
+        timer.engine = getattr(chunk, "engine_name", None)
+        timer.steps = getattr(chunk, "steps", None)
     out = sums[:npix].cpu().numpy()
     return (out / float(settings.rays_per_pixel)).reshape(h, w, 3)
 
@@ -486,11 +493,13 @@ def render(
     progress: Optional[Callable[[int, int, float], None]] = None,
     device: torch.device | str = "cuda",
     checkpoint_dir: Optional[str] = None,
+    timer=None,
 ) -> np.ndarray:
     """Full render -> (H, W, 3) gamma-2 image in [0, 1) (reference `draw`,
-    `render.h:118-174`), resumable from `checkpoint_dir`."""
+    `render.h:118-174`), resumable from `checkpoint_dir`; `timer` as
+    `render_linear`'s."""
     linear = render_linear(scene, camera, settings, seed=seed,
-                           progress=progress, device=device,
+                           progress=progress, device=device, timer=timer,
                            checkpoint_dir=checkpoint_dir)
     return film.finalize(linear * settings.rays_per_pixel,
                          settings.rays_per_pixel)

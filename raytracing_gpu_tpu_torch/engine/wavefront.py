@@ -520,6 +520,7 @@ def compile_regen_renderer(scene: Scene, camera: Camera,
 
     def chunk(base: int):
         fb, stats = body(base, 0)
+        chunk.steps += stats["iterations"]
         if npix_pad_out <= npix_pad:
             fb = fb[:npix_pad_out]
         else:
@@ -529,4 +530,5 @@ def compile_regen_renderer(scene: Scene, camera: Camera,
         return (fb, stats) if debug_stats else fb
 
     chunk.engine_name = "regen"
+    chunk.steps = 0  # steps of every chunk so far
     return chunk

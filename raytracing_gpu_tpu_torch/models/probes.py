@@ -173,3 +173,32 @@ def many_media(builder_cls, camera_cls, n: int = 20) -> tuple:
                          rotate_y=15.0 * i, translate=(x - 40, y - 40, z - 40))
     cam = _make_cam(camera_cls, (278, 278, -800), (278, 278, 0), 40, 1.0)
     return b.build(), cam, 1.0
+
+
+def mesh_box(builder_cls, camera_cls) -> tuple:
+    """A closed box made only of triangles, the camera inside it: a
+    white floor, ceiling, back and front wall, a red and a green side wall
+    (two triangles a face) and a two-triangle light under the ceiling.  No
+    ray leaves the box, so a path ends only at the depth limit or by
+    russian roulette: the triangle walk (kernel 1d-t) at depth 50 runs
+    paths long past bounce 4."""
+    b = builder_cls(background=(0.0, 0.0, 0.0))
+    red = b.lambertian((0.65, 0.05, 0.05))
+    white = b.lambertian((0.73, 0.73, 0.73))
+    green = b.lambertian((0.12, 0.45, 0.15))
+    light = b.diffuse_light((4.0, 4.0, 4.0))
+    quad = np.array([[0, 1, 2], [0, 2, 3]])
+
+    def face(corners, mat):
+        b.mesh(np.array(corners, np.float32), quad, mat)
+
+    face([[-1, -1, -1], [1, -1, -1], [1, -1, 1], [-1, -1, 1]], white)
+    face([[-1, 1, -1], [-1, 1, 1], [1, 1, 1], [1, 1, -1]], white)
+    face([[-1, -1, -1], [-1, 1, -1], [1, 1, -1], [1, -1, -1]], white)
+    face([[-1, -1, 1], [1, -1, 1], [1, 1, 1], [-1, 1, 1]], white)
+    face([[-1, -1, -1], [-1, -1, 1], [-1, 1, 1], [-1, 1, -1]], red)
+    face([[1, -1, -1], [1, 1, -1], [1, 1, 1], [1, -1, 1]], green)
+    face([[-0.3, 0.99, -0.3], [0.3, 0.99, -0.3], [0.3, 0.99, 0.3],
+          [-0.3, 0.99, 0.3]], light)
+    return b.build(), _make_cam(camera_cls, (0, 0, 0.9), (0, 0, -1), 70,
+                                1.0), 1.0

@@ -49,9 +49,11 @@ training chunk (a failed build or launch raises); on the CPU they run the
 plain versions (`trace_chunk_reference` and `walk_chunk_reference` for
 the chunks).  `Tracer.launches` (one wave), `Tracer.chunk_launches`,
 `Tracer.record_launches` (one wave), `Tracer.record_chunk_launches`,
-`Tracer.ray_launches` (both ray-plane entries) and `Tracer.hit_launches`
-count the launches of each entry, so a caller can show that a render went
-through it.
+`Tracer.ray_launches` (both ray-plane entries; `walk_ray_launches` the
+record mode's share) and `Tracer.hit_launches` count the launches of each
+entry, so a caller can show that a render went through it;
+`launch_counts` reads them by C entry and `reset_launch_counts` sets them
+to 0.
 """
 
 from __future__ import annotations
@@ -2324,6 +2326,27 @@ def hit_reference(bake: SceneBake, o: torch.Tensor, d: torch.Tensor,
 # --------------------------------------------------------------------------
 
 
+def launch_counts() -> dict:
+    """The `Tracer` launch counts by the C entry each one counts (kernel
+    rows 1a-1d and 2: `rt_trace_pixels`, `rt_trace_chunk`,
+    `rt_walk_packed_pixels`, `rt_walk_chunk`, `rt_trace_rays`,
+    `rt_walk_packed`, `rt_hit`)."""
+    t = Tracer
+    return {"rt_trace_pixels": t.launches, "rt_trace_chunk": t.chunk_launches,
+            "rt_walk_packed_pixels": t.record_launches,
+            "rt_walk_chunk": t.record_chunk_launches,
+            "rt_trace_rays": t.ray_launches - t.walk_ray_launches,
+            "rt_walk_packed": t.walk_ray_launches, "rt_hit": t.hit_launches}
+
+
+def reset_launch_counts() -> None:
+    """Every `Tracer` launch count to 0."""
+    for name in ("launches", "chunk_launches", "record_launches",
+                 "record_chunk_launches", "ray_launches", "walk_ray_launches",
+                 "hit_launches"):
+        setattr(Tracer, name, 0)
+
+
 def _require_cuda(device: torch.device) -> None:
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}: use 'cpu' or 'cuda'")
@@ -2421,6 +2444,7 @@ class Tracer:
     record_launches = 0  # megakernel_record launches on one camera-ray wave
     record_chunk_launches = 0  # megakernel_record launches on chunk waves
     ray_launches = 0     # launches of both modes on ray planes (kernel 1c)
+    walk_ray_launches = 0  # the record mode's share of them
     hit_launches = 0     # rt_hit launches
 
     def __init__(self, scene: st.Scene, device: torch.device | str):
@@ -2771,6 +2795,7 @@ class Tracer:
             n = _check_rays(o, d, tm, None, self.device)
             planes = walk(n, seed, _ray_planes(o, d, tm))
             Tracer.ray_launches += 1
+            Tracer.walk_ray_launches += 1
             return planes
 
         launch.tables = walk.tables

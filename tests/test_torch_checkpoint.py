@@ -8,10 +8,15 @@
 - A checkpoint of another seed, setting or scene array, of another shape,
   or without a fingerprint is refused, and the render starts afresh.
 - `--debug-nans` stops on the first chunk whose sums hold a NaN; without
-  it the render runs on.
+  it the render runs on.  `utils.profiling.enable_nan_debugging()` does the
+  same for every render until it is turned off.
+- `utils.profiling.device_trace` writes a Chrome trace of its region, and
+  is a no-op without a directory; `--profile-dir` writes
+  `render_trace.json` through it.
 """
 
 import dataclasses
+import json
 import os
 
 import numpy as np
@@ -24,6 +29,7 @@ from raytracing_gpu_tpu_torch.core.camera import Camera
 from raytracing_gpu_tpu_torch.models import probes, scenes
 from raytracing_gpu_tpu_torch.scene.builder import SceneBuilder
 from raytracing_gpu_tpu_torch.utils import checkpoint as ckpt
+from raytracing_gpu_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -134,3 +140,47 @@ def test_debug_nans_stops_on_the_first_nan_chunk(tmp_path, monkeypatch):
     with np.errstate(invalid="ignore"):  # the NaN reaches the PNG
         assert cli.main(args) == 0  # without the flag the render runs on
     assert len(calls) == 4
+
+
+def test_enable_nan_debugging_checks_every_render(monkeypatch):
+    calls = []
+
+    def compile_nan(scene, camera, settings, device):
+        def chunk(base):
+            calls.append(base)
+            return torch.full((256, 3), float("nan"))
+
+        chunk.engine_name = "injected"
+        return chunk
+
+    monkeypatch.setattr(render, "compile_renderer", compile_nan)
+    sd = scenes.get("cornell_box")
+    st = _settings(num_chunks=3)
+    try:
+        profiling.enable_nan_debugging()
+        assert profiling.nan_debugging()
+        with pytest.raises(FloatingPointError, match="chunk 1 of 3"):
+            render.render_linear(sd.scene, sd.camera, st, device="cpu")
+    finally:
+        profiling.enable_nan_debugging(False)
+    assert len(calls) == 1 and not profiling.nan_debugging()
+    out = render.render_linear(sd.scene, sd.camera, st, device="cpu")
+    assert len(calls) == 4 and np.isnan(out).all()
+
+
+def test_device_trace_writes_a_chrome_trace(tmp_path):
+    with profiling.device_trace(None) as prof:
+        assert prof is None
+    with profiling.device_trace(str(tmp_path / "t"), "cpu",
+                                "x.json") as prof:
+        assert prof is not None
+        torch.ones(64).cumsum(0)
+    trace = json.loads((tmp_path / "t" / "x.json").read_text())
+    assert trace["traceEvents"]
+    args = ["render", "cornell_box", "--device", "cpu", "--width", "16",
+            "--spp", "1", "--chunks", "1", "--depth", "2", "--quiet",
+            "--profile-dir", str(tmp_path / "p"), "-o",
+            str(tmp_path / "c.png")]
+    assert cli.main(args) == 0
+    trace = json.loads((tmp_path / "p" / cli.TRACE_NAME).read_text())
+    assert any("aten::" in e.get("name", "") for e in trace["traceEvents"])

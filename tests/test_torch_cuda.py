@@ -333,6 +333,20 @@ def test_fma_chain_kernel_matches_plain_and_ceilings(dev):
         1.05 * peaks["bytes_per_s"]
 
 
+def test_kernel_times_sees_every_hand_kernel_launch(dev):
+    # the profiler's account of a few launches of kernel 1a's wave entry,
+    # each with its kernel time, as tools/roofline_torch.py reads it
+    from raytracing_gpu_tpu_torch.utils.profiling import kernel_times
+
+    sd = scenes.get("cornell_box")
+    launch = ct.Tracer(sd.scene, dev).bind(sd.camera, 64, 64, 8)
+    before = ct.Tracer.launches
+    times = kernel_times(lambda: [launch(0, 4096, 9 + i) for i in range(5)])
+    assert ct.Tracer.launches == before + 5
+    hand = [v for k, v in times.items() if "megakernel_fwd" in k]
+    assert sum(n for _, n in hand) == 5 and sum(t for t, _ in hand) > 0.0
+
+
 # ---------------------------------------------------------------------------
 # the sphere BVH and the pure closest-hit kernel (big_scene1)
 # ---------------------------------------------------------------------------

@@ -70,7 +70,16 @@ and writes, under `tests/data/torch_port/`:
 - `earth_fused32`: `earth` with `EARTH_MAP` at 32x32, 2 spp, depth 4,
   waves of 512 rays: every wave's planes and uv, XLA's lens cos/sin, and
   the fused chunk's (`compile_fused_param_renderer(gen_rays=True)`)
-  primal and L2-loss gradients, `grad_atlas_data` among them.
+  primal and L2-loss gradients, `grad_atlas_data` among them;
+- `<scene>_d50` for `cornell_smoke` (media: the longest paths) and
+  `triangles` (the triangle BVH): the forward chunk of `<scene>_32` at the
+  reference depth 50 with russian roulette from bounce `DEEP_RR_START`
+  (`rr_start` is saved beside the settings);
+- `mesh_box_d50`: the same for `models.probes.mesh_box`, a closed box of
+  triangles whose paths run past bounce 4 (`triangles`' paths end
+  sooner), so that kernel 1d-t's roulette is held at depth 50;
+- `big_scene1_regen_d50`: `big_scene1_regen` at depth 50 with russian
+  roulette from bounce `DEEP_RR_START`.
 
 The JAX `earth` takes its map from `<REFERENCE_ROOT>/textures/
 earthmap.jpg`, so the synthetic map is written there, as a PNG under that
@@ -112,6 +121,10 @@ RAYS_DEPTH = 8
 UV_PROBES = ("image_probe", "image_spheres", "image_mesh")
 EARTH_MAP = (64, 128, 7)  # height, width, seed of the synthetic earth map
 EARTH_FUSED_DEPTH = 4
+DEEP_DEPTH = 50      # the reference depth (`render.h:27`)
+DEEP_RR_START = 4    # russian roulette from bounce 4, as the gallery
+DEEP_SCENES = ("cornell_smoke", "triangles")
+DEEP_PROBES = ("mesh_box",)  # scenes of models.probes with a d50 golden
 
 
 def forward_golden() -> None:
@@ -187,7 +200,8 @@ def grad_golden() -> None:
           f"{primal.shape}, grads {({k: v.shape for k, v in grads.items()})}")
 
 
-def scene_golden(name: str) -> None:
+def scene_golden(name: str, max_depth: int = 3, rr_start: int = 0,
+                 suffix: str = "32") -> None:
     import jax
     import numpy as np
 
@@ -196,17 +210,27 @@ def scene_golden(name: str) -> None:
     from raytracing_gpu_tpu.models import scenes
     from raytracing_gpu_tpu.ops import pallas_trace
 
-    out = os.path.join(DATA, f"{name}_32.npz")
-    sd = scenes.get(name)
+    out = os.path.join(DATA, f"{name}_{suffix}.npz")
+    if name in DEEP_PROBES:
+        from raytracing_gpu_tpu.core.camera import Camera
+        from raytracing_gpu_tpu.scene.builder import SceneBuilder
+        from raytracing_gpu_tpu_torch.models import probes
+
+        sd = scenes.SceneDef(*getattr(probes, name)(SceneBuilder, Camera))
+    else:
+        sd = scenes.get(name)
     st = RenderSettings(image_width=32, aspect_ratio=sd.aspect,
-                        spp_per_chunk=2, num_chunks=1, max_depth=3,
-                        ray_batch=65536)
+                        spp_per_chunk=2, num_chunks=1, max_depth=max_depth,
+                        ray_batch=65536, rr_start=rr_start)
     key = jax.random.PRNGKey(KEY_SEED)
     base = int(pallas_trace.chunk_seed(key))
     chunk = compile_renderer(sd.scene, sd.camera, st, engine="pallas")
+    if chunk.engine_name != "megakernel":
+        raise RuntimeError(f"{name}: route {chunk.engine_name}, not the "
+                           "megakernel")
     sums = np.asarray(chunk(key), np.float32)
     extra = {}
-    if name in RECORD_SCENES:
+    if name in RECORD_SCENES and suffix == "32":
         h, w, b = st.image_height, st.image_width, RECORD_RAY_BATCH
         tracer = pallas_trace.PallasTracer(sd.scene)
         extra = dict(record_ray_batch=b, planes=np.stack([
@@ -222,7 +246,8 @@ def scene_golden(name: str) -> None:
         image_width=st.image_width, image_height=st.image_height,
         aspect_ratio=np.float64(sd.aspect),
         spp_per_chunk=st.spp_per_chunk, max_depth=st.max_depth,
-        ray_batch=st.ray_batch, t_min=np.float32(st.t_min), **extra)
+        ray_batch=st.ray_batch, t_min=np.float32(st.t_min),
+        rr_start=st.rr_start, **extra)
     print(f"wrote {out}: base {base}, sums {sums.shape}, mean "
           f"{sums.mean(0)}, planes {extra.get('planes', np.zeros(0)).shape}")
 
@@ -297,7 +322,9 @@ def hit_golden(name: str = "big_scene1") -> None:
           f"{[int(((arrays[f'packed{b}'] >> 16) & 1).sum()) for b in (0, 1)]}")
 
 
-def regen_golden(name: str = "big_scene1") -> None:
+def regen_golden(name: str = "big_scene1", deep: bool = False) -> None:
+    """One regen chunk at `REGEN`, or with `deep` at depth DEEP_DEPTH with
+    russian roulette from DEEP_RR_START (`<name>_regen_d50`)."""
     import jax
     import numpy as np
 
@@ -305,9 +332,11 @@ def regen_golden(name: str = "big_scene1") -> None:
     from raytracing_gpu_tpu.engine.wavefront import compile_regen_renderer
     from raytracing_gpu_tpu.models import scenes
 
-    out = os.path.join(DATA, f"{name}_regen.npz")
+    regen = (dict(REGEN, max_depth=DEEP_DEPTH, rr_start=DEEP_RR_START)
+             if deep else REGEN)
+    out = os.path.join(DATA, f"{name}_regen{'_d50' if deep else ''}.npz")
     sd = mesh_scene() if name == "mesh" else scenes.get(name)
-    st = RenderSettings(aspect_ratio=sd.aspect, **REGEN)
+    st = RenderSettings(aspect_ratio=sd.aspect, **regen)
     chunk = compile_regen_renderer(sd.scene, sd.camera, st, debug_stats=True,
                                    hit_sub=8)
     sums, stats = chunk(jax.random.PRNGKey(KEY_SEED))
@@ -316,7 +345,7 @@ def regen_golden(name: str = "big_scene1") -> None:
         out, key_seed=np.int32(KEY_SEED), sums=sums,
         iterations=np.int32(stats["iterations"]),
         stream=np.int32(stats["stream"]), aspect_ratio=np.float64(sd.aspect),
-        t_min=np.float32(st.t_min), **REGEN)
+        t_min=np.float32(st.t_min), **regen)
     print(f"wrote {out}: sums {sums.shape}, mean "
           f"{sums[:st.num_pixels].mean(0) / st.spp_per_chunk}, {stats}")
 
@@ -639,7 +668,11 @@ GOLDENS = {"cornell_32": forward_golden, "cornell_grad_32": grad_golden,
            "perlin_regen": perlin_regen_golden,
            **{f"{n}_uv32": (lambda n=n: uv_golden(n)) for n in UV_PROBES},
            "earth_rays": earth_rays_golden,
-           "earth_fused32": earth_fused_golden}
+           "earth_fused32": earth_fused_golden,
+           **{f"{n}_d50": (lambda n=n: scene_golden(
+               n, DEEP_DEPTH, DEEP_RR_START, "d50"))
+              for n in DEEP_SCENES + DEEP_PROBES},
+           "big_scene1_regen_d50": lambda: regen_golden(deep=True)}
 
 
 def main(argv=None) -> int:
